@@ -1,0 +1,165 @@
+"""Command line of the PyTorch port (counterpart of
+proteingym_tpu/pipeline/cli.py for ``score --model esm``).
+
+    python -m proteingym_tpu_torch.pipeline.cli score --model esm \\
+        --checkpoint esm2_t33_650M --dms-reference ref.csv --dms-dir dms/ \\
+        --output-dir out/ [--device cuda|cpu]
+
+Per assay it writes ``<DMS_id>.csv`` (the input columns, plus
+``mutated_sequence`` when absent, plus the score column) into the output
+directory, with ``manifest.jsonl`` (done/failed per task, for resuming)
+and ``events.jsonl`` (phase timings and throughput) beside it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+from proteingym_tpu.pipeline.manifest import Manifest
+from proteingym_tpu.pipeline.telemetry import EventLog
+from proteingym_tpu_torch.data.mutants import apply_mutant
+from proteingym_tpu_torch.data.reference import load_reference
+from proteingym_tpu_torch.pipeline.scorers import SCORERS, ScoreContext
+
+
+def _parse_extra(pairs):
+    out = {}
+    for pair in pairs or []:
+        k, _, v = pair.partition("=")
+        for cast in (int, float):
+            try:
+                v = cast(v)
+                break
+            except (TypeError, ValueError):
+                continue
+        out[k] = v
+    return out
+
+
+def _resolve_device(name: str) -> torch.device:
+    if name == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "--device cuda, but torch sees no CUDA device; the port never "
+            "falls back to the CPU on its own (pass --device cpu for that)"
+        )
+    return torch.device(name)
+
+
+def _read_csv(path: Path):
+    with open(path, newline="") as f:
+        reader = csv.DictReader(f)
+        rows = list(reader)
+        return list(reader.fieldnames or []), rows
+
+
+def cmd_score(args) -> int:
+    if args.model not in SCORERS:
+        print(f"Unknown model '{args.model}'. Available: {sorted(SCORERS)}")
+        return 2
+    device = _resolve_device(args.device)
+    reference = load_reference(args.dms_reference)
+    if args.dms_id:
+        records = [reference[args.dms_id]]
+    elif args.dms_index is not None:
+        records = [reference[args.dms_index]]
+    else:
+        records = list(reference)
+
+    output_dir = Path(args.output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    log = EventLog(output_dir / "events.jsonl", echo=not args.quiet)
+    manifest = Manifest(output_dir / "manifest.jsonl")
+    scorer = SCORERS[args.model]
+    extra = _parse_extra(args.extra)
+
+    failures = 0
+    total_mutants, total_seconds = 0, 0.0
+    for rec in records:
+        task = f"{args.model}/{rec.DMS_id}"
+        out_path = output_dir / f"{rec.DMS_id}.csv"
+        if manifest.is_done(task) and out_path.exists() and not args.overwrite:
+            log.emit("task_skipped", task=task)
+            continue
+        dms_path = Path(args.dms_dir) / (rec.DMS_filename or f"{rec.DMS_id}.csv")
+        if not dms_path.exists():
+            log.emit("task_missing_input", task=task, path=str(dms_path))
+            continue
+        try:  # per-assay isolation: one bad assay must not stop the others
+            columns, rows = _read_csv(dms_path)
+            if "mutated_sequence" not in columns and "mutant" in columns:
+                columns.append("mutated_sequence")
+                for row in rows:
+                    row["mutated_sequence"] = apply_mutant(rec.target_seq, row["mutant"])
+            ctx = ScoreContext(
+                record=rec,
+                mutants=[row["mutant"] for row in rows],
+                device=device,
+                checkpoint=args.checkpoint,
+                batch_size=args.batch_size,
+                extra=extra,
+            )
+            with log.phase("score", task=task, n_mutants=len(rows)):
+                t0 = time.perf_counter()
+                scores = scorer(ctx)
+                dt = time.perf_counter() - t0
+            log.emit("throughput", label=task, n_mutants=len(rows),
+                     seconds=round(dt, 4),
+                     mutants_per_sec=round(len(rows) / max(dt, 1e-9), 2))
+            total_mutants += len(rows)
+            total_seconds += dt
+            with open(out_path, "w", newline="") as f:
+                writer = csv.writer(f)
+                writer.writerow(columns + list(scores))
+                for i, row in enumerate(rows):
+                    writer.writerow([row[c] for c in columns]
+                                    + [repr(float(v[i])) for v in scores.values()])
+            manifest.mark_done(task, rows=len(rows))
+        except Exception as e:  # noqa: BLE001 — per-assay isolation
+            failures += 1
+            manifest.mark_failed(task, error=repr(e))
+            log.emit("task_failed", task=task, error=repr(e))
+            if args.fail_fast:
+                raise
+    if total_mutants:
+        log.emit("throughput_summary", total_mutants=total_mutants,
+                 total_seconds=round(total_seconds, 3),
+                 mutants_per_sec=round(total_mutants / max(total_seconds, 1e-9), 2))
+    return 1 if failures else 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="pgym-torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="command", required=True)
+    s = sub.add_parser("score", help="score assays with one model")
+    s.add_argument("--model", required=True)
+    s.add_argument("--checkpoint", default=None)
+    s.add_argument("--dms-reference", required=True)
+    s.add_argument("--dms-dir", required=True)
+    s.add_argument("--dms-id", default=None)
+    s.add_argument("--dms-index", type=int, default=None)
+    s.add_argument("--output-dir", required=True)
+    s.add_argument("--batch-size", type=int, default=32)
+    s.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the model runs (the JAX CLI's --platform)")
+    s.add_argument("--overwrite", action="store_true")
+    s.add_argument("--fail-fast", action="store_true")
+    s.add_argument("--quiet", action="store_true")
+    s.add_argument("--extra", nargs="*", metavar="KEY=VAL")
+    s.set_defaults(fn=cmd_score)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,128 @@
+"""The port's attention (proteingym_tpu_torch.ops.flash_attention) against the
+JAX package's grouped_mha, run in Pallas interpret mode on the CPU.
+
+Both sides get the same float32 inputs, made with numpy from a seed. On
+CPU tensors the port's wrapper takes its plain PyTorch version, so these
+tests hold the plain version (the kernel's reference on the card) to the
+TPU kernel's semantics. The CUDA kernel itself is compared with the plain
+version in tests/test_torch_cuda_kernels.py (GPU only) and by chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp
+
+from proteingym_tpu.ops import flash_attention as jfa
+from proteingym_tpu_torch.ops import _build
+from proteingym_tpu_torch.ops import flash_attention as tfa
+
+B, H, D = 2, 4, 32
+ATOL = 1e-5  # float32 on both sides; only summation order differs
+
+
+def _qkv(seed, t, b=B, h=H, d=D, big_keys_from=None):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((b, h, t, d)).astype(np.float32) for _ in range(3))
+    if big_keys_from is not None:
+        k[:, :, big_keys_from:, :] *= 100.0  # masked keys with huge raw scores
+    return q, k, v
+
+
+def _lengths_mask(t, lengths):
+    return np.arange(t)[None, :] < np.asarray(lengths)[:, None]
+
+
+def _alibi(h, t):
+    slopes = 2.0 ** (-8.0 * np.arange(1, h + 1) / h)
+    return (slopes[:, None] * np.arange(t)[None, :]).astype(np.float32)  # >= 0
+
+
+def _segments(t):
+    seg = np.zeros((B, t), np.int32)
+    seg[0, :12], seg[0, 12:30], seg[0, 30:35] = 1, 2, 3
+    seg[1, :22] = 1
+    return seg
+
+
+# name -> (T, keyword arguments: numpy arrays or scalars)
+CASES = {
+    "plain": (40, {}),
+    "padding": (40, {"key_mask": _lengths_mask(40, [40, 25])}),
+    "masked_key_does_not_anchor_max": (40, {"key_mask": _lengths_mask(40, [30, 30])}),
+    "fused_rope": (37, {"rope_base": 10000.0}),
+    "rope_and_padding": (37, {"rope_base": 10000.0,
+                              "key_mask": _lengths_mask(37, [37, 20])}),
+    "segmented": (40, {"segment_ids": _segments(40), "key_mask": _segments(40) > 0}),
+    "segmented_rope": (40, {"segment_ids": _segments(40), "key_mask": _segments(40) > 0,
+                            "rope_base": 10000.0}),
+    "causal": (24, {"causal": True}),
+    "alibi_causal": (384, {"bias": _alibi(H, 384), "causal": True}),
+    "bias_and_padding": (33, {"bias": _alibi(H, 33), "key_mask": _lengths_mask(33, [33, 10])}),
+    # T a multiple of 128: the TPU kernel pads nothing, so its all-masked row
+    # averages v over exactly the T keys, as the plain version does
+    "all_masked_row": (128, {"key_mask": np.stack([np.ones(128, bool), np.zeros(128, bool)])}),
+    "unaligned_T": (100, {"key_mask": _lengths_mask(100, [100, 77]), "rope_base": 10000.0}),
+    "explicit_scale": (40, {"sm_scale": 0.3}),
+}
+
+
+def _run_both(q, k, v, kw, fn_jax, fn_torch):
+    jkw = {n: jnp.asarray(x) if isinstance(x, np.ndarray) else x for n, x in kw.items()}
+    tkw = {n: torch.from_numpy(x) if isinstance(x, np.ndarray) else x for n, x in kw.items()}
+    want = np.asarray(fn_jax(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **jkw))
+    got = fn_torch(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), **tkw)
+    return got.numpy(), want
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_matches_jax_grouped_kernel(case):
+    t, kw = CASES[case]
+    q, k, v = _qkv(sorted(CASES).index(case), t,
+                   big_keys_from=30 if case == "masked_key_does_not_anchor_max" else None)
+    got, want = _run_both(
+        q, k, v, kw,
+        lambda *a, **j: jfa.grouped_mha(*a, interpret=True, **j),
+        tfa.grouped_mha,
+    )
+    assert np.isfinite(got).all()
+    if "segment_ids" in kw:
+        # padding queries (segment 0) are never consumed; the TPU kernel
+        # lets them attend to other pads, the plain version averages them
+        live = kw["segment_ids"] > 0
+        got, want = got.transpose(0, 2, 1, 3)[live], want.transpose(0, 2, 1, 3)[live]
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["padding", "fused_rope", "segmented_rope", "causal"])
+def test_dispatcher_matches_jax_mha_and_launches_nothing_on_cpu(case):
+    t, kw = CASES[case]
+    q, k, v = _qkv(7, t)
+    got, want = _run_both(q, k, v, kw, jfa.mha, tfa.mha)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    assert tfa.LAUNCHES == {"grouped_attention": 0}
+
+
+def test_reference_mha_matches_jax_reference():
+    q, k, v = _qkv(3, 50)
+    kw = {"key_mask": _lengths_mask(50, [50, 31]), "bias": _alibi(H, 50), "causal": True,
+          "segment_ids": np.ones((B, 50), np.int32)}
+    got, want = _run_both(q, k, v, kw, jfa.reference_mha, tfa.reference_mha)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def test_no_path_for_other_devices():
+    q = torch.empty(1, 1, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="no attention path"):
+        tfa.grouped_mha(q, q, q)
+
+
+def test_kernel_library_name_tracks_source():
+    # the build is keyed by a hash of the source, so an edited kernel is
+    # rebuilt and a stale library is never loaded
+    path = _build.library_path("grouped_attention")
+    assert path.parent == _build.BUILD_DIR
+    assert path.name.startswith("libgrouped_attention_") and path.suffix == ".so"
+    assert (_build.CSRC / "grouped_attention.cu").exists()

@@ -1,0 +1,121 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
+one; the kernels have no CPU mode. The file imports neither jax nor the
+JAX package, so it runs on a GPU host that has neither:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from proteingym_tpu_torch.models import esm2
+from proteingym_tpu_torch.ops import flash_attention as fa
+
+pytestmark = pytest.mark.cuda
+
+# float32: only the summation order differs. bf16: the kernel rounds the
+# scaled and rotated q/k, the probabilities and the output to bf16.
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _lengths_mask(t, lengths):
+    return torch.arange(t)[None, :] < torch.tensor(lengths)[:, None]
+
+
+def _segments(t):
+    seg = torch.zeros(2, t, dtype=torch.int32)
+    seg[0, :12], seg[0, 12:30], seg[0, 30:35] = 1, 2, 3
+    seg[1, :22] = 1
+    return seg
+
+
+def _alibi(h, t):
+    slopes = 2.0 ** (-8.0 * torch.arange(1, h + 1) / h)
+    return slopes[:, None] * torch.arange(t)[None, :]
+
+
+# name -> (T, head dim, keyword arguments)
+CASES = {
+    "plain": (40, 64, {}),
+    "padding": (40, 64, {"key_mask": _lengths_mask(40, [40, 25])}),
+    "rope_padding": (37, 64, {"rope_base": 10000.0, "key_mask": _lengths_mask(37, [37, 20])}),
+    "segmented_rope": (40, 64, {"segment_ids": _segments(40), "key_mask": _segments(40) > 0,
+                                "rope_base": 10000.0}),
+    "causal": (130, 64, {"causal": True}),
+    "alibi_causal": (384, 64, {"bias": _alibi(4, 384), "causal": True}),
+    "all_masked_row": (100, 32, {"key_mask": torch.stack([torch.ones(100, dtype=torch.bool),
+                                                          torch.zeros(100, dtype=torch.bool)])}),
+    "scale": (70, 32, {"sm_scale": 0.3, "rope_base": 10000.0}),
+    "hd16": (77, 16, {"rope_base": 10000.0, "key_mask": _lengths_mask(77, [77, 50])}),
+    "hd24": (77, 24, {"rope_base": 10000.0, "key_mask": _lengths_mask(77, [77, 50])}),
+    "hd128": (150, 128, {"rope_base": 10000.0, "key_mask": _lengths_mask(150, [150, 99])}),
+    "long_T": (1100, 64, {"rope_base": 10000.0}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_attention_kernel_matches_plain(case, dtype, dev):
+    t, d, kw = CASES[case]
+    gen = torch.Generator().manual_seed(sorted(CASES).index(case))
+    # (B, T, H, D) memory seen as (B, H, T, D), as the model hands it in
+    q, k, v = (torch.randn(2, t, 4, d, generator=gen).to(dev, dtype).permute(0, 2, 1, 3)
+               for _ in range(3))
+    kw = {n: x.to(dev) if torch.is_tensor(x) else x for n, x in kw.items()}
+    before = fa.LAUNCHES["grouped_attention"]
+    got = fa.grouped_mha(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["grouped_attention"] == before + 1
+    want = fa.plain_mha(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_unaligned_bf16_views_match_plain(dev):
+    # views starting one element into a buffer, with odd strides: the
+    # wrapper copies them before the kernel's 16-byte staging loads
+    gen = torch.Generator().manual_seed(5)
+    buf = torch.randn(3, 2, 4, 50 * 65 + 1, generator=gen).to(dev, torch.bfloat16)
+    q, k, v = (b[..., 1:].view(2, 4, 50, 65)[..., :64] for b in buf)
+    mask = _lengths_mask(50, [50, 31]).to(dev)
+    got = fa.grouped_mha(q, k, v, key_mask=mask, rope_base=10000.0).float()
+    want = fa.plain_mha(q.float(), k.float(), v.float(), key_mask=mask, rope_base=10000.0)
+    torch.testing.assert_close(got, want, atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16])
+
+
+def test_kernel_rejects_what_it_does_not_take(dev):
+    q = torch.zeros(1, 2, 16, 40, device=dev)
+    with pytest.raises(ValueError, match="head dim 40"):
+        fa.grouped_mha(q, q, q)
+    q = torch.zeros(1, 2, 16, 32, device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.grouped_mha(q, q, q)
+    q = torch.zeros(1, 2, 32, 16, device=dev).transpose(2, 3)
+    with pytest.raises(ValueError, match="unit head-dim stride"):
+        fa.grouped_mha(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_model_forward_goes_through_the_kernel(dtype, dev):
+    config = esm2.EsmConfig("esm2_small", 3, 128, 4, dtype=dtype)
+    model = esm2.init_random(config, seed=0, device=dev)
+    toks = torch.from_numpy(np.stack([esm2.ALPHABET.tokenize("MKTAYIAKQRQISFVKSHF", pad_to=24),
+                                      esm2.ALPHABET.tokenize("GLIEVQAPILSRVGDG", pad_to=24)]))
+    toks = toks.long().to(dev)
+    before = fa.LAUNCHES["grouped_attention"]
+    got = model(toks)
+    assert fa.LAUNCHES["grouped_attention"] == before + config.num_layers
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(esm2, "mha", fa.plain_mha)
+        want = model(toks)
+    torch.testing.assert_close(got, want, atol=TOL[dtype] * 5, rtol=0)
