@@ -7,10 +7,11 @@ Phases (any failure raises, and the script exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA
    versions; TF32 is switched off for matmuls and cuDNN.
-2. build: nvcc builds the attention kernel from ops/csrc at first use.
-3. kernel: the Hopper attention kernel against the plain PyTorch version
-   on the card, in every mode the slice and its successors use, and both
-   timed at the ESM2-650M headline shape.
+2. build: nvcc builds the three kernels from ops/csrc, one process per
+   source, all started together.
+3. kernel: the grouped attention kernel (K1) against the plain PyTorch
+   version on the card, in every mode the slices use, and both timed at
+   the ESM2-650M headline shape.
 4. slice: ``score --model esm --checkpoint esm2_t33_650M`` (seeded random
    bf16 weights, full width and depth) on a synthetic L=250 assay with all
    4,750 single mutants, through the port's CLI; the launch counter must
@@ -18,6 +19,20 @@ Phases (any failure raises, and the script exits non-zero):
    recomputed with the plain attention and compared.
 5. windowed: ``esm2_t6_8M`` on an L=1100 assay, through the CLI, so every
    row takes the optimal-window path at T=1024.
+6. cluster counts (K5): the sequence-weight kernel against its plain
+   version, counts equal exactly, on ragged alignments with all-gap and
+   duplicated rows, then on a seeded synthetic MSA at N=16,384, L=300;
+   both timed there.
+7. long-context attention (K2): against the plain version in bf16 and
+   float32 (causal + mask at T=2048 and 4352, ALiBi + causal, ragged T,
+   fully masked rows); K1 at PoET's self-tier shape (segmented + causal +
+   RoPE, T=4352); K2 and K1 timed at PoET's row shape.
+8. PoET slice: ``weights`` then ``score --model poet --checkpoint
+   poet_200m`` (seeded random bf16 weights, full width and depth) through
+   the port's CLI, on a synthetic L=250 assay (128 single mutants) with a
+   16,384-sequence MSA: the weights file is written by K5 and reused, each
+   forward launches K1 and K2 12 times each, two queries' per-token
+   log-probs are recomputed with the plain attention and compared.
 
 It prints one JSON line describing the kernels, then, as its last line,
 ``{"ok": true, "device": {...}}``. With no CUDA device, or outside a
@@ -40,8 +55,14 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 AA = "ACDEFGHIKLMNPQRSTVWY"
-KERNEL_SOURCE = "proteingym_tpu_torch/ops/csrc/grouped_attention.cu"
-REPLACES = "proteingym_tpu/ops/flash_attention.py:181"
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "grouped_attention": ("proteingym_tpu_torch/ops/csrc/grouped_attention.cu",
+                          "proteingym_tpu/ops/flash_attention.py:181"),
+    "flash_attention": ("proteingym_tpu_torch/ops/csrc/flash_attention.cu",
+                        "proteingym_tpu/ops/flash_attention.py:48"),
+    "cluster_counts": ("proteingym_tpu_torch/ops/csrc/cluster_counts.cu",
+                       "proteingym_tpu/msa/weights.py:152"),
+}
 
 # bf16 kernel vs a float32 plain version of the same bf16 inputs: the kernel
 # rounds the scaled and rotated q/k to bf16 (2^-9 relative each) and its
@@ -54,6 +75,18 @@ F32_ATOL, F32_RTOL = 1e-4, 1e-4
 # attention output differs by ~1 bf16 ulp; the residual stream carries that
 # to ~1e-2 in the log-probs. A wrong mask or position shifts them by O(1).
 TABLE_ATOL = 1e-1
+# PoET per-token log-probs, kernels vs plain attention through 12 bf16
+# layers (24 attention calls) at T ~ 4,350: the same ~1 bf16 ulp per call,
+# carried by the residual stream. A wrong mask, segment or rotation shifts
+# them by O(1).
+POET_LOGP_ATOL = 1e-1
+GAP_AA = "-" + AA
+
+# the shapes of phases 6-8
+K5_TIMED = (16384, 300)  # (N, L) of the timed synthetic MSA
+POET_ROW = (8, 16, 4352)  # (B, H, T) of PoET's attention calls at batch 8
+POET_SLICE = dict(preset="poet_200m", length=250, n_seqs=16384, n_mut=128,
+                  batch=8, n_samples=2, max_context_tokens=4096)
 
 
 def fail(msg: str) -> None:
@@ -100,16 +133,20 @@ def synth_assay(seq_len: int, seed: int):
     return seq, mutants
 
 
-def write_assays(root: Path, assays):
-    """A reference CSV plus one DMS CSV per (DMS_id, seq, mutants)."""
+def write_assays(root: Path, assays, msa_columns=None):
+    """A reference CSV plus one DMS CSV per (DMS_id, seq, mutants);
+    ``msa_columns`` ({column: value}) adds the alignment columns."""
+    msa_columns = msa_columns or {}
     dms_dir = root / "dms"
     dms_dir.mkdir()
     ref = root / "reference.csv"
     with open(ref, "w", newline="") as f:
         w = csv.writer(f)
-        w.writerow(["DMS_id", "DMS_filename", "UniProt_ID", "target_seq", "seq_len"])
+        w.writerow(["DMS_id", "DMS_filename", "UniProt_ID", "target_seq", "seq_len",
+                    *msa_columns])
         for dms_id, seq, _ in assays:
-            w.writerow([dms_id, f"{dms_id}.csv", "SYNTH", seq, len(seq)])
+            w.writerow([dms_id, f"{dms_id}.csv", "SYNTH", seq, len(seq),
+                        *msa_columns.values()])
     rs = np.random.RandomState(0)
     for dms_id, _, mutants in assays:
         with open(dms_dir / f"{dms_id}.csv", "w", newline="") as f:
@@ -144,6 +181,51 @@ def read_scores(path: Path, column: str, n_expected: int) -> np.ndarray:
     return scores
 
 
+def synth_family(focus: np.ndarray, n: int, seed: int) -> np.ndarray:
+    """(n, L) int8 codes (0 = gap, 1..20 = amino acid) of a seeded
+    synthetic family of ``focus``: cluster centres at 20-60% substitution,
+    members at 0-15% from their centre, up to three gap runs of up to 30
+    columns per row, so that neighbour counts vary. Row 0 is ``focus``."""
+    rs = np.random.RandomState(seed)
+    length = len(focus)
+    n_centres = max(1, n // 16)
+    centres = np.tile(focus, (n_centres, 1))
+    sub = rs.rand(n_centres, length) < rs.uniform(0.2, 0.6, (n_centres, 1))
+    centres[sub] = rs.randint(1, 21, sub.sum())
+    rows = centres[rs.randint(0, n_centres, n)]
+    sub = rs.rand(n, length) < rs.uniform(0.0, 0.15, (n, 1))
+    rows[sub] = rs.randint(1, 21, sub.sum())
+    cols = np.arange(length)[None, :]
+    for _ in range(3):
+        start = rs.randint(0, length, (n, 1))
+        rows[(cols >= start) & (cols < start + rs.randint(0, 31, (n, 1)))] = 0
+    rows[0] = focus
+    return rows.astype(np.int8)
+
+
+def write_a2m(path: Path, name: str, codes: np.ndarray) -> None:
+    lut = np.frombuffer(GAP_AA.encode(), dtype=np.uint8)
+    length = codes.shape[1]
+    with open(path, "w") as f:
+        for i, row in enumerate(codes):
+            head = f">{name}/1-{length}" if i == 0 else f">{name}_hom{i}/1-{length}"
+            f.write(f"{head}\n{bytes(lut[row.astype(np.int64)]).decode()}\n")
+
+
+def median_pair(torch, fns, reps, inner, rounds=2):
+    """Medians of ``time_ms`` samples for each of two named calls, taken in
+    turns (a, b, b, a) ``rounds`` times so drift hits both alike."""
+    (na, fa_), (nb, fb) = fns.items()
+    for fn in (fa_, fb):  # warm up
+        fn()
+    torch.cuda.synchronize()
+    times = {na: [], nb: []}
+    for order in ((na, nb), (nb, na)) * rounds:
+        for which in order:
+            times[which] += time_ms(torch, fns[which], reps, inner)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
 def n_chunk_forwards(seq_len, chunk, pad_to_multiple=64):
     """Forwards masked_marginal_table runs for L residues (L+2 tokens), on
     the short and the windowed path alike: rows bucketed to the pad
@@ -151,6 +233,224 @@ def n_chunk_forwards(seq_len, chunk, pad_to_multiple=64):
     total = seq_len + 2
     rows = -(-total // pad_to_multiple) * pad_to_multiple
     return -(-rows // chunk)
+
+
+def phase_cluster_counts(torch, dev, card):
+    """6. K5 against its plain version, counts equal exactly; both timed at
+    N=16,384, L=300."""
+    from proteingym_tpu_torch.msa import weights as W
+
+    print("[cluster_counts] K5 vs plain num_cluster_members on the card (exact)")
+    rs = np.random.RandomState(0)
+    for n, length, seed in ((1000, 123, 1), (4099, 300, 2), (77, 9, 3)):
+        codes = synth_family(rs.randint(1, 21, length), n, seed)
+        codes[3] = 0  # an all-gap row
+        codes[7] = codes[8]  # duplicated rows
+        codes[9, :5] = 21  # indeterminate codes: never match, count as non-gap
+        m = torch.from_numpy(codes).to(dev)
+        got = W.num_cluster_members_cuda(m, 0.8)
+        same = torch.equal(got, W.num_cluster_members(m, 0.8)) and torch.equal(
+            got.cpu(), W.num_cluster_members(torch.from_numpy(codes), 0.8))
+        print(f"  N={n:<5d} L={length:<3d} counts {int(got.min())}..{int(got.max())}: "
+              f"{'equal to the plain version (card bf16 and CPU float32)' if same else 'MISMATCH'}")
+        if not same:
+            fail(f"cluster counts differ from the plain version at N={n}, L={length}")
+
+    n, length = K5_TIMED
+    codes = synth_family(np.random.RandomState(5).randint(1, 21, length), n, 6)
+    m = torch.from_numpy(codes).to(dev)
+    got = W.num_cluster_members_cuda(m, 0.8)
+    if not torch.equal(got, W.num_cluster_members(m, 0.8)):
+        fail(f"cluster counts differ from the plain version at N={n}, L={length}")
+    counts = got.cpu().numpy()
+    neff = float(np.sum(1.0 / counts[counts > 0]))
+    t = median_pair(torch, {
+        "kernel": lambda: W.num_cluster_members_cuda(m, 0.8),
+        "plain": lambda: W.num_cluster_members(m, 0.8),
+    }, reps=3, inner=3)
+    print(f"  N={n} L={length}: counts {int(counts.min())}..{int(counts.max())}, "
+          f"Neff {neff:.1f}; kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms "
+          f"(medians of 12 samples of 3 queued calls, {card})")
+    return {"ms": t["kernel"], "plain_ms": t["plain"]}
+
+
+def phase_long_attention(torch, dev, card, fa, qkv, lengths_mask, check_close):
+    """7. K2 against the plain version; K1 at PoET's self-tier shape; both
+    timed at PoET's row shape."""
+    print("[flash_attention] K2 vs plain reference_mha on the card")
+
+    def compare(name, q, k, v, atol, rtol, **kw):
+        got = fa.flash_mha(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = fa.reference_mha(q.float(), k.float(), v.float(), **kw)
+        return check_close(name, got, want, atol, rtol)
+
+    errs = []
+    for dtype, atol, rtol, tag in ((torch.bfloat16, BF16_ATOL, BF16_RTOL, "bf16"),
+                                   (torch.float32, F32_ATOL, F32_RTOL, "f32")):
+        for t, lengths in ((2048, [2048, 1711]), (4352, [4352, 4100])):
+            q, k, v = qkv(2, 4, t, 64, dtype)
+            errs.append(compare(f"{tag} causal + mask T={t}", q, k, v, atol, rtol,
+                                key_mask=lengths_mask(2, t, lengths), causal=True))
+        q, k, v = qkv(1, 8, 1536, 64, dtype)
+        slopes = 2.0 ** (-8.0 * torch.arange(1, 9, device=dev) / 8)
+        alibi = slopes[:, None] * torch.arange(1536, device=dev)[None, :]
+        errs.append(compare(f"{tag} ALiBi bias + causal T=1536", q, k, v, atol, rtol,
+                            bias=alibi, causal=True))
+        q, k, v = qkv(2, 4, 1100, 32, dtype)
+        errs.append(compare(f"{tag} T=1100 (not a multiple of 64) D=32 mask", q, k, v,
+                            atol, rtol, key_mask=lengths_mask(2, 1100, [1100, 901])))
+        q, k, v = qkv(2, 4, 1037, 128, dtype)
+        dead = torch.ones(2, 1037, dtype=torch.bool, device=dev)
+        dead[1] = False  # every key of batch row 1 masked
+        dead[0, :7] = False  # the first 7 queries of row 0 see no live key
+        errs.append(compare(f"{tag} fully masked rows, causal T=1037 D=128", q, k, v,
+                            atol, rtol, key_mask=dead, causal=True))
+    max_abs_err = max(errs)
+
+    print("[grouped_attention] K1 at PoET's self-tier shape: segmented + causal + RoPE")
+    b, h, t = POET_ROW
+
+    def segments(b):
+        # 16 segments of ragged lengths per row, then 40 padding tokens
+        seg = torch.zeros(b, t, dtype=torch.int32, device=dev)
+        rs = np.random.RandomState(b)
+        for i in range(b):
+            cuts = np.sort(rs.choice(np.arange(100, t - 140), 15, replace=False))
+            for s_id, (lo, hi) in enumerate(zip([0, *cuts], [*cuts, t - 40]), start=1):
+                seg[i, lo:hi] = s_id
+        return seg
+
+    q, k, v = qkv(1, 8, t, 64)
+    self_kw = dict(segment_ids=segments(1), causal=True, rope_base=10000.0)
+    got = fa.grouped_mha(q, k, v, **self_kw)
+    torch.cuda.synchronize()
+    k1_self_err = check_close(f"bf16 B1 H8 T{t}, 16 segments", got,
+                              fa.plain_mha(q.float(), k.float(), v.float(), **self_kw),
+                              BF16_ATOL, BF16_RTOL)
+
+    q, k, v = qkv(b, h, t, 64)
+    mask = lengths_mask(b, t, [t - 7 * i for i in range(b)])
+    k2t = median_pair(torch, {
+        "kernel": lambda: fa.flash_mha(q, k, v, key_mask=mask, causal=True),
+        "plain": lambda: fa.reference_mha(q, k, v, key_mask=mask, causal=True),
+    }, reps=2, inner=3)
+    print(f"  K2 at B{b} H{h} T{t} D64, causal + mask: kernel {k2t['kernel']:.4f} ms, "
+          f"plain {k2t['plain']:.4f} ms (medians of 8 samples of 3 queued calls, {card})")
+    self_kw = dict(segment_ids=segments(b), causal=True, rope_base=10000.0)
+    k1t = median_pair(torch, {
+        "kernel": lambda: fa.grouped_mha(q, k, v, **self_kw),
+        "plain": lambda: fa.plain_mha(q, k, v, **self_kw),
+    }, reps=2, inner=3)
+    print(f"  K1 at B{b} H{h} T{t} D64, 16 segments + causal + RoPE: kernel "
+          f"{k1t['kernel']:.4f} ms, plain {k1t['plain']:.4f} ms ({card})")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max_abs_err, "ms": k2t["kernel"], "plain_ms": k2t["plain"],
+            "k1_self_err": k1_self_err}
+
+
+def phase_poet(torch, dev, card, fa, check_close):
+    """8. The PoET slice through the port's CLI: weights on K5, then
+    scoring with K1 (self tier) and K2 (multi tier) in every layer."""
+    from proteingym_tpu_torch.models import poet
+    from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.msa.parser import load_msa
+    from proteingym_tpu_torch.pipeline import cli
+
+    preset = POET_SLICE["preset"]
+    config = poet.POET_PRESETS[preset]
+    length, n_seqs, n_mut, batch, n_samples, max_tokens = (POET_SLICE[k] for k in (
+        "length", "n_seqs", "n_mut", "batch", "n_samples", "max_context_tokens"))
+    print(f"[poet] weights, then score --model poet --checkpoint {preset}: L={length}, "
+          f"{n_mut} single mutants, MSA N={n_seqs}")
+    rs = np.random.RandomState(7)
+    focus = rs.randint(1, 21, length)
+    seq = "".join(GAP_AA[c] for c in focus)
+    mutants, mutated = [], []
+    for p in sorted(rs.choice(length, n_mut, replace=False)):
+        aa = rs.choice([a for a in AA if a != seq[p]])
+        mutants.append(f"{seq[p]}{p + 1}{aa}")
+        mutated.append(seq[:p] + aa + seq[p + 1:])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        msa_dir, weights_dir, out_dir = root / "msa", root / "weights", root / "out"
+        msa_dir.mkdir()
+        write_a2m(msa_dir / "SYNTH.a2m", "SYNTH", synth_family(focus, n_seqs, 8))
+        ref, dms_dir = write_assays(root, [("SYNTH_POET", seq, mutants)], {
+            "MSA_filename": "SYNTH.a2m", "MSA_start": 1, "MSA_end": length,
+            "MSA_theta": 0.2, "weight_file_name": "SYNTH.npy",
+        })
+        wfile = weights_dir / "SYNTH.npy"
+
+        for counts in (fa.LAUNCHES, W.LAUNCHES):
+            for name in counts:
+                counts[name] = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = cli.main(["weights", "--msa", str(msa_dir / "SYNTH.a2m"), "--theta", "0.2",
+                       "--output", str(wfile), "--device", "cuda"])
+        weights_s = time.perf_counter() - t0
+        if rc != 0 or not wfile.exists():
+            fail(f"weights CLI exited {rc}, file written: {wfile.exists()}")
+        k5_launches, stamp = W.LAUNCHES["cluster_counts"], wfile.stat().st_mtime_ns
+        t0 = time.perf_counter()
+        rc = cli.main([
+            "score", "--model", "poet", "--checkpoint", preset,
+            "--msa-dir", str(msa_dir), "--weights-dir", str(weights_dir),
+            "--dms-reference", str(ref), "--dms-dir", str(dms_dir),
+            "--output-dir", str(out_dir), "--batch-size", str(batch),
+            "--device", "cuda", "--quiet", "--fail-fast",
+            "--extra", f"max_context_tokens={max_tokens}", f"n_context_samples={n_samples}",
+        ])
+        wall = time.perf_counter() - t0
+        launches = {**fa.LAUNCHES, **W.LAUNCHES}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if rc != 0:
+            fail(f"poet score CLI exited {rc}")
+        if W.LAUNCHES["cluster_counts"] != k5_launches or wfile.stat().st_mtime_ns != stamp:
+            fail("the score run recomputed the weights instead of reusing the file")
+        scores = read_scores(out_dir / "SYNTH_POET.csv", "PoET_score", n_mut)
+        msa = load_msa(msa_dir / "SYNTH.a2m")
+        weights = np.load(wfile)
+
+    n_fwd = n_samples * -(-n_mut // batch)
+    expected = config.num_layers * n_fwd
+    print(f"  weights CLI {weights_s:.2f} s (parse + K5); score CLI wall {wall:.2f} s incl. "
+          f"weight init and MSA load; peak device memory {peak_gib:.2f} GiB")
+    print(f"  launches {launches} (expected {config.num_layers} layers x {n_fwd} forwards "
+          f"= {expected} each for K1 and K2, >= 1 cluster_counts)")
+    if (launches["flash_attention"] != expected or launches["grouped_attention"] != expected
+            or launches["cluster_counts"] < 1):
+        fail(f"launch counts {launches} do not match the slice")
+
+    model = poet.init_random(config, seed=0, device=dev)
+    msa_seqs = msa.sequences()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rescored = poet.score_assay_poet(model, mutated, msa_seqs, weights,
+                                     max_context_tokens=max_tokens, n_context_samples=n_samples,
+                                     batch_size=batch)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    if not np.allclose(rescored, scores, atol=1e-4):
+        fail("PoET scores recomputed outside the CLI differ from the CLI's")
+    ctx = poet.sample_context(msa_seqs, weights, max_tokens, 0)
+    tok, seg, pos, val, _ = (torch.from_numpy(a).to(dev)
+                             for a in poet.build_rows(ctx, mutated[:2]))
+    print(f"  scoring {score_s:.3f} s -> {n_mut / score_s:.2f} mutants/s; rows of "
+          f"T={tok.shape[1]} tokens ({len(ctx)} context sequences + the query), "
+          f"N={len(weights)} Neff={weights.sum():.1f} ({card})")
+    got = poet.token_logprobs(model, tok, seg, pos, val)
+    with mock.patch.object(poet, "mha", fa.plain_mha):
+        want = poet.token_logprobs(model, tok, seg, pos, val)
+    live = val[:, 1:].bool()
+    check_close(f"2 queries' per-token log-probs, T={tok.shape[1]}, kernels vs plain",
+                got[live], want[live], POET_LOGP_ATOL, 0.0)
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "mutants_per_s": n_mut / score_s}
 
 
 def main() -> int:
@@ -194,12 +494,14 @@ def main() -> int:
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    fa._kernel_lib()
-    print(f"[build] grouped_attention ready in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_build.BUILD_SECONDS.get('grouped_attention', 0.0):.2f} s)")
-    for line in _build.build_log("grouped_attention").splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    _build.build_all(KERNELS)
+    print(f"[build] {', '.join(KERNELS)} ready in {time.perf_counter() - t0:.2f} s "
+          f"(nvcc, in parallel: " + ", ".join(
+              f"{n} {_build.BUILD_SECONDS.get(n, 0.0):.2f} s" for n in KERNELS) + ")")
+    for name in KERNELS:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}:", line.strip())
 
     # ---- 3. kernel vs plain ----------------------------------------------
     print("[kernel] grouped_attention vs plain reference_mha on the card")
@@ -256,19 +558,13 @@ def main() -> int:
                         rope_base=10000.0))
     max_abs_err = max(errs)
 
-    kernel_call = lambda: fa.grouped_mha(q, k, v, **headline)
-    plain_call = lambda: fa.plain_mha(q, k, v, **headline)
-    for fn in (kernel_call, plain_call):  # warm up
-        fn()
-    torch.cuda.synchronize()
-    times = {"kernel": [], "plain": []}
-    for order in (("plain", "kernel"), ("kernel", "plain")) * 3:
-        for which in order:
-            times[which] += time_ms(torch, kernel_call if which == "kernel" else plain_call, 5)
-    ms = statistics.median(times["kernel"])
-    plain_ms = statistics.median(times["plain"])
+    t = median_pair(torch, {
+        "plain": lambda: fa.plain_mha(q, k, v, **headline),
+        "kernel": lambda: fa.grouped_mha(q, k, v, **headline),
+    }, reps=5, inner=10, rounds=3)
+    ms, plain_ms = t["kernel"], t["plain"]
     print(f"  headline time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"(medians of {len(times['kernel'])} samples of 10 queued calls, {card})")
+          f"(medians of 30 samples of 10 queued calls, {card})")
 
     # ---- 4. slice: ESM2-650M, L=250, all single mutants --------------------
     from proteingym_tpu_torch.models import esm2, esm_scoring
@@ -352,18 +648,30 @@ def main() -> int:
     if win_launches != expected_long:
         fail(f"windowed run launched {win_launches} kernels, expected {expected_long}")
 
+    k5 = phase_cluster_counts(torch, dev, card)
+    k2 = phase_long_attention(torch, dev, card, fa, qkv, lengths_mask, check_close)
+    poet_run = phase_poet(torch, dev, card, fa, check_close)
+
     if "jax" in sys.modules:
         fail("the port imported jax")
+    measured = {
+        "grouped_attention": dict(max_abs_err=max(max_abs_err, k2["k1_self_err"]),
+                                  ms=ms, plain_ms=plain_ms),
+        "flash_attention": dict(max_abs_err=k2["max_abs_err"], ms=k2["ms"],
+                                plain_ms=k2["plain_ms"]),
+        "cluster_counts": dict(max_abs_err=0.0, ms=k5["ms"], plain_ms=k5["plain_ms"]),
+    }
+    by_path = {"esm": launches, "esm_windowed": {"grouped_attention": win_launches},
+               "poet": poet_run["launches"]}
     print(json.dumps({"kernels": [{
-        "name": "grouped_attention",
+        "name": name,
         "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": REPLACES,
-        "launches": launches["grouped_attention"],
-        "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+        "source": source,
+        "replaces": replaces,
+        "launches": poet_run["launches"][name],
+        **measured[name],
+        "launches_by_path": {path: c.get(name, 0) for path, c in by_path.items()},
+    } for name, (source, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

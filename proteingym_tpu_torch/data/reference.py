@@ -1,6 +1,6 @@
 """ProteinGym reference-file loader on the stdlib ``csv`` module
 (counterpart of proteingym_tpu/data/reference.py for the fields the
-``score`` path reads)."""
+``score`` and alignment paths read)."""
 
 from __future__ import annotations
 
@@ -20,6 +20,11 @@ class AssayRecord:
     UniProt_ID: str
     target_seq: str
     seq_len: int
+    MSA_filename: Optional[str] = None
+    MSA_start: Optional[int] = None
+    MSA_end: Optional[int] = None
+    MSA_theta: Optional[float] = None
+    weight_file_name: Optional[str] = None
     raw: Optional[dict] = dataclasses.field(default=None, repr=False, compare=False)
 
 
@@ -42,6 +47,10 @@ class ReferenceSet:
         return self._by_id[key]
 
 
+def _int(cell: str) -> int:
+    return int(float(cell))  # "12" or "12.0", as pandas may have written it
+
+
 def load_reference(path: str | Path) -> ReferenceSet:
     """Load a DMS or clinical reference CSV into typed records."""
     with open(path, newline="") as f:
@@ -55,7 +64,12 @@ def load_reference(path: str | Path) -> ReferenceSet:
             DMS_filename=cell.get("DMS_filename", ""),
             UniProt_ID=cell.get("UniProt_ID", ""),
             target_seq=target,
-            seq_len=int(float(cell["seq_len"])) if "seq_len" in cell else len(target),
+            seq_len=_int(cell["seq_len"]) if "seq_len" in cell else len(target),
+            MSA_filename=cell.get("MSA_filename"),
+            MSA_start=_int(cell["MSA_start"]) if "MSA_start" in cell else None,
+            MSA_end=_int(cell["MSA_end"]) if "MSA_end" in cell else None,
+            MSA_theta=float(cell["MSA_theta"]) if "MSA_theta" in cell else None,
+            weight_file_name=cell.get("weight_file_name"),
             raw=row,
         ))
     return ReferenceSet(records)

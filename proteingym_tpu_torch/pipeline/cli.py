@@ -1,9 +1,15 @@
 """Command line of the PyTorch port (counterpart of
-proteingym_tpu/pipeline/cli.py for ``score --model esm``).
+proteingym_tpu/pipeline/cli.py for ``score --model esm|poet`` and
+``weights``).
 
     python -m proteingym_tpu_torch.pipeline.cli score --model esm \\
         --checkpoint esm2_t33_650M --dms-reference ref.csv --dms-dir dms/ \\
         --output-dir out/ [--device cuda|cpu]
+    python -m proteingym_tpu_torch.pipeline.cli score --model poet \\
+        --checkpoint poet_200m --msa-dir msa/ --weights-dir weights/ \\
+        --dms-reference ref.csv --dms-dir dms/ --output-dir out/
+    python -m proteingym_tpu_torch.pipeline.cli weights --msa X.a2m \\
+        --theta 0.2 --output weights/X.npy [--device cuda|cpu]
 
 Per assay it writes ``<DMS_id>.csv`` (the input columns, plus
 ``mutated_sequence`` when absent, plus the score column) into the output
@@ -19,6 +25,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from proteingym_tpu.pipeline.manifest import Manifest
@@ -100,6 +107,9 @@ def cmd_score(args) -> int:
                 record=rec,
                 mutants=[row["mutant"] for row in rows],
                 device=device,
+                mutated_sequences=[row["mutated_sequence"] for row in rows],
+                msa_dir=Path(args.msa_dir) if args.msa_dir else None,
+                weights_dir=Path(args.weights_dir) if args.weights_dir else None,
                 checkpoint=args.checkpoint,
                 batch_size=args.batch_size,
                 extra=extra,
@@ -133,6 +143,19 @@ def cmd_score(args) -> int:
     return 1 if failures else 0
 
 
+def cmd_weights(args) -> int:
+    from proteingym_tpu_torch.msa.parser import load_msa
+    from proteingym_tpu_torch.msa.weights import sequence_weights
+
+    device = _resolve_device(args.device)
+    msa = load_msa(args.msa)
+    w = sequence_weights(msa.matrix, theta=args.theta, device=device)
+    Path(args.output).parent.mkdir(parents=True, exist_ok=True)
+    np.save(args.output, w)
+    print(f"N={len(w)} Neff={w.sum():.2f} -> {args.output}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pgym-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -144,6 +167,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--dms-dir", required=True)
     s.add_argument("--dms-id", default=None)
     s.add_argument("--dms-index", type=int, default=None)
+    s.add_argument("--msa-dir", default=None)
+    s.add_argument("--weights-dir", default=None)
     s.add_argument("--output-dir", required=True)
     s.add_argument("--batch-size", type=int, default=32)
     s.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -153,6 +178,14 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--quiet", action="store_true")
     s.add_argument("--extra", nargs="*", metavar="KEY=VAL")
     s.set_defaults(fn=cmd_score)
+
+    w = sub.add_parser("weights", help="precompute MSA sequence weights")
+    w.add_argument("--msa", required=True)
+    w.add_argument("--theta", type=float, default=0.2)
+    w.add_argument("--output", required=True)
+    w.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="cuda runs the cluster-count kernel, cpu its plain version")
+    w.set_defaults(fn=cmd_weights)
     return p
 
 

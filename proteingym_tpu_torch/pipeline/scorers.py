@@ -1,4 +1,5 @@
-"""Scorer registry (counterpart of proteingym_tpu/pipeline/scorers.py).
+"""Scorer registry (counterpart of proteingym_tpu/pipeline/scorers.py):
+``esm`` (masked marginals) and ``poet`` (MSA-conditioned likelihood).
 
 Each scorer is ``scorer(ctx: ScoreContext) -> {column: scores}``: the CLI
 reads the assay, calls the scorer and writes the input columns plus the
@@ -8,6 +9,7 @@ returned score columns.
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -32,9 +34,42 @@ class ScoreContext:
     record: AssayRecord
     mutants: List[str]
     device: torch.device
+    mutated_sequences: List[str] = dataclasses.field(default_factory=list)
+    msa_dir: Optional[Path] = None
+    weights_dir: Optional[Path] = None
     checkpoint: Optional[str] = None  # checkpoint path or preset name
     batch_size: int = 32
     extra: dict = dataclasses.field(default_factory=dict)
+    _msa: object = dataclasses.field(default=None, init=False, repr=False)
+
+    def load_msa(self, theta: Optional[float] = None):
+        """Load and preprocess the assay's MSA, with sequence weights read
+        from ``weights_dir/<weight_file_name>`` when its length matches the
+        alignment, and otherwise computed on ``device`` and saved there as
+        float64 ``.npy`` (the JAX package reads and writes the same file)."""
+        if self._msa is not None:
+            return self._msa
+        from proteingym_tpu_torch.msa.parser import load_msa
+        from proteingym_tpu_torch.msa.weights import sequence_weights
+
+        if self.msa_dir is None or self.record.MSA_filename is None:
+            raise FileNotFoundError(f"No MSA available for {self.record.DMS_id}")
+        msa = load_msa(Path(self.msa_dir) / self.record.MSA_filename)
+        theta = theta if theta is not None else (self.record.MSA_theta or 0.2)
+
+        weights = None
+        wpath = None
+        if self.weights_dir is not None and self.record.weight_file_name:
+            wpath = Path(self.weights_dir) / self.record.weight_file_name
+            if wpath.exists():
+                weights = np.load(wpath)
+        if weights is None or len(weights) != msa.num_sequences:
+            weights = sequence_weights(msa.matrix, theta=theta, device=self.device)
+            if wpath is not None:
+                wpath.parent.mkdir(parents=True, exist_ok=True)
+                np.save(wpath, weights)
+        self._msa = dataclasses.replace(msa, weights=weights)
+        return self._msa
 
 
 @register_scorer("esm")
@@ -69,3 +104,26 @@ def score_esm(ctx: ScoreContext) -> Dict[str, np.ndarray]:
         del model  # one member's weights on the device at a time
     column = f"{name}_ensemble" if len(per_member) > 1 else f"{name}_score"
     return {column: np.mean(per_member, axis=0)}
+
+
+@register_scorer("poet")
+def score_poet(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """PoET family-conditioned autoregressive scoring (ref
+    PoET/scripts/score.py): log p(mutant | sampled MSA context), averaged
+    over ``--extra n_context_samples=`` weighted context samples of at most
+    ``max_context_tokens=`` tokens each."""
+    from proteingym_tpu_torch.models.poet import score_assay_poet
+    from proteingym_tpu_torch.pipeline.checkpoints import load_poet_checkpoint
+
+    model, _ = load_poet_checkpoint(ctx.checkpoint, device=ctx.device)
+    msa = ctx.load_msa()
+    scores = score_assay_poet(
+        model,
+        ctx.mutated_sequences,
+        msa.sequences(),
+        msa.weights,
+        max_context_tokens=int(ctx.extra.get("max_context_tokens", 4096)),
+        n_context_samples=int(ctx.extra.get("n_context_samples", 2)),
+        batch_size=ctx.batch_size,
+    )
+    return {"PoET_score": scores}

@@ -1,5 +1,6 @@
 """The port's attention (proteingym_tpu_torch.ops.flash_attention) against the
-JAX package's grouped_mha, run in Pallas interpret mode on the CPU.
+JAX package's grouped_mha and flash_mha, run in Pallas interpret mode on the
+CPU, and the dispatcher's routing.
 
 Both sides get the same float32 inputs, made with numpy from a seed. On
 CPU tensors the port's wrapper takes its plain PyTorch version, so these
@@ -102,7 +103,8 @@ def test_dispatcher_matches_jax_mha_and_launches_nothing_on_cpu(case):
     q, k, v = _qkv(7, t)
     got, want = _run_both(q, k, v, kw, jfa.mha, tfa.mha)
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
-    assert tfa.LAUNCHES == {"grouped_attention": 0}
+    assert set(tfa.LAUNCHES) == {"grouped_attention", "flash_attention"}
+    assert all(n == 0 for n in tfa.LAUNCHES.values())
 
 
 def test_reference_mha_matches_jax_reference():
@@ -117,6 +119,103 @@ def test_no_path_for_other_devices():
     q = torch.empty(1, 1, 8, 16, device="meta")
     with pytest.raises(ValueError, match="no attention path"):
         tfa.grouped_mha(q, q, q)
+
+
+# the long-context kernel: name -> (T, keyword arguments). No row has every
+# key masked: there the TPU kernel averages v over its padded T.
+FLASH_CASES = {
+    "plain": (64, {}),
+    "causal": (48, {"causal": True}),
+    "padding_mask": (40, {"key_mask": _lengths_mask(40, [30, 10])}),
+    "alibi_causal": (32, {"bias": -_alibi(H, 32), "causal": True}),
+    "unaligned_T": (37, {}),
+    "causal_mask_unaligned_T": (53, {"causal": True, "key_mask": _lengths_mask(53, [53, 20])}),
+    "alibi_mask_scale": (45, {"bias": _alibi(H, 45), "key_mask": _lengths_mask(45, [45, 33]),
+                              "sm_scale": 0.25}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_plain_matches_jax_flash_kernel(case):
+    t, kw = FLASH_CASES[case]
+    q, k, v = _qkv(100 + sorted(FLASH_CASES).index(case), t)
+    got, want = _run_both(
+        q, k, v, kw,
+        lambda *a, **j: jfa.flash_mha(*a, interpret=True, block_q=16, **j),
+        tfa.flash_mha,
+    )
+    assert got.shape == want.shape == (B, H, t, D)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def _recording(monkeypatch):
+    calls = []
+    for name in ("grouped_mha", "flash_mha"):
+        fn = getattr(tfa, name)
+        monkeypatch.setattr(tfa, name, lambda *a, _n=name, _f=fn, **k: calls.append(_n) or _f(*a, **k))
+    return calls
+
+
+@pytest.mark.parametrize("t,segmented,route", [
+    (1024, False, "grouped_mha"),
+    (1025, False, "flash_mha"),
+    (1025, True, "grouped_mha"),
+])
+def test_dispatcher_routes_by_length_and_segments(monkeypatch, t, segmented, route):
+    calls = _recording(monkeypatch)
+    q = torch.zeros(1, 1, t, 16)
+    seg = torch.ones(1, t, dtype=torch.int32) if segmented else None
+    tfa.mha(q, q, q, causal=True, segment_ids=seg)
+    assert calls == [route]
+
+
+@pytest.mark.parametrize("case", ["flash_rope_mask_causal", "grouped_segments_rope"])
+def test_dispatcher_long_rows_match_jax_mha(monkeypatch, case):
+    # T > 1024 on both sides: the port routes to its long-context plain
+    # version (after in-graph RoPE) or, with segments, to the grouped one;
+    # the JAX dispatcher on the CPU takes its reference path for both
+    t = 1100
+    q, k, v = _qkv(11, t, b=1, h=2, d=16)
+    if case == "flash_rope_mask_causal":
+        kw = {"rope_base": 10000.0, "causal": True, "key_mask": _lengths_mask(t, [1050])}
+    else:
+        seg = np.zeros((1, t), np.int32)
+        seg[0, :400], seg[0, 400:1090] = 1, 2
+        kw = {"rope_base": 10000.0, "causal": True, "segment_ids": seg}
+    calls = _recording(monkeypatch)
+    got, want = _run_both(q, k, v, kw, jfa.mha, tfa.mha)
+    assert calls == ["flash_mha" if case.startswith("flash") else "grouped_mha"]
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def test_flash_no_path_for_other_devices():
+    q = torch.empty(1, 1, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="no attention path"):
+        tfa.flash_mha(q, q, q)
+
+
+def test_kernel_library_name_tracks_included_headers(tmp_path, monkeypatch):
+    # a shared header is part of every library that includes it: editing it
+    # renames (so rebuilds) each of them
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text('#include <cuda_runtime.h>\n#include "common.cuh"\nint a;\n')
+    (csrc / "b.cu").write_text('#include "common.cuh"\nint b;\n')
+    (csrc / "common.cuh").write_text('#include "leaf.cuh"\n// v1\n')
+    (csrc / "leaf.cuh").write_text("// leaf v1\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert [f.name for f in _build.source_files("a")] == ["a.cu", "common.cuh", "leaf.cuh"]
+    before = {n: _build.library_path(n) for n in ("a", "b")}
+    (csrc / "leaf.cuh").write_text("// leaf v2\n")
+    after = {n: _build.library_path(n) for n in ("a", "b")}
+    assert all(before[n] != after[n] for n in before)
+    assert after["a"].name.startswith("liba_") and after["a"].suffix == ".so"
+
+
+def test_shipped_attention_kernels_share_one_header():
+    for name in ("grouped_attention", "flash_attention"):
+        assert [f.name for f in _build.source_files(name)] == [f"{name}.cu", "attention_common.cuh"]
+    assert [f.name for f in _build.source_files("cluster_counts")] == ["cluster_counts.cu"]
 
 
 def test_kernel_library_name_tracks_source():

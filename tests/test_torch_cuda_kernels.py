@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card.
+"""The port's CUDA kernels (grouped and long-context attention, cluster
+counts) against their plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one; the kernels have no CPU mode. The file imports neither jax nor the
@@ -11,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from proteingym_tpu_torch.models import esm2
+from proteingym_tpu_torch.models import esm2, poet
+from proteingym_tpu_torch.msa import weights as msa_weights
 from proteingym_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
@@ -119,3 +121,104 @@ def test_model_forward_goes_through_the_kernel(dtype, dev):
         mp.setattr(esm2, "mha", fa.plain_mha)
         want = model(toks)
     torch.testing.assert_close(got, want, atol=TOL[dtype] * 5, rtol=0)
+
+
+# the long-context kernel: name -> (T, head dim, keyword arguments)
+FLASH_CASES = {
+    "plain": (1100, 64, {}),
+    "causal_mask": (2048, 64, {"causal": True, "key_mask": _lengths_mask(2048, [2048, 1500])}),
+    "alibi_causal": (1536, 64, {"bias": _alibi(4, 1536), "causal": True}),
+    "dead_rows_causal": (1037, 32, {"causal": True, "key_mask": torch.stack([
+        torch.arange(1037) >= 7, torch.zeros(1037, dtype=torch.bool)])}),
+    "hd24_scale": (1111, 24, {"sm_scale": 0.3, "key_mask": _lengths_mask(1111, [1111, 999])}),
+    "hd128_causal": (1200, 128, {"causal": True}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_kernel_matches_plain(case, dtype, dev):
+    t, d, kw = FLASH_CASES[case]
+    gen = torch.Generator().manual_seed(50 + sorted(FLASH_CASES).index(case))
+    q, k, v = (torch.randn(2, t, 4, d, generator=gen).to(dev, dtype).permute(0, 2, 1, 3)
+               for _ in range(3))
+    kw = {n: x.to(dev) if torch.is_tensor(x) else x for n, x in kw.items()}
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_mha(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    want = fa.reference_mha(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_dispatcher_takes_the_flash_kernel_beyond_1024(dev):
+    q = torch.randn(1, 2, 1025, 16, device=dev, dtype=torch.bfloat16)
+    seg = torch.ones(1, 1025, dtype=torch.int32, device=dev)
+    before = dict(fa.LAUNCHES)
+    fa.mha(q, q, q, causal=True, rope_base=10000.0)
+    fa.mha(q, q, q, causal=True, segment_ids=seg)
+    fa.mha(q[:, :, :1024], q[:, :, :1024], q[:, :, :1024])
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert fa.LAUNCHES["grouped_attention"] == before["grouped_attention"] + 2
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(dev):
+    q = torch.zeros(1, 2, 1100, 40, device=dev)
+    with pytest.raises(ValueError, match="head dim 40"):
+        fa.flash_mha(q, q, q)
+    q = torch.zeros(1, 2, 1100, 32, device=dev)
+    with pytest.raises(ValueError, match="key_mask must be"):
+        fa.flash_mha(q, q, q, key_mask=torch.ones(1, 1000, dtype=torch.bool, device=dev))
+
+
+def _alignment(seed, n, length):
+    rng = np.random.default_rng(seed)
+    centres = rng.integers(1, 21, (max(1, n // 8), length))
+    m = centres[rng.integers(0, len(centres), n)]
+    sub = rng.random((n, length)) < rng.uniform(0.0, 0.15, (n, 1))
+    m[sub] = rng.integers(0, 22, sub.sum())  # amino acids, gaps, code 21
+    if n > 4:
+        m[1] = 0  # an all-gap row
+        m[3] = m[4]  # duplicated rows
+    return m.astype(np.int8)
+
+
+@pytest.mark.parametrize("n,length", [(1, 5), (63, 7), (65, 300), (1000, 123), (3000, 517)])
+def test_cluster_count_kernel_equals_plain(n, length, dev):
+    m = torch.from_numpy(_alignment(n + length, n, length))
+    before = msa_weights.LAUNCHES["cluster_counts"]
+    got = msa_weights.num_cluster_members_cuda(m.to(dev), 0.8)
+    assert msa_weights.LAUNCHES["cluster_counts"] == before + 1
+    assert torch.equal(got, msa_weights.num_cluster_members(m.to(dev), 0.8))
+    assert torch.equal(got.cpu(), msa_weights.num_cluster_members(m, 0.8))
+
+
+def test_sequence_weights_on_the_card_equal_cpu(dev):
+    m = _alignment(7, 500, 90)
+    for theta in (0.2, 0.01, 0.32):
+        np.testing.assert_array_equal(msa_weights.sequence_weights(m, theta, device="cuda"),
+                                      msa_weights.sequence_weights(m, theta, device="cpu"))
+
+
+def test_poet_forward_goes_through_both_kernels(dev):
+    # T > 1024: the self tier takes the grouped kernel, the multi tier the
+    # long-context one, once per layer each
+    config = poet.PoetConfig("poet_small", 2, 64, 4, 128, dtype=torch.bfloat16)
+    model = poet.init_random(config, seed=0, device=dev)
+    with torch.no_grad():
+        for layer in model.decoder.layers:  # a non-zero FFN output
+            layer.linear2.weight.normal_(0.0, 0.02)
+    rng = np.random.default_rng(0)
+    ctx = ["".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), 70)) for _ in range(16)]
+    rows = poet.build_rows(ctx, ["MKTAYIAKQRQISFVKSHF", "GLIEVQAPILSRVGDG"])
+    tok, seg, pos, val = (torch.from_numpy(a).to(dev) for a in rows[:4])
+    assert tok.shape[1] > 1024
+    before = dict(fa.LAUNCHES)
+    got = poet.token_logprobs(model, tok, seg, pos, val)
+    assert fa.LAUNCHES["grouped_attention"] == before["grouped_attention"] + config.num_layers
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + config.num_layers
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(poet, "mha", fa.plain_mha)
+        want = poet.token_logprobs(model, tok, seg, pos, val)
+    live = val[:, 1:].bool()
+    torch.testing.assert_close(got[live], want[live], atol=5e-2, rtol=0)

@@ -23,12 +23,14 @@ def test_port_imports_without_jax_or_pandas():
         sys.modules["pandas"] = None
         import proteingym_tpu_torch
         from proteingym_tpu_torch.pipeline import cli, scorers, checkpoints
-        from proteingym_tpu_torch.models import esm2, esm_scoring
+        from proteingym_tpu_torch.models import esm2, esm_scoring, poet
+        from proteingym_tpu_torch.msa import parser, weights
         from proteingym_tpu_torch.ops import flash_attention, rotary, gather_logprobs, _build
         from proteingym_tpu_torch.data import mutants, windows, reference
         shared = {m for m in sys.modules if m.startswith("proteingym_tpu.")}
         assert shared <= {"proteingym_tpu.pipeline", "proteingym_tpu.pipeline.manifest",
-                          "proteingym_tpu.pipeline.telemetry"}, shared
+                          "proteingym_tpu.pipeline.telemetry",
+                          "proteingym_tpu.constants"}, shared
         print("ok")
     """)
     assert proc.returncode == 0, proc.stderr
