@@ -7,16 +7,17 @@ Phases (any failure raises, and the script exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA
    versions; TF32 is switched off for matmuls and cuDNN.
-2. build: nvcc builds the three kernels from ops/csrc, one process per
-   source, all started together.
+2. build: nvcc builds the four kernel sources from ops/csrc, one process
+   per source, all started together.
 3. kernel: the grouped attention kernel (K1) against the plain PyTorch
    version on the card, in every mode the slices use, and both timed at
    the ESM2-650M headline shape.
 4. slice: ``score --model esm --checkpoint esm2_t33_650M`` (seeded random
    bf16 weights, full width and depth) on a synthetic L=250 assay with all
    4,750 single mutants, through the port's CLI; the launch counter must
-   show 33 kernel launches per chunk forward; the whole log-prob table is
-   recomputed with the plain attention and compared.
+   show 33 launches of the heads-mid entry (K4) per chunk forward; the
+   whole log-prob table is recomputed with the plain attention and
+   compared.
 5. windowed: ``esm2_t6_8M`` on an L=1100 assay, through the CLI, so every
    row takes the optimal-window path at T=1024.
 6. cluster counts (K5): the sequence-weight kernel against its plain
@@ -33,6 +34,20 @@ Phases (any failure raises, and the script exits non-zero):
    16,384-sequence MSA: the weights file is written by K5 and reused, each
    forward launches K1 and K2 12 times each, two queries' per-token
    log-probs are recomputed with the plain attention and compared.
+9. K3 and K4: the extent-sparse segmented kernel and the heads-mid entry
+   against their plain versions in bf16 and float32 (live query rows);
+   K3 timed against its plain version and K1's segmented mode at B8 H20
+   T4096 with 16 segments of 250 tokens, K4 against its plain version at
+   the headline shape.
+10. packed: ``score --model esm --checkpoint esm2_t33_650M --packed``
+   through the CLI on synthetic assays of lengths 72, 118, 250, 448, 709
+   and 1500 with all single mutants, twice (the second run is timed): 33
+   K4 launches per forward; the L=250 scores equal phase 4's per-assay
+   scores.
+11. segment-packed: ``score_assays_packed(..., seg_apply_fn=...,
+   row_len=4096)`` with ESM2-650M on the assays up to L=709, twice: 33 K3
+   launches per forward and no K1 launch; scores equal phase 10's; two
+   packed rows' log-probs recomputed with the plain attention.
 
 It prints one JSON line describing the kernels, then, as its last line,
 ``{"ok": true, "device": {...}}``. With no CUDA device, or outside a
@@ -55,14 +70,19 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 AA = "ACDEFGHIKLMNPQRSTVWY"
-KERNELS = {  # name -> (source, the TPU kernel it replaces)
+KERNELS = {  # launch counter -> (source, the TPU kernel it replaces)
     "grouped_attention": ("proteingym_tpu_torch/ops/csrc/grouped_attention.cu",
                           "proteingym_tpu/ops/flash_attention.py:181"),
     "flash_attention": ("proteingym_tpu_torch/ops/csrc/flash_attention.cu",
                         "proteingym_tpu/ops/flash_attention.py:48"),
+    "seg_block_attention": ("proteingym_tpu_torch/ops/csrc/seg_block_attention.cu",
+                            "proteingym_tpu/ops/flash_attention.py:656"),
+    "grouped_attention_bthd": ("proteingym_tpu_torch/ops/csrc/grouped_attention.cu",
+                               "proteingym_tpu/ops/flash_attention.py:440"),
     "cluster_counts": ("proteingym_tpu_torch/ops/csrc/cluster_counts.cu",
                        "proteingym_tpu/msa/weights.py:152"),
 }
+SOURCES = sorted({Path(src).stem for src, _ in KERNELS.values()})  # one nvcc each
 
 # bf16 kernel vs a float32 plain version of the same bf16 inputs: the kernel
 # rounds the scaled and rotated q/k to bf16 (2^-9 relative each) and its
@@ -87,6 +107,12 @@ K5_TIMED = (16384, 300)  # (N, L) of the timed synthetic MSA
 POET_ROW = (8, 16, 4352)  # (B, H, T) of PoET's attention calls at batch 8
 POET_SLICE = dict(preset="poet_200m", length=250, n_seqs=16384, n_mut=128,
                   batch=8, n_samples=2, max_context_tokens=4096)
+# the shapes of phases 9-11
+K3_TIMED = (8, 20, 4096, 16, 250)  # (B, H, T, segments, segment length)
+PACKED_MIX = (72, 118, 250, 448, 709, 1500)  # the JAX bench's production mix
+PACKED_BATCH = 32  # rows per forward of the bucketed packed path
+SEG_ROW_LEN, SEG_CHUNK = 4096, 8  # segment-packed rows and rows per forward
+SEG_MIX = PACKED_MIX[:-1]  # L=1500's 1,024-token windows would add ~1.5M tokens
 
 
 def fail(msg: str) -> None:
@@ -213,14 +239,13 @@ def write_a2m(path: Path, name: str, codes: np.ndarray) -> None:
 
 
 def median_pair(torch, fns, reps, inner, rounds=2):
-    """Medians of ``time_ms`` samples for each of two named calls, taken in
-    turns (a, b, b, a) ``rounds`` times so drift hits both alike."""
-    (na, fa_), (nb, fb) = fns.items()
-    for fn in (fa_, fb):  # warm up
+    """Medians of ``time_ms`` samples for each named call, taken in turns
+    (a, b, ..., b, a) ``rounds`` times so drift hits all alike."""
+    for fn in fns.values():  # warm up
         fn()
     torch.cuda.synchronize()
-    times = {na: [], nb: []}
-    for order in ((na, nb), (nb, na)) * rounds:
+    times = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]) * rounds:
         for which in order:
             times[which] += time_ms(torch, fns[which], reps, inner)
     return {k: statistics.median(v) for k, v in times.items()}
@@ -453,6 +478,257 @@ def phase_poet(torch, dev, card, fa, check_close):
     return {"launches": launches, "mutants_per_s": n_mut / score_s}
 
 
+def segment_runs(torch, dev, b, t, bounds):
+    """(b, t) int32 segment ids: segment i + 1 on [bounds[i], bounds[i+1])."""
+    seg = torch.zeros(b, t, dtype=torch.int32, device=dev)
+    for i, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+        seg[:, lo:hi] = i + 1
+    return seg
+
+
+def phase_k3_k4(torch, dev, card, fa, qkv, lengths_mask, check_close):
+    """9. K3 and K4 against their plain versions (live query rows) in bf16
+    and float32; K3 timed at the packed-row shape, K4 at the headline."""
+    print("[seg_block_attention] K3 vs plain seg_block_mha on the card (live rows)")
+    k3_errs = []
+    for dtype, atol, rtol, tag in ((torch.bfloat16, BF16_ATOL, BF16_RTOL, "bf16"),
+                                   (torch.float32, F32_ATOL, F32_RTOL, "f32")):
+        cases = [  # name, (B, H, T, D), segment bounds, keyword arguments
+            ("segments across tiles + padded tail", (2, 4, 512, 64), [0, 200, 310, 470], {}),
+            ("one segment spanning the row, RoPE", (2, 4, 512, 64), [0, 512],
+             {"rope_base": 10000.0}),
+            ("T=1100 (ragged tile) D=32, RoPE", (2, 4, 1100, 32), [0, 90, 91, 500, 1037],
+             {"rope_base": 10000.0}),
+            ("T=4096, 16 x 250 + tail, RoPE", (1, 4, 4096, 64), list(range(0, 4001, 250)),
+             {"rope_base": 10000.0}),
+        ]
+        for name, (b, h, t, d), bounds, kw in cases:
+            q, k, v = qkv(b, h, t, d, dtype)
+            seg = segment_runs(torch, dev, b, t, bounds)
+            got = fa.seg_block_mha(q, k, v, seg, **kw)
+            torch.cuda.synchronize()
+            want = fa.plain_seg_block_mha(q.float(), k.float(), v.float(), seg, **kw)
+            live = seg > 0
+            k3_errs.append(check_close(f"{tag} {name}", got.transpose(1, 2)[live],
+                                       want.transpose(1, 2)[live], atol, rtol))
+        # a key mask folded into the segments by mha (T > 1024, not causal)
+        q, k, v = qkv(2, 4, 1152, 64, dtype)
+        seg = segment_runs(torch, dev, 2, 1152, [0, 300, 700, 1100])
+        mask = seg > 0
+        mask[1, 650:700] = False
+        before = fa.LAUNCHES["seg_block_attention"]
+        got = fa.mha(q, k, v, key_mask=mask, segment_ids=seg, rope_base=10000.0)
+        torch.cuda.synchronize()
+        if fa.LAUNCHES["seg_block_attention"] != before + 1:
+            fail("mha did not route the segmented T=1152 call to K3")
+        want = fa.plain_mha(q.float(), k.float(), v.float(), key_mask=mask, segment_ids=seg,
+                            rope_base=10000.0)
+        k3_errs.append(check_close(f"{tag} mha T=1152, key mask folded into segments",
+                                   got.transpose(1, 2)[mask], want.transpose(1, 2)[mask],
+                                   atol, rtol))
+
+    print("[grouped_attention_bthd] K4 vs plain grouped_mha_bthd on the card")
+
+    def bthd(b, h, t, d, dtype=torch.bfloat16):
+        return tuple(x.transpose(1, 2) for x in qkv(b, h, t, d, dtype))
+
+    k4_errs = []
+    dead = torch.ones(2, 100, dtype=torch.bool, device=dev)
+    dead[1] = False  # every key of batch row 1 masked
+    seg = segment_runs(torch, dev, 2, 300, [0, 90, 200, 290])
+    for dtype, atol, rtol, tag in ((torch.bfloat16, BF16_ATOL, BF16_RTOL, "bf16"),
+                                   (torch.float32, F32_ATOL, F32_RTOL, "f32")):
+        cases = [
+            ("headline B16 H20 T256 D64 mask+rope", (16, 20, 256, 64),
+             {"key_mask": lengths_mask(16, 256, [252 - 3 * i for i in range(16)]),
+              "rope_base": 10000.0}),
+            ("segments + mask + rope", (2, 4, 300, 64),
+             {"segment_ids": seg, "key_mask": seg > 0, "rope_base": 10000.0}),
+            ("causal", (2, 8, 200, 64), {"causal": True}),
+            ("fully masked row, ragged T=100", (2, 4, 100, 32), {"key_mask": dead}),
+        ]
+        for name, shape, kw in cases:
+            q, k, v = bthd(*shape, dtype)
+            got = fa.grouped_mha_bthd(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want = fa.plain_mha_bthd(q.float(), k.float(), v.float(), **kw)
+            if "segment_ids" in kw:
+                live = kw["segment_ids"] > 0
+                got, want = got[live], want[live]
+            k4_errs.append(check_close(f"{tag} {name}", got, want, atol, rtol))
+
+    b, h, t, n_seg, seg_len = K3_TIMED
+    q, k, v = qkv(b, h, t, 64)
+    seg = segment_runs(torch, dev, b, t, list(range(0, n_seg * seg_len + 1, seg_len)))
+    lo, hi = fa._segment_block_extents(
+        torch.nn.functional.pad(seg, (0, -t % fa.KERNEL_TILE)), -(-t // fa.KERNEL_TILE),
+        fa.KERNEL_TILE)
+    tiles = (hi - lo).float().mean().item()
+    k3t = median_pair(torch, {
+        "kernel": lambda: fa.seg_block_mha(q, k, v, seg, sm_scale=1.0, rope_base=10000.0),
+        "plain": lambda: fa.plain_seg_block_mha(q, k, v, seg, sm_scale=1.0, rope_base=10000.0),
+        "k1": lambda: fa.grouped_mha(q, k, v, key_mask=seg > 0, segment_ids=seg, sm_scale=1.0,
+                                     rope_base=10000.0),
+    }, reps=2, inner=3)
+    print(f"  K3 at B{b} H{h} T{t} D64, {n_seg} segments of {seg_len} + padded tail, RoPE: "
+          f"{tiles:.2f} of {-(-t // fa.KERNEL_TILE)} key tiles per query tile; kernel "
+          f"{k3t['kernel']:.4f} ms, plain {k3t['plain']:.4f} ms, K1 segmented "
+          f"{k3t['k1']:.4f} ms (medians of 8 samples of 3 queued calls, {card})")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    q, k, v = bthd(16, 20, 256, 64)
+    headline = dict(key_mask=lengths_mask(16, 256, [252 - 3 * i for i in range(16)]),
+                    rope_base=10000.0)
+    k4t = median_pair(torch, {
+        "plain": lambda: fa.plain_mha_bthd(q, k, v, **headline),
+        "kernel": lambda: fa.grouped_mha_bthd(q, k, v, **headline),
+    }, reps=5, inner=10, rounds=3)
+    print(f"  K4 at B16 H20 T256 D64 mask+rope: kernel {k4t['kernel']:.4f} ms, plain "
+          f"{k4t['plain']:.4f} ms (medians of 30 samples of 10 queued calls, {card})")
+    return {
+        "seg_block_attention": dict(max_abs_err=max(k3_errs), ms=k3t["kernel"],
+                                    plain_ms=k3t["plain"]),
+        "grouped_attention_bthd": dict(max_abs_err=max(k4_errs), ms=k4t["kernel"],
+                                       plain_ms=k4t["plain"]),
+    }
+
+
+def packed_forwards(lengths, chunk, window=1024, pad_to_multiple=32):
+    """Forwards the bucketed packed path runs: L+2 rows per assay, grouped
+    by row bucket (a multiple of the pad, at most the window), each group
+    cut into chunks."""
+    rows = {}
+    for length in lengths:
+        total = length + 2
+        bucket = min(-(-total // pad_to_multiple) * pad_to_multiple, window)
+        rows[bucket] = rows.get(bucket, 0) + total
+    return sum(-(-n // chunk) for n in rows.values())
+
+
+def phase_packed(torch, card, fa, cli, esm2, scores_250):
+    """10. ``score --packed`` through the CLI on the production mix, twice;
+    the second run is timed and counted."""
+    print(f"[packed] score --model esm --checkpoint esm2_t33_650M --packed, L={PACKED_MIX}")
+    assays = [(f"SYNTH_P{length}", *synth_assay(length, 0 if length == 250 else length))
+              for length in PACKED_MIX]
+    n_mut = sum(len(m) for _, _, m in assays)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ref, dms_dir = write_assays(root, assays)
+        args = ["score", "--model", "esm", "--checkpoint", "esm2_t33_650M", "--packed",
+                "--dms-reference", str(ref), "--dms-dir", str(dms_dir),
+                "--output-dir", str(root / "out"), "--batch-size", str(PACKED_BATCH),
+                "--device", "cuda", "--quiet", "--fail-fast", "--overwrite"]
+        walls = []
+        for _ in range(2):  # warm, then the run that is timed and counted
+            for name in fa.LAUNCHES:
+                fa.LAUNCHES[name] = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if cli.main(args) != 0:
+                fail("packed CLI exited non-zero")
+            walls.append(time.perf_counter() - t0)
+        launches = dict(fa.LAUNCHES)
+        events = [json.loads(line) for line in (root / "out" / "events.jsonl").open()]
+        scores = {length: read_scores(root / "out" / f"{dms_id}.csv", "esm2_t33_650M_score",
+                                      len(mutants))
+                  for (dms_id, _, mutants), length in zip(assays, PACKED_MIX)}
+    thr = [e for e in events if e["event"] == "throughput"][-1]
+    n_fwd = packed_forwards(PACKED_MIX, PACKED_BATCH)
+    expected = esm2.PRESETS["esm2_t33_650M"].num_layers * n_fwd
+    print(f"  {n_mut} finite scores; timed run: score_packed {thr['seconds']:.3f} s incl. "
+          f"weight init -> {thr['mutants_per_sec']:.2f} mutants/s; CLI wall {walls[1]:.2f} s "
+          f"(warm-up run {walls[0]:.2f} s); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    print(f"  launches {launches} (expected 33 layers x {n_fwd} forwards = {expected} of K4)")
+    if launches["grouped_attention_bthd"] != expected or sum(launches.values()) != expected:
+        fail(f"packed launch counts {launches} do not match the path")
+    err = float(np.abs(scores[250] - scores_250).max())
+    print(f"  L=250 scores vs the per-assay path (phase 4): max_abs_err={err:.3e} "
+          f"(atol={TABLE_ATOL:g}) {'ok' if err <= TABLE_ATOL else 'MISMATCH'}")
+    if err > TABLE_ATOL:
+        fail("packed L=250 scores differ from the per-assay scores")
+    return {"launches": launches, "scores": scores, "mutants_per_s": thr["mutants_per_sec"]}
+
+
+def packed_rows(torch, dev, esm2, token_list, n_rows, row_len):
+    """``n_rows`` rows of ``row_len`` tokens packing the given token vectors
+    in turn as segments (one position masked in each), then padding."""
+    rs = np.random.RandomState(3)
+    tok = torch.full((n_rows, row_len), esm2.ALPHABET.padding_idx, dtype=torch.long)
+    seg = torch.zeros(n_rows, row_len, dtype=torch.int32)
+    i = 0
+    for r in range(n_rows):
+        begin, s_id = 0, 1
+        while s_id <= esm2.MAX_ROW_SEGMENTS and begin + len(token_list[i]) <= row_len:
+            t = torch.from_numpy(token_list[i].astype(np.int64))
+            t[rs.randint(1, len(t) - 1)] = esm2.ALPHABET.mask_idx
+            tok[r, begin:begin + len(t)] = t
+            seg[r, begin:begin + len(t)] = s_id
+            begin, s_id, i = begin + len(t), s_id + 1, (i + 1) % len(token_list)
+    return tok.to(dev), seg.to(dev)
+
+
+def phase_segment_packed(torch, dev, card, fa, esm2, check_close, packed_scores):
+    """11. The segment-packed path at row_len 4096 (K3 in every layer),
+    twice; the second run is timed and counted."""
+    from proteingym_tpu_torch.models import packed_scoring
+
+    print(f"[segment_packed] score_assays_packed(seg_apply_fn=..., row_len={SEG_ROW_LEN}) "
+          f"with esm2_t33_650M, L={SEG_MIX}")
+    config = esm2.PRESETS["esm2_t33_650M"]
+    model = esm2.init_random(config, seed=0, device=dev)  # the CLI's weights
+    assays = [synth_assay(length, 0 if length == 250 else length) for length in SEG_MIX]
+    n_mut = sum(len(m) for _, m in assays)
+    token_list = [esm2.ALPHABET.tokenize(seq) for seq, _ in assays]
+    seg_fn = esm2.make_segmented_apply_fn(model)
+    runs = []
+    for _ in range(2):  # warm, then the run that is timed and counted
+        for name in fa.LAUNCHES:
+            fa.LAUNCHES[name] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = packed_scoring.score_assays_packed(
+            None, assays, seg_apply_fn=seg_fn, row_len=SEG_ROW_LEN, seg_chunk=SEG_CHUNK)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    launches = dict(fa.LAUNCHES)
+    counts = {}
+    for toks in token_list:
+        counts[len(toks)] = counts.get(len(toks), 0) + len(toks)
+    n_rows = len(packed_scoring._plan_rows(counts, SEG_ROW_LEN, esm2.MAX_ROW_SEGMENTS))
+    n_fwd = -(-n_rows // SEG_CHUNK)
+    expected = config.num_layers * n_fwd
+    print(f"  {n_mut} scores in {runs[1]:.3f} s -> {n_mut / runs[1]:.2f} mutants/s "
+          f"(warm-up run {runs[0]:.2f} s); {n_rows} rows of {SEG_ROW_LEN} tokens, "
+          f"{sum(counts.values())} masked rows packed ({card})")
+    print(f"  launches {launches} (expected 33 layers x {n_fwd} forwards = {expected} of K3)")
+    if launches["seg_block_attention"] != expected or sum(launches.values()) != expected:
+        fail(f"segment-packed launch counts {launches} do not match the path")
+    errs = [float(np.abs(got - packed_scores[length]).max())
+            for got, length in zip(scores, SEG_MIX)]
+    if not all(np.isfinite(s).all() for s in scores):
+        fail("segment-packed scores are not finite")
+    print(f"  scores vs the bucketed packed scores (phase 10): max_abs_err={max(errs):.3e} "
+          f"(atol={TABLE_ATOL:g}) {'ok' if max(errs) <= TABLE_ATOL else 'MISMATCH'}")
+    if max(errs) > TABLE_ATOL:
+        fail("segment-packed scores differ from the bucketed packed scores")
+
+    tok, seg = packed_rows(torch, dev, esm2, token_list, 2, SEG_ROW_LEN)
+    with torch.no_grad():
+        got = torch.log_softmax(seg_fn(tok, seg), dim=-1)
+        with mock.patch.object(esm2, "mha_natural", fa.plain_mha_bthd):
+            want = torch.log_softmax(seg_fn(tok, seg), dim=-1)
+    live = seg > 0
+    check_close(f"2 packed rows' log-probs, T={SEG_ROW_LEN}, "
+                f"{int(seg.max(dim=1).values.sum())} segments, K3 vs plain",
+                got[live], want[live], TABLE_ATOL, 0.0)
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "mutants_per_s": n_mut / runs[1]}
+
+
 def main() -> int:
     try:
         import torch
@@ -494,11 +770,11 @@ def main() -> int:
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build_all(KERNELS)
-    print(f"[build] {', '.join(KERNELS)} ready in {time.perf_counter() - t0:.2f} s "
+    _build.build_all(SOURCES)
+    print(f"[build] {', '.join(SOURCES)} ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc, in parallel: " + ", ".join(
-              f"{n} {_build.BUILD_SECONDS.get(n, 0.0):.2f} s" for n in KERNELS) + ")")
-    for name in KERNELS:
+              f"{n} {_build.BUILD_SECONDS.get(n, 0.0):.2f} s" for n in SOURCES) + ")")
+    for name in SOURCES:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}:", line.strip())
@@ -592,10 +868,9 @@ def main() -> int:
     print(f"  {len(scores)} finite scores; CLI wall {wall:.2f} s incl. weight init; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"  launches {launches} (expected {config.num_layers} layers x {n_fwd} "
-          f"forwards = {expected})")
-    if launches["grouped_attention"] != expected:
-        fail(f"grouped_attention launched {launches['grouped_attention']} times, "
-             f"expected {expected}")
+          f"forwards = {expected} of K4)")
+    if launches["grouped_attention_bthd"] != expected or sum(launches.values()) != expected:
+        fail(f"launch counts {launches} do not match the slice")
 
     model = esm2.init_random(config, seed=0, device=dev)
     tokens = esm2.ALPHABET.tokenize(seq)
@@ -620,7 +895,7 @@ def main() -> int:
     print(f"  table + scores: {table_s:.4f} s median of 3 -> "
           f"{len(mutants) / table_s:.2f} mutants/s ({card})")
 
-    with mock.patch.object(esm2, "mha", fa.plain_mha):
+    with mock.patch.object(esm2, "mha_natural", fa.plain_mha_bthd):
         table_plain = esm_scoring.masked_marginal_table(
             model, tokens, chunk=32, window=config.max_positions,
             pad_to_multiple=64)
@@ -638,7 +913,7 @@ def main() -> int:
         for name in fa.LAUNCHES:
             fa.LAUNCHES[name] = 0
         run_cli(cli, ref, dms_dir, root / "out", "esm2_t6_8M", chunk)
-        win_launches = fa.LAUNCHES["grouped_attention"]
+        win_launches = fa.LAUNCHES["grouped_attention_bthd"]
         read_scores(root / "out" / "SYNTH_L1100.csv", "esm2_t6_8M_score",
                     len(mutants_long))
     n_fwd_long = n_chunk_forwards(1100, chunk)
@@ -651,6 +926,10 @@ def main() -> int:
     k5 = phase_cluster_counts(torch, dev, card)
     k2 = phase_long_attention(torch, dev, card, fa, qkv, lengths_mask, check_close)
     poet_run = phase_poet(torch, dev, card, fa, check_close)
+    k3_k4 = phase_k3_k4(torch, dev, card, fa, qkv, lengths_mask, check_close)
+    packed = phase_packed(torch, card, fa, cli, esm2, scores)
+    seg_packed = phase_segment_packed(torch, dev, card, fa, esm2, check_close,
+                                      packed["scores"])
 
     if "jax" in sys.modules:
         fail("the port imported jax")
@@ -659,16 +938,18 @@ def main() -> int:
                                   ms=ms, plain_ms=plain_ms),
         "flash_attention": dict(max_abs_err=k2["max_abs_err"], ms=k2["ms"],
                                 plain_ms=k2["plain_ms"]),
+        **k3_k4,
         "cluster_counts": dict(max_abs_err=0.0, ms=k5["ms"], plain_ms=k5["plain_ms"]),
     }
-    by_path = {"esm": launches, "esm_windowed": {"grouped_attention": win_launches},
-               "poet": poet_run["launches"]}
+    by_path = {"esm": launches, "esm_windowed": {"grouped_attention_bthd": win_launches},
+               "poet": poet_run["launches"], "esm_packed": packed["launches"],
+               "esm_segment_packed": seg_packed["launches"]}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": source,
         "replaces": replaces,
-        "launches": poet_run["launches"][name],
+        "launches": sum(c.get(name, 0) for c in by_path.values()),
         **measured[name],
         "launches_by_path": {path: c.get(name, 0) for path, c in by_path.items()},
     } for name, (source, replaces) in KERNELS.items()]}))

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from proteingym_tpu_torch.ops.flash_attention import mha
+from proteingym_tpu_torch.ops.flash_attention import mha_natural
 
 # upper bound on independent sequences per packed row (one-hot width)
 MAX_ROW_SEGMENTS = 28
@@ -141,16 +141,16 @@ class SelfAttention(nn.Module):
     def forward(self, x, key_mask, segment_ids=None):
         b, t, d = x.shape
 
-        def heads(y):  # (B, T, D) -> (B, H, T, hd) view, no copy
-            return y.view(b, t, self.num_heads, self.head_dim).permute(0, 2, 1, 3)
+        def heads(y):  # (B, T, D) -> (B, T, H, hd) view, no copy
+            return y.view(b, t, self.num_heads, self.head_dim)
 
         # the softmax scale is applied to q after its bias; RoPE is linear,
         # so the kernel rotates the pre-scaled q exactly
         q = heads(self.q_proj(x) * self.scaling)
-        ctx = mha(q, heads(self.k_proj(x)), heads(self.v_proj(x)),
-                  key_mask=key_mask, sm_scale=1.0, rope_base=self.rope_base,
-                  segment_ids=segment_ids)
-        return self.out_proj(ctx.permute(0, 2, 1, 3).reshape(b, t, d))
+        ctx = mha_natural(q, heads(self.k_proj(x)), heads(self.v_proj(x)),
+                          key_mask=key_mask, sm_scale=1.0, rope_base=self.rope_base,
+                          segment_ids=segment_ids)
+        return self.out_proj(ctx.reshape(b, t, d))
 
 
 class TransformerLayer(nn.Module):
@@ -265,6 +265,14 @@ class EsmModel(nn.Module):
         if return_representations:
             return logits, reps
         return logits
+
+
+def make_segmented_apply_fn(model: EsmModel) -> EsmModel:
+    """The (tokens, segment_ids) -> logits callable for segment-packed rows
+    (see ``EsmModel.forward``'s ``segment_ids`` contract). The JAX helper
+    closes over a config so that one jitted program serves every caller;
+    the module carries its own weights, so here it is the model itself."""
+    return model
 
 
 def _empty_model(config: EsmConfig, device) -> EsmModel:

@@ -8,15 +8,23 @@ wrapper's argument contract: q/k/v (B, H, T, D), ``key_mask`` (B, T) bool
 ``sm_scale``, ``rope_base`` (q/k arrive unrotated) and ``segment_ids``
 (B, T) int, 0 = padding, for block-diagonal attention.
 
+``grouped_mha_bthd`` is the port of the heads-mid Pallas kernel
+``_bthd_attention_kernel``: the same math on (B, T, H, D) tensors without
+a bias, launched through the (B, T, H, D) entry of the same CUDA source.
+
 ``flash_mha`` wraps ``csrc/flash_attention.cu``, the port of the Pallas
 long-context kernel ``_attention_kernel``: the same contract without
 ``rope_base`` and ``segment_ids``; causal calls skip the key tiles above
 the diagonal.
 
-``mha`` dispatches as the JAX ``mha`` does on a TPU. On a CPU tensor each
-wrapper runs its plain PyTorch version (``reference_mha``, after in-graph
-RoPE where asked). On a CUDA tensor it launches its kernel or raises for
-what the kernel does not take; there is no fallback.
+``seg_block_mha`` wraps ``csrc/seg_block_attention.cu``, the port of the
+extent-sparse Pallas kernel ``_seg_block_kernel``: segmented attention
+that visits only the key tiles sharing a segment with each query tile.
+
+``mha`` and ``mha_natural`` dispatch as the JAX functions do on a TPU. On
+a CPU tensor each wrapper runs its plain PyTorch version (``reference_mha``,
+after in-graph RoPE where asked). On a CUDA tensor it launches its kernel
+or raises for what the kernel does not take; there is no fallback.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from proteingym_tpu_torch.ops.rotary import _cos_sin_cache, apply_rotary_bhtd
 
@@ -34,13 +43,25 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 24, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches of each CUDA kernel in this process, counted by its wrapper where
-# it launches the kernel and nowhere else
-LAUNCHES = {"grouped_attention": 0, "flash_attention": 0}
+# launches of each CUDA kernel entry in this process, counted by its wrapper
+# where it launches the kernel and nowhere else
+LAUNCHES = {"grouped_attention": 0, "grouped_attention_bthd": 0,
+            "flash_attention": 0, "seg_block_attention": 0}
 
 # Up to this context length ``mha`` takes the grouped kernel, beyond it the
 # long-context kernel (the JAX dispatcher's threshold)
 GROUPED_MAX_SEQ_LEN = 1024
+
+# the JAX extent-sparse kernel's block edge; ``_seg_block_dispatch`` pads
+# rows to a multiple of it, as the JAX dispatch does
+SEG_BLOCK = 128
+# the Hopper kernels' query and key tile edge (kTile in attention_common.cuh):
+# the extent-sparse kernel's extents are counted in these tiles
+KERNEL_TILE = 64
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
 
 
 def reference_mha(
@@ -77,6 +98,29 @@ def plain_mha(q, k, v, key_mask=None, bias=None, causal=False, sm_scale=None,
                          sm_scale=sm_scale, segment_ids=segment_ids)
 
 
+def plain_mha_bthd(q, k, v, key_mask=None, causal=False, sm_scale=None,
+                   rope_base=None, segment_ids=None):
+    """``grouped_mha_bthd``'s plain version: ``plain_mha`` on (B, T, H, D)
+    tensors, returning (B, T, H, D)."""
+    tr = lambda x: x.transpose(1, 2)
+    return tr(plain_mha(tr(q), tr(k), tr(v), key_mask=key_mask, causal=causal,
+                        sm_scale=sm_scale, rope_base=rope_base,
+                        segment_ids=segment_ids))
+
+
+def plain_seg_block_mha(q, k, v, segment_ids, sm_scale=None, rope_base=None):
+    """``seg_block_mha``'s plain version, in the JAX wrapper's order: RoPE
+    in-graph, q scaled in float32 and rounded to the input dtype, then
+    attention within segments (no key mask: callers fold it into the
+    segment ids)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if rope_base is not None:
+        q, k = apply_rotary_bhtd(q, k, rope_base)
+    q = (q.float() * sm_scale).to(q.dtype)
+    return reference_mha(q, k, v, sm_scale=1.0, segment_ids=segment_ids)
+
+
 @functools.lru_cache(maxsize=1)
 def _kernel_lib():
     from proteingym_tpu_torch.ops._build import load_library
@@ -88,6 +132,11 @@ def _kernel_lib():
         vp, vp, vp, i32, vp, vp, ctypes.c_float, vp,
     ]
     lib.pgym_grouped_attention.restype = i32
+    lib.pgym_grouped_attention_bthd.argtypes = [
+        vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
+        vp, vp, i32, vp, vp, ctypes.c_float, vp,
+    ]
+    lib.pgym_grouped_attention_bthd.restype = i32
     lib.pgym_cuda_error_string.argtypes = [i32]
     lib.pgym_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -121,6 +170,22 @@ def _flash_lib():
     return lib
 
 
+@functools.lru_cache(maxsize=1)
+def _seg_block_lib():
+    from proteingym_tpu_torch.ops._build import load_library
+
+    lib = load_library("seg_block_attention")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.pgym_seg_block_attention.argtypes = [
+        vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
+        vp, vp, vp, i32, vp, vp, ctypes.c_float, vp,
+    ]
+    lib.pgym_seg_block_attention.restype = i32
+    lib.pgym_seg_block_error_string.argtypes = [i32]
+    lib.pgym_seg_block_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _checked_qkv(q, k, v):
     """Raise for what the attention kernels do not take; return q/k/v with
     bf16 views that are not aligned for 16-byte loads copied."""
@@ -148,13 +213,27 @@ def _checked_qkv(q, k, v):
 
 
 def _strides(q, k, v, out):
+    """The first three strides of each tensor, 12 int64 values."""
     return (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]
     )
 
 
+def _checked_segments(segment_ids, b, t, dev):
+    if segment_ids.shape != (b, t):
+        raise ValueError(f"segment_ids must be (B, T)={b, t}, got {tuple(segment_ids.shape)}")
+    return segment_ids.to(device=dev, dtype=torch.int32).contiguous()
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
 def _launch_grouped_attention(q, k, v, key_mask, bias, causal, sm_scale,
-                              rope_base, segment_ids):
+                              rope_base, segment_ids, bthd=False):
+    """Launch the grouped kernel on (B, H, T, D) views. With ``bthd`` the
+    (B, T, H, D) entry is launched (no bias), given the strides of the
+    (B, T, H, D) tensors behind the views."""
     q, k, v = _checked_qkv(q, k, v)
     b, h, t, d = q.shape
     dev = q.device
@@ -170,34 +249,36 @@ def _launch_grouped_attention(q, k, v, key_mask, bias, causal, sm_scale,
             raise ValueError(f"bias must be (H, T)={h, t}, got {tuple(bias.shape)}")
         bias = bias.to(device=dev, dtype=torch.float32).contiguous()
     if segment_ids is not None:
-        if segment_ids.shape != (b, t):
-            raise ValueError(f"segment_ids must be (B, T)={b, t}, got {tuple(segment_ids.shape)}")
-        segment_ids = segment_ids.to(device=dev, dtype=torch.int32).contiguous()
+        segment_ids = _checked_segments(segment_ids, b, t, dev)
     cos = sin = None
     if rope_base is not None:
         cos, sin = _rope_tables(t, d, float(rope_base), dev)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    strides = _strides(q, k, v, out)
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
 
     lib = _kernel_lib()
     with torch.cuda.device(dev):
-        err = lib.pgym_grouped_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-            b, h, t, d, _DTYPE_CODES[q.dtype],
-            ptr(key_mask), ptr(bias), ptr(segment_ids), int(bool(causal)),
-            ptr(cos), ptr(sin), float(sm_scale),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if bthd:
+            err = lib.pgym_grouped_attention_bthd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _strides(*(x.transpose(1, 2) for x in (q, k, v, out))),
+                b, h, t, d, _DTYPE_CODES[q.dtype], _ptr(key_mask),
+                _ptr(segment_ids), int(bool(causal)), _ptr(cos), _ptr(sin),
+                float(sm_scale), stream,
+            )
+        else:
+            err = lib.pgym_grouped_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _strides(q, k, v, out), b, h, t, d, _DTYPE_CODES[q.dtype],
+                _ptr(key_mask), _ptr(bias), _ptr(segment_ids), int(bool(causal)),
+                _ptr(cos), _ptr(sin), float(sm_scale), stream,
+            )
+    name = "grouped_attention_bthd" if bthd else "grouped_attention"
     if err != 0:
-        raise RuntimeError(
-            "grouped_attention launch failed: "
-            + lib.pgym_cuda_error_string(err).decode()
-        )
-    LAUNCHES["grouped_attention"] += 1
+        raise RuntimeError(f"{name} launch failed: "
+                           + lib.pgym_cuda_error_string(err).decode())
+    LAUNCHES[name] += 1
     return out
 
 
@@ -222,6 +303,38 @@ def grouped_mha(
     if q.device.type == "cpu":
         return plain_mha(q, k, v, key_mask, bias, causal, sm_scale,
                          rope_base, segment_ids)
+    raise ValueError(f"no attention path for device {q.device}")
+
+
+def grouped_mha_bthd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+    rope_base: Optional[float] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Heads-mid attention: q/k/v and the result are (B, T, H, D), the
+    layout of the q/k/v projections, so nothing is transposed. No bias (as
+    the TPU kernel takes none). CUDA tensors launch the grouped kernel's
+    (B, T, H, D) entry (any T, head dims in HEAD_DIMS, float32 or
+    bfloat16); CPU tensors take ``plain_mha_bthd``.
+
+    ``key_mask`` and ``segment_ids`` are both honoured, as in ``grouped_mha``
+    (the TPU kernel drops the key mask when segments are given, relying on
+    padding being segment 0; callers that keep that contract see no
+    difference)."""
+    if q.device.type == "cuda":
+        tr = lambda x: x.transpose(1, 2)
+        return tr(_launch_grouped_attention(
+            tr(q), tr(k), tr(v), key_mask, None, causal, sm_scale, rope_base,
+            segment_ids, bthd=True))
+    if q.device.type == "cpu":
+        return plain_mha_bthd(q, k, v, key_mask=key_mask, causal=causal,
+                              sm_scale=sm_scale, rope_base=rope_base,
+                              segment_ids=segment_ids)
     raise ValueError(f"no attention path for device {q.device}")
 
 
@@ -262,8 +375,7 @@ def _launch_flash_attention(q, k, v, key_mask, bias, causal, sm_scale):
         err = lib.pgym_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _strides(q, k, v, out), b, h, t, d, _DTYPE_CODES[q.dtype],
-            None if kbias is None else kbias.data_ptr(), kb_b, kb_h,
-            int(bool(causal)), float(sm_scale),
+            _ptr(kbias), kb_b, kb_h, int(bool(causal)), float(sm_scale),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -295,6 +407,106 @@ def flash_mha(
     raise ValueError(f"no attention path for device {q.device}")
 
 
+def _segment_block_extents(segment_ids: torch.Tensor, n_qb: int,
+                           block: int = SEG_BLOCK):
+    """(B, T) contiguous segment ids, T = n_qb * block -> per-query-block
+    key-block extents [lo, hi) in ``block`` units, both (B, n_qb) int32, on
+    the ids' device: the first block holding the start of any segment the
+    query block touches, and one past the block holding the last end.
+    ``block`` is SEG_BLOCK for the JAX kernel's extents and KERNEL_TILE for
+    the Hopper kernel's."""
+    b, t = segment_ids.shape
+    if t != n_qb * block:
+        raise ValueError(f"T={t} is not {n_qb} blocks of {block}")
+    seg = segment_ids.long()
+    idx = torch.arange(t, device=seg.device)[None].expand(b, t)
+    change = seg[:, 1:] != seg[:, :-1]
+    edge = torch.ones(b, 1, dtype=torch.bool, device=seg.device)
+    is_start = torch.cat([edge, change], dim=1)
+    start_tok = torch.cummax(torch.where(is_start, idx, 0), dim=1).values
+    is_end = torch.cat([change, edge], dim=1)
+    end_rev = torch.cummax(torch.where(is_end, t - 1 - idx, 0).flip(1), dim=1).values
+    end_tok = t - 1 - end_rev.flip(1)
+    lo = start_tok.view(b, n_qb, block).amin(dim=-1) // block
+    hi = end_tok.view(b, n_qb, block).amax(dim=-1) // block + 1
+    return lo.int(), hi.int()
+
+
+def _launch_seg_block_attention(q, k, v, segment_ids, sm_scale, rope_base):
+    q, k, v = _checked_qkv(q, k, v)
+    b, h, t, d = q.shape
+    dev = q.device
+    seg = _checked_segments(segment_ids, b, t, dev)
+    n_qt = -(-t // KERNEL_TILE)
+    # the extents of the last, ragged tile count its missing keys as padding
+    seg_tiles = F.pad(seg, (0, n_qt * KERNEL_TILE - t))
+    lo, hi = (x.contiguous() for x in _segment_block_extents(seg_tiles, n_qt, KERNEL_TILE))
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=dev).permute(0, 2, 1, 3)
+    cos = sin = None
+    if rope_base is not None:
+        cos, sin = _rope_tables(t, d, float(rope_base), dev)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    lib = _seg_block_lib()
+    with torch.cuda.device(dev):
+        err = lib.pgym_seg_block_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _strides(q, k, v, out), b, h, t, d, _DTYPE_CODES[q.dtype],
+            seg.data_ptr(), lo.data_ptr(), hi.data_ptr(), n_qt,
+            _ptr(cos), _ptr(sin), float(sm_scale),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            "seg_block_attention launch failed: "
+            + lib.pgym_seg_block_error_string(err).decode()
+        )
+    LAUNCHES["seg_block_attention"] += 1
+    return out
+
+
+def seg_block_mha(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    segment_ids: torch.Tensor,
+    sm_scale: Optional[float] = None,
+    rope_base: Optional[float] = None,
+) -> torch.Tensor:
+    """Extent-sparse block-diagonal attention for segment-packed rows,
+    (B, H, T, D) -> (B, H, T, D). ``segment_ids`` (B, T) int, contiguous
+    runs, 0 = padding; no key mask (fold it into the ids) and no bias or
+    causal mask. Live queries get dense segmented attention; padding
+    queries compute garbage that callers never consume. With ``rope_base``
+    q/k arrive unrotated; ``sm_scale`` None means 1/sqrt(D).
+
+    CUDA tensors launch the Hopper kernel, which visits only the key tiles
+    that share a segment with each 64-query tile (any T, head dims in
+    HEAD_DIMS, float32 or bfloat16); CPU tensors take
+    ``plain_seg_block_mha``. The JAX kernel needs T to be a multiple of
+    SEG_BLOCK; neither version here does."""
+    if q.device.type == "cuda":
+        return _launch_seg_block_attention(q, k, v, segment_ids, sm_scale, rope_base)
+    if q.device.type == "cpu":
+        return plain_seg_block_mha(q, k, v, segment_ids, sm_scale=sm_scale,
+                                   rope_base=rope_base)
+    raise ValueError(f"no attention path for device {q.device}")
+
+
+def _seg_block_dispatch(q, k, v, segment_ids, sm_scale=None, rope_base=None):
+    """Packed rows longer than GROUPED_MAX_SEQ_LEN: as the JAX dispatch
+    does, pad T to a multiple of SEG_BLOCK (padding is segment 0, which
+    live queries never attend), run ``seg_block_mha`` and slice the output
+    back to T."""
+    t = q.shape[2]
+    t_pad = _round_up(t, SEG_BLOCK)
+    if t_pad != t:
+        q, k, v = (F.pad(x, (0, 0, 0, t_pad - t)) for x in (q, k, v))
+        segment_ids = F.pad(segment_ids, (0, t_pad - t))
+    return seg_block_mha(q, k, v, segment_ids, sm_scale=sm_scale,
+                         rope_base=rope_base)[:, :, :t]
+
+
 def mha(q, k, v, key_mask=None, bias=None, causal=False, sm_scale=None,
         rope_base=None, segment_ids=None):
     """Attention dispatch, as the JAX ``mha`` routes on a TPU:
@@ -302,18 +514,50 @@ def mha(q, k, v, key_mask=None, bias=None, causal=False, sm_scale=None,
     - T <= GROUPED_MAX_SEQ_LEN: ``grouped_mha`` (RoPE fused);
     - longer, without ``segment_ids``: RoPE in-graph when ``rope_base`` is
       set, then the long-context ``flash_mha``;
-    - longer, with ``segment_ids``: ``grouped_mha`` again, which has no
-      context cap here. The JAX package sends these calls to XLA (causal)
-      or to its block-sparse kernel K3 (not causal); the grouped kernel
-      computes the same function, and K3 is not ported.
+    - longer, with ``segment_ids``, no bias and not causal (ESM's packed
+      rows): ``key_mask`` folded into the segment ids (masked keys join
+      segment 0), then the extent-sparse ``seg_block_mha`` through
+      ``_seg_block_dispatch``. The ids must run contiguously: a masked hole
+      inside a segment would split its run;
+    - longer, with ``segment_ids`` and causal or a bias (PoET's self tier):
+      ``grouped_mha``, which has no context cap here. The JAX package takes
+      its dense XLA path there, which computes the same function.
 
     Each wrapper runs its plain version on CPU tensors, so the routing is
     the same on both devices."""
-    if q.shape[2] > GROUPED_MAX_SEQ_LEN and segment_ids is None:
+    if q.shape[2] <= GROUPED_MAX_SEQ_LEN or (
+            segment_ids is not None and (causal or bias is not None)):
+        return grouped_mha(q, k, v, key_mask=key_mask, bias=bias, causal=causal,
+                           sm_scale=sm_scale, rope_base=rope_base,
+                           segment_ids=segment_ids)
+    if segment_ids is None:
         if rope_base is not None:
             q, k = apply_rotary_bhtd(q, k, rope_base)
         return flash_mha(q, k, v, key_mask=key_mask, bias=bias, causal=causal,
                          sm_scale=sm_scale)
-    return grouped_mha(q, k, v, key_mask=key_mask, bias=bias, causal=causal,
-                       sm_scale=sm_scale, rope_base=rope_base,
-                       segment_ids=segment_ids)
+    if key_mask is not None:
+        segment_ids = torch.where(key_mask.to(segment_ids.device, torch.bool),
+                                  segment_ids, 0)
+    return _seg_block_dispatch(q, k, v, segment_ids, sm_scale=sm_scale,
+                               rope_base=rope_base)
+
+
+def mha_natural(q, k, v, key_mask=None, bias=None, causal=False,
+                sm_scale=None, rope_base=None, segment_ids=None):
+    """Attention at the model's natural layout: q/k/v and the result are
+    (B, T, H, D), the projection outputs seen per head.
+
+    T <= GROUPED_MAX_SEQ_LEN without a bias goes to ``grouped_mha_bthd``;
+    every other call goes to ``mha`` on transposed views. The JAX function
+    takes the heads-mid kernel only behind an opt-in switch, and only where
+    its model of the TPU's scoped VMEM says that all heads' (T, D) blocks
+    fit (``BTHD_MAX_SEQ_LEN``, ``_bthd_block_q``); Hopper has no scoped
+    VMEM and its kernel streams key tiles, so neither condition applies."""
+    if q.shape[1] <= GROUPED_MAX_SEQ_LEN and bias is None:
+        return grouped_mha_bthd(q, k, v, key_mask=key_mask, causal=causal,
+                                sm_scale=sm_scale, rope_base=rope_base,
+                                segment_ids=segment_ids)
+    tr = lambda x: x.transpose(1, 2)
+    return tr(mha(tr(q), tr(k), tr(v), key_mask=key_mask, bias=bias,
+                  causal=causal, sm_scale=sm_scale, rope_base=rope_base,
+                  segment_ids=segment_ids))

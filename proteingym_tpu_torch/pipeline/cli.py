@@ -4,7 +4,7 @@ proteingym_tpu/pipeline/cli.py for ``score --model esm|poet`` and
 
     python -m proteingym_tpu_torch.pipeline.cli score --model esm \\
         --checkpoint esm2_t33_650M --dms-reference ref.csv --dms-dir dms/ \\
-        --output-dir out/ [--device cuda|cpu]
+        --output-dir out/ [--device cuda|cpu] [--packed]
     python -m proteingym_tpu_torch.pipeline.cli score --model poet \\
         --checkpoint poet_200m --msa-dir msa/ --weights-dir weights/ \\
         --dms-reference ref.csv --dms-dir dms/ --output-dir out/
@@ -14,7 +14,10 @@ proteingym_tpu/pipeline/cli.py for ``score --model esm|poet`` and
 Per assay it writes ``<DMS_id>.csv`` (the input columns, plus
 ``mutated_sequence`` when absent, plus the score column) into the output
 directory, with ``manifest.jsonl`` (done/failed per task, for resuming)
-and ``events.jsonl`` (phase timings and throughput) beside it.
+and ``events.jsonl`` (phase timings and throughput) beside it. With
+``--packed`` (ESM masked marginals) the masked rows of all selected assays
+share forward batches; the batch is one ``score_packed`` phase and fails
+or succeeds as a whole.
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ from proteingym_tpu.pipeline.manifest import Manifest
 from proteingym_tpu.pipeline.telemetry import EventLog
 from proteingym_tpu_torch.data.mutants import apply_mutant
 from proteingym_tpu_torch.data.reference import load_reference
-from proteingym_tpu_torch.pipeline.scorers import SCORERS, ScoreContext
+from proteingym_tpu_torch.pipeline.scorers import (
+    SCORERS, ScoreContext, score_esm_packed_batch,
+)
 
 
 def _parse_extra(pairs):
@@ -65,6 +70,28 @@ def _read_csv(path: Path):
         return list(reader.fieldnames or []), rows
 
 
+def _write_scores(path: Path, columns, rows, scores) -> None:
+    """The input columns plus one column per score array."""
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(columns + list(scores))
+        for i, row in enumerate(rows):
+            writer.writerow([row[c] for c in columns]
+                            + [repr(float(v[i])) for v in scores.values()])
+
+
+def _emit_throughput(log, label, n_mutants, seconds) -> None:
+    log.emit("throughput", label=label, n_mutants=n_mutants,
+             seconds=round(seconds, 4),
+             mutants_per_sec=round(n_mutants / max(seconds, 1e-9), 2))
+
+
+def _emit_summary(log, total_mutants, total_seconds) -> None:
+    log.emit("throughput_summary", total_mutants=total_mutants,
+             total_seconds=round(total_seconds, 3),
+             mutants_per_sec=round(total_mutants / max(total_seconds, 1e-9), 2))
+
+
 def cmd_score(args) -> int:
     if args.model not in SCORERS:
         print(f"Unknown model '{args.model}'. Available: {sorted(SCORERS)}")
@@ -82,6 +109,8 @@ def cmd_score(args) -> int:
     output_dir.mkdir(parents=True, exist_ok=True)
     log = EventLog(output_dir / "events.jsonl", echo=not args.quiet)
     manifest = Manifest(output_dir / "manifest.jsonl")
+    if args.packed:
+        return _cmd_score_packed(args, records, output_dir, log, manifest, device)
     scorer = SCORERS[args.model]
     extra = _parse_extra(args.extra)
 
@@ -118,17 +147,10 @@ def cmd_score(args) -> int:
                 t0 = time.perf_counter()
                 scores = scorer(ctx)
                 dt = time.perf_counter() - t0
-            log.emit("throughput", label=task, n_mutants=len(rows),
-                     seconds=round(dt, 4),
-                     mutants_per_sec=round(len(rows) / max(dt, 1e-9), 2))
+            _emit_throughput(log, task, len(rows), dt)
             total_mutants += len(rows)
             total_seconds += dt
-            with open(out_path, "w", newline="") as f:
-                writer = csv.writer(f)
-                writer.writerow(columns + list(scores))
-                for i, row in enumerate(rows):
-                    writer.writerow([row[c] for c in columns]
-                                    + [repr(float(v[i])) for v in scores.values()])
+            _write_scores(out_path, columns, rows, scores)
             manifest.mark_done(task, rows=len(rows))
         except Exception as e:  # noqa: BLE001 — per-assay isolation
             failures += 1
@@ -137,10 +159,58 @@ def cmd_score(args) -> int:
             if args.fail_fast:
                 raise
     if total_mutants:
-        log.emit("throughput_summary", total_mutants=total_mutants,
-                 total_seconds=round(total_seconds, 3),
-                 mutants_per_sec=round(total_mutants / max(total_seconds, 1e-9), 2))
+        _emit_summary(log, total_mutants, total_seconds)
     return 1 if failures else 0
+
+
+def _cmd_score_packed(args, records, output_dir, log, manifest, device) -> int:
+    """Cross-assay packed scoring (``score --packed``, ESM masked marginals
+    only): the masked rows of all pending assays share forward batches.
+    Each output CSV holds the input columns plus the score column."""
+    if args.model != "esm":
+        print("--packed currently supports --model esm")
+        return 2
+    tasks = []  # (record, columns, rows)
+    for rec in records:
+        task = f"{args.model}/{rec.DMS_id}"
+        out_path = output_dir / f"{rec.DMS_id}.csv"
+        if manifest.is_done(task) and out_path.exists() and not args.overwrite:
+            log.emit("task_skipped", task=task)
+            continue
+        dms_path = Path(args.dms_dir) / (rec.DMS_filename or f"{rec.DMS_id}.csv")
+        if not dms_path.exists():
+            log.emit("task_missing_input", task=task, path=str(dms_path))
+            continue
+        try:
+            tasks.append((rec, *_read_csv(dms_path)))
+        except Exception as e:  # noqa: BLE001 — per-assay input isolation
+            manifest.mark_failed(task, error=repr(e))
+            log.emit("task_failed", task=task, error=repr(e))
+    if not tasks:
+        return 0
+    n_total = sum(len(rows) for _, _, rows in tasks)
+    try:
+        with log.phase("score_packed", n_assays=len(tasks), n_mutants=n_total):
+            t0 = time.perf_counter()
+            outputs = score_esm_packed_batch(
+                [(rec, [row["mutant"] for row in rows]) for rec, _, rows in tasks],
+                args.checkpoint, batch_size=args.batch_size,
+                extra=_parse_extra(args.extra), device=device,
+            )
+            dt = time.perf_counter() - t0
+        _emit_throughput(log, f"packed/{len(tasks)}", n_total, dt)
+    except Exception as e:  # noqa: BLE001 — batch-level failure
+        for rec, _, _ in tasks:
+            manifest.mark_failed(f"{args.model}/{rec.DMS_id}", error=repr(e))
+        log.emit("task_failed", task="packed_batch", error=repr(e))
+        if args.fail_fast:
+            raise
+        return 1
+    for rec, columns, rows in tasks:
+        _write_scores(output_dir / f"{rec.DMS_id}.csv", columns, rows, outputs[rec.DMS_id])
+        manifest.mark_done(f"{args.model}/{rec.DMS_id}", rows=len(rows))
+    _emit_summary(log, n_total, dt)
+    return 0
 
 
 def cmd_weights(args) -> int:
@@ -173,6 +243,10 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--batch-size", type=int, default=32)
     s.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the model runs (the JAX CLI's --platform)")
+    s.add_argument("--packed", action="store_true",
+                   help="cross-assay packed scoring: masked rows from all "
+                        "selected assays share forward batches (ESM "
+                        "masked-marginals; the production throughput path)")
     s.add_argument("--overwrite", action="store_true")
     s.add_argument("--fail-fast", action="store_true")
     s.add_argument("--quiet", action="store_true")

@@ -1,5 +1,6 @@
 """Scorer registry (counterpart of proteingym_tpu/pipeline/scorers.py):
-``esm`` (masked marginals) and ``poet`` (MSA-conditioned likelihood).
+``esm`` (masked marginals) and ``poet`` (MSA-conditioned likelihood), plus
+``score_esm_packed_batch``, the cross-assay packed ESM path.
 
 Each scorer is ``scorer(ctx: ScoreContext) -> {column: scores}``: the CLI
 reads the assay, calls the scorer and writes the input columns plus the
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -104,6 +105,43 @@ def score_esm(ctx: ScoreContext) -> Dict[str, np.ndarray]:
         del model  # one member's weights on the device at a time
     column = f"{name}_ensemble" if len(per_member) > 1 else f"{name}_score"
     return {column: np.mean(per_member, axis=0)}
+
+
+def score_esm_packed_batch(
+    tasks: Sequence[Tuple[AssayRecord, Sequence[str]]],
+    checkpoint: Optional[str],
+    batch_size: int = 32,
+    extra: Optional[dict] = None,
+    device="cpu",
+) -> Dict[str, Dict[str, np.ndarray]]:
+    """Cross-assay packed ESM masked-marginal scoring, the path behind
+    ``score --packed``.
+
+    tasks: (AssayRecord, mutant strings) per assay. All assays' masked rows
+    share forward batches of ``batch_size`` rows
+    (models/packed_scoring.py); the scores equal the per-assay scorer's.
+    Returns {DMS_id: {"<checkpoint name>_score": scores}}. ``--extra
+    cols_per_forward=k`` opts into k-column masking (~1/k the forwards);
+    k=1, the default, is the reference-exact protocol."""
+    from proteingym_tpu_torch.models.packed_scoring import score_assays_packed
+    from proteingym_tpu_torch.pipeline.checkpoints import load_esm_checkpoint
+
+    extra = extra or {}
+    if extra.get("ensemble") or extra.get("mesh"):
+        raise ValueError(
+            "--packed does not combine with ensemble/mesh scoring; run "
+            "those per-assay"
+        )
+    if extra.get("scoring_strategy", "masked-marginals") != "masked-marginals":
+        raise ValueError("--packed supports masked-marginals only")
+    model, config = load_esm_checkpoint(checkpoint, device=device)
+    scores = score_assays_packed(
+        model, [(rec.target_seq, list(mutants)) for rec, mutants in tasks],
+        chunk=batch_size, window=config.max_positions,
+        cols_per_forward=int(extra.get("cols_per_forward", 1)),
+    )
+    return {rec.DMS_id: {f"{config.name}_score": s}
+            for (rec, _), s in zip(tasks, scores)}
 
 
 @register_scorer("poet")

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (grouped and long-context attention, cluster
-counts) against their plain PyTorch versions on the card.
+"""The port's CUDA kernels (grouped attention and its heads-mid entry,
+long-context and extent-sparse segmented attention, cluster counts) against
+their plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one; the kernels have no CPU mode. The file imports neither jax nor the
@@ -114,11 +115,14 @@ def test_model_forward_goes_through_the_kernel(dtype, dev):
     toks = torch.from_numpy(np.stack([esm2.ALPHABET.tokenize("MKTAYIAKQRQISFVKSHF", pad_to=24),
                                       esm2.ALPHABET.tokenize("GLIEVQAPILSRVGDG", pad_to=24)]))
     toks = toks.long().to(dev)
-    before = fa.LAUNCHES["grouped_attention"]
+    before = dict(fa.LAUNCHES)
     got = model(toks)
-    assert fa.LAUNCHES["grouped_attention"] == before + config.num_layers
+    # ESM's attention runs at the (B, T, H, D) layout: the heads-mid entry
+    assert fa.LAUNCHES["grouped_attention_bthd"] == (
+        before["grouped_attention_bthd"] + config.num_layers)
+    assert fa.LAUNCHES["grouped_attention"] == before["grouped_attention"]
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(esm2, "mha", fa.plain_mha)
+        mp.setattr(esm2, "mha_natural", fa.plain_mha_bthd)
         want = model(toks)
     torch.testing.assert_close(got, want, atol=TOL[dtype] * 5, rtol=0)
 
@@ -169,6 +173,145 @@ def test_flash_kernel_rejects_what_it_does_not_take(dev):
     q = torch.zeros(1, 2, 1100, 32, device=dev)
     with pytest.raises(ValueError, match="key_mask must be"):
         fa.flash_mha(q, q, q, key_mask=torch.ones(1, 1000, dtype=torch.bool, device=dev))
+
+
+# the heads-mid entry (K4): name -> (B, T, H, D, keyword arguments)
+BTHD_CASES = {
+    "mask_rope": (4, 256, 20, 64, {"key_mask": _lengths_mask(256, [252, 250, 201, 64]),
+                                   "rope_base": 10000.0}),
+    "segmented": (2, 40, 4, 64, {"segment_ids": _segments(40), "key_mask": _segments(40) > 0}),
+    "causal": (2, 130, 4, 32, {"causal": True}),
+    "causal_mask": (2, 100, 4, 32, {"causal": True, "key_mask": _lengths_mask(100, [100, 61])}),
+    "all_masked_row": (2, 100, 4, 32, {"key_mask": torch.stack(
+        [torch.ones(100, dtype=torch.bool), torch.zeros(100, dtype=torch.bool)])}),
+    "hd24_scale": (2, 77, 4, 24, {"sm_scale": 0.3, "rope_base": 10000.0}),
+    "hd128_T1024": (1, 1024, 2, 128, {"rope_base": 10000.0,
+                                      "key_mask": _lengths_mask(1024, [1000])}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BTHD_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bthd_entry_matches_plain(case, dtype, dev):
+    b, t, h, d, kw = BTHD_CASES[case]
+    gen = torch.Generator().manual_seed(30 + sorted(BTHD_CASES).index(case))
+    q, k, v = (torch.randn(b, t, h, d, generator=gen).to(dev, dtype) for _ in range(3))
+    kw = {n: x.to(dev) if torch.is_tensor(x) else x for n, x in kw.items()}
+    before = dict(fa.LAUNCHES)
+    got = fa.grouped_mha_bthd(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["grouped_attention_bthd"] == before["grouped_attention_bthd"] + 1
+    assert fa.LAUNCHES["grouped_attention"] == before["grouped_attention"]
+    assert got.shape == (b, t, h, d)
+    want = fa.plain_mha_bthd(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _runs(b, t, bounds):
+    seg = torch.zeros(b, t, dtype=torch.int32)
+    for i, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+        seg[:, lo:hi] = i + 1
+    return seg
+
+
+# the extent-sparse kernel (K3): name -> (T, head dim, segment ids, keyword
+# arguments); segments cross the 64-token tiles
+SEG_CASES = {
+    "tail_and_crossings": (512, 64, _runs(2, 512, [0, 200, 310, 470]), {}),
+    "one_segment": (512, 64, _runs(2, 512, [0, 512]), {"rope_base": 10000.0}),
+    "rope_sixteen": (4096, 64, _runs(1, 4096, list(range(0, 4001, 250))), {"rope_base": 10000.0}),
+    "ragged_T": (1100, 32, _runs(2, 1100, [0, 90, 91, 500, 1037]), {"rope_base": 10000.0}),
+    "scale_hd16": (300, 16, _runs(2, 300, [0, 120, 260]), {"sm_scale": 0.3}),
+    "hd128": (1152, 128, _runs(1, 1152, [0, 300, 700, 1100]), {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SEG_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_seg_block_kernel_matches_plain(case, dtype, dev):
+    t, d, seg, kw = SEG_CASES[case]
+    b = seg.shape[0]
+    gen = torch.Generator().manual_seed(70 + sorted(SEG_CASES).index(case))
+    q, k, v = (torch.randn(b, t, 4, d, generator=gen).to(dev, dtype).permute(0, 2, 1, 3)
+               for _ in range(3))
+    seg = seg.to(dev)
+    before = fa.LAUNCHES["seg_block_attention"]
+    got = fa.seg_block_mha(q, k, v, seg, **kw).float()
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["seg_block_attention"] == before + 1
+    want = fa.plain_seg_block_mha(q.float(), k.float(), v.float(), seg, **kw)
+    live = (seg > 0).cpu()  # padding queries are never consumed
+    tr = lambda x: x.transpose(1, 2).cpu()[live]
+    torch.testing.assert_close(tr(got), tr(want), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dispatcher_folds_the_key_mask_into_the_extent_sparse_kernel(dtype, dev):
+    t = 1152
+    gen = torch.Generator().manual_seed(90)
+    q, k, v = (torch.randn(2, t, 4, 64, generator=gen).to(dev, dtype).permute(0, 2, 1, 3)
+               for _ in range(3))
+    seg = _runs(2, t, [0, 300, 700, 1100]).to(dev)
+    mask = seg > 0
+    mask[1, 650:700] = False  # masked keys at a segment's tail
+    before = dict(fa.LAUNCHES)
+    got = fa.mha(q, k, v, key_mask=mask, segment_ids=seg, rope_base=10000.0).float()
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["seg_block_attention"] == before["seg_block_attention"] + 1
+    assert fa.LAUNCHES["grouped_attention"] == before["grouped_attention"]
+    want = fa.plain_mha(q.float(), k.float(), v.float(), key_mask=mask, segment_ids=seg,
+                        rope_base=10000.0)
+    live = mask.cpu()
+    tr = lambda x: x.transpose(1, 2).cpu()[live]
+    torch.testing.assert_close(tr(got), tr(want), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_k3_and_k4_reject_what_they_do_not_take(dev):
+    q = torch.zeros(1, 64, 2, 32, device=dev)
+    with pytest.raises(TypeError):
+        fa.grouped_mha_bthd(q, q, q, bias=torch.zeros(2, 64, device=dev))
+    with pytest.raises(ValueError, match="head dim 40"):
+        fa.grouped_mha_bthd(*(torch.zeros(1, 64, 2, 40, device=dev),) * 3)
+    with pytest.raises(ValueError, match="key_mask must be"):
+        fa.grouped_mha_bthd(q, q, q, key_mask=torch.ones(1, 60, dtype=torch.bool, device=dev))
+    qh = q.transpose(1, 2)
+    with pytest.raises(ValueError, match="segment_ids must be"):
+        fa.seg_block_mha(qh, qh, qh, torch.ones(1, 60, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.seg_block_mha(*(qh.half(),) * 3, torch.ones(1, 64, dtype=torch.int32, device=dev))
+    with pytest.raises(TypeError):
+        fa.seg_block_mha(qh, qh, qh, torch.ones(1, 64, device=dev), causal=True)
+
+
+@pytest.mark.parametrize("t,entry", [(1152, "seg_block_attention"),
+                                     (256, "grouped_attention_bthd")])
+def test_segmented_model_forward_takes_the_expected_kernel(t, entry, dev):
+    # two packed segments per row, then padding: beyond 1024 tokens the
+    # extent-sparse kernel runs, up to 1024 the heads-mid entry
+    config = esm2.EsmConfig("esm2_small", 3, 128, 4, dtype=torch.bfloat16)
+    model = esm2.init_random(config, seed=0, device=dev)
+    rng = np.random.default_rng(t)
+    toks = torch.full((2, t), esm2.ALPHABET.padding_idx, dtype=torch.long)
+    seg = torch.zeros(2, t, dtype=torch.int32)
+    for row, lens in enumerate(([t // 3, t // 2], [t // 4, t // 2 + 10])):
+        begin = 0
+        for s, n in enumerate(lens, start=1):
+            residues = "".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), n - 2))
+            toks[row, begin:begin + n] = torch.from_numpy(esm2.ALPHABET.tokenize(residues))
+            seg[row, begin:begin + n] = s
+            begin += n
+    toks, seg = toks.to(dev), seg.to(dev)
+    apply_fn = esm2.make_segmented_apply_fn(model)
+    before = dict(fa.LAUNCHES)
+    got = apply_fn(toks, seg)
+    torch.cuda.synchronize()
+    counts = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
+    assert counts == {**{n: 0 for n in fa.LAUNCHES}, entry: config.num_layers}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(esm2, "mha_natural", fa.plain_mha_bthd)
+        want = apply_fn(toks, seg)
+    live = (seg > 0)
+    torch.testing.assert_close(got[live], want[live], atol=0.1, rtol=0)
 
 
 def _alignment(seed, n, length):

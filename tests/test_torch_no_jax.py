@@ -23,7 +23,7 @@ def test_port_imports_without_jax_or_pandas():
         sys.modules["pandas"] = None
         import proteingym_tpu_torch
         from proteingym_tpu_torch.pipeline import cli, scorers, checkpoints
-        from proteingym_tpu_torch.models import esm2, esm_scoring, poet
+        from proteingym_tpu_torch.models import esm2, esm_scoring, packed_scoring, poet
         from proteingym_tpu_torch.msa import parser, weights
         from proteingym_tpu_torch.ops import flash_attention, rotary, gather_logprobs, _build
         from proteingym_tpu_torch.data import mutants, windows, reference
