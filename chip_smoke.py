@@ -48,6 +48,17 @@ Phases (any failure raises, and the script exits non-zero):
    row_len=4096)`` with ESM2-650M on the assays up to L=709, twice: 33 K3
    launches per forward and no K1 launch; scores equal phase 10's; two
    packed rows' log-probs recomputed with the plain attention.
+12. the benchmark flow, ESM2-650M: (a) ``score --extra
+   scoring_strategy=wt-marginals`` on phase 4's L=250 assay and on an
+   L=3000 assay (five overlapping windows in one forward), 33 K4 launches
+   each, tables against the plain attention; (b) ``pseudo-ppl`` on 16
+   mutants of the L=250 assay, 33 x 17 x 16 K4 launches, the WT's and one
+   mutant's masked tables against the plain attention; (c) ``merge`` then
+   ``evaluate --device cuda`` of the three ESM score files; (d) ``merge``
+   and ``evaluate`` of 217 synthetic assays x 2,000 mutants x 10 models,
+   bootstrap 10,000, on the card and on the CPU: every CSV equal at 1e-9,
+   the ranking in noise order, Spearman and AUC on the card against scipy;
+   (e) ``evaluate-clinical --device cuda``.
 
 It prints one JSON line describing the kernels, then, as its last line,
 ``{"ok": true, "device": {...}}``. With no CUDA device, or outside a
@@ -113,6 +124,12 @@ PACKED_MIX = (72, 118, 250, 448, 709, 1500)  # the JAX bench's production mix
 PACKED_BATCH = 32  # rows per forward of the bucketed packed path
 SEG_ROW_LEN, SEG_CHUNK = 4096, 8  # segment-packed rows and rows per forward
 SEG_MIX = PACKED_MIX[:-1]  # L=1500's 1,024-token windows would add ~1.5M tokens
+# the shapes of phase 12
+WT_LONG = 3000  # five overlapping 1,024-token windows: [0, 1978, 511, 1467, 989]
+PPPL_MUTANTS = 16  # pseudo-ppl: one masked table per mutant and one for the WT
+# (assays, mutants per assay, model noise levels): ProteinGym's 217
+# substitution assays, cut from ~2.5M mutants and 97 models
+EVAL_SCALE = (217, 2000, tuple(0.2 * (j + 1) for j in range(10)))
 
 
 def fail(msg: str) -> None:
@@ -729,6 +746,395 @@ def phase_segment_packed(torch, dev, card, fa, esm2, check_close, packed_scores)
     return {"launches": launches, "mutants_per_s": n_mut / runs[1]}
 
 
+
+def score_cli(cli, ref, dms_dir, dms_id, out_dir, chunk, strategy):
+    """``score --model esm --checkpoint esm2_t33_650M`` of one assay with a
+    scoring strategy."""
+    rc = cli.main([
+        "score", "--model", "esm", "--checkpoint", "esm2_t33_650M",
+        "--dms-reference", str(ref), "--dms-dir", str(dms_dir), "--dms-id", dms_id,
+        "--output-dir", str(out_dir), "--batch-size", str(chunk), "--device", "cuda",
+        "--quiet", "--fail-fast", "--extra", f"scoring_strategy={strategy}",
+    ])
+    if rc != 0:
+        fail(f"score CLI exited {rc} for {dms_id}, scoring_strategy={strategy}")
+
+
+def write_csv_rows(path: Path, header, rows) -> None:
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(header)
+        w.writerows(rows)
+
+
+def write_reference(path: Path, rows) -> None:
+    """A DMS reference CSV with the columns merge and evaluate read."""
+    write_csv_rows(path, ["DMS_id", "DMS_filename", "UniProt_ID", "target_seq", "seq_len",
+                          "taxon", "coarse_selection_type", "MSA_Neff_L_category",
+                          "DMS_total_number_mutants"], rows)
+
+
+def read_table(path: Path):
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def phase_wt_pppl(torch, dev, card, fa, cli, esm2, esm_scoring, masked):
+    """12a-b. wt-marginals at L=250 and L=3000, then pseudo-ppl at L=250,
+    through the CLI with ESM2-650M; K4 launches counted, tables held
+    against the plain attention."""
+    from proteingym_tpu_torch.data.mutants import apply_mutant
+
+    seq, mutants, masked_scores, chunk = masked
+    config = esm2.PRESETS["esm2_t33_650M"]
+    long_seq, long_all = synth_assay(WT_LONG, 2)
+    long_mutants = long_all[::19]
+    pppl_mutants = mixed_mutants(seq, PPPL_MUTANTS)
+    assays = [("SYNTH_L250", seq, mutants), (f"SYNTH_L{WT_LONG}", long_seq, long_mutants)]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ref, dms_dir = write_assays(root, assays)
+        print(f"[wt_marginals] score --extra scoring_strategy=wt-marginals, "
+              f"esm2_t33_650M, L=250 and L={WT_LONG}")
+        wt_launches, cli_scores = {}, {}
+        for dms_id, _, muts in assays:
+            for name in fa.LAUNCHES:
+                fa.LAUNCHES[name] = 0
+            score_cli(cli, ref, dms_dir, dms_id, root / "wt", chunk, "wt-marginals")
+            counts = dict(fa.LAUNCHES)
+            cli_scores[dms_id] = read_scores(root / "wt" / f"{dms_id}.csv",
+                                             "esm2_t33_650M_score", len(muts))
+            print(f"  {dms_id}: {len(muts)} finite scores; launches {counts} (expected "
+                  f"{config.num_layers} of K4: one forward)")
+            if counts["grouped_attention_bthd"] != config.num_layers or (
+                    sum(counts.values()) != config.num_layers):
+                fail(f"wt-marginals launch counts {counts} for {dms_id} do not match the path")
+            for name, c in counts.items():
+                wt_launches[name] = wt_launches.get(name, 0) + c
+        wt_rows_250 = read_table(root / "wt" / "SYNTH_L250.csv")
+
+        model = esm2.init_random(config, seed=0, device=dev)  # the CLI's weights
+        for dms_id, s, muts in assays:
+            name = f"L={len(s)}"
+            tokens = esm2.ALPHABET.tokenize(s)
+            plan = esm_scoring.overlapping_window_plan(len(tokens), config.max_positions)
+            table = esm_scoring.wt_marginal_table_overlapping(model, tokens,
+                                                              window=config.max_positions)
+            rescored = esm_scoring.score_mutants_from_table(table, muts, s)
+            if not np.allclose(rescored, cli_scores[dms_id], atol=1e-5):
+                fail(f"wt-marginal scores at {name} recomputed outside the CLI differ")
+            runs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                esm_scoring.wt_marginal_table_overlapping(model, tokens,
+                                                          window=config.max_positions)
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t0)
+            with mock.patch.object(esm2, "mha_natural", fa.plain_mha_bthd):
+                plain = esm_scoring.wt_marginal_table_overlapping(model, tokens,
+                                                                  window=config.max_positions)
+            windows = (f"{len(plan)} windows {plan} in one forward"
+                       if len(tokens) > config.max_positions else "one forward")
+            print(f"  {name} ({len(tokens)} tokens, {windows}): table "
+                  f"{statistics.median(runs) * 1e3:.2f} ms median of 3 ({card})")
+            check_close(f"wt table {name}, kernel vs plain attention", table, plain,
+                        TABLE_ATOL, 0.0)
+
+        print(f"[pseudo_ppl] score --extra scoring_strategy=pseudo-ppl, esm2_t33_650M, "
+              f"L=250, {len(pppl_mutants)} mutants (singles and doubles)")
+        (root / "p").mkdir()
+        ref_p, dms_p = write_assays(root / "p", [("SYNTH_L250", seq, pppl_mutants)])
+        for name in fa.LAUNCHES:
+            fa.LAUNCHES[name] = 0
+        t0 = time.perf_counter()
+        score_cli(cli, ref_p, dms_p, "SYNTH_L250", root / "pppl", chunk, "pseudo-ppl")
+        pppl_wall = time.perf_counter() - t0
+        pppl_launches = dict(fa.LAUNCHES)
+        pppl_scores = read_scores(root / "pppl" / "SYNTH_L250.csv", "esm2_t33_650M_score",
+                                  len(pppl_mutants))
+        n_tables = len(pppl_mutants) + 1
+        expected = config.num_layers * n_tables * n_chunk_forwards(250, chunk)
+        print(f"  launches {pppl_launches} (expected {config.num_layers} layers x {n_tables} "
+              f"tables x {n_chunk_forwards(250, chunk)} forwards = {expected} of K4); CLI wall "
+              f"{pppl_wall:.2f} s incl. weight init")
+        if pppl_launches["grouped_attention_bthd"] != expected or (
+                sum(pppl_launches.values()) != expected):
+            fail(f"pseudo-ppl launch counts {pppl_launches} do not match the path")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        esm_scoring.score_assay(model, seq, pppl_mutants, strategy="pseudo-ppl", chunk=chunk,
+                                window=config.max_positions)
+        torch.cuda.synchronize()
+        pppl_s = time.perf_counter() - t0
+        print(f"  pseudo-ppl scoring {pppl_s:.3f} s -> {len(pppl_mutants) / pppl_s:.2f} "
+              f"mutants/s ({n_tables} masked tables; {card})")
+        mut_seq = apply_mutant(seq, pppl_mutants[-1])
+        tables = {}
+        for name, s in (("WT", seq), (pppl_mutants[-1], mut_seq)):
+            tokens = esm2.ALPHABET.tokenize(s)
+            kw = dict(chunk=chunk, window=config.max_positions, pad_to_multiple=64)
+            got = esm_scoring.masked_marginal_table(model, tokens, **kw)
+            with mock.patch.object(esm2, "mha_natural", fa.plain_mha_bthd):
+                want = esm_scoring.masked_marginal_table(model, tokens, **kw)
+            check_close(f"pppl masked table {name}, kernel vs plain", got, want, TABLE_ATOL, 0.0)
+            idx = torch.as_tensor(tokens[1:-1], device=dev)
+            tables[name] = float(got[torch.arange(1, len(s) + 1, device=dev), idx].sum())
+        err = abs((tables[pppl_mutants[-1]] - tables["WT"]) - pppl_scores[-1])
+        print(f"  pppl({pppl_mutants[-1]}) - pppl(WT) from the tables vs the CLI: "
+              f"abs err {err:.3e} (atol 1e-3)")
+        if err > 1e-3:
+            fail("pseudo-ppl score recomputed from the tables differs from the CLI's")
+        del model
+        torch.cuda.empty_cache()
+
+    score_files = {  # location -> the score rows of the L=250 assay
+        "masked": [[m, repr(float(v))] for m, v in zip(mutants, masked_scores)],
+        "wt": [[r[0], r[-1]] for r in wt_rows_250[1:]],
+        "pppl": [[m, repr(float(v))] for m, v in zip(pppl_mutants, pppl_scores)],
+    }
+    return {"wt_launches": wt_launches, "pppl_launches": pppl_launches,
+            "pppl_mutants": pppl_mutants, "score_files": score_files}
+
+
+def mixed_mutants(seq: str, n: int):
+    """``n`` distinct singles and doubles, alternating, at seeded positions."""
+    rs = np.random.RandomState(16)
+    out = []
+    for i in range(n):
+        pos = sorted(rs.choice(len(seq), 1 + i % 2, replace=False))
+        out.append(":".join(f"{seq[p]}{p + 1}{AA[(AA.index(seq[p]) + 1 + i) % 20]}"
+                            for p in pos))
+    return out
+
+
+SUMMARY_COLUMNS = [
+    "Model_rank", "Model_name", "Model type", "Average_{m}", "Bootstrap_standard_error_{m}",
+    "Function_Activity", "Function_Binding", "Function_Expression",
+    "Function_OrganismalFitness", "Function_Stability", "Low_MSA_depth", "Medium_MSA_depth",
+    "High_MSA_depth", "Taxa_Human", "Taxa_Other_Eukaryote", "Taxa_Prokaryote", "Taxa_Virus",
+    "Depth_1", "Depth_2", "Depth_3", "Depth_4", "Depth_5+", "Model details", "References"]
+METRIC_NAMES = ("Spearman", "AUC", "MCC", "NDCG", "Top_recall")
+
+
+def run_merge_evaluate(cli, root: Path, device: str, bootstrap: int, tag: str):
+    """``merge`` (once) then ``evaluate`` through the CLI; returns the
+    evaluate event (walls split into I/O, metrics, bootstrap)."""
+    if not (root / "merged").exists():
+        rc = cli.main(["merge", "--dms-reference", str(root / "reference.csv"),
+                       "--dms-dir", str(root / "dms"), "--scores-root", str(root / "scores"),
+                       "--config", str(root / "config.json"), "--output-dir", str(root / "merged")])
+        if rc != 0:
+            fail(f"merge CLI exited {rc} ({tag})")
+    out = root / f"bench_{device}"
+    rc = cli.main(["evaluate", "--dms-reference", str(root / "reference.csv"),
+                   "--merged-dir", str(root / "merged"), "--config", str(root / "config.json"),
+                   "--output-dir", str(out), "--device", device, "--no-html",
+                   "--bootstrap-samples", str(bootstrap)])
+    if rc != 0:
+        fail(f"evaluate CLI exited {rc} ({tag}, {device})")
+    for m in METRIC_NAMES:
+        summary = out / m / f"Summary_performance_DMS_substitutions_{m}.csv"
+        if not summary.exists():
+            fail(f"{summary} was not written ({tag})")
+        header = read_table(summary)[0]
+        if header != [c.format(m=m) for c in SUMMARY_COLUMNS]:
+            fail(f"{summary.name}: columns {header} are not the JAX package's order")
+    return [json.loads(line) for line in (out / "events.jsonl").open()][-1]
+
+
+def phase_merge_evaluate_real(cli, wt):
+    """12c. merge -> evaluate of the three ESM score files of the L=250 assay."""
+    print("[evaluate_real] merge -> evaluate --device cuda of the masked, wt-marginal and "
+          "pseudo-ppl ESM2-650M scores (L=250)")
+    mutants = wt["pppl_mutants"]
+    rs = np.random.RandomState(12)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        (root / "dms").mkdir()
+        y = rs.randn(len(mutants))
+        write_csv_rows(root / "dms" / "SYNTH_L250.csv", ["mutant", "DMS_score", "DMS_score_bin"],
+                       [[m, repr(float(v)), int(v > 0.5)] for m, v in zip(mutants, y)])
+        write_reference(root / "reference.csv", [["SYNTH_L250", "SYNTH_L250.csv", "SYNTH",
+                                                  "X" * 250, 250, "Human", "Stability",
+                                                  "Medium", len(mutants)]])
+        config = {}
+        column = "esm2_t33_650M_score"
+        for loc, rows in wt["score_files"].items():
+            (root / "scores" / loc).mkdir(parents=True)
+            write_csv_rows(root / "scores" / loc / "SYNTH_L250.csv", ["mutant", column], rows)
+            config[f"ESM2_650M_{loc}"] = {"input_score_name": column, "location": loc,
+                                          "directionality": 1, "key": "mutant",
+                                          "model_type": "Single sequence"}
+        (root / "config.json").write_text(json.dumps(
+            {"model_list_zero_shot_substitutions_DMS": config}))
+        event = run_merge_evaluate(cli, root, "cuda", 1000, "real scores")
+        merged = read_table(root / "merged" / "SYNTH_L250.csv")
+        if merged[0][-3:] != list(config) or len(merged) != len(mutants) + 1:
+            fail(f"merged columns {merged[0]} / {len(merged) - 1} rows do not hold the three "
+                 "models")
+        rows = read_table(root / "bench_cuda" / "Spearman" /
+                          "Summary_performance_DMS_substitutions_Spearman.csv")[1:]
+    print(f"  merged {len(mutants)} mutants x {len(config)} models; Summary rows "
+          + ", ".join(f"{r[1]} {r[3]}" for r in rows)
+          + f"; evaluate {event['seconds']:.3f} s")
+
+
+EVAL_SELECTION = ("Activity", "Binding", "Expression", "OrganismalFitness", "Stability")
+EVAL_TAXA = ("Human", "Eukaryote", "Prokaryote", "Virus")
+EVAL_DEPTHS = ("Low", "Medium", "High")
+
+
+def build_benchmark_world(root: Path, n_assays: int, n_mutants: int, noises) -> None:
+    """Synthetic assays cycling through UniProt IDs, selection types, taxa
+    and MSA depths, single to 5+ deep mutants, and one score file per model:
+    a noisy copy of DMS_score at the model's noise."""
+    rs = np.random.RandomState(2024)
+    (root / "dms").mkdir()
+    refs, config = [], {}
+    for j, noise in enumerate(noises):
+        name = f"NOISE{j:02d}"  # no "_1".."_4" ending: that marks a depth column
+        (root / "scores" / name).mkdir(parents=True)
+        config[name] = {"input_score_name": "score", "location": name, "directionality": 1,
+                        "key": "mutant", "model_type": f"noise {noise:g}"}
+    depth = 1 + np.arange(n_mutants) % 6
+    mutants = [":".join(f"A{7 * k + j + 1}G" for j in range(d)) for k, d in enumerate(depth)]
+    for i in range(n_assays):
+        dms_id = f"SYNTH_{i:03d}"
+        y = rs.randn(n_mutants)
+        lines = ["mutant,DMS_score,DMS_score_bin"] + [
+            f"{m},{v!r},{int(v > 0.7)}" for m, v in zip(mutants, y.tolist())]
+        (root / "dms" / f"{dms_id}.csv").write_text("\n".join(lines) + "\n")
+        for j, noise in enumerate(noises):
+            s = y + noise * rs.randn(n_mutants)
+            (root / "scores" / f"NOISE{j:02d}" / f"{dms_id}.csv").write_text(
+                "mutant,score\n" + "\n".join(f"{m},{v!r}" for m, v in zip(mutants, s.tolist()))
+                + "\n")
+        refs.append([dms_id, f"{dms_id}.csv", f"UP{i % 180:03d}", "X" * 10, 10,
+                     EVAL_TAXA[i % 4], EVAL_SELECTION[i % 5], EVAL_DEPTHS[i % 3], n_mutants])
+    write_reference(root / "reference.csv", refs)
+    (root / "config.json").write_text(json.dumps(
+        {"model_list_zero_shot_substitutions_DMS": config}))
+
+
+def compare_outputs(a: Path, b: Path, atol: float) -> int:
+    files = sorted(p.relative_to(a) for p in a.rglob("*.csv"))
+    if sorted(p.relative_to(b) for p in b.rglob("*.csv")) != files or not files:
+        fail(f"{a.name} and {b.name} hold different CSV files")
+    for rel in files:
+        ra, rb = read_table(a / rel), read_table(b / rel)
+        if ra[0] != rb[0] or len(ra) != len(rb):
+            fail(f"{rel}: header or row count differs between {a.name} and {b.name}")
+        for x, y in zip(ra[1:], rb[1:]):
+            for cx, cy in zip(x, y):
+                if cx == cy:
+                    continue
+                try:
+                    fx, fy = float(cx), float(cy)
+                except ValueError:
+                    fail(f"{rel}: {cx!r} vs {cy!r}")
+                if not abs(fx - fy) <= atol:
+                    fail(f"{rel}: {cx} vs {cy} (atol {atol:g})")
+    return len(files)
+
+
+def phase_evaluate_scale(torch, dev, card, cli):
+    """12d. merge -> evaluate through the CLI at the benchmark's assay
+    count, once on the card and once on the CPU; the CSVs agree, the
+    ranking follows the noise, and the card's metrics match scipy."""
+    from scipy.stats import mannwhitneyu, spearmanr
+
+    from proteingym_tpu_torch.metrics import core
+
+    n_assays, n_mutants, noises = EVAL_SCALE
+    print(f"[evaluate_scale] merge -> evaluate of {n_assays} synthetic assays x {n_mutants} "
+          f"mutants x {len(noises)} models, bootstrap 10,000, --device cuda and cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        build_benchmark_world(root, n_assays, n_mutants, noises)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        events = {"cuda": run_merge_evaluate(cli, root, "cuda", 10000, "scale")}
+        merge_eval_s = time.perf_counter() - t0
+        events["cpu"] = run_merge_evaluate(cli, root, "cpu", 10000, "scale")
+        n_files = compare_outputs(root / "bench_cuda", root / "bench_cpu", 1e-9)
+        rows = read_table(root / "bench_cuda" / "Spearman" /
+                          "Summary_performance_DMS_substitutions_Spearman.csv")[1:]
+        ranking = [r[1] for r in rows]
+        if ranking != [f"NOISE{j:02d}" for j in range(len(noises))]:
+            fail(f"Average_Spearman ranking {ranking} does not follow the noise order")
+        merged = [read_table(root / "merged" / f"SYNTH_{i:03d}.csv")
+                  for i in (0, n_assays // 2, n_assays - 1)]
+    errs = []
+    for table in merged:
+        head = table[0]
+        cols = {c: np.asarray([float(r[head.index(c)]) for r in table[1:]])
+                for c in head if c.startswith(("DMS_", "NOISE"))}
+        y, b = cols["DMS_score"], cols["DMS_score_bin"]
+        for j in (0, len(noises) - 1):
+            s = cols[f"NOISE{j:02d}"]
+            rho = float(core.spearman(y, s, device=dev))
+            a = float(core.auc(b, s, device=dev))
+            u = mannwhitneyu(s[b == 1], s[b == 0]).statistic / ((b == 1).sum() * (b == 0).sum())
+            errs += [abs(rho - spearmanr(y, s)[0]), abs(a - u)]
+    print(f"  {n_files} CSVs equal between cuda and cpu at 1e-9; Spearman ranking "
+          f"{' > '.join(ranking[:3])} ... {ranking[-1]}; card vs scipy spearmanr / mannwhitneyu "
+          f"on 3 assays x 2 models: max abs err {max(errs):.3e}")
+    if max(errs) > 1e-12:
+        fail("the card's Spearman/AUC differ from scipy")
+    for device in ("cuda", "cpu"):
+        e = events[device]
+        other = e["seconds"] - e["io_seconds"] - e["metrics_seconds"] - e["bootstrap_seconds"]
+        print(f"  evaluate --device {device}: wall {e['seconds']:.3f} s = I/O "
+              f"{e['io_seconds']:.3f} + metrics {e['metrics_seconds']:.3f} + bootstrap "
+              f"{e['bootstrap_seconds']:.3f} + aggregation {other:.3f} s; "
+              f"{e['seconds'] / (n_assays * n_mutants / 1e4):.4f} s per 10k rows ({card})")
+    print(f"  inputs written in {build_s:.2f} s; merge + evaluate (cuda) CLI wall "
+          f"{merge_eval_s:.2f} s")
+
+
+def phase_clinical(cli):
+    """12e. evaluate-clinical --device cuda on a synthetic clinical set."""
+    print("[evaluate_clinical] evaluate-clinical --device cuda, 12 proteins x 3 models")
+    rs = np.random.RandomState(3)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        (root / "merged").mkdir()
+        refs = []
+        for k in range(12):
+            pid = f"NP_{k:06d}.1"
+            n = 150 + 10 * k
+            labels = rs.randint(0, 2, n)
+            cols = {"GOOD": labels + rs.normal(0, 0.7, n), "WEAK": labels + rs.normal(0, 2.5, n),
+                    "NOISE": rs.normal(size=n)}
+            write_csv_rows(root / "merged" / f"{pid}.csv",
+                           ["mutant", "DMS_bin_score", *cols],
+                           [[f"A{i + 1}G", int(labels[i]), *(repr(float(c[i]))
+                                                            for c in cols.values())]
+                            for i in range(n)])
+            refs.append([pid, f"{pid}.csv", "A" * n])
+        write_csv_rows(root / "clinical.csv", ["protein_id", "DMS_filename", "target_seq"], refs)
+        (root / "config.json").write_text(json.dumps({
+            "model_list_zero_shot_substitutions_clinical": {
+                m: {"input_score_name": m, "location": m, "directionality": 1, "key": "mutant"}
+                for m in ("GOOD", "WEAK", "NOISE")}}))
+        rc = cli.main(["evaluate-clinical", "--clinical-reference", str(root / "clinical.csv"),
+                       "--merged-dir", str(root / "merged"), "--config", str(root / "config.json"),
+                       "--output-dir", str(root / "bench"), "--device", "cuda", "--no-html"])
+        if rc != 0:
+            fail(f"evaluate-clinical CLI exited {rc}")
+        summary = read_table(root / "bench" / "AUC" /
+                             "Summary_performance_clinical_substitutions_AUC.csv")
+        levels = read_table(root / "bench" / "AUC" / "clinical_substitutions_AUC_DMS_level.csv")
+    if summary[0] != ["Model_rank", "Model_name", "Model type", "Average_AUC",
+                      "Bootstrap_standard_error_AUC"]:
+        fail(f"clinical summary columns {summary[0]}")
+    if [r[1] for r in summary[1:]] != ["GOOD", "WEAK", "NOISE"] or len(levels) != 13:
+        fail(f"clinical summary {summary[1:]} / {len(levels) - 1} proteins are not as expected")
+    print("  Summary: " + ", ".join(f"{r[1]} AUC {r[3]} (SE {r[4]})" for r in summary[1:]))
+
+
 def main() -> int:
     try:
         import torch
@@ -930,6 +1336,11 @@ def main() -> int:
     packed = phase_packed(torch, card, fa, cli, esm2, scores)
     seg_packed = phase_segment_packed(torch, dev, card, fa, esm2, check_close,
                                       packed["scores"])
+    wt = phase_wt_pppl(torch, dev, card, fa, cli, esm2, esm_scoring,
+                       (seq, mutants, scores, chunk))
+    phase_merge_evaluate_real(cli, wt)
+    phase_evaluate_scale(torch, dev, card, cli)
+    phase_clinical(cli)
 
     if "jax" in sys.modules:
         fail("the port imported jax")
@@ -943,7 +1354,8 @@ def main() -> int:
     }
     by_path = {"esm": launches, "esm_windowed": {"grouped_attention_bthd": win_launches},
                "poet": poet_run["launches"], "esm_packed": packed["launches"],
-               "esm_segment_packed": seg_packed["launches"]}
+               "esm_segment_packed": seg_packed["launches"], "esm_wt": wt["wt_launches"],
+               "esm_pppl": wt["pppl_launches"]}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

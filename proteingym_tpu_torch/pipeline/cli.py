@@ -1,6 +1,6 @@
 """Command line of the PyTorch port (counterpart of
-proteingym_tpu/pipeline/cli.py for ``score --model esm|poet`` and
-``weights``).
+proteingym_tpu/pipeline/cli.py for ``score --model esm|poet``, ``weights``,
+``merge``, ``evaluate`` and ``evaluate-clinical``).
 
     python -m proteingym_tpu_torch.pipeline.cli score --model esm \\
         --checkpoint esm2_t33_650M --dms-reference ref.csv --dms-dir dms/ \\
@@ -10,6 +10,12 @@ proteingym_tpu/pipeline/cli.py for ``score --model esm|poet`` and
         --dms-reference ref.csv --dms-dir dms/ --output-dir out/
     python -m proteingym_tpu_torch.pipeline.cli weights --msa X.a2m \\
         --theta 0.2 --output weights/X.npy [--device cuda|cpu]
+    python -m proteingym_tpu_torch.pipeline.cli merge --dms-reference ref.csv \\
+        --dms-dir dms/ --scores-root scores/ --config config.json --output-dir merged/
+    python -m proteingym_tpu_torch.pipeline.cli evaluate --dms-reference ref.csv \\
+        --merged-dir merged/ --config config.json --output-dir bench/ [--device cuda|cpu]
+    python -m proteingym_tpu_torch.pipeline.cli evaluate-clinical \\
+        --clinical-reference clinical.csv --merged-dir merged/ --output-dir bench/
 
 Per assay it writes ``<DMS_id>.csv`` (the input columns, plus
 ``mutated_sequence`` when absent, plus the score column) into the output
@@ -17,7 +23,13 @@ directory, with ``manifest.jsonl`` (done/failed per task, for resuming)
 and ``events.jsonl`` (phase timings and throughput) beside it. With
 ``--packed`` (ESM masked marginals) the masked rows of all selected assays
 share forward batches; the batch is one ``score_packed`` phase and fails
-or succeeds as a whole.
+or succeeds as a whole. ``--extra scoring_strategy=wt-marginals|pseudo-ppl``
+selects the other ESM strategies (per assay only).
+
+``merge`` joins each model's score files onto the assays and runs on the
+host; ``evaluate`` and ``evaluate-clinical`` write the JAX package's metric
+CSVs with the per-assay metrics computed on ``--device``. Without
+``--config`` the registry packaged with the JAX package is read.
 """
 
 from __future__ import annotations
@@ -61,6 +73,17 @@ def _resolve_device(name: str) -> torch.device:
             "falls back to the CPU on its own (pass --device cpu for that)"
         )
     return torch.device(name)
+
+
+def _load_registry_arg(config_path, dataset, mutation_type, constants_path=None):
+    """--config points at a ProteinGym-format config.json; without it the
+    packaged registry (proteingym_tpu/configs/registry.json) is read."""
+    from proteingym_tpu_torch.data.registry import load_packaged_registry, load_registry
+
+    if config_path:
+        return load_registry(config_path, dataset=dataset, mutation_type=mutation_type,
+                             constants_path=constants_path)
+    return load_packaged_registry(dataset, mutation_type)
 
 
 def _read_csv(path: Path):
@@ -226,6 +249,54 @@ def cmd_weights(args) -> int:
     return 0
 
 
+def cmd_merge(args) -> int:
+    from proteingym_tpu_torch.merge.merge import filesystem_loaders, merge_all
+
+    reference = load_reference(args.dms_reference)
+    registry = _load_registry_arg(args.config, args.dataset, args.mutation_type)
+    dms_loader, score_loader = filesystem_loaders(args.dms_dir, args.scores_root)
+    merge_all(reference, registry, dms_loader, score_loader, args.output_dir,
+              mutation_type=args.mutation_type)
+    return 0
+
+
+def cmd_evaluate(args) -> int:
+    from proteingym_tpu_torch.metrics.aggregate import (
+        directory_scores_loader, evaluate_benchmark,
+    )
+
+    device = _resolve_device(args.device)
+    reference = load_reference(args.dms_reference)
+    registry = _load_registry_arg(args.config, args.dataset, args.mutation_type,
+                                  constants_path=args.constants)
+    timings = {}
+    t0 = time.perf_counter()
+    evaluate_benchmark(reference, registry, directory_scores_loader(args.merged_dir),
+                       args.output_dir, indel_mode=args.mutation_type == "indels",
+                       bootstrap_samples=args.bootstrap_samples,
+                       write_html=not args.no_html, device=device, timings=timings)
+    EventLog(Path(args.output_dir) / "events.jsonl").emit(
+        "evaluate", device=str(device), n_assays=len(reference),
+        seconds=round(time.perf_counter() - t0, 4),
+        **{f"{k}_seconds": round(v, 4) for k, v in timings.items()})
+    return 0
+
+
+def cmd_evaluate_clinical(args) -> int:
+    from proteingym_tpu_torch.metrics.aggregate import directory_scores_loader
+    from proteingym_tpu_torch.metrics.clinical import evaluate_clinical
+
+    device = _resolve_device(args.device)
+    reference = load_reference(args.clinical_reference)
+    registry = _load_registry_arg(args.config, "clinical", args.mutation_type)
+    evaluate_clinical(reference, registry, directory_scores_loader(args.merged_dir),
+                      args.output_dir, mutation_type=args.mutation_type,
+                      label_column=args.label_column,
+                      bootstrap_samples=args.bootstrap_samples,
+                      write_html=not args.no_html, device=device)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pgym-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -260,6 +331,44 @@ def build_parser() -> argparse.ArgumentParser:
     w.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda runs the cluster-count kernel, cpu its plain version")
     w.set_defaults(fn=cmd_weights)
+
+    mutation_types = ["substitutions", "indels"]
+    m = sub.add_parser("merge", help="merge per-model scores per assay (host only)")
+    m.add_argument("--dms-reference", required=True)
+    m.add_argument("--dms-dir", required=True)
+    m.add_argument("--scores-root", required=True)
+    m.add_argument("--config", default=None)
+    m.add_argument("--output-dir", required=True)
+    m.add_argument("--dataset", default="DMS")
+    m.add_argument("--mutation-type", default="substitutions", choices=mutation_types)
+    m.set_defaults(fn=cmd_merge)
+
+    e = sub.add_parser("evaluate", help="metrics + leaderboards")
+    e.add_argument("--dms-reference", required=True)
+    e.add_argument("--merged-dir", required=True)
+    e.add_argument("--config", default=None)
+    e.add_argument("--constants", default=None)
+    e.add_argument("--output-dir", required=True)
+    e.add_argument("--dataset", default="DMS")
+    e.add_argument("--mutation-type", default="substitutions", choices=mutation_types)
+    e.add_argument("--bootstrap-samples", type=int, default=10000)
+    e.add_argument("--no-html", action="store_true")
+    e.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the per-assay metrics run")
+    e.set_defaults(fn=cmd_evaluate)
+
+    ec = sub.add_parser("evaluate-clinical", help="clinical AUC leaderboard")
+    ec.add_argument("--clinical-reference", required=True)
+    ec.add_argument("--merged-dir", required=True)
+    ec.add_argument("--config", default=None)
+    ec.add_argument("--output-dir", required=True)
+    ec.add_argument("--mutation-type", default="substitutions", choices=mutation_types)
+    ec.add_argument("--label-column", default=None)
+    ec.add_argument("--bootstrap-samples", type=int, default=10000)
+    ec.add_argument("--no-html", action="store_true")
+    ec.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the per-protein AUCs run")
+    ec.set_defaults(fn=cmd_evaluate_clinical)
     return p
 
 

@@ -365,3 +365,47 @@ def test_poet_forward_goes_through_both_kernels(dev):
         want = poet.token_logprobs(model, tok, seg, pos, val)
     live = val[:, 1:].bool()
     torch.testing.assert_close(got[live], want[live], atol=5e-2, rtol=0)
+
+
+@pytest.mark.parametrize("length,window,n_windows", [(250, 1024, 1), (1500, 1024, 2)])
+def test_wt_marginal_table_through_the_kernel_matches_plain(length, window, n_windows, dev):
+    """WT marginals (one forward, or all overlapping windows in one
+    forward) launch K4 once per layer; the table equals the plain
+    attention's."""
+    from proteingym_tpu_torch.models import esm_scoring
+
+    config = esm2.EsmConfig("esm2_small", 3, 128, 4, dtype=torch.float32)
+    model = esm2.init_random(config, seed=1, device=dev)
+    rs = np.random.RandomState(length)
+    tokens = esm2.ALPHABET.tokenize("".join(rs.choice(list("ACDEFGHIKLMNPQRSTVWY"), length)))
+    if len(tokens) > window:
+        assert len(esm_scoring.overlapping_window_plan(len(tokens), window)) == n_windows
+    before = fa.LAUNCHES["grouped_attention_bthd"]
+    got = esm_scoring.wt_marginal_table_overlapping(model, tokens, window=window)
+    assert fa.LAUNCHES["grouped_attention_bthd"] == before + config.num_layers
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(esm2, "mha_natural", fa.plain_mha_bthd)
+        want = esm_scoring.wt_marginal_table_overlapping(model, tokens, window=window)
+    assert got.shape == (len(tokens), len(esm2.ALPHABET)) and got.device.type == "cuda"
+    torch.testing.assert_close(got, want, atol=TOL[torch.float32] * 5, rtol=0)
+
+
+def test_batched_assay_metrics_on_the_card_equal_cpu(dev):
+    """The metric kernels on the card against the same code on the CPU
+    (float64), padded rows, ties and NaN labels included."""
+    from proteingym_tpu_torch.metrics import core
+
+    rs = np.random.RandomState(0)
+    b, n = 12, 3000
+    y = rs.normal(size=(b, n))
+    s = np.round(0.5 * y + rs.normal(size=(b, n)), 1)
+    y_bin = (y > 0.8).astype(float)
+    y_bin[3] = np.nan  # an all-NaN label row: MCC NaN
+    y_bin[4] = 1.0  # one class: AUC NaN
+    valid = np.arange(n)[None, :] < rs.randint(10, n, size=(b, 1))
+    cpu = core.metrics_to_numpy(core.batched_assay_metrics(y, y_bin, s, valid))
+    out = core.batched_assay_metrics(y, y_bin, s, valid, device=dev)
+    assert all(v.device.type == "cuda" for v in out.values())
+    card = core.metrics_to_numpy(out)
+    for m in cpu:
+        np.testing.assert_allclose(card[m], cpu[m], atol=1e-12, rtol=0, equal_nan=True)

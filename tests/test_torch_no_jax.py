@@ -26,7 +26,10 @@ def test_port_imports_without_jax_or_pandas():
         from proteingym_tpu_torch.models import esm2, esm_scoring, packed_scoring, poet
         from proteingym_tpu_torch.msa import parser, weights
         from proteingym_tpu_torch.ops import flash_attention, rotary, gather_logprobs, _build
-        from proteingym_tpu_torch.data import mutants, windows, reference
+        from proteingym_tpu_torch.data import mutants, windows, reference, registry, table
+        from proteingym_tpu_torch.metrics import core, bootstrap, aggregate, clinical
+        from proteingym_tpu_torch.merge import merge
+        registry.load_packaged_registry("DMS", "substitutions")  # reads the JSON by path
         shared = {m for m in sys.modules if m.startswith("proteingym_tpu.")}
         assert shared <= {"proteingym_tpu.pipeline", "proteingym_tpu.pipeline.manifest",
                           "proteingym_tpu.pipeline.telemetry",

@@ -81,8 +81,17 @@ def test_score_assay_matches_jax(models):
 
 @pytest.mark.parametrize("strategy", ["wt-marginals", "pseudo-ppl"])
 def test_unported_strategies_name_their_roadmap_item(models, strategy):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tsc.score_assay(models[2], "MKTAY", ["M1A"], strategy=strategy)
+    """Both strategies are ported (ROADMAP.md queue 1, item 7): they score
+    per assay, and only the packed path still refuses them, as the JAX
+    package's does."""
+    from proteingym_tpu_torch.pipeline import scorers as tscorers
+
+    scores = tsc.score_assay(models[2], "MKTAY", ["M1A", "K2W:Y5C"], strategy=strategy)
+    assert scores.shape == (2,) and np.isfinite(scores).all()
+    rec = tscorers.AssayRecord("X", "X.csv", "P", "MKTAY", 5)
+    with pytest.raises(ValueError, match="masked-marginals only"):
+        tscorers.score_esm_packed_batch([(rec, ["M1A"])], "esm2_tiny",
+                                        extra={"scoring_strategy": strategy})
 
 
 def test_row_log_softmax_gather_matches_jax():
