@@ -9,9 +9,10 @@ Phases (any failure raises, and the script exits non-zero):
    versions; TF32 is switched off for matmuls and cuDNN.
 2. build: nvcc builds the four kernel sources from ops/csrc, one process
    per source, all started together.
-3. kernel: the grouped attention kernel (K1) against the plain PyTorch
-   version on the card, in every mode the slices use, and both timed at
-   the ESM2-650M headline shape.
+3. kernel: the grouped attention kernel (K1, bf16 on the Hopper loop after
+   the rope_qk pre-pass) against the plain PyTorch version on the card, in
+   every mode the slices use and at every head dim, and both timed at the
+   ESM2-650M headline shape.
 4. slice: ``score --model esm --checkpoint esm2_t33_650M`` (seeded random
    bf16 weights, full width and depth) on a synthetic L=250 assay with all
    4,750 single mutants, through the port's CLI; the launch counter must
@@ -27,7 +28,10 @@ Phases (any failure raises, and the script exits non-zero):
 7. long-context attention (K2): against the plain version in bf16 and
    float32 (causal + mask at T=2048 and 4352, ALiBi + causal, ragged T,
    fully masked rows); K1 at PoET's self-tier shape (segmented + causal +
-   RoPE, T=4352); K2 and K1 timed at PoET's row shape.
+   RoPE, T=4352), at B1 and at B8 with each row's own cuts (the timed
+   call, held on live rows); K2 and K1 timed at PoET's row shape, each
+   beside the PyTorch call that computes the same function
+   (scaled_dot_product_attention with a dense boolean mask) and its bound.
 8. PoET slice: ``weights`` then ``score --model poet --checkpoint
    poet_200m`` (seeded random bf16 weights, full width and depth) through
    the port's CLI, on a synthetic L=250 assay (128 single mutants) with a
@@ -38,7 +42,10 @@ Phases (any failure raises, and the script exits non-zero):
    against their plain versions in bf16 and float32 (live query rows);
    K3 timed against its plain version and K1's segmented mode at B8 H20
    T4096 with 16 segments of 250 tokens, K4 against its plain version at
-   the headline shape.
+   the headline shape and at the packed path's window bucket (B32 H20
+   T1024), and the rope_qk pre-pass at the latter (equal to its plain
+   version bit for bit); each beside
+   scaled_dot_product_attention on the same pre-rotated q/k and its bound.
 10. packed: ``score --model esm --checkpoint esm2_t33_650M --packed``
    through the CLI on synthetic assays of lengths 72, 118, 250, 448, 709
    and 1500 with all single mutants, twice (the second run is timed): 33
@@ -60,7 +67,11 @@ Phases (any failure raises, and the script exits non-zero):
    the ranking in noise order, Spearman and AUC on the card against scipy;
    (e) ``evaluate-clinical --device cuda``.
 
-It prints one JSON line describing the kernels, then, as its last line,
+Every phase holds the port to its rule: no module of the JAX package
+(``proteingym_tpu``) may be loaded. It prints one JSON line describing the
+kernels (time, plain version, the PyTorch call for the same function where
+there is one, the bound: the larger of bytes over 3.35 TB/s and operations
+over 989 TFLOP/s, the H100 SXM's peaks), then, as its last line,
 ``{"ok": true, "device": {...}}``. With no CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 """
@@ -90,6 +101,9 @@ KERNELS = {  # launch counter -> (source, the TPU kernel it replaces)
                             "proteingym_tpu/ops/flash_attention.py:656"),
     "grouped_attention_bthd": ("proteingym_tpu_torch/ops/csrc/grouped_attention.cu",
                                "proteingym_tpu/ops/flash_attention.py:440"),
+    # the pre-pass of K1/K4: the rotation the TPU kernels apply on load
+    "rope_qk": ("proteingym_tpu_torch/ops/csrc/grouped_attention.cu",
+                "proteingym_tpu/ops/flash_attention.py:156"),
     "cluster_counts": ("proteingym_tpu_torch/ops/csrc/cluster_counts.cu",
                        "proteingym_tpu/msa/weights.py:152"),
 }
@@ -113,6 +127,9 @@ TABLE_ATOL = 1e-1
 POET_LOGP_ATOL = 1e-1
 GAP_AA = "-" + AA
 
+# H100 SXM peaks (dense bf16 tensor cores, HBM3) for the bounds
+PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
+
 # the shapes of phases 6-8
 K5_TIMED = (16384, 300)  # (N, L) of the timed synthetic MSA
 POET_ROW = (8, 16, 4352)  # (B, H, T) of PoET's attention calls at batch 8
@@ -120,6 +137,7 @@ POET_SLICE = dict(preset="poet_200m", length=250, n_seqs=16384, n_mut=128,
                   batch=8, n_samples=2, max_context_tokens=4096)
 # the shapes of phases 9-11
 K3_TIMED = (8, 20, 4096, 16, 250)  # (B, H, T, segments, segment length)
+K4_TIMED = ((16, 20, 256), (32, 20, 1024))  # (B, H, T): the L=250 table, the window bucket
 PACKED_MIX = (72, 118, 250, 448, 709, 1500)  # the JAX bench's production mix
 PACKED_BATCH = 32  # rows per forward of the bucketed packed path
 SEG_ROW_LEN, SEG_CHUNK = 4096, 8  # segment-packed rows and rows per forward
@@ -166,6 +184,54 @@ def time_ms(torch, fn, reps, inner=10):
         torch.cuda.synchronize()
         out.append(start.elapsed_time(end) / inner)
     return out
+
+
+def check_launches(what, launches, want):
+    """Fail unless a run launched exactly ``want`` ({counter: n}) and no
+    other kernel."""
+    full = {name: want.get(name, 0) for name in launches}
+    if launches != full:
+        fail(f"{what}: launch counts {launches}, expected {full}")
+
+
+def bound(flops, nbytes):
+    """The least time the card could take for work of ``flops`` bf16
+    operations and ``nbytes`` of memory traffic, and which side sets it."""
+    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def sdpa(torch, q, k, v, mask):
+    """One PyTorch call computing the attention function of the kernels on
+    pre-rotated, pre-scaled (B, H, T, D) q/k/v with a boolean mask
+    (True = attend): the yardstick, timed here and never used by the port."""
+    return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                                    scale=1.0)
+
+
+def sdpa_backend(torch, fn):
+    """The backend SDPA's default dispatch took, read from the names of the
+    kernels one call launches (torch.profiler)."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()]
+    except Exception as e:  # the profiler is a reading aid here, not a check
+        return f"not read ({type(e).__name__})"
+    text = " ".join(names).lower()
+    for key, label in (("cudnn", "cudnn"), ("flash", "flash"), ("fmha", "efficient"),
+                       ("efficient", "efficient"), ("cutlass", "efficient")):
+        if key in text:
+            return label
+    return "math" if names else "not read (no kernel events)"
 
 
 def synth_assay(seq_len: int, seed: int):
@@ -310,10 +376,14 @@ def phase_cluster_counts(torch, dev, card):
         "kernel": lambda: W.num_cluster_members_cuda(m, 0.8),
         "plain": lambda: W.num_cluster_members(m, 0.8),
     }, reps=3, inner=3)
+    # the work of the TPU kernel's formulation: a one-hot (N, 20 L) Gram in
+    # bf16 over the upper triangle, 2 operations per multiply-add
+    b = bound(n * (n + 1) / 2 * 20 * length * 2, nbytes(m) + 4 * n)
     print(f"  N={n} L={length}: counts {int(counts.min())}..{int(counts.max())}, "
-          f"Neff {neff:.1f}; kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms "
-          f"(medians of 12 samples of 3 queued calls, {card})")
-    return {"ms": t["kernel"], "plain_ms": t["plain"]}
+          f"Neff {neff:.1f}; kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); no single PyTorch call computes "
+          f"it (medians of 12 samples of 3 queued calls, {card})")
+    return {"ms": t["kernel"], "plain_ms": t["plain"], "library_ms": None, **b}
 
 
 def phase_long_attention(torch, dev, card, fa, qkv, lengths_mask, check_close):
@@ -367,29 +437,73 @@ def phase_long_attention(torch, dev, card, fa, qkv, lengths_mask, check_close):
     self_kw = dict(segment_ids=segments(1), causal=True, rope_base=10000.0)
     got = fa.grouped_mha(q, k, v, **self_kw)
     torch.cuda.synchronize()
-    k1_self_err = check_close(f"bf16 B1 H8 T{t}, 16 segments", got,
-                              fa.plain_mha(q.float(), k.float(), v.float(), **self_kw),
+    want = fa.plain_mha(q.float(), k.float(), v.float(), **self_kw)
+    live = self_kw["segment_ids"] > 0  # padding rows are never consumed
+    k1_self_err = check_close(f"bf16 B1 H8 T{t}, 16 segments (live rows)",
+                              got.transpose(1, 2)[live], want.transpose(1, 2)[live],
                               BF16_ATOL, BF16_RTOL)
 
-    q, k, v = qkv(b, h, t, 64)
-    mask = lengths_mask(b, t, [t - 7 * i for i in range(b)])
+    d = 64
+    q, k, v = qkv(b, h, t, d)
+    lengths = [t - 7 * i for i in range(b)]
+    mask = lengths_mask(b, t, lengths)
+    causal_mask = mask[:, None, None, :] & torch.ones(t, t, dtype=torch.bool, device=dev).tril()
     k2t = median_pair(torch, {
-        "kernel": lambda: fa.flash_mha(q, k, v, key_mask=mask, causal=True),
-        "plain": lambda: fa.reference_mha(q, k, v, key_mask=mask, causal=True),
+        "kernel": lambda: fa.flash_mha(q, k, v, key_mask=mask, causal=True, sm_scale=1.0),
+        "plain": lambda: fa.reference_mha(q, k, v, key_mask=mask, causal=True, sm_scale=1.0),
+        "sdpa": sdpa(torch, q, k, v, causal_mask),
     }, reps=2, inner=3)
+    # pairs a row attends: the live keys at or before it
+    pairs = sum(n * (n + 1) // 2 + (t - n) * n for n in lengths) * h
+    k2b = bound(4 * d * pairs, nbytes(q, k, v, q, mask))
     print(f"  K2 at B{b} H{h} T{t} D64, causal + mask: kernel {k2t['kernel']:.4f} ms, "
-          f"plain {k2t['plain']:.4f} ms (medians of 8 samples of 3 queued calls, {card})")
-    self_kw = dict(segment_ids=segments(b), causal=True, rope_base=10000.0)
+          f"plain {k2t['plain']:.4f} ms, SDPA {k2t['sdpa']:.4f} ms "
+          f"({sdpa_backend(torch, sdpa(torch, q, k, v, causal_mask))}), bound "
+          f"{k2b['bound_ms']:.4f} ms ({k2b['bound_by']}) (medians of 8 samples of 3 queued "
+          f"calls, {card})")
+    del causal_mask
+    seg = segments(b)
+    # one KeyTiles for every call, as PoET's forward shares one by its layers
+    tiles = fa.KeyTiles(seg, causal=True)
+    self_kw = dict(segment_ids=seg, causal=True, rope_base=10000.0, key_tiles=tiles)
+    # the loop alone on q/k the pre-pass rotated and scaled, as SDPA gets them
+    qr, kr = fa.rope_qk(q, k, 1.0 / d ** 0.5, 10000.0)
+    loop_kw = dict(segment_ids=seg, causal=True, sm_scale=1.0, key_tiles=tiles)
+    self_mask = ((seg[:, :, None] == seg[:, None, :])[:, None]
+                 & torch.ones(t, t, dtype=torch.bool, device=dev).tril())
     k1t = median_pair(torch, {
-        "kernel": lambda: fa.grouped_mha(q, k, v, **self_kw),
-        "plain": lambda: fa.plain_mha(q, k, v, **self_kw),
+        "kernel": lambda: fa.grouped_mha(qr, kr, v, **loop_kw),
+        "plain": lambda: fa.plain_mha(qr, kr, v, **loop_kw),
+        "sdpa": sdpa(torch, qr, kr, v, self_mask),
+        "call": lambda: fa.grouped_mha(q, k, v, **self_kw),
     }, reps=2, inner=3)
-    print(f"  K1 at B{b} H{h} T{t} D64, 16 segments + causal + RoPE: kernel "
-          f"{k1t['kernel']:.4f} ms, plain {k1t['plain']:.4f} ms ({card})")
-    del q, k, v
+    # the timed call, held against the plain version on live rows, one batch
+    # row at a time: each row has its own cuts and so its own extents
+    got = fa.grouped_mha(q, k, v, **self_kw).float()
+    torch.cuda.synchronize()
+    want = torch.cat([fa.plain_mha(*(x[i:i + 1].float() for x in (q, k, v)),
+                                   segment_ids=seg[i:i + 1], causal=True, rope_base=10000.0)
+                      for i in range(b)])
+    live = seg > 0
+    k1_self_err = max(k1_self_err, check_close(
+        f"bf16 B{b} H{h} T{t}, own 16 segments per row (live rows)",
+        got.transpose(1, 2)[live], want.transpose(1, 2)[live], BF16_ATOL, BF16_RTOL))
+    del got, want
+    lo, hi = tiles.extents(b, t, dev)
+    runs = torch.unique_consecutive(seg[seg > 0].view(-1), return_counts=True)[1].double()
+    k1b = bound(4 * d * h * float((runs * (runs + 1) / 2).sum()), nbytes(q, k, v, q, seg))
+    print(f"  K1 at B{b} H{h} T{t} D64, 16 segments + causal: Hopper loop {k1t['kernel']:.4f} ms "
+          f"({(hi - lo).float().mean().item():.2f} of {-(-t // fa.KERNEL_TILE)} key tiles per "
+          f"128-query tile), plain {k1t['plain']:.4f} ms, SDPA {k1t['sdpa']:.4f} ms "
+          f"({sdpa_backend(torch, sdpa(torch, qr, kr, v, self_mask))}), bound "
+          f"{k1b['bound_ms']:.4f} ms ({k1b['bound_by']}); the call with RoPE (pre-pass + loop) "
+          f"{k1t['call']:.4f} ms ({card})")
+    del q, k, v, qr, kr, self_mask
     torch.cuda.empty_cache()
     return {"max_abs_err": max_abs_err, "ms": k2t["kernel"], "plain_ms": k2t["plain"],
-            "k1_self_err": k1_self_err}
+            "library_ms": k2t["sdpa"], **k2b, "k1_self_err": k1_self_err,
+            "k1": {"ms": k1t["kernel"], "plain_ms": k1t["plain"], "library_ms": k1t["sdpa"],
+                   "call_ms": k1t["call"], **k1b}}
 
 
 def phase_poet(torch, dev, card, fa, check_close):
@@ -462,9 +576,9 @@ def phase_poet(torch, dev, card, fa, check_close):
     print(f"  weights CLI {weights_s:.2f} s (parse + K5); score CLI wall {wall:.2f} s incl. "
           f"weight init and MSA load; peak device memory {peak_gib:.2f} GiB")
     print(f"  launches {launches} (expected {config.num_layers} layers x {n_fwd} forwards "
-          f"= {expected} each for K1 and K2, >= 1 cluster_counts)")
+          f"= {expected} each for K1, its rope_qk pre-pass and K2, >= 1 cluster_counts)")
     if (launches["flash_attention"] != expected or launches["grouped_attention"] != expected
-            or launches["cluster_counts"] < 1):
+            or launches["rope_qk"] != expected or launches["cluster_counts"] < 1):
         fail(f"launch counts {launches} do not match the slice")
 
     model = poet.init_random(config, seed=0, device=dev)
@@ -564,6 +678,10 @@ def phase_k3_k4(torch, dev, card, fa, qkv, lengths_mask, check_close):
             ("causal", (2, 8, 200, 64), {"causal": True}),
             ("fully masked row, ragged T=100", (2, 4, 100, 32), {"key_mask": dead}),
         ]
+        if dtype == torch.bfloat16:  # the window bucket (the float32 presets stay short)
+            cases.append(("window bucket B32 H20 T1024 D64 mask+rope", (32, 20, 1024, 64),
+                          {"key_mask": lengths_mask(32, 1024, [1024 - 9 * i for i in range(32)]),
+                           "rope_base": 10000.0}))
         for name, shape, kw in cases:
             q, k, v = bthd(*shape, dtype)
             got = fa.grouped_mha_bthd(q, k, v, **kw)
@@ -575,39 +693,83 @@ def phase_k3_k4(torch, dev, card, fa, qkv, lengths_mask, check_close):
             k4_errs.append(check_close(f"{tag} {name}", got, want, atol, rtol))
 
     b, h, t, n_seg, seg_len = K3_TIMED
-    q, k, v = qkv(b, h, t, 64)
+    d = 64
+    q, k, v = qkv(b, h, t, d)
     seg = segment_runs(torch, dev, b, t, list(range(0, n_seg * seg_len + 1, seg_len)))
     lo, hi = fa._segment_block_extents(
         torch.nn.functional.pad(seg, (0, -t % fa.KERNEL_TILE)), -(-t // fa.KERNEL_TILE),
         fa.KERNEL_TILE)
     tiles = (hi - lo).float().mean().item()
+    qr, kr = fa.plain_rope_qk(q, k, 1.0, 10000.0)  # SDPA's operands: pre-rotated
+    seg_mask = (seg[:, :, None] == seg[:, None, :])[:, None]
     k3t = median_pair(torch, {
         "kernel": lambda: fa.seg_block_mha(q, k, v, seg, sm_scale=1.0, rope_base=10000.0),
         "plain": lambda: fa.plain_seg_block_mha(q, k, v, seg, sm_scale=1.0, rope_base=10000.0),
         "k1": lambda: fa.grouped_mha(q, k, v, key_mask=seg > 0, segment_ids=seg, sm_scale=1.0,
                                      rope_base=10000.0),
+        "sdpa": sdpa(torch, qr, kr, v, seg_mask),
     }, reps=2, inner=3)
+    # live rows attend their own segment; K3 also reads the RoPE tables
+    k3b = bound(4 * d * h * b * n_seg * seg_len ** 2, nbytes(q, k, v, q, seg) + 2 * 4 * t * d)
     print(f"  K3 at B{b} H{h} T{t} D64, {n_seg} segments of {seg_len} + padded tail, RoPE: "
           f"{tiles:.2f} of {-(-t // fa.KERNEL_TILE)} key tiles per query tile; kernel "
-          f"{k3t['kernel']:.4f} ms, plain {k3t['plain']:.4f} ms, K1 segmented "
-          f"{k3t['k1']:.4f} ms (medians of 8 samples of 3 queued calls, {card})")
-    del q, k, v
+          f"{k3t['kernel']:.4f} ms, plain {k3t['plain']:.4f} ms, K1 segmented (pre-pass + "
+          f"Hopper loop) {k3t['k1']:.4f} ms, SDPA on pre-rotated q/k {k3t['sdpa']:.4f} ms "
+          f"({sdpa_backend(torch, sdpa(torch, qr, kr, v, seg_mask))}), bound "
+          f"{k3b['bound_ms']:.4f} ms ({k3b['bound_by']}) (medians of 8 samples of 3 queued "
+          f"calls, {card})")
+    del q, k, v, qr, kr, seg_mask
     torch.cuda.empty_cache()
 
-    q, k, v = bthd(16, 20, 256, 64)
-    headline = dict(key_mask=lengths_mask(16, 256, [252 - 3 * i for i in range(16)]),
-                    rope_base=10000.0)
-    k4t = median_pair(torch, {
-        "plain": lambda: fa.plain_mha_bthd(q, k, v, **headline),
-        "kernel": lambda: fa.grouped_mha_bthd(q, k, v, **headline),
-    }, reps=5, inner=10, rounds=3)
-    print(f"  K4 at B16 H20 T256 D64 mask+rope: kernel {k4t['kernel']:.4f} ms, plain "
-          f"{k4t['plain']:.4f} ms (medians of 30 samples of 10 queued calls, {card})")
+    k4 = {}
+    for b, h, t in K4_TIMED:
+        q, k, v = bthd(b, h, t, d)
+        mask = lengths_mask(b, t, [t - 4 - 3 * i for i in range(b)])
+        call = dict(key_mask=mask, sm_scale=1.0, rope_base=10000.0)  # ESM's call
+        tr = lambda x: x.transpose(1, 2)
+        qr, kr = (tr(x) for x in fa.rope_qk(tr(q), tr(k), 1.0, 10000.0))
+        sdpa_mask = mask[:, None, None, :]
+        k4t = median_pair(torch, {
+            "plain": lambda: fa.plain_mha_bthd(qr, kr, v, key_mask=mask, sm_scale=1.0),
+            "kernel": lambda: fa.grouped_mha_bthd(qr, kr, v, key_mask=mask, sm_scale=1.0),
+            "sdpa": sdpa(torch, tr(qr), tr(kr), tr(v), sdpa_mask),
+            "call": lambda: fa.grouped_mha_bthd(q, k, v, **call),
+        }, reps=5, inner=10, rounds=3)
+        live = mask.sum().item()  # every query row attends the live keys of its row
+        k4b = bound(4 * d * h * t * live, nbytes(q, k, v, q, mask))
+        print(f"  K4 at B{b} H{h} T{t} D64 mask: Hopper loop {k4t['kernel']:.4f} ms, plain "
+              f"{k4t['plain']:.4f} ms, SDPA {k4t['sdpa']:.4f} ms "
+              f"({sdpa_backend(torch, sdpa(torch, tr(qr), tr(kr), tr(v), sdpa_mask))}), bound "
+              f"{k4b['bound_ms']:.4f} ms ({k4b['bound_by']}); the call with RoPE (pre-pass + "
+              f"loop) {k4t['call']:.4f} ms (medians of 30 samples of 10 queued calls, {card})")
+        k4[(b, h, t)] = {"shape": f"B{b} H{h} T{t} D{d}", "ms": k4t["kernel"],
+                         "plain_ms": k4t["plain"], "library_ms": k4t["sdpa"],
+                         "call_ms": k4t["call"], **k4b}
+        if t == 1024:  # the pre-pass at the window bucket
+            rt = median_pair(torch, {
+                "plain": lambda: fa.plain_rope_qk(tr(q), tr(k), 1.0, 10000.0),
+                "kernel": lambda: fa.rope_qk(tr(q), tr(k), 1.0, 10000.0),
+            }, reps=5, inner=10)
+            got, want = fa.rope_qk(tr(q), tr(k), 1.0, 10000.0), fa.plain_rope_qk(
+                tr(q), tr(k), 1.0, 10000.0)
+            rope_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+            # q and k read, q' and k' written, the float32 cos/sin tables read
+            rb = bound(0, 2 * nbytes(q, k) + 2 * 4 * t * d)
+            print(f"  rope_qk at B{b} H{h} T{t} D64: kernel {rt['kernel']:.4f} ms, plain "
+                  f"{rt['plain']:.4f} ms, bound {rb['bound_ms']:.4f} ms ({rb['bound_by']}); "
+                  f"max abs err {rope_err:.3e} ({card})")
+            if rope_err != 0.0:  # the plain version's rounding steps, bit for bit
+                fail(f"rope_qk differs from its plain version by {rope_err:.3e}")
+            rope = {"max_abs_err": rope_err, "ms": rt["kernel"], "plain_ms": rt["plain"],
+                    "library_ms": None, **rb}
+        del q, k, v, qr, kr
+        torch.cuda.empty_cache()
+    main, other = k4[K4_TIMED[1]], k4[K4_TIMED[0]]
     return {
         "seg_block_attention": dict(max_abs_err=max(k3_errs), ms=k3t["kernel"],
-                                    plain_ms=k3t["plain"]),
-        "grouped_attention_bthd": dict(max_abs_err=max(k4_errs), ms=k4t["kernel"],
-                                       plain_ms=k4t["plain"]),
+                                    plain_ms=k3t["plain"], library_ms=k3t["sdpa"], **k3b),
+        "grouped_attention_bthd": dict(max_abs_err=max(k4_errs), **main, other_shapes=[other]),
+        "rope_qk": rope,
     }
 
 
@@ -658,9 +820,9 @@ def phase_packed(torch, card, fa, cli, esm2, scores_250):
           f"weight init -> {thr['mutants_per_sec']:.2f} mutants/s; CLI wall {walls[1]:.2f} s "
           f"(warm-up run {walls[0]:.2f} s); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
-    print(f"  launches {launches} (expected 33 layers x {n_fwd} forwards = {expected} of K4)")
-    if launches["grouped_attention_bthd"] != expected or sum(launches.values()) != expected:
-        fail(f"packed launch counts {launches} do not match the path")
+    print(f"  launches {launches} (expected 33 layers x {n_fwd} forwards = {expected} of K4 "
+          f"and of its rope_qk pre-pass)")
+    check_launches("packed", launches, {"grouped_attention_bthd": expected, "rope_qk": expected})
     err = float(np.abs(scores[250] - scores_250).max())
     print(f"  L=250 scores vs the per-assay path (phase 4): max_abs_err={err:.3e} "
           f"(atol={TABLE_ATOL:g}) {'ok' if err <= TABLE_ATOL else 'MISMATCH'}")
@@ -721,8 +883,7 @@ def phase_segment_packed(torch, dev, card, fa, esm2, check_close, packed_scores)
           f"(warm-up run {runs[0]:.2f} s); {n_rows} rows of {SEG_ROW_LEN} tokens, "
           f"{sum(counts.values())} masked rows packed ({card})")
     print(f"  launches {launches} (expected 33 layers x {n_fwd} forwards = {expected} of K3)")
-    if launches["seg_block_attention"] != expected or sum(launches.values()) != expected:
-        fail(f"segment-packed launch counts {launches} do not match the path")
+    check_launches("segment-packed", launches, {"seg_block_attention": expected})
     errs = [float(np.abs(got - packed_scores[length]).max())
             for got, length in zip(scores, SEG_MIX)]
     if not all(np.isfinite(s).all() for s in scores):
@@ -805,10 +966,10 @@ def phase_wt_pppl(torch, dev, card, fa, cli, esm2, esm_scoring, masked):
             cli_scores[dms_id] = read_scores(root / "wt" / f"{dms_id}.csv",
                                              "esm2_t33_650M_score", len(muts))
             print(f"  {dms_id}: {len(muts)} finite scores; launches {counts} (expected "
-                  f"{config.num_layers} of K4: one forward)")
-            if counts["grouped_attention_bthd"] != config.num_layers or (
-                    sum(counts.values()) != config.num_layers):
-                fail(f"wt-marginals launch counts {counts} for {dms_id} do not match the path")
+                  f"{config.num_layers} of K4 and of rope_qk: one forward)")
+            check_launches(f"wt-marginals {dms_id}", counts,
+                           {"grouped_attention_bthd": config.num_layers,
+                            "rope_qk": config.num_layers})
             for name, c in counts.items():
                 wt_launches[name] = wt_launches.get(name, 0) + c
         wt_rows_250 = read_table(root / "wt" / "SYNTH_L250.csv")
@@ -856,11 +1017,10 @@ def phase_wt_pppl(torch, dev, card, fa, cli, esm2, esm_scoring, masked):
         n_tables = len(pppl_mutants) + 1
         expected = config.num_layers * n_tables * n_chunk_forwards(250, chunk)
         print(f"  launches {pppl_launches} (expected {config.num_layers} layers x {n_tables} "
-              f"tables x {n_chunk_forwards(250, chunk)} forwards = {expected} of K4); CLI wall "
-              f"{pppl_wall:.2f} s incl. weight init")
-        if pppl_launches["grouped_attention_bthd"] != expected or (
-                sum(pppl_launches.values()) != expected):
-            fail(f"pseudo-ppl launch counts {pppl_launches} do not match the path")
+              f"tables x {n_chunk_forwards(250, chunk)} forwards = {expected} of K4 and of "
+              f"rope_qk); CLI wall {pppl_wall:.2f} s incl. weight init")
+        check_launches("pseudo-ppl", pppl_launches,
+                       {"grouped_attention_bthd": expected, "rope_qk": expected})
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         esm_scoring.score_assay(model, seq, pppl_mutants, strategy="pseudo-ppl", chunk=chunk,
@@ -1201,6 +1361,9 @@ def main() -> int:
         got = fa.grouped_mha(q, k, v, **kw)
         torch.cuda.synchronize()
         want = fa.plain_mha(q.float(), k.float(), v.float(), **kw)
+        if "segment_ids" in kw:  # live rows: padding rows are never consumed
+            live = kw["segment_ids"] > 0
+            got, want = got.transpose(1, 2)[live], want.transpose(1, 2)[live]
         return check_close(name, got, want, atol, rtol)
 
     errs = []
@@ -1230,10 +1393,15 @@ def main() -> int:
     dead = torch.ones(2, 100, dtype=torch.bool, device=dev)
     dead[1] = False  # every key of batch row 1 masked
     errs.append(compare("fully masked row, ragged T=100", qm, km, vm, key_mask=dead))
-    for hd in (16, 24, 32):
+    for hd in fa.HEAD_DIMS:  # each head dim has its own TMA box and swizzle
         qd, kd, vd = qkv(2, 4, 77, hd)
         errs.append(compare(f"head dim {hd}, T=77 mask+rope", qd, kd, vd,
                             key_mask=lengths_mask(2, 77, [77, 60]), rope_base=10000.0))
+        qd, kd, vd = qkv(2, 4, 1037, hd)
+        dead = lengths_mask(2, 1037, [1037, 1037])
+        dead[1, :150] = False  # rows 0..149 of batch row 1 see no live key
+        errs.append(compare(f"head dim {hd}, T=1037 causal, rows with no live key", qd, kd, vd,
+                            key_mask=dead, causal=True))
     qf, kf, vf = qkv(2, 4, 100, 32, dtype=torch.float32)
     errs.append(compare("float32 T=100 mask+rope", qf, kf, vf, atol=F32_ATOL,
                         rtol=F32_RTOL, key_mask=lengths_mask(2, 100, [100, 81]),
@@ -1274,9 +1442,9 @@ def main() -> int:
     print(f"  {len(scores)} finite scores; CLI wall {wall:.2f} s incl. weight init; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"  launches {launches} (expected {config.num_layers} layers x {n_fwd} "
-          f"forwards = {expected} of K4)")
-    if launches["grouped_attention_bthd"] != expected or sum(launches.values()) != expected:
-        fail(f"launch counts {launches} do not match the slice")
+          f"forwards = {expected} of K4 and of its rope_qk pre-pass)")
+    check_launches("esm slice", launches, {"grouped_attention_bthd": expected,
+                                           "rope_qk": expected})
 
     model = esm2.init_random(config, seed=0, device=dev)
     tokens = esm2.ALPHABET.tokenize(seq)
@@ -1319,15 +1487,15 @@ def main() -> int:
         for name in fa.LAUNCHES:
             fa.LAUNCHES[name] = 0
         run_cli(cli, ref, dms_dir, root / "out", "esm2_t6_8M", chunk)
-        win_launches = fa.LAUNCHES["grouped_attention_bthd"]
+        win_launches = dict(fa.LAUNCHES)
         read_scores(root / "out" / "SYNTH_L1100.csv", "esm2_t6_8M_score",
                     len(mutants_long))
     n_fwd_long = n_chunk_forwards(1100, chunk)
     expected_long = small.num_layers * n_fwd_long
     print(f"  {len(mutants_long)} finite scores; launches {win_launches} "
-          f"(expected {small.num_layers} x {n_fwd_long} = {expected_long})")
-    if win_launches != expected_long:
-        fail(f"windowed run launched {win_launches} kernels, expected {expected_long}")
+          f"(expected {small.num_layers} x {n_fwd_long} = {expected_long} of K4 and of rope_qk)")
+    check_launches("windowed", win_launches, {"grouped_attention_bthd": expected_long,
+                                              "rope_qk": expected_long})
 
     k5 = phase_cluster_counts(torch, dev, card)
     k2 = phase_long_attention(torch, dev, card, fa, qkv, lengths_mask, check_close)
@@ -1344,15 +1512,26 @@ def main() -> int:
 
     if "jax" in sys.modules:
         fail("the port imported jax")
+    jax_package = sorted(m for m in sys.modules
+                         if m == "proteingym_tpu" or m.startswith("proteingym_tpu."))
+    if jax_package:
+        fail(f"modules of the JAX package were loaded: {jax_package}")
+    k1_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "call_ms")
     measured = {
-        "grouped_attention": dict(max_abs_err=max(max_abs_err, k2["k1_self_err"]),
-                                  ms=ms, plain_ms=plain_ms),
+        # K1's main path is PoET's self tier; the ESM headline shape beside it
+        "grouped_attention": dict(
+            max_abs_err=max(max_abs_err, k2["k1_self_err"]),
+            shape="B8 H16 T4352 D64, 16 segments + causal",
+            **{key: k2["k1"][key] for key in k1_keys},
+            other_shapes=[{"shape": "B16 H20 T256 D64 mask+rope, pre-pass + loop",
+                           "ms": ms, "plain_ms": plain_ms}]),
         "flash_attention": dict(max_abs_err=k2["max_abs_err"], ms=k2["ms"],
-                                plain_ms=k2["plain_ms"]),
+                                plain_ms=k2["plain_ms"], library_ms=k2["library_ms"],
+                                bound_ms=k2["bound_ms"], bound_by=k2["bound_by"]),
         **k3_k4,
-        "cluster_counts": dict(max_abs_err=0.0, ms=k5["ms"], plain_ms=k5["plain_ms"]),
+        "cluster_counts": dict(max_abs_err=0.0, **k5),
     }
-    by_path = {"esm": launches, "esm_windowed": {"grouped_attention_bthd": win_launches},
+    by_path = {"esm": launches, "esm_windowed": win_launches,
                "poet": poet_run["launches"], "esm_packed": packed["launches"],
                "esm_segment_packed": seg_packed["launches"], "esm_wt": wt["wt_launches"],
                "esm_pppl": wt["pppl_launches"]}

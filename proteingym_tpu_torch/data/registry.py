@@ -3,9 +3,9 @@ them (counterpart of proteingym_tpu/data/registry.py, stdlib only).
 
 Reads the ProteinGym ``config.json`` schema (per model: input_score_name,
 location, directionality, key, model_type) and its display constants, or
-the packaged registry of the JAX package, ``proteingym_tpu/configs/
-registry.json`` and ``display.json``, by path: importing
-``proteingym_tpu.data`` would load pandas.
+the port's packaged registry, ``proteingym_tpu_torch/configs/registry.json``
+and ``display.json`` (byte copies of the JAX package's, held equal by
+tests/test_torch_shared_copies.py).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import json
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-CONFIGS_DIR = Path(__file__).resolve().parents[2] / "proteingym_tpu" / "configs"
+CONFIGS_DIR = Path(__file__).resolve().parents[1] / "configs"
 
 BENCHMARK_FIELDS = {
     ("DMS", "substitutions"): "model_list_zero_shot_substitutions_DMS",

@@ -32,11 +32,12 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from proteingym_tpu.constants import METRICS, MUTATION_DEPTHS
+from proteingym_tpu_torch.constants import METRICS, MUTATION_DEPTHS
 from proteingym_tpu_torch.data.reference import ReferenceSet
 from proteingym_tpu_torch.data.registry import ModelRegistry, registry_from_dict
 from proteingym_tpu_torch.data.table import Table, format_cell, read_csv, write_csv
 from proteingym_tpu_torch.data.table import write_html as write_table_html
+from proteingym_tpu_torch.devices import resolve_device
 from proteingym_tpu_torch.metrics.bootstrap import (
     bootstrap_standard_error_functional_categories,
 )
@@ -137,7 +138,7 @@ def compute_assay_table(
     merged: Table,
     model_names: List[str],
     performance_by_depth: bool = False,
-    device="cpu",
+    device="cuda",
 ) -> Dict[str, Dict[str, float]]:
     """All metrics of every model column of one merged-scores table:
     {metric: {label: value}}, labels the model names (plus ``model_depth``
@@ -145,6 +146,7 @@ def compute_assay_table(
     row of one ``batched_assay_metrics`` call on ``device``, valid where
     the score is finite (and the depth matches); a missing model column,
     or one with no valid row, gives NaN."""
+    device = resolve_device(device)
     n = len(merged)
     y_true = merged.floats("DMS_score")
     y_bin = merged.floats("DMS_score_bin") if "DMS_score_bin" in merged else np.full(n, np.nan)
@@ -199,7 +201,7 @@ def evaluate_benchmark(
     bootstrap_samples: int = 10000,
     seed: int = 0,
     write_html: bool = True,
-    device="cpu",
+    device="cuda",
     timings: Optional[Dict[str, float]] = None,
 ) -> Dict[str, Table]:
     """The metric and aggregation pipeline, writing every artifact of the
@@ -208,6 +210,7 @@ def evaluate_benchmark(
     or None (the assay is skipped). ``timings``, when given, gathers the
     seconds spent in ``io`` (loading and writing), ``metrics`` and
     ``bootstrap``. Returns {metric: summary table}."""
+    device = resolve_device(device)
     clock = timings if timings is not None else {}
     for k in ("io", "metrics", "bootstrap"):
         clock.setdefault(k, 0.0)

@@ -18,6 +18,7 @@ import torch
 from proteingym_tpu_torch.data.reference import ReferenceSet
 from proteingym_tpu_torch.data.registry import ModelRegistry
 from proteingym_tpu_torch.data.table import Table, write_csv, write_html as write_table_html
+from proteingym_tpu_torch.devices import resolve_device
 from proteingym_tpu_torch.metrics.aggregate import column_mean, first_argmax, order_descending
 from proteingym_tpu_torch.metrics.bootstrap import bootstrap_standard_error
 from proteingym_tpu_torch.metrics.core import auc
@@ -35,11 +36,12 @@ def _find_label_column(frame: Table, label_column: Optional[str]) -> str:
 
 
 def protein_aucs(merged: Table, model_names, label_column: Optional[str] = None,
-                 device="cpu") -> Dict[str, float]:
+                 device="cuda") -> Dict[str, float]:
     """{model: AUC} of one protein, every present model column in one
     batched call on ``device``: valid rows have a finite score and label,
     labels are truncated to int; NaN for a missing column, no valid row
     or a single class."""
+    device = resolve_device(device)
     labels = merged.floats(_find_label_column(merged, label_column))
     present = [m for m in model_names if m in merged]
     out = {m: np.nan for m in model_names}
@@ -66,11 +68,12 @@ def evaluate_clinical(
     bootstrap_samples: int = 10000,
     model_types: Optional[Dict[str, str]] = None,
     write_html: bool = False,
-    device="cpu",
+    device="cuda",
 ) -> Table:
     """AUC-only clinical evaluation, the AUCs on ``device``; writes
     ``AUC/clinical_<type>_AUC_DMS_level.csv`` and the summary. Returns the
     ranked summary."""
+    device = resolve_device(device)
     output_dir = Path(output_dir) / "AUC"
     output_dir.mkdir(parents=True, exist_ok=True)
     model_names = registry.names

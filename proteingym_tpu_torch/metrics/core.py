@@ -28,7 +28,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from proteingym_tpu.constants import METRICS
+from proteingym_tpu_torch.constants import METRICS
+from proteingym_tpu_torch.devices import resolve_device
 
 _BIG = 1e30  # float64 sentinel pushing invalid slots to the end of sorts
 F64 = torch.float64
@@ -228,8 +229,9 @@ def metrics_to_numpy(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {m: stacked[i] for i, m in enumerate(METRICS)}
 
 
-def assay_metrics_host(y_true, y_bin, y_score, device="cpu") -> Dict[str, float]:
+def assay_metrics_host(y_true, y_bin, y_score, device="cuda") -> Dict[str, float]:
     """Variable-length numpy inputs -> {metric: float}, computed on ``device``."""
+    device = resolve_device(device)
     y_true = np.asarray(y_true, dtype=np.float64)
     out = metrics_to_numpy(assay_metrics(y_true, y_bin, y_score,
                                          np.ones(y_true.shape, dtype=bool), device=device))

@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from proteingym_tpu_torch.ops.flash_attention import mha_natural
+from proteingym_tpu_torch.devices import resolve_device
+from proteingym_tpu_torch.ops.flash_attention import KeyTiles, mha_natural
 
 # upper bound on independent sequences per packed row (one-hot width)
 MAX_ROW_SEGMENTS = 28
@@ -138,7 +139,7 @@ class SelfAttention(nn.Module):
         self.v_proj = nn.Linear(d, d, **kw)
         self.out_proj = nn.Linear(d, d, **kw)
 
-    def forward(self, x, key_mask, segment_ids=None):
+    def forward(self, x, key_mask, segment_ids=None, key_tiles=None):
         b, t, d = x.shape
 
         def heads(y):  # (B, T, D) -> (B, T, H, hd) view, no copy
@@ -149,7 +150,7 @@ class SelfAttention(nn.Module):
         q = heads(self.q_proj(x) * self.scaling)
         ctx = mha_natural(q, heads(self.k_proj(x)), heads(self.v_proj(x)),
                           key_mask=key_mask, sm_scale=1.0, rope_base=self.rope_base,
-                          segment_ids=segment_ids)
+                          segment_ids=segment_ids, key_tiles=key_tiles)
         return self.out_proj(ctx.reshape(b, t, d))
 
 
@@ -163,8 +164,8 @@ class TransformerLayer(nn.Module):
         self.fc1 = nn.Linear(d, config.ffn_dim, **kw)
         self.fc2 = nn.Linear(config.ffn_dim, d, **kw)
 
-    def forward(self, x, key_mask, segment_ids=None):
-        x = x + self.self_attn(self.self_attn_layer_norm(x), key_mask, segment_ids)
+    def forward(self, x, key_mask, segment_ids=None, key_tiles=None):
+        x = x + self.self_attn(self.self_attn_layer_norm(x), key_mask, segment_ids, key_tiles)
         return x + self.fc2(F.gelu(self.fc1(self.final_layer_norm(x))))
 
 
@@ -253,9 +254,11 @@ class EsmModel(nn.Module):
 
         x = x.masked_fill(padding_mask[..., None], 0.0)
         key_mask = ~padding_mask
+        # the segmented layers' key-tile extents, found once for all of them
+        key_tiles = KeyTiles(segment_ids, key_mask) if segment_ids is not None else None
         reps = {}
         for i, layer in enumerate(self.layers):
-            x = layer(x, key_mask, segment_ids)
+            x = layer(x, key_mask, segment_ids, key_tiles)
             if return_representations:
                 reps[i + 1] = x
         x = self.emb_layer_norm_after(x)
@@ -278,11 +281,11 @@ def make_segmented_apply_fn(model: EsmModel) -> EsmModel:
 def _empty_model(config: EsmConfig, device) -> EsmModel:
     with torch.device("meta"):
         model = EsmModel(config)
-    return model.to_empty(device=torch.device(device)).eval().requires_grad_(False)
+    return model.to_empty(device=resolve_device(device)).eval().requires_grad_(False)
 
 
 @torch.no_grad()
-def init_random(config: EsmConfig, seed: int = 0, device="cpu") -> EsmModel:
+def init_random(config: EsmConfig, seed: int = 0, device="cuda") -> EsmModel:
     """Random-normal init from a seeded ``torch.Generator`` on ``device``:
     dense weights N(0, 1/n_in), zero biases, unit LN scales, embeddings
     N(0, 0.02^2) (the JAX ``init_params`` distribution; the draws differ)."""
@@ -309,7 +312,7 @@ def _randn(shape, gen, device):
 
 @torch.no_grad()
 def load_fair_esm_state_dict(state_dict: Mapping, config: EsmConfig,
-                             device="cpu") -> EsmModel:
+                             device="cuda") -> EsmModel:
     """Build the model from a fair-esm checkpoint's state dict (tensors or
     numpy arrays). Keys the model does not hold (contact head, rotary
     ``inv_freq`` buffers, the tied ``lm_head.weight``) are ignored; a key it

@@ -43,8 +43,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from proteingym_tpu_torch.devices import resolve_device
 from proteingym_tpu_torch.models.esm2 import LayerNorm
-from proteingym_tpu_torch.ops.flash_attention import mha
+from proteingym_tpu_torch.ops.flash_attention import KeyTiles, mha
 from proteingym_tpu_torch.ops.rotary import rotate_half
 
 POET_CHARS = "ARNDCQEGHILKMFPSTWYV"
@@ -114,10 +115,11 @@ class PoetAttention(nn.Module):
         self.v_proj = nn.Linear(d, d, **kw)
         self.out_proj = nn.Linear(d, d, **kw)
 
-    def forward(self, x, segment_ids=None, key_mask=None, rope=None):
+    def forward(self, x, segment_ids=None, key_mask=None, rope=None, key_tiles=None):
         """``segment_ids`` (B, T), 0 = padding: the self tier. Otherwise
         ``key_mask`` (B, T) and ``rope`` = (cos, sin), each (B, T, 1, hd) in
-        x's dtype: the multi tier."""
+        x's dtype: the multi tier. ``key_tiles``: the attention's
+        ``KeyTiles`` for these masks, shared by the layers."""
         b, t, d = x.shape
         q, k, v = (p(x).view(b, t, self.num_heads, self.head_dim)
                    for p in (self.q_proj, self.k_proj, self.v_proj))
@@ -130,10 +132,11 @@ class PoetAttention(nn.Module):
             return z.permute(0, 2, 1, 3)
 
         if segment_ids is not None:
-            ctx = mha(tr(q), tr(k), tr(v), causal=True,
-                      segment_ids=segment_ids, rope_base=ROPE_BASE)
+            ctx = mha(tr(q), tr(k), tr(v), causal=True, segment_ids=segment_ids,
+                      rope_base=ROPE_BASE, key_tiles=key_tiles)
         else:
-            ctx = mha(tr(q), tr(k), tr(v), causal=True, key_mask=key_mask)
+            ctx = mha(tr(q), tr(k), tr(v), causal=True, key_mask=key_mask,
+                      key_tiles=key_tiles)
         return self.out_proj(tr(ctx).reshape(b, t, d).to(x.dtype))
 
 
@@ -149,9 +152,11 @@ class PoetLayer(nn.Module):
         self.linear1 = nn.Linear(d, config.ffn_dim, **kw)
         self.linear2 = nn.Linear(config.ffn_dim, d, **kw)
 
-    def forward(self, x, segment_ids, valid, rope):
-        x = x + self.self_attn(self.norm1(x), segment_ids=segment_ids)
-        x = x + self.multihead_attn(self.norm2(x), key_mask=valid, rope=rope)
+    def forward(self, x, segment_ids, valid, rope, tiles=(None, None)):
+        self_tiles, multi_tiles = tiles
+        x = x + self.self_attn(self.norm1(x), segment_ids=segment_ids, key_tiles=self_tiles)
+        x = x + self.multihead_attn(self.norm2(x), key_mask=valid, rope=rope,
+                                    key_tiles=multi_tiles)
         y = F.gelu(self.linear1(self.norm3(x)).float(), approximate="tanh")
         return x + self.linear2(y.to(x.dtype))
 
@@ -191,8 +196,10 @@ class PoetModel(nn.Module):
         seg_nonzero = (segment_ids.to(torch.int32) + 1) * valid.to(torch.int32)
         rope = _rope_by_positions(positions, self.config.head_dim, x.dtype)
         valid = valid.to(torch.bool)
+        # each tier's key-tile extents, found once for all layers
+        tiles = (KeyTiles(seg_nonzero, causal=True), KeyTiles(key_mask=valid, causal=True))
         for layer in self.decoder.layers:
-            x = layer(x, seg_nonzero, valid, rope)
+            x = layer(x, seg_nonzero, valid, rope, tiles)
         if self.norm is not None:
             x = self.norm(x)
         return self.linear(x.float())
@@ -201,11 +208,11 @@ class PoetModel(nn.Module):
 def _empty_model(config: PoetConfig, device) -> PoetModel:
     with torch.device("meta"):
         model = PoetModel(config)
-    return model.to_empty(device=torch.device(device)).eval().requires_grad_(False)
+    return model.to_empty(device=resolve_device(device)).eval().requires_grad_(False)
 
 
 @torch.no_grad()
-def init_random(config: PoetConfig, seed: int = 0, device="cpu") -> PoetModel:
+def init_random(config: PoetConfig, seed: int = 0, device="cuda") -> PoetModel:
     """Seeded random init with the JAX ``init_params`` distribution (the
     draws differ): dense weights and the embedding N(0, 0.02^2), zero
     biases, unit LN scales, and ``linear2`` zero (as the reference
@@ -334,7 +341,7 @@ def _params_to_state_dict(params) -> Dict[str, np.ndarray]:
     return sd
 
 
-def from_jax_params(params, config: PoetConfig, device="cpu") -> PoetModel:
+def from_jax_params(params, config: PoetConfig, device="cuda") -> PoetModel:
     """The port's model from the JAX params pytree (numpy leaves)."""
     return load_state_dict_poet(_empty_model(config, device), _params_to_state_dict(params))
 

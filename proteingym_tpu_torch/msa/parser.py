@@ -6,7 +6,7 @@ Behavioral parity target: ref proteingym/utils/msa_utils.py:24-205
 (MSA_processing) — focus-column detection, fragment filtering, focus-column
 gap thresholding, indeterminate-AA drops, and one-hot encoding — as array
 transforms over an integer-encoded matrix. The alphabets come from the
-shared, import-free ``proteingym_tpu.constants``.
+port's ``proteingym_tpu_torch.constants``.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from proteingym_tpu.constants import (
+from proteingym_tpu_torch.constants import (
     ALPHABET_PROTEIN_GAP,
     ALPHABET_PROTEIN_NOGAP,
     GAP,

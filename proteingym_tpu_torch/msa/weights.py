@@ -26,7 +26,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from proteingym_tpu.constants import ALPHABET_PROTEIN_NOGAP
+from proteingym_tpu_torch.constants import ALPHABET_PROTEIN_NOGAP
+from proteingym_tpu_torch.devices import resolve_device
 
 NUM_AA = len(ALPHABET_PROTEIN_NOGAP)
 
@@ -120,7 +121,7 @@ def sequence_weights(
     matrix: np.ndarray,
     theta: float = 0.2,
     identity_threshold: Optional[float] = None,
-    device="cpu",
+    device="cuda",
 ) -> np.ndarray:
     """Cluster weights w_i = 1 / neighbour_count_i (ref weights.py:13-53) as
     float64 numpy, 0 for all-gap rows. ``matrix``: (N, L) int codes with
@@ -129,7 +130,7 @@ def sequence_weights(
     plain version; there is no fallback between them."""
     if identity_threshold is None:
         identity_threshold = 1.0 - theta
-    dev = torch.device(device)
+    dev = resolve_device(device)
     m = torch.as_tensor(np.asarray(matrix))
     if dev.type == "cuda":
         counts = num_cluster_members_cuda(m.to(dev), identity_threshold)

@@ -1,8 +1,9 @@
-// The device code of the grouped attention kernel, shared by three entry
-// points: the (B, H, T, D) and (B, T, H, D) entries in grouped_attention.cu
-// and the extent-sparse segmented entry in seg_block_attention.cu. Each
-// entry fills a Params and calls launch_grouped; none carries device code
-// of its own.
+// The mma.sync and float32 device code of the grouped attention kernels.
+// The extent-sparse segmented entry (seg_block_attention.cu, K3) launches
+// both through launch_grouped; the (B, H, T, D) and (B, T, H, D) entries in
+// grouped_attention.cu (K1, K4) launch the float32 kernel from here and,
+// for bfloat16, the Hopper loop of hopper_attention.cuh after their own
+// pre-pass (rope_qk_kernel), which rotates as the plain version does.
 //
 // What it computes: out = softmax(q.k^T [+ bias] [masked]) . v per (batch,
 // head), with

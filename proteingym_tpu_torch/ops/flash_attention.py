@@ -12,6 +12,14 @@ wrapper's argument contract: q/k/v (B, H, T, D), ``key_mask`` (B, T) bool
 ``_bthd_attention_kernel``: the same math on (B, T, H, D) tensors without
 a bias, launched through the (B, T, H, D) entry of the same CUDA source.
 
+For bfloat16 both run, in one foreign call, a pre-pass kernel that rotates
+and scales q and k once (``rope_qk`` launches it alone) and the Hopper loop
+(``csrc/hopper_attention.cuh``), which visits only the key tiles of
+``_key_tile_extents`` for segmented and causal calls. A model computes
+those once per forward through a ``KeyTiles`` it passes to every layer.
+Padding rows (segment 0) of a segmented call are finite but are not the
+plain version's; callers never consume them.
+
 ``flash_mha`` wraps ``csrc/flash_attention.cu``, the port of the Pallas
 long-context kernel ``_attention_kernel``: the same contract without
 ``rope_base`` and ``segment_ids``; causal calls skip the key tiles above
@@ -45,7 +53,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of each CUDA kernel entry in this process, counted by its wrapper
 # where it launches the kernel and nowhere else
-LAUNCHES = {"grouped_attention": 0, "grouped_attention_bthd": 0,
+LAUNCHES = {"grouped_attention": 0, "grouped_attention_bthd": 0, "rope_qk": 0,
             "flash_attention": 0, "seg_block_attention": 0}
 
 # Up to this context length ``mha`` takes the grouped kernel, beyond it the
@@ -55,9 +63,11 @@ GROUPED_MAX_SEQ_LEN = 1024
 # the JAX extent-sparse kernel's block edge; ``_seg_block_dispatch`` pads
 # rows to a multiple of it, as the JAX dispatch does
 SEG_BLOCK = 128
-# the Hopper kernels' query and key tile edge (kTile in attention_common.cuh):
-# the extent-sparse kernel's extents are counted in these tiles
+# the Hopper kernels' key tile edge (kTile in attention_common.cuh), also the
+# query tile of the mma.sync kernels: extents are counted in key tiles
 KERNEL_TILE = 64
+# query rows per block of the Hopper loop (kQRows in hopper_attention.cuh)
+Q_TILE = 128
 
 
 def _round_up(n: int, m: int) -> int:
@@ -89,9 +99,10 @@ def reference_mha(
 
 
 def plain_mha(q, k, v, key_mask=None, bias=None, causal=False, sm_scale=None,
-              rope_base=None, segment_ids=None):
+              rope_base=None, segment_ids=None, key_tiles=None):
     """The kernel's plain version, with ``grouped_mha``'s contract: RoPE
-    applied in-graph to unrotated q/k, then ``reference_mha``."""
+    applied in-graph to unrotated q/k, then ``reference_mha``. Every key
+    takes part, so ``key_tiles`` goes unused."""
     if rope_base is not None:
         q, k = apply_rotary_bhtd(q, k, rope_base)
     return reference_mha(q, k, v, key_mask=key_mask, bias=bias, causal=causal,
@@ -99,13 +110,24 @@ def plain_mha(q, k, v, key_mask=None, bias=None, causal=False, sm_scale=None,
 
 
 def plain_mha_bthd(q, k, v, key_mask=None, causal=False, sm_scale=None,
-                   rope_base=None, segment_ids=None):
+                   rope_base=None, segment_ids=None, key_tiles=None):
     """``grouped_mha_bthd``'s plain version: ``plain_mha`` on (B, T, H, D)
     tensors, returning (B, T, H, D)."""
     tr = lambda x: x.transpose(1, 2)
     return tr(plain_mha(tr(q), tr(k), tr(v), key_mask=key_mask, causal=causal,
                         sm_scale=sm_scale, rope_base=rope_base,
                         segment_ids=segment_ids))
+
+
+def plain_rope_qk(q, k, sm_scale=1.0, rope_base=None):
+    """``rope_qk``'s plain version: q scaled in float32 and rounded to the
+    input dtype, then q and k rotated in float32 and rounded again (the
+    TPU kernels' order). Returns (B, H, T, D) q', k'."""
+    if sm_scale != 1.0:
+        q = (q.float() * sm_scale).to(q.dtype)
+    if rope_base is not None:
+        q, k = apply_rotary_bhtd(q, k, rope_base)
+    return q, k
 
 
 def plain_seg_block_mha(q, k, v, segment_ids, sm_scale=None, rope_base=None):
@@ -129,14 +151,18 @@ def _kernel_lib():
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.pgym_grouped_attention.argtypes = [
         vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
-        vp, vp, vp, i32, vp, vp, ctypes.c_float, vp,
+        vp, vp, vp, i32, vp, vp, ctypes.c_float, vp, vp, i32, vp, vp,
     ]
     lib.pgym_grouped_attention.restype = i32
     lib.pgym_grouped_attention_bthd.argtypes = [
         vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
-        vp, vp, i32, vp, vp, ctypes.c_float, vp,
+        vp, vp, i32, vp, vp, ctypes.c_float, vp, vp, i32, vp, vp,
     ]
     lib.pgym_grouped_attention_bthd.restype = i32
+    lib.pgym_rope_qk.argtypes = [
+        vp, vp, vp, vp, vp, i32, i32, i32, i32, vp, vp, ctypes.c_float, vp,
+    ]
+    lib.pgym_rope_qk.restype = i32
     lib.pgym_cuda_error_string.argtypes = [i32]
     lib.pgym_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -150,8 +176,9 @@ def _rope_tables(t: int, d: int, base: float, device: torch.device):
 
 
 def _aligned_rows(x: torch.Tensor) -> bool:
-    """Every (b, h, t) row of a bf16 tensor starts on a 16-byte boundary."""
-    return x.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in x.stride()[:3])
+    """Every (b, h, t) row of a bf16 tensor starts on a 16-byte boundary,
+    with strides a TMA tensor map takes (positive multiples of 16 bytes)."""
+    return x.data_ptr() % 16 == 0 and all(s % 8 == 0 and s > 0 for s in x.stride()[:3])
 
 
 @functools.lru_cache(maxsize=1)
@@ -229,17 +256,136 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def _launch_grouped_attention(q, k, v, key_mask, bias, causal, sm_scale,
-                              rope_base, segment_ids, bthd=False):
-    """Launch the grouped kernel on (B, H, T, D) views. With ``bthd`` the
-    (B, T, H, D) entry is launched (no bias), given the strides of the
-    (B, T, H, D) tensors behind the views."""
-    q, k, v = _checked_qkv(q, k, v)
+def rope_qk(q: torch.Tensor, k: torch.Tensor, sm_scale: float = 1.0,
+            rope_base: Optional[float] = None):
+    """The Hopper loop's pre-pass alone: q' = rope(q * sm_scale) and k' =
+    rope(k) on (B, H, T, D) tensors, each step rounded to the input dtype
+    as ``plain_rope_qk`` rounds. CUDA tensors (bfloat16) launch the kernel,
+    which writes (B, T, H, D) memory returned as (B, H, T, D) views (k
+    itself when there is no rotation); CPU tensors take ``plain_rope_qk``.
+    The attention entries run the same kernel inside their own launch."""
+    if q.device.type == "cpu":
+        return plain_rope_qk(q, k, sm_scale, rope_base)
+    if q.device.type != "cuda":
+        raise ValueError(f"no pre-pass for device {q.device}")
+    q, k, _ = _checked_qkv(q, k, k)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the pre-pass takes bfloat16 q/k, got {q.dtype}")
     b, h, t, d = q.shape
+    q_out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    k_out = torch.empty_like(q_out) if rope_base is not None else None
+    cos = sin = None
+    if rope_base is not None:
+        cos, sin = _rope_tables(t, d, float(rope_base), q.device)
+    lib = _kernel_lib()
+    with torch.cuda.device(q.device):
+        err = lib.pgym_rope_qk(
+            q.data_ptr(), k.data_ptr(), q_out.data_ptr(), _ptr(k_out),
+            (ctypes.c_longlong * 6)(*q.stride()[:3], *k.stride()[:3]), b, h, t, d,
+            _ptr(cos), _ptr(sin), float(sm_scale),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError("rope_qk launch failed: " + lib.pgym_cuda_error_string(err).decode())
+    LAUNCHES["rope_qk"] += 1
+    return q_out.permute(0, 2, 1, 3), (k_out.permute(0, 2, 1, 3) if k_out is not None else k)
+
+
+def _key_tile_extents(b, t, segment_ids, key_mask, causal, device):
+    """The key tiles [lo, hi) (KERNEL_TILE keys each) that each Q_TILE-row
+    query tile of the Hopper loop visits, both (B, ceil(T / Q_TILE)) int32
+    on ``device``; None when every tile is visited (neither segments nor
+    causal).
+
+    With segments, a query tile visits the tiles from the start of the
+    first run it touches to the end of the last. That covers every key of
+    its segments when each live id (> 0) forms one run; a row whose live
+    ids do not rise from run to run (an id may come back) visits every
+    tile. Causal calls stop at the diagonal tile, except that a tile
+    holding a row with no live key at or before it (a ``key_mask`` without
+    segments) visits every tile, so that row averages v over all T keys as
+    the plain version does."""
+    if segment_ids is None and not causal:
+        return None
+    dev = torch.device(device)
+    n_qt, n_kt = -(-t // Q_TILE), -(-t // KERNEL_TILE)
+    q0 = torch.arange(n_qt, device=dev) * Q_TILE
+    if segment_ids is not None:
+        seg = F.pad(segment_ids.to(dev), (0, n_qt * Q_TILE - t))
+        lo, hi = _segment_block_extents(seg, n_qt, Q_TILE, KERNEL_TILE)
+        lo, hi = lo.long(), hi.long().clamp(max=n_kt)
+        # a run whose live id is not above every id before it: the id may
+        # have come before, so the row visits every tile
+        ids = seg.long()
+        before = F.pad(torch.cummax(ids, dim=1).values[:, :-1], (1, 0))
+        starts = ids != F.pad(ids[:, :-1], (1, 0))
+        repeats = ((ids > 0) & starts & (ids <= before)).any(dim=1, keepdim=True)
+        lo = lo.masked_fill(repeats, 0)
+        hi = hi.masked_fill(repeats, n_kt)
+    else:
+        lo = torch.zeros(b, n_qt, dtype=torch.long, device=dev)
+        hi = torch.full((b, n_qt), n_kt, dtype=torch.long, device=dev)
+    if causal:
+        diag = (q0 + Q_TILE).clamp(max=t).sub(1).div(KERNEL_TILE, rounding_mode="floor") + 1
+        diag = diag[None].expand(b, n_qt)
+        if segment_ids is None and key_mask is not None:
+            live = key_mask.to(dev, torch.bool)
+            first = torch.where(live.any(dim=1), live.int().argmax(dim=1), t)
+            diag = torch.where(first[:, None] > q0[None], n_kt, diag)
+        hi = torch.minimum(hi, diag)
+    return lo.int().contiguous(), hi.int().contiguous()
+
+
+class KeyTiles:
+    """The key-tile extents of one (``segment_ids``, ``key_mask``,
+    ``causal``) triple, computed by the first bfloat16 launch of the
+    Hopper loop that takes them and kept for the next ones. A model makes
+    one per forward where it makes the masks and passes it, with the same
+    mask tensors, to every layer (PoET's twelve self-tier calls share
+    one): the extents cost some forty small device ops of host time."""
+
+    def __init__(self, segment_ids=None, key_mask=None, causal=False):
+        self.segment_ids, self.key_mask, self.causal = segment_ids, key_mask, bool(causal)
+        self._extents = {}
+
+    def extents(self, b, t, device):
+        key = (b, t, str(device))
+        if key not in self._extents:
+            self._extents[key] = _key_tile_extents(b, t, self.segment_ids, self.key_mask,
+                                                   self.causal, device)
+        return self._extents[key]
+
+    def check(self, segment_ids, key_mask, causal):
+        """Raise unless these are the masks the extents were made for."""
+        if (segment_ids is not self.segment_ids or key_mask is not self.key_mask
+                or bool(causal) != self.causal):
+            raise ValueError("key_tiles were made for other segment_ids, key_mask or causal")
+
+
+def _launch_grouped_attention(q, k, v, key_mask, bias, causal, sm_scale,
+                              rope_base, segment_ids, key_tiles, bthd=False):
+    """Launch the grouped kernel on (B, H, T, D) tensors, or with ``bthd``
+    its (B, T, H, D) entry (no bias) on (B, T, H, D) tensors; the result
+    comes in the same layout. bfloat16 runs the pre-pass (when there is
+    RoPE or a scale) and the Hopper loop with key-tile extents, in one
+    foreign call; float32 the scalar kernel, which rotates and scales on
+    load."""
+    q, k, v = _checked_qkv(q, k, v)
+    if bthd:
+        b, t, h, d = q.shape
+    else:
+        b, h, t, d = q.shape
     dev = q.device
-    # (B, T, H, D) memory seen as (B, H, T, D): the model's output projection
-    # reads it back without a transpose
-    out = torch.empty((b, t, h, d), dtype=q.dtype, device=dev).permute(0, 2, 1, 3)
+    # (B, T, H, D) memory, seen as (B, H, T, D) by the (B, H, T, D) entry:
+    # the model's output projection reads it back without a transpose
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=dev)
+    if not bthd:
+        out = out.permute(0, 2, 1, 3)
+    lo = hi = scratch = cos = sin = None
+    if q.dtype == torch.bfloat16 and (segment_ids is not None or causal):
+        # from the caller's tensors, before the checks below convert them
+        tiles = key_tiles or KeyTiles(segment_ids, key_mask, causal)
+        lo, hi = tiles.extents(b, t, dev)
     if key_mask is not None:
         if key_mask.shape != (b, t):
             raise ValueError(f"key_mask must be (B, T)={b, t}, got {tuple(key_mask.shape)}")
@@ -250,11 +396,15 @@ def _launch_grouped_attention(q, k, v, key_mask, bias, causal, sm_scale,
         bias = bias.to(device=dev, dtype=torch.float32).contiguous()
     if segment_ids is not None:
         segment_ids = _checked_segments(segment_ids, b, t, dev)
-    cos = sin = None
-    if rope_base is not None:
-        cos, sin = _rope_tables(t, d, float(rope_base), dev)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
+    if rope_base is not None:
+        cos, sin = _rope_tables(t, d, float(rope_base), dev)
+    prepass = q.dtype == torch.bfloat16 and (rope_base is not None or sm_scale != 1.0)
+    if prepass:  # q' and, with RoPE, k' after it
+        scratch = torch.empty((2 if rope_base is not None else 1) * b * t * h * d,
+                              dtype=q.dtype, device=dev)
+    n_qt = 0 if lo is None else lo.shape[1]
 
     lib = _kernel_lib()
     with torch.cuda.device(dev):
@@ -262,23 +412,26 @@ def _launch_grouped_attention(q, k, v, key_mask, bias, causal, sm_scale,
         if bthd:
             err = lib.pgym_grouped_attention_bthd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _strides(*(x.transpose(1, 2) for x in (q, k, v, out))),
+                _strides(q, k, v, out),
                 b, h, t, d, _DTYPE_CODES[q.dtype], _ptr(key_mask),
                 _ptr(segment_ids), int(bool(causal)), _ptr(cos), _ptr(sin),
-                float(sm_scale), stream,
+                float(sm_scale), _ptr(lo), _ptr(hi), n_qt, _ptr(scratch), stream,
             )
         else:
             err = lib.pgym_grouped_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 _strides(q, k, v, out), b, h, t, d, _DTYPE_CODES[q.dtype],
                 _ptr(key_mask), _ptr(bias), _ptr(segment_ids), int(bool(causal)),
-                _ptr(cos), _ptr(sin), float(sm_scale), stream,
+                _ptr(cos), _ptr(sin), float(sm_scale), _ptr(lo), _ptr(hi), n_qt,
+                _ptr(scratch), stream,
             )
     name = "grouped_attention_bthd" if bthd else "grouped_attention"
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            + lib.pgym_cuda_error_string(err).decode())
     LAUNCHES[name] += 1
+    if prepass:
+        LAUNCHES["rope_qk"] += 1
     return out
 
 
@@ -292,14 +445,26 @@ def grouped_mha(
     sm_scale: Optional[float] = None,
     rope_base: Optional[float] = None,
     segment_ids: Optional[torch.Tensor] = None,
+    key_tiles: Optional[KeyTiles] = None,
 ) -> torch.Tensor:
     """Fused attention, (B, H, T, D) -> (B, H, T, D). CUDA tensors launch the
     Hopper kernel (any T, head dims in HEAD_DIMS, float32 or bfloat16); CPU
     tensors take the plain version. With ``rope_base`` q/k arrive unrotated.
-    ``sm_scale`` None means 1/sqrt(D); 1.0 when the caller pre-scaled q."""
+    ``sm_scale`` None means 1/sqrt(D); 1.0 when the caller pre-scaled q.
+
+    ``segment_ids`` (B, T) int >= 0, 0 = padding. Rows of live ids (> 0)
+    get exact segmented attention; padding rows are finite but are not the
+    plain version's. The bfloat16 kernel skips the key tiles outside each
+    query tile's segment runs; a batch row whose live ids do not rise from
+    run to run (an id that forms two runs) visits every tile, so any ids
+    are honoured, contiguous runs are fast. ``key_tiles``: the extents of
+    these masks (a ``KeyTiles`` made from these very tensors), shared by
+    the calls of one forward; None computes them for this call."""
+    if key_tiles is not None:
+        key_tiles.check(segment_ids, key_mask, causal)
     if q.device.type == "cuda":
         return _launch_grouped_attention(q, k, v, key_mask, bias, causal,
-                                         sm_scale, rope_base, segment_ids)
+                                         sm_scale, rope_base, segment_ids, key_tiles)
     if q.device.type == "cpu":
         return plain_mha(q, k, v, key_mask, bias, causal, sm_scale,
                          rope_base, segment_ids)
@@ -315,6 +480,7 @@ def grouped_mha_bthd(
     sm_scale: Optional[float] = None,
     rope_base: Optional[float] = None,
     segment_ids: Optional[torch.Tensor] = None,
+    key_tiles: Optional[KeyTiles] = None,
 ) -> torch.Tensor:
     """Heads-mid attention: q/k/v and the result are (B, T, H, D), the
     layout of the q/k/v projections, so nothing is transposed. No bias (as
@@ -322,15 +488,17 @@ def grouped_mha_bthd(
     (B, T, H, D) entry (any T, head dims in HEAD_DIMS, float32 or
     bfloat16); CPU tensors take ``plain_mha_bthd``.
 
-    ``key_mask`` and ``segment_ids`` are both honoured, as in ``grouped_mha``
-    (the TPU kernel drops the key mask when segments are given, relying on
-    padding being segment 0; callers that keep that contract see no
-    difference)."""
+    ``key_mask``, ``segment_ids`` and ``key_tiles`` as in ``grouped_mha``:
+    both masks are honoured (the TPU kernel drops the key mask when
+    segments are given, relying on padding being segment 0; callers that
+    keep that contract see no difference), padding rows are not the plain
+    version's, and a batch row whose live ids do not rise from run to run
+    visits every key tile."""
+    if key_tiles is not None:
+        key_tiles.check(segment_ids, key_mask, causal)
     if q.device.type == "cuda":
-        tr = lambda x: x.transpose(1, 2)
-        return tr(_launch_grouped_attention(
-            tr(q), tr(k), tr(v), key_mask, None, causal, sm_scale, rope_base,
-            segment_ids, bthd=True))
+        return _launch_grouped_attention(q, k, v, key_mask, None, causal, sm_scale,
+                                         rope_base, segment_ids, key_tiles, bthd=True)
     if q.device.type == "cpu":
         return plain_mha_bthd(q, k, v, key_mask=key_mask, causal=causal,
                               sm_scale=sm_scale, rope_base=rope_base,
@@ -408,13 +576,15 @@ def flash_mha(
 
 
 def _segment_block_extents(segment_ids: torch.Tensor, n_qb: int,
-                           block: int = SEG_BLOCK):
+                           block: int = SEG_BLOCK, key_block: Optional[int] = None):
     """(B, T) contiguous segment ids, T = n_qb * block -> per-query-block
-    key-block extents [lo, hi) in ``block`` units, both (B, n_qb) int32, on
-    the ids' device: the first block holding the start of any segment the
-    query block touches, and one past the block holding the last end.
-    ``block`` is SEG_BLOCK for the JAX kernel's extents and KERNEL_TILE for
-    the Hopper kernel's."""
+    key-block extents [lo, hi) in ``key_block`` units (default ``block``),
+    both (B, n_qb) int32, on the ids' device: the first key block holding
+    the start of any segment the query block touches, and one past the key
+    block holding the last end. ``block`` is SEG_BLOCK for the JAX kernel's
+    extents, KERNEL_TILE for the extent-sparse kernel's and Q_TILE (with
+    key blocks of KERNEL_TILE) for the Hopper loop's."""
+    key_block = key_block or block
     b, t = segment_ids.shape
     if t != n_qb * block:
         raise ValueError(f"T={t} is not {n_qb} blocks of {block}")
@@ -427,8 +597,8 @@ def _segment_block_extents(segment_ids: torch.Tensor, n_qb: int,
     is_end = torch.cat([change, edge], dim=1)
     end_rev = torch.cummax(torch.where(is_end, t - 1 - idx, 0).flip(1), dim=1).values
     end_tok = t - 1 - end_rev.flip(1)
-    lo = start_tok.view(b, n_qb, block).amin(dim=-1) // block
-    hi = end_tok.view(b, n_qb, block).amax(dim=-1) // block + 1
+    lo = start_tok.view(b, n_qb, block).amin(dim=-1) // key_block
+    hi = end_tok.view(b, n_qb, block).amax(dim=-1) // key_block + 1
     return lo.int(), hi.int()
 
 
@@ -508,7 +678,7 @@ def _seg_block_dispatch(q, k, v, segment_ids, sm_scale=None, rope_base=None):
 
 
 def mha(q, k, v, key_mask=None, bias=None, causal=False, sm_scale=None,
-        rope_base=None, segment_ids=None):
+        rope_base=None, segment_ids=None, key_tiles=None):
     """Attention dispatch, as the JAX ``mha`` routes on a TPU:
 
     - T <= GROUPED_MAX_SEQ_LEN: ``grouped_mha`` (RoPE fused);
@@ -523,13 +693,14 @@ def mha(q, k, v, key_mask=None, bias=None, causal=False, sm_scale=None,
       ``grouped_mha``, which has no context cap here. The JAX package takes
       its dense XLA path there, which computes the same function.
 
-    Each wrapper runs its plain version on CPU tensors, so the routing is
-    the same on both devices."""
+    ``key_tiles`` (see ``KeyTiles``) goes to ``grouped_mha``; the other
+    kernels find their tiles themselves. Each wrapper runs its plain
+    version on CPU tensors, so the routing is the same on both devices."""
     if q.shape[2] <= GROUPED_MAX_SEQ_LEN or (
             segment_ids is not None and (causal or bias is not None)):
         return grouped_mha(q, k, v, key_mask=key_mask, bias=bias, causal=causal,
                            sm_scale=sm_scale, rope_base=rope_base,
-                           segment_ids=segment_ids)
+                           segment_ids=segment_ids, key_tiles=key_tiles)
     if segment_ids is None:
         if rope_base is not None:
             q, k = apply_rotary_bhtd(q, k, rope_base)
@@ -543,7 +714,7 @@ def mha(q, k, v, key_mask=None, bias=None, causal=False, sm_scale=None,
 
 
 def mha_natural(q, k, v, key_mask=None, bias=None, causal=False,
-                sm_scale=None, rope_base=None, segment_ids=None):
+                sm_scale=None, rope_base=None, segment_ids=None, key_tiles=None):
     """Attention at the model's natural layout: q/k/v and the result are
     (B, T, H, D), the projection outputs seen per head.
 
@@ -556,8 +727,8 @@ def mha_natural(q, k, v, key_mask=None, bias=None, causal=False,
     if q.shape[1] <= GROUPED_MAX_SEQ_LEN and bias is None:
         return grouped_mha_bthd(q, k, v, key_mask=key_mask, causal=causal,
                                 sm_scale=sm_scale, rope_base=rope_base,
-                                segment_ids=segment_ids)
+                                segment_ids=segment_ids, key_tiles=key_tiles)
     tr = lambda x: x.transpose(1, 2)
     return tr(mha(tr(q), tr(k), tr(v), key_mask=key_mask, bias=bias,
                   causal=causal, sm_scale=sm_scale, rope_base=rope_base,
-                  segment_ids=segment_ids))
+                  segment_ids=segment_ids, key_tiles=key_tiles))

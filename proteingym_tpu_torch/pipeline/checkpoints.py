@@ -32,7 +32,7 @@ def _esm_preset_from_filename(path: str) -> str:
     raise ValueError(f"Cannot infer ESM preset from {path}")
 
 
-def load_esm_checkpoint(spec: Optional[str], device="cpu",
+def load_esm_checkpoint(spec: Optional[str], device="cuda",
                         seed: int = 0) -> Tuple[esm2.EsmModel, esm2.EsmConfig]:
     """Resolve an ESM checkpoint spec to (model on ``device``, config).
 
@@ -69,7 +69,7 @@ def load_esm_checkpoint(spec: Optional[str], device="cpu",
     return esm2.load_fair_esm_state_dict(state, config, device=device), config
 
 
-def load_poet_checkpoint(spec: Optional[str], device="cpu",
+def load_poet_checkpoint(spec: Optional[str], device="cuda",
                          seed: int = 0) -> Tuple[poet.PoetModel, poet.PoetConfig]:
     """Resolve a PoET checkpoint spec to (model on ``device``, config).
 

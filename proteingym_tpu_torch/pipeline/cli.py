@@ -41,15 +41,15 @@ import time
 from pathlib import Path
 
 import numpy as np
-import torch
 
-from proteingym_tpu.pipeline.manifest import Manifest
-from proteingym_tpu.pipeline.telemetry import EventLog
 from proteingym_tpu_torch.data.mutants import apply_mutant
 from proteingym_tpu_torch.data.reference import load_reference
+from proteingym_tpu_torch.devices import resolve_device
+from proteingym_tpu_torch.pipeline.manifest import Manifest
 from proteingym_tpu_torch.pipeline.scorers import (
     SCORERS, ScoreContext, score_esm_packed_batch,
 )
+from proteingym_tpu_torch.pipeline.telemetry import EventLog
 
 
 def _parse_extra(pairs):
@@ -64,15 +64,6 @@ def _parse_extra(pairs):
                 continue
         out[k] = v
     return out
-
-
-def _resolve_device(name: str) -> torch.device:
-    if name == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "--device cuda, but torch sees no CUDA device; the port never "
-            "falls back to the CPU on its own (pass --device cpu for that)"
-        )
-    return torch.device(name)
 
 
 def _load_registry_arg(config_path, dataset, mutation_type, constants_path=None):
@@ -119,7 +110,7 @@ def cmd_score(args) -> int:
     if args.model not in SCORERS:
         print(f"Unknown model '{args.model}'. Available: {sorted(SCORERS)}")
         return 2
-    device = _resolve_device(args.device)
+    device = resolve_device(args.device)
     reference = load_reference(args.dms_reference)
     if args.dms_id:
         records = [reference[args.dms_id]]
@@ -240,7 +231,7 @@ def cmd_weights(args) -> int:
     from proteingym_tpu_torch.msa.parser import load_msa
     from proteingym_tpu_torch.msa.weights import sequence_weights
 
-    device = _resolve_device(args.device)
+    device = resolve_device(args.device)
     msa = load_msa(args.msa)
     w = sequence_weights(msa.matrix, theta=args.theta, device=device)
     Path(args.output).parent.mkdir(parents=True, exist_ok=True)
@@ -265,7 +256,7 @@ def cmd_evaluate(args) -> int:
         directory_scores_loader, evaluate_benchmark,
     )
 
-    device = _resolve_device(args.device)
+    device = resolve_device(args.device)
     reference = load_reference(args.dms_reference)
     registry = _load_registry_arg(args.config, args.dataset, args.mutation_type,
                                   constants_path=args.constants)
@@ -286,7 +277,7 @@ def cmd_evaluate_clinical(args) -> int:
     from proteingym_tpu_torch.metrics.aggregate import directory_scores_loader
     from proteingym_tpu_torch.metrics.clinical import evaluate_clinical
 
-    device = _resolve_device(args.device)
+    device = resolve_device(args.device)
     reference = load_reference(args.clinical_reference)
     registry = _load_registry_arg(args.config, "clinical", args.mutation_type)
     evaluate_clinical(reference, registry, directory_scores_loader(args.merged_dir),

@@ -112,7 +112,7 @@ def score_esm_packed_batch(
     checkpoint: Optional[str],
     batch_size: int = 32,
     extra: Optional[dict] = None,
-    device="cpu",
+    device="cuda",
 ) -> Dict[str, Dict[str, np.ndarray]]:
     """Cross-assay packed ESM masked-marginal scoring, the path behind
     ``score --packed``.

@@ -103,7 +103,7 @@ def test_dispatcher_matches_jax_mha_and_launches_nothing_on_cpu(case):
     q, k, v = _qkv(7, t)
     got, want = _run_both(q, k, v, kw, jfa.mha, tfa.mha)
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
-    assert set(tfa.LAUNCHES) == {"grouped_attention", "grouped_attention_bthd",
+    assert set(tfa.LAUNCHES) == {"grouped_attention", "grouped_attention_bthd", "rope_qk",
                                  "flash_attention", "seg_block_attention"}
     assert all(n == 0 for n in tfa.LAUNCHES.values())
 
@@ -214,13 +214,18 @@ def test_kernel_library_name_tracks_included_headers(tmp_path, monkeypatch):
 
 
 def test_shipped_attention_kernels_share_one_header():
-    # every attention kernel includes the common helpers; the grouped
-    # kernel's device code is shared by its entries and the extent-sparse one
+    # every attention kernel includes the common helpers; the mma.sync
+    # loop's device code is shared by the grouped entries and the
+    # extent-sparse one
     assert [f.name for f in _build.source_files("flash_attention")] == [
         "flash_attention.cu", "attention_common.cuh"]
-    for name in ("grouped_attention", "seg_block_attention"):
-        assert [f.name for f in _build.source_files(name)] == [
-            f"{name}.cu", "grouped_attention.cuh", "attention_common.cuh"]
+    # the grouped entries (K1, K4) and the pre-pass add the Hopper loop;
+    # the extent-sparse kernel (K3) keeps the mma.sync loop alone
+    assert [f.name for f in _build.source_files("grouped_attention")] == [
+        "grouped_attention.cu", "grouped_attention.cuh", "hopper_attention.cuh",
+        "attention_common.cuh"]
+    assert [f.name for f in _build.source_files("seg_block_attention")] == [
+        "seg_block_attention.cu", "grouped_attention.cuh", "attention_common.cuh"]
     assert [f.name for f in _build.source_files("cluster_counts")] == ["cluster_counts.cu"]
 
 

@@ -125,18 +125,18 @@ def test_cuda_device_without_gpu_raises(tmp_path, monkeypatch):
 
 def test_checkpoint_specs(tmp_path):
     pt = _save_checkpoint(tmp_path / "esm2_tiny_seed1.pt", 5)
-    m1, c1 = tckpt.load_esm_checkpoint(f"esm2_tiny:{pt}")
-    m2, c2 = tckpt.load_esm_checkpoint(f":{pt}")  # preset from the file name
-    m3, _ = tckpt.load_esm_checkpoint(str(pt))
+    m1, c1 = tckpt.load_esm_checkpoint(f"esm2_tiny:{pt}", device="cpu")
+    m2, c2 = tckpt.load_esm_checkpoint(f":{pt}", device="cpu")  # preset from the file name
+    m3, _ = tckpt.load_esm_checkpoint(str(pt), device="cpu")
     assert c1 == c2 == tesm.PRESETS["esm2_tiny"]
     for name, p in m1.state_dict().items():
         assert torch.equal(p, m2.state_dict()[name]) and torch.equal(p, m3.state_dict()[name])
-    r1, _ = tckpt.load_esm_checkpoint("esm2_tiny")
-    r2, _ = tckpt.load_esm_checkpoint("esm2_tiny")
+    r1, _ = tckpt.load_esm_checkpoint("esm2_tiny", device="cpu")
+    r2, _ = tckpt.load_esm_checkpoint("esm2_tiny", device="cpu")
     assert torch.equal(r1.layers[0].fc1.weight, r2.layers[0].fc1.weight)  # seeded
     orbax = tmp_path / "converted"
     orbax.mkdir()
     with pytest.raises(ValueError, match="JAX-only"):
-        tckpt.load_esm_checkpoint(str(orbax))
+        tckpt.load_esm_checkpoint(str(orbax), device="cpu")
     with pytest.raises(ValueError, match="needs --checkpoint"):
-        tckpt.load_esm_checkpoint(None)
+        tckpt.load_esm_checkpoint(None, device="cpu")

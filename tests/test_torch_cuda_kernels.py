@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (grouped attention and its heads-mid entry,
-long-context and extent-sparse segmented attention, cluster counts) against
-their plain PyTorch versions on the card.
+"""The port's CUDA kernels (grouped attention and its heads-mid entry on
+the Hopper loop with its pre-pass, long-context and extent-sparse segmented
+attention, cluster counts) against their plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one; the kernels have no CPU mode. The file imports neither jax nor the
@@ -81,6 +81,9 @@ def test_attention_kernel_matches_plain(case, dtype, dev):
     torch.cuda.synchronize()
     assert fa.LAUNCHES["grouped_attention"] == before + 1
     want = fa.plain_mha(q.float(), k.float(), v.float(), **kw)
+    if "segment_ids" in kw:  # padding rows are never consumed
+        live = (kw["segment_ids"] > 0).cpu()
+        got, want = (x.transpose(1, 2).cpu()[live] for x in (got, want))
     torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
 
 
@@ -204,6 +207,9 @@ def test_bthd_entry_matches_plain(case, dtype, dev):
     assert fa.LAUNCHES["grouped_attention"] == before["grouped_attention"]
     assert got.shape == (b, t, h, d)
     want = fa.plain_mha_bthd(q.float(), k.float(), v.float(), **kw)
+    if "segment_ids" in kw:  # padding rows are never consumed
+        live = (kw["segment_ids"] > 0).cpu()
+        got, want = got.cpu()[live], want.cpu()[live]
     torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
 
 
@@ -306,12 +312,139 @@ def test_segmented_model_forward_takes_the_expected_kernel(t, entry, dev):
     got = apply_fn(toks, seg)
     torch.cuda.synchronize()
     counts = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
-    assert counts == {**{n: 0 for n in fa.LAUNCHES}, entry: config.num_layers}
+    # the Hopper loop takes q/k rotated by the pre-pass; K3 rotates on load
+    rotated = {"rope_qk": config.num_layers} if entry == "grouped_attention_bthd" else {}
+    assert counts == {**{n: 0 for n in fa.LAUNCHES}, entry: config.num_layers, **rotated}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(esm2, "mha_natural", fa.plain_mha_bthd)
         want = apply_fn(toks, seg)
     live = (seg > 0)
     torch.testing.assert_close(got[live], want[live], atol=0.1, rtol=0)
+
+
+# the Hopper loop (K1 and K4 in bf16): every mode at every head dim and at
+# T = 77 (one ragged query tile), 256, 1024 and 4352 (PoET's self tier).
+# name -> keyword arguments built for (B, T) on the card
+def _hopper_kwargs(mode, b, h, t, dev):
+    gen = torch.Generator().manual_seed(t)
+    lengths = [t, max(1, t - 1 - int(torch.randint(0, t // 2 + 1, (1,), generator=gen)))]
+    mask = _lengths_mask(t, lengths[:b]).to(dev)
+    # each batch row its own cuts: the extents are read per row
+    seg = torch.cat([_runs(1, t, sorted({0, t // (5 + 2 * i), t // (5 + 2 * i) + 1,
+                                         t // (2 + i), t - max(1, t // (9 - 3 * i))}))
+                     for i in range(b)]).to(dev)
+    if mode == "mask_rope":
+        return {"key_mask": mask, "rope_base": 10000.0}
+    if mode == "scale_no_rope":
+        return {"sm_scale": 0.3, "key_mask": mask}
+    if mode == "prescaled_no_prepass":
+        return {"sm_scale": 1.0}
+    if mode == "segments_rope":
+        return {"segment_ids": seg, "key_mask": seg > 0, "rope_base": 10000.0}
+    if mode == "segments_causal_rope":
+        return {"segment_ids": seg, "causal": True, "rope_base": 10000.0}
+    if mode == "causal_dead_rows":
+        dead = mask.clone()
+        dead[-1, : min(t, 150)] = False  # these rows see no live key at or before them
+        return {"key_mask": dead, "causal": True}
+    if mode == "alibi_causal":
+        return {"bias": _alibi(h, t).to(dev), "causal": True}
+    raise ValueError(mode)
+
+
+HOPPER_MODES = ["mask_rope", "scale_no_rope", "prescaled_no_prepass", "segments_rope",
+                "segments_causal_rope", "causal_dead_rows", "alibi_causal"]
+
+
+@pytest.mark.parametrize("t", [77, 256, 1024, 4352])
+@pytest.mark.parametrize("d", [16, 24, 32, 64, 128])
+@pytest.mark.parametrize("mode", HOPPER_MODES)
+def test_hopper_loop_matches_plain(mode, d, t, dev):
+    b, h = 2, 2
+    gen = torch.Generator().manual_seed(d * t)
+    q, k, v = (torch.randn(b, t, h, d, generator=gen).to(dev, torch.bfloat16).permute(0, 2, 1, 3)
+               for _ in range(3))
+    kw = _hopper_kwargs(mode, b, h, t, dev)
+    before = dict(fa.LAUNCHES)
+    got = fa.grouped_mha(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    prepass = kw.get("rope_base") is not None or kw.get("sm_scale", 0.0) != 1.0
+    assert fa.LAUNCHES["grouped_attention"] == before["grouped_attention"] + 1
+    assert fa.LAUNCHES["rope_qk"] == before["rope_qk"] + int(prepass)
+    want = fa.plain_mha(q.float(), k.float(), v.float(), **kw)
+    tr = lambda x: x.transpose(1, 2).cpu()
+    got, want = tr(got), tr(want)
+    if "segment_ids" in kw:  # live rows; padding rows are never consumed
+        live = (kw["segment_ids"] > 0).cpu()
+        got, want = got[live], want[live]
+    torch.testing.assert_close(got, want, atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("t", [300, 1037])
+def test_hopper_loop_honours_ids_that_come_back(t, causal, dev):
+    # batch row 0: the last run takes the first run's id; row 1: contiguous
+    # runs with falling ids; row 2: rising runs (its extents stay tight)
+    b, h, d = 3, 2, 64
+    seg = torch.cat([_runs(1, t, [0, t // 4, t // 2, t - 20]) for _ in range(b)])
+    seg[0, t // 2:t - 20] = 1
+    seg[1, :t // 4] = 3
+    seg[1, t // 2:t - 20] = 1
+    gen = torch.Generator().manual_seed(t)
+    q, k, v = (torch.randn(b, h, t, d, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
+    kw = {"segment_ids": seg.to(dev), "causal": causal, "rope_base": 10000.0}
+    lo, hi = fa._key_tile_extents(b, t, kw["segment_ids"], None, causal, dev)
+    assert int(lo[:2].max()) == 0 and int(lo[2].max()) > 0
+    got = fa.grouped_mha(q, k, v, **kw).float()
+    want = fa.plain_mha(q.float(), k.float(), v.float(), **kw)
+    live = (seg > 0)
+    tr = lambda x: x.transpose(1, 2).cpu()[live]
+    torch.testing.assert_close(tr(got), tr(want), atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("t", [77, 256, 1024])
+@pytest.mark.parametrize("d", [16, 24, 32, 64, 128])
+def test_hopper_loop_heads_mid_entry_matches_plain(d, t, dev):
+    b, h = 3, 4
+    gen = torch.Generator().manual_seed(d + t)
+    q, k, v = (torch.randn(b, t, h, d, generator=gen).to(dev, torch.bfloat16)
+               for _ in range(3))
+    kw = {"key_mask": _lengths_mask(t, [t, t - 3, t // 2]).to(dev), "rope_base": 10000.0}
+    before = dict(fa.LAUNCHES)
+    got = fa.grouped_mha_bthd(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["grouped_attention_bthd"] == before["grouped_attention_bthd"] + 1
+    assert fa.LAUNCHES["rope_qk"] == before["rope_qk"] + 1
+    want = fa.plain_mha_bthd(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(got, want, atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("d", [16, 24, 64, 128])
+def test_rope_qk_kernel_matches_plain(d, dev):
+    gen = torch.Generator().manual_seed(d)
+    q, k = (torch.randn(2, 300, 3, d, generator=gen).to(dev, torch.bfloat16).permute(0, 2, 1, 3)
+            for _ in range(2))
+    for scale, base in ((0.125, 10000.0), (1.0, 10000.0), (0.3, None)):
+        before = fa.LAUNCHES["rope_qk"]
+        got = fa.rope_qk(q, k, scale, base)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["rope_qk"] == before + 1
+        want = fa.plain_rope_qk(q, k, scale, base)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == torch.bfloat16
+            assert torch.equal(g, w)  # the plain version's rounding, bit for bit
+
+
+def test_hopper_loop_refuses_unrotated_bf16_calls(dev):
+    q = torch.zeros(1, 2, 64, 32, device=dev, dtype=torch.bfloat16)
+    lib = fa._kernel_lib()
+    strides = fa._strides(q, q, q, q)
+    err = lib.pgym_grouped_attention(q.data_ptr(), q.data_ptr(), q.data_ptr(), q.data_ptr(),
+                                     strides, 1, 2, 64, 32, 1, None, None, None, 0, None, None,
+                                     0.5, None, None, 0, None,
+                                     torch.cuda.current_stream().cuda_stream)
+    assert err != 0  # a scale other than 1 needs the pre-pass and its scratch
 
 
 def _alignment(seed, n, length):

@@ -74,7 +74,7 @@ def _pair(kind, seed=0):
     jcfg, tcfg = CONFIGS[kind]
     sd = fair_esm_state(tcfg, seed)
     return (jesm.convert_torch_state_dict(sd, jcfg), jcfg,
-            tesm.load_fair_esm_state_dict(sd, tcfg), tcfg, sd)
+            tesm.load_fair_esm_state_dict(sd, tcfg, device="cpu"), tcfg, sd)
 
 
 @pytest.mark.parametrize("kind", sorted(CONFIGS))
@@ -138,7 +138,7 @@ def test_params_from_jax_round_trip(kind):
     back = tesm.params_from_jax(jax.tree_util.tree_map(np.asarray, params), tcfg)
     for name, value in model.state_dict().items():
         np.testing.assert_array_equal(back[name].numpy(), sd[name])
-    again = tesm.load_fair_esm_state_dict(back, tcfg)
+    again = tesm.load_fair_esm_state_dict(back, tcfg, device="cpu")
     toks = torch.from_numpy(tokens_batch(9)).long()
     torch.testing.assert_close(again(toks), model(toks), atol=0, rtol=0)
 
@@ -148,14 +148,14 @@ def test_missing_checkpoint_key_raises():
     sd = fair_esm_state(tcfg, 0)
     del sd["layers.1.fc2.bias"]
     with pytest.raises(KeyError, match="layers.1.fc2.bias"):
-        tesm.load_fair_esm_state_dict(sd, tcfg)
+        tesm.load_fair_esm_state_dict(sd, tcfg, device="cpu")
 
 
 def test_random_init_is_seeded_and_typed():
     cfg = tesm.EsmConfig("esm2_bf16_tiny", 2, 64, 4)  # bf16 dense weights
-    a = tesm.init_random(cfg, seed=3)
-    b = tesm.init_random(cfg, seed=3)
-    c = tesm.init_random(cfg, seed=4)
+    a = tesm.init_random(cfg, seed=3, device="cpu")
+    b = tesm.init_random(cfg, seed=3, device="cpu")
+    c = tesm.init_random(cfg, seed=4, device="cpu")
     for (name, pa), pb in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(pa, pb), name
     assert not torch.equal(a.layers[0].fc1.weight, c.layers[0].fc1.weight)

@@ -203,6 +203,8 @@ def _run_evaluate(pkg, root, merged, out, mutation_type, **kw):
     reference = ref_mod.load_reference(root / "reference.csv")
     registry = reg_mod.load_registry(root / "config.json", mutation_type=mutation_type,
                                      constants_path=root / "constants.json")
+    if pkg == "torch":
+        kw = {"device": "cpu", **kw}
     return agg.evaluate_benchmark(reference, registry, agg.directory_scores_loader(merged),
                                   out, indel_mode=mutation_type == "indels",
                                   bootstrap_samples=BOOT, write_html=False, **kw)
@@ -279,7 +281,7 @@ def test_evaluate_by_depth_on_the_device_equals_per_column_calls(world):
     merged = ttable.read_csv(root / "jax_merged" / "U2_A.csv", numeric=("DMS_score",))
     jframe = pd.read_csv(root / "jax_merged" / "U2_A.csv")
     by_depth = mutation_type == "substitutions"
-    got = tagg.compute_assay_table(merged, list(MODELS) + ["Absent"], by_depth)
+    got = tagg.compute_assay_table(merged, list(MODELS) + ["Absent"], by_depth, device="cpu")
     want = jagg.compute_assay_table(jframe, list(MODELS) + ["Absent"], by_depth)
     assert list(got) == list(want)
     for metric in want:
@@ -295,9 +297,10 @@ def test_clinical_matches_jax(tmp_path):
                                              ("torch", tref, treg, tagg, tclin)):
         reference = ref_mod.load_reference(root / "clinical.csv")
         registry = reg_mod.load_registry(root / "config.json", dataset="clinical")
+        kw = {"device": "cpu"} if pkg == "torch" else {}
         out[pkg] = clin.evaluate_clinical(
             reference, registry, agg.directory_scores_loader(root / "merged"),
-            root / f"{pkg}_bench", bootstrap_samples=BOOT, model_types={"Good": "MSA"})
+            root / f"{pkg}_bench", bootstrap_samples=BOOT, model_types={"Good": "MSA"}, **kw)
     assert assert_same_csvs(root / "jax_bench", root / "torch_bench") == 2
     assert list(out["torch"]["Model_name"]) == list(out["jax"]["Model_name"]) == ["Good", "Noise"]
     rows = _cells(root / "torch_bench" / "AUC" / "clinical_substitutions_AUC_DMS_level.csv")

@@ -105,7 +105,7 @@ def test_padded_equals_unpadded_and_batched_equals_per_assay():
         rows["y"][i, :n], rows["b"][i, :n], rows["s"][i, :n] = y, b, s
         rows["y"][i, n:] = rng.normal(size=width - n)  # junk in the padding
         valid[i, :n] = True
-        singles.append(tcore.assay_metrics_host(y, b, s))
+        singles.append(tcore.assay_metrics_host(y, b, s, device="cpu"))
         jax_one = jcore.assay_metrics_host(y, b, s)
         for m in jax_one:
             assert singles[-1][m] == pytest.approx(jax_one[m], abs=ATOL, nan_ok=True), (n, m)
@@ -125,7 +125,7 @@ def test_large_assay_counts_do_not_overflow():
     n = 200_000
     y = rs.randint(0, 2, n).astype(np.float64)
     s = y + rs.normal(0, 5, n)
-    got = tcore.assay_metrics_host(s + rs.normal(size=n), y, s)
+    got = tcore.assay_metrics_host(s + rs.normal(size=n), y, s, device="cpu")
     assert got["AUC"] == pytest.approx(roc_auc_score(y, s), abs=ATOL)
     pred = (s >= np.median(s)).astype(int)
     assert got["MCC"] == pytest.approx(matthews_corrcoef(y, pred), abs=ATOL)

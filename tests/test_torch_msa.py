@@ -249,7 +249,7 @@ def test_load_msa_recomputes_a_stale_cache_and_needs_an_msa(tmp_path):
     tctx, _ = _contexts(tmp_path, wdir)
     msa = tctx.load_msa()
     want = jweights.sequence_weights(msa.matrix, theta=0.2)
-    np.testing.assert_array_equal(msa.weights, tweights.sequence_weights(msa.matrix, 0.2))
+    np.testing.assert_array_equal(msa.weights, tweights.sequence_weights(msa.matrix, 0.2, device="cpu"))
     np.testing.assert_allclose(msa.weights, want, rtol=0, atol=0)
     np.testing.assert_array_equal(np.load(wdir / "FAM.npy"), msa.weights)
     bare = tscorers.ScoreContext(record=tload_reference(tmp_path / "ref.csv")["BARE_TEST"],

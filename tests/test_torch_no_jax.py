@@ -17,23 +17,23 @@ def _run(code, cwd=REPO):
 
 
 def test_port_imports_without_jax_or_pandas():
+    # every module of the port, found by walking the package; afterwards no
+    # module of the JAX package may be loaded, not even a stdlib-only one
     proc = _run("""
-        import sys
+        import importlib, pkgutil, sys
         sys.modules["jax"] = None      # any import of them now raises
         sys.modules["pandas"] = None
         import proteingym_tpu_torch
-        from proteingym_tpu_torch.pipeline import cli, scorers, checkpoints
-        from proteingym_tpu_torch.models import esm2, esm_scoring, packed_scoring, poet
-        from proteingym_tpu_torch.msa import parser, weights
-        from proteingym_tpu_torch.ops import flash_attention, rotary, gather_logprobs, _build
-        from proteingym_tpu_torch.data import mutants, windows, reference, registry, table
-        from proteingym_tpu_torch.metrics import core, bootstrap, aggregate, clinical
-        from proteingym_tpu_torch.merge import merge
-        registry.load_packaged_registry("DMS", "substitutions")  # reads the JSON by path
-        shared = {m for m in sys.modules if m.startswith("proteingym_tpu.")}
-        assert shared <= {"proteingym_tpu.pipeline", "proteingym_tpu.pipeline.manifest",
-                          "proteingym_tpu.pipeline.telemetry",
-                          "proteingym_tpu.constants"}, shared
+        names = [m.name for m in pkgutil.walk_packages(proteingym_tpu_torch.__path__,
+                                                       "proteingym_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        from proteingym_tpu_torch.data import registry
+        registry.load_packaged_registry("DMS", "substitutions")  # the port's own JSON
+        jax_package = sorted(m for m in sys.modules
+                             if m == "proteingym_tpu" or m.startswith("proteingym_tpu."))
+        assert not jax_package, jax_package
+        assert "proteingym_tpu_torch.pipeline.cli" in names and len(names) > 30, names
         print("ok")
     """)
     assert proc.returncode == 0, proc.stderr

@@ -36,7 +36,7 @@ def models():
     params = jesm.init_params(jax.random.PRNGKey(3), jcfg)
     tcfg = tesm.PRESETS["esm2_tiny"]
     sd = tesm.params_from_jax(jax.tree_util.tree_map(np.asarray, params), tcfg)
-    return params, jcfg, tesm.load_fair_esm_state_dict(sd, tcfg), sd
+    return params, jcfg, tesm.load_fair_esm_state_dict(sd, tcfg, device="cpu"), sd
 
 
 def _seq(n, seed):

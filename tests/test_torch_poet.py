@@ -139,7 +139,8 @@ def test_bridge_rejects_missing_and_misshapen_weights():
 
 def test_from_jax_params_reproduces_jax_logits():
     jparams = jpoet.init_params(jax.random.PRNGKey(0), JAX_TINY)
-    model = tpoet.from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), TORCH_TINY)
+    model = tpoet.from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), TORCH_TINY,
+                                  device="cpu")
     rng = np.random.default_rng(8)
     got, want, valid = _logits_both(jparams, model, tpoet.build_rows(_seqs(rng, (9, 6, 12)),
                                                                       ["ACDEFGH", "KLMN"]))
@@ -190,9 +191,9 @@ def test_query_padding_invariance_and_batching():
 
 
 def test_init_random_is_seeded_and_zeroes_linear2():
-    a = tpoet.init_random(TORCH_TINY, seed=1)
-    b = tpoet.init_random(TORCH_TINY, seed=1)
-    c = tpoet.init_random(TORCH_TINY, seed=2)
+    a = tpoet.init_random(TORCH_TINY, seed=1, device="cpu")
+    b = tpoet.init_random(TORCH_TINY, seed=1, device="cpu")
+    c = tpoet.init_random(TORCH_TINY, seed=2, device="cpu")
     assert torch.equal(a.token_embed.weight, b.token_embed.weight)
     assert not torch.equal(a.token_embed.weight, c.token_embed.weight)
     layer = a.decoder.layers[0]
@@ -217,18 +218,18 @@ def test_checkpoint_specs(tmp_path):
     torch.save(sd, tmp_path / "bare.pt")
     torch.save({"state_dict": {f"model.{k}": v for k, v in sd.items()},
                 "hyper_parameters": {}}, tmp_path / "lightning.ckpt")
-    m1, c1 = tckpt.load_poet_checkpoint(f"poet_tiny:{tmp_path / 'bare.pt'}")
-    m2, c2 = tckpt.load_poet_checkpoint(f"poet_tiny:{tmp_path / 'lightning.ckpt'}")
+    m1, c1 = tckpt.load_poet_checkpoint(f"poet_tiny:{tmp_path / 'bare.pt'}", device="cpu")
+    m2, c2 = tckpt.load_poet_checkpoint(f"poet_tiny:{tmp_path / 'lightning.ckpt'}", device="cpu")
     assert c1 == c2 == tiny
     for name, p in m1.state_dict().items():
         assert torch.equal(p, m2.state_dict()[name])
     assert torch.equal(m1.decoder.layers[1].linear2.weight, sd["decoder.layers.1.linear2.weight"])
-    r1, c = tckpt.load_poet_checkpoint(None)  # the JAX scorer's default preset
-    r2, _ = tckpt.load_poet_checkpoint("poet_tiny")
+    r1, c = tckpt.load_poet_checkpoint(None, device="cpu")  # the JAX scorer's default preset
+    r2, _ = tckpt.load_poet_checkpoint("poet_tiny", device="cpu")
     assert c == tiny and torch.equal(r1.token_embed.weight, r2.token_embed.weight)
     orbax = tmp_path / "converted"
     orbax.mkdir()
     with pytest.raises(ValueError, match="JAX-only"):
-        tckpt.load_poet_checkpoint(str(orbax))
+        tckpt.load_poet_checkpoint(str(orbax), device="cpu")
     with pytest.raises(ValueError, match="unrecognised PoET checkpoint"):
-        tckpt.load_poet_checkpoint("poet_huge:/x.pt")
+        tckpt.load_poet_checkpoint("poet_huge:/x.pt", device="cpu")

@@ -26,7 +26,7 @@ def models():
     sd = fair_esm_state(tesm.PRESETS["esm2_tiny"], seed=21)
     jcfg = jesm.PRESETS["esm2_tiny"]
     return (jesm.convert_torch_state_dict(sd, jcfg), jesm.make_apply_fn(jcfg),
-            tesm.load_fair_esm_state_dict(sd, tesm.PRESETS["esm2_tiny"]))
+            tesm.load_fair_esm_state_dict(sd, tesm.PRESETS["esm2_tiny"], device="cpu"))
 
 
 def _seq(n, seed):
@@ -91,7 +91,7 @@ def test_unported_strategies_name_their_roadmap_item(models, strategy):
     rec = tscorers.AssayRecord("X", "X.csv", "P", "MKTAY", 5)
     with pytest.raises(ValueError, match="masked-marginals only"):
         tscorers.score_esm_packed_batch([(rec, ["M1A"])], "esm2_tiny",
-                                        extra={"scoring_strategy": strategy})
+                                        extra={"scoring_strategy": strategy}, device="cpu")
 
 
 def test_row_log_softmax_gather_matches_jax():

@@ -303,6 +303,6 @@ def test_cpu_calls_launch_no_kernel():
     seg = torch.from_numpy(_runs(1152, [0, 500, 1100]))[None]
     tfa.mha_natural(q, q, q, segment_ids=seg, key_mask=seg > 0)
     tfa.mha_natural(q[:, :256], q[:, :256], q[:, :256])
-    assert set(tfa.LAUNCHES) == {"grouped_attention", "grouped_attention_bthd",
+    assert set(tfa.LAUNCHES) == {"grouped_attention", "grouped_attention_bthd", "rope_qk",
                                  "flash_attention", "seg_block_attention"}
     assert all(n == 0 for n in tfa.LAUNCHES.values())

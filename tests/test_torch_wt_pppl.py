@@ -26,7 +26,7 @@ def models():
     sd = fair_esm_state(tesm.PRESETS["esm2_tiny"], seed=41)
     jcfg = jesm.PRESETS["esm2_tiny"]
     return (jesm.convert_torch_state_dict(sd, jcfg), jesm.make_apply_fn(jcfg),
-            tesm.load_fair_esm_state_dict(sd, tesm.PRESETS["esm2_tiny"]))
+            tesm.load_fair_esm_state_dict(sd, tesm.PRESETS["esm2_tiny"], device="cpu"))
 
 
 def _seq(n, seed):
