@@ -7,8 +7,9 @@ Phases (any failure raises, and the script exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA
    versions; TF32 is switched off for matmuls and cuDNN.
-2. build: nvcc builds the four kernel sources from ops/csrc, one process
-   per source, all started together.
+2. build: nvcc builds the two kernel sources from ops/csrc
+   (grouped_attention.cu, whose entries serve all four attention kernels,
+   and cluster_counts.cu), one process per source, all started together.
 3. kernel: the grouped attention kernel (K1, bf16 on the Hopper loop after
    the rope_qk pre-pass) against the plain PyTorch version on the card, in
    every mode the slices use and at every head dim, and both timed at the
@@ -25,27 +26,33 @@ Phases (any failure raises, and the script exits non-zero):
    version, counts equal exactly, on ragged alignments with all-gap and
    duplicated rows, then on a seeded synthetic MSA at N=16,384, L=300;
    both timed there.
-7. long-context attention (K2): against the plain version in bf16 and
-   float32 (causal + mask at T=2048 and 4352, ALiBi + causal, ragged T,
-   fully masked rows); K1 at PoET's self-tier shape (segmented + causal +
-   RoPE, T=4352), at B1 and at B8 with each row's own cuts (the timed
-   call, held on live rows); K2 and K1 timed at PoET's row shape, each
-   beside the PyTorch call that computes the same function
-   (scaled_dot_product_attention with a dense boolean mask) and its bound.
+7. long-context attention (K2, the Hopper loop in bf16 and the scalar
+   kernel in float32): against the plain version (causal + mask at T=2048
+   and 4352, ALiBi + causal, ragged T, fully masked rows); K1 at PoET's
+   self-tier shape (segmented + causal + RoPE, T=4352), at B1 and at B8
+   with each row's own cuts (the timed call, held on live rows); K2 at
+   PoET's row shape B8 H16 T4352 with each row's own valid length and one
+   row whose first keys are masked, both timed calls (the loop alone and
+   the call with the pre-pass) held against the plain version on every
+   row; K2 and K1 timed there, each beside the PyTorch call that computes
+   the same function (scaled_dot_product_attention with a dense boolean
+   mask) and its bound, and SDPA's fused causal kernel on K2's q/k/v.
 8. PoET slice: ``weights`` then ``score --model poet --checkpoint
    poet_200m`` (seeded random bf16 weights, full width and depth) through
    the port's CLI, on a synthetic L=250 assay (128 single mutants) with a
    16,384-sequence MSA: the weights file is written by K5 and reused, each
-   forward launches K1 and K2 12 times each, two queries' per-token
-   log-probs are recomputed with the plain attention and compared.
-9. K3 and K4: the extent-sparse segmented kernel and the heads-mid entry
-   against their plain versions in bf16 and float32 (live query rows);
-   K3 timed against its plain version and K1's segmented mode at B8 H20
-   T4096 with 16 segments of 250 tokens, K4 against its plain version at
-   the headline shape and at the packed path's window bucket (B32 H20
-   T1024), and the rope_qk pre-pass at the latter (equal to its plain
-   version bit for bit); each beside
-   scaled_dot_product_attention on the same pre-rotated q/k and its bound.
+   forward launches K1 and K2 12 times each and their pre-pass 24 times,
+   two queries' per-token log-probs are recomputed with the plain
+   attention and compared.
+9. K3 and K4: the extent-sparse segmented kernel (the Hopper loop in bf16)
+   and the heads-mid entry against their plain versions in bf16 and
+   float32 (live query rows); K3 checked and timed at B8 H20 T4096 with 16
+   segments of ~250 tokens, each row its own cuts, and the key mask as its
+   own operand (the call with RoPE timed as ``ms``, the loop alone on
+   pre-rotated q/k as ``loop_ms``), K4 at the headline shape and at the packed path's window bucket (B32 H20 T1024),
+   and the rope_qk pre-pass at the latter (equal to its plain version bit
+   for bit); each beside scaled_dot_product_attention on the same
+   pre-rotated q/k and its bound.
 10. packed: ``score --model esm --checkpoint esm2_t33_650M --packed``
    through the CLI on synthetic assays of lengths 72, 118, 250, 448, 709
    and 1500 with all single mutants, twice (the second run is timed): 33
@@ -53,8 +60,8 @@ Phases (any failure raises, and the script exits non-zero):
    scores.
 11. segment-packed: ``score_assays_packed(..., seg_apply_fn=...,
    row_len=4096)`` with ESM2-650M on the assays up to L=709, twice: 33 K3
-   launches per forward and no K1 launch; scores equal phase 10's; two
-   packed rows' log-probs recomputed with the plain attention.
+   and 33 rope_qk launches per forward and no other; scores equal phase
+   10's; two packed rows' log-probs recomputed with the plain attention.
 12. the benchmark flow, ESM2-650M: (a) ``score --extra
    scoring_strategy=wt-marginals`` on phase 4's L=250 assay and on an
    L=3000 assay (five overlapping windows in one forward), 33 K4 launches
@@ -93,15 +100,18 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 AA = "ACDEFGHIKLMNPQRSTVWY"
 KERNELS = {  # launch counter -> (source, the TPU kernel it replaces)
+    # the four attention wrappers launch the entries of one source: its
+    # float32 kernel, or for bf16 its pre-pass and the Hopper loop
     "grouped_attention": ("proteingym_tpu_torch/ops/csrc/grouped_attention.cu",
                           "proteingym_tpu/ops/flash_attention.py:181"),
-    "flash_attention": ("proteingym_tpu_torch/ops/csrc/flash_attention.cu",
+    "flash_attention": ("proteingym_tpu_torch/ops/csrc/grouped_attention.cu",
                         "proteingym_tpu/ops/flash_attention.py:48"),
-    "seg_block_attention": ("proteingym_tpu_torch/ops/csrc/seg_block_attention.cu",
+    "seg_block_attention": ("proteingym_tpu_torch/ops/csrc/grouped_attention.cu",
                             "proteingym_tpu/ops/flash_attention.py:656"),
     "grouped_attention_bthd": ("proteingym_tpu_torch/ops/csrc/grouped_attention.cu",
                                "proteingym_tpu/ops/flash_attention.py:440"),
-    # the pre-pass of K1/K4: the rotation the TPU kernels apply on load
+    # the pre-pass of the Hopper loop: the rotation the TPU kernels apply on
+    # load, and the scale of q
     "rope_qk": ("proteingym_tpu_torch/ops/csrc/grouped_attention.cu",
                 "proteingym_tpu/ops/flash_attention.py:156"),
     "cluster_counts": ("proteingym_tpu_torch/ops/csrc/cluster_counts.cu",
@@ -388,8 +398,9 @@ def phase_cluster_counts(torch, dev, card):
 
 def phase_long_attention(torch, dev, card, fa, qkv, lengths_mask, check_close):
     """7. K2 against the plain version; K1 at PoET's self-tier shape; both
-    timed at PoET's row shape."""
-    print("[flash_attention] K2 vs plain reference_mha on the card")
+    checked and timed at PoET's row shape."""
+    print("[flash_attention] K2 (Hopper loop in bf16, scalar kernel in float32) vs plain "
+          "reference_mha on the card")
 
     def compare(name, q, k, v, atol, rtol, **kw):
         got = fa.flash_mha(q, k, v, **kw)
@@ -445,22 +456,50 @@ def phase_long_attention(torch, dev, card, fa, qkv, lengths_mask, check_close):
 
     d = 64
     q, k, v = qkv(b, h, t, d)
-    lengths = [t - 7 * i for i in range(b)]
-    mask = lengths_mask(b, t, lengths)
+    # PoET's multi tier: each row its own valid length; row 5's first 300
+    # keys masked too, so its first rows see no live key (K2's rule)
+    mask = lengths_mask(b, t, [t - 7 * i for i in range(b)])
+    mask[5, :300] = False
+    tiles = fa.KeyTiles(key_mask=mask, causal=True)  # PoET's forward shares one
+    k2_kw = dict(key_mask=mask, causal=True, key_tiles=tiles)
+    # the timed calls, held against the plain version on every row, one batch
+    # row at a time: the loop alone (q pre-scaled, no pre-pass) and PoET's
+    # call (default scale: the pre-pass scales q)
+    for name, scale in (("loop, sm_scale 1", 1.0), ("call, pre-pass scales q", None)):
+        got = fa.flash_mha(q, k, v, sm_scale=scale, **k2_kw).float()
+        torch.cuda.synchronize()
+        want = torch.cat([fa.reference_mha(*(x[i:i + 1].float() for x in (q, k, v)),
+                                           key_mask=mask[i:i + 1], causal=True, sm_scale=scale)
+                          for i in range(b)])
+        max_abs_err = max(max_abs_err, check_close(
+            f"bf16 B{b} H{h} T{t} per-row lengths, {name}", got, want, BF16_ATOL, BF16_RTOL))
+        del got, want
     causal_mask = mask[:, None, None, :] & torch.ones(t, t, dtype=torch.bool, device=dev).tril()
+    # a row with no live key averages v over all T keys: SDPA gets all T
+    # keys there (the same work; its weights are the softmax's, not uniform)
+    causal_mask |= ~causal_mask.any(dim=-1, keepdim=True)
     k2t = median_pair(torch, {
-        "kernel": lambda: fa.flash_mha(q, k, v, key_mask=mask, causal=True, sm_scale=1.0),
+        "kernel": lambda: fa.flash_mha(q, k, v, sm_scale=1.0, **k2_kw),
         "plain": lambda: fa.reference_mha(q, k, v, key_mask=mask, causal=True, sm_scale=1.0),
         "sdpa": sdpa(torch, q, k, v, causal_mask),
+        "call": lambda: fa.flash_mha(q, k, v, **k2_kw),
     }, reps=2, inner=3)
-    # pairs a row attends: the live keys at or before it
-    pairs = sum(n * (n + 1) // 2 + (t - n) * n for n in lengths) * h
+    # SDPA's fused causal kernel on the same q/k/v: K2's function on live
+    # rows without padding keys, not on padded or dead rows; a reading aid
+    causal_fn = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=1.0)
+    sdpa_causal = median_pair(torch, {"sdpa_causal": causal_fn}, reps=2, inner=3)["sdpa_causal"]
+    # pairs a row attends: the live keys at or before it, or all T keys for
+    # a row that has none
+    pairs = float(causal_mask.sum()) * h
     k2b = bound(4 * d * pairs, nbytes(q, k, v, q, mask))
-    print(f"  K2 at B{b} H{h} T{t} D64, causal + mask: kernel {k2t['kernel']:.4f} ms, "
-          f"plain {k2t['plain']:.4f} ms, SDPA {k2t['sdpa']:.4f} ms "
+    print(f"  K2 at B{b} H{h} T{t} D64, causal + per-row mask: Hopper loop {k2t['kernel']:.4f} "
+          f"ms, plain {k2t['plain']:.4f} ms, SDPA {k2t['sdpa']:.4f} ms "
           f"({sdpa_backend(torch, sdpa(torch, q, k, v, causal_mask))}), bound "
-          f"{k2b['bound_ms']:.4f} ms ({k2b['bound_by']}) (medians of 8 samples of 3 queued "
-          f"calls, {card})")
+          f"{k2b['bound_ms']:.4f} ms ({k2b['bound_by']}); the call with the pre-pass "
+          f"{k2t['call']:.4f} ms (medians of 8 samples of 3 queued calls, {card})")
+    print(f"  SDPA is_causal=True on the same q/k/v (no key mask: not K2's function on padded "
+          f"rows) {sdpa_causal:.4f} ms ({sdpa_backend(torch, causal_fn)}, {card})")
     del causal_mask
     seg = segments(b)
     # one KeyTiles for every call, as PoET's forward shares one by its layers
@@ -501,7 +540,8 @@ def phase_long_attention(torch, dev, card, fa, qkv, lengths_mask, check_close):
     del q, k, v, qr, kr, self_mask
     torch.cuda.empty_cache()
     return {"max_abs_err": max_abs_err, "ms": k2t["kernel"], "plain_ms": k2t["plain"],
-            "library_ms": k2t["sdpa"], **k2b, "k1_self_err": k1_self_err,
+            "library_ms": k2t["sdpa"], **k2b, "call_ms": k2t["call"],
+            "sdpa_causal_ms": sdpa_causal, "k1_self_err": k1_self_err,
             "k1": {"ms": k1t["kernel"], "plain_ms": k1t["plain"], "library_ms": k1t["sdpa"],
                    "call_ms": k1t["call"], **k1b}}
 
@@ -576,9 +616,11 @@ def phase_poet(torch, dev, card, fa, check_close):
     print(f"  weights CLI {weights_s:.2f} s (parse + K5); score CLI wall {wall:.2f} s incl. "
           f"weight init and MSA load; peak device memory {peak_gib:.2f} GiB")
     print(f"  launches {launches} (expected {config.num_layers} layers x {n_fwd} forwards "
-          f"= {expected} each for K1, its rope_qk pre-pass and K2, >= 1 cluster_counts)")
+          f"= {expected} each for K1 and K2, twice that of their rope_qk pre-pass, >= 1 "
+          f"cluster_counts)")
     if (launches["flash_attention"] != expected or launches["grouped_attention"] != expected
-            or launches["rope_qk"] != expected or launches["cluster_counts"] < 1):
+            or launches["rope_qk"] != 2 * expected or launches["cluster_counts"] < 1
+            or launches["seg_block_attention"] or launches["grouped_attention_bthd"]):
         fail(f"launch counts {launches} do not match the slice")
 
     model = poet.init_random(config, seed=0, device=dev)
@@ -620,7 +662,8 @@ def segment_runs(torch, dev, b, t, bounds):
 def phase_k3_k4(torch, dev, card, fa, qkv, lengths_mask, check_close):
     """9. K3 and K4 against their plain versions (live query rows) in bf16
     and float32; K3 timed at the packed-row shape, K4 at the headline."""
-    print("[seg_block_attention] K3 vs plain seg_block_mha on the card (live rows)")
+    print("[seg_block_attention] K3 (Hopper loop in bf16, scalar kernel in float32) vs plain "
+          "seg_block_mha on the card (live rows)")
     k3_errs = []
     for dtype, atol, rtol, tag in ((torch.bfloat16, BF16_ATOL, BF16_RTOL, "bf16"),
                                    (torch.float32, F32_ATOL, F32_RTOL, "f32")):
@@ -642,7 +685,7 @@ def phase_k3_k4(torch, dev, card, fa, qkv, lengths_mask, check_close):
             live = seg > 0
             k3_errs.append(check_close(f"{tag} {name}", got.transpose(1, 2)[live],
                                        want.transpose(1, 2)[live], atol, rtol))
-        # a key mask folded into the segments by mha (T > 1024, not causal)
+        # mha (T > 1024, not causal) hands the key mask over as its own operand
         q, k, v = qkv(2, 4, 1152, 64, dtype)
         seg = segment_runs(torch, dev, 2, 1152, [0, 300, 700, 1100])
         mask = seg > 0
@@ -654,7 +697,7 @@ def phase_k3_k4(torch, dev, card, fa, qkv, lengths_mask, check_close):
             fail("mha did not route the segmented T=1152 call to K3")
         want = fa.plain_mha(q.float(), k.float(), v.float(), key_mask=mask, segment_ids=seg,
                             rope_base=10000.0)
-        k3_errs.append(check_close(f"{tag} mha T=1152, key mask folded into segments",
+        k3_errs.append(check_close(f"{tag} mha T=1152, segments + key mask",
                                    got.transpose(1, 2)[mask], want.transpose(1, 2)[mask],
                                    atol, rtol))
 
@@ -695,29 +738,54 @@ def phase_k3_k4(torch, dev, card, fa, qkv, lengths_mask, check_close):
     b, h, t, n_seg, seg_len = K3_TIMED
     d = 64
     q, k, v = qkv(b, h, t, d)
-    seg = segment_runs(torch, dev, b, t, list(range(0, n_seg * seg_len + 1, seg_len)))
-    lo, hi = fa._segment_block_extents(
-        torch.nn.functional.pad(seg, (0, -t % fa.KERNEL_TILE)), -(-t // fa.KERNEL_TILE),
-        fa.KERNEL_TILE)
-    tiles = (hi - lo).float().mean().item()
-    qr, kr = fa.plain_rope_qk(q, k, 1.0, 10000.0)  # SDPA's operands: pre-rotated
-    seg_mask = (seg[:, :, None] == seg[:, None, :])[:, None]
+    q = q * d ** -0.5  # ESM pre-scales q and passes sm_scale=1
+    # ESM's segment-packed rows: n_seg segments of about seg_len tokens, each
+    # row its own cuts, then padding; the key mask as its own operand
+    rs = np.random.RandomState(t)
+    seg = torch.cat([segment_runs(torch, dev, 1, t, [0, *np.cumsum(
+        seg_len + rs.randint(-20, 6, n_seg)).tolist()]) for _ in range(b)])
+    mask = seg > 0
+    tiles = fa.KeyTiles(seg, mask)  # the forward shares one by its 33 layers
+    call_kw = dict(key_mask=mask, sm_scale=1.0, rope_base=10000.0, key_tiles=tiles)
+    got = fa.seg_block_mha(q, k, v, seg, **call_kw).float()
+    torch.cuda.synchronize()
+    want = torch.cat([fa.plain_seg_block_mha(*(x[i:i + 1].float() for x in (q, k, v)),
+                                             seg[i:i + 1], key_mask=mask[i:i + 1],
+                                             sm_scale=1.0, rope_base=10000.0)
+                      for i in range(b)])
+    live = seg > 0
+    k3_errs.append(check_close(f"bf16 B{b} H{h} T{t}, own {n_seg} x ~{seg_len} per row "
+                               f"(live rows)", got.transpose(1, 2)[live],
+                               want.transpose(1, 2)[live], BF16_ATOL, BF16_RTOL))
+    del got, want
+    lo, hi = tiles.extents(b, t, dev)
+    per_block = (hi - lo).float().mean().item()
+    qr, kr = fa.rope_qk(q, k, 1.0, 10000.0)  # the loop's and SDPA's operands: pre-rotated
+    loop_kw = dict(key_mask=mask, sm_scale=1.0, key_tiles=tiles)
+    # padding rows attend the padding keys (the kernel gives them finite output)
+    seg_mask = ((seg[:, :, None] == seg[:, None, :])
+                & (mask[:, None, :] | ~mask[:, :, None]))[:, None]
     k3t = median_pair(torch, {
-        "kernel": lambda: fa.seg_block_mha(q, k, v, seg, sm_scale=1.0, rope_base=10000.0),
-        "plain": lambda: fa.plain_seg_block_mha(q, k, v, seg, sm_scale=1.0, rope_base=10000.0),
-        "k1": lambda: fa.grouped_mha(q, k, v, key_mask=seg > 0, segment_ids=seg, sm_scale=1.0,
-                                     rope_base=10000.0),
+        "kernel": lambda: fa.seg_block_mha(qr, kr, v, seg, **loop_kw),
+        "plain": lambda: fa.plain_seg_block_mha(q, k, v, seg, key_mask=mask, sm_scale=1.0,
+                                                rope_base=10000.0),
         "sdpa": sdpa(torch, qr, kr, v, seg_mask),
+        "call": lambda: fa.seg_block_mha(q, k, v, seg, **call_kw),
     }, reps=2, inner=3)
-    # live rows attend their own segment; K3 also reads the RoPE tables
-    k3b = bound(4 * d * h * b * n_seg * seg_len ** 2, nbytes(q, k, v, q, seg) + 2 * 4 * t * d)
-    print(f"  K3 at B{b} H{h} T{t} D64, {n_seg} segments of {seg_len} + padded tail, RoPE: "
-          f"{tiles:.2f} of {-(-t // fa.KERNEL_TILE)} key tiles per query tile; kernel "
-          f"{k3t['kernel']:.4f} ms, plain {k3t['plain']:.4f} ms, K1 segmented (pre-pass + "
-          f"Hopper loop) {k3t['k1']:.4f} ms, SDPA on pre-rotated q/k {k3t['sdpa']:.4f} ms "
-          f"({sdpa_backend(torch, sdpa(torch, qr, kr, v, seg_mask))}), bound "
-          f"{k3b['bound_ms']:.4f} ms ({k3b['bound_by']}) (medians of 8 samples of 3 queued "
-          f"calls, {card})")
+    # live rows attend the live keys of their own segment; the call also
+    # reads the RoPE tables
+    counts = torch.stack([torch.bincount(seg[i][mask[i]].long(), minlength=n_seg + 1)
+                          for i in range(b)]).double()
+    k3b = bound(4 * d * h * float((counts ** 2).sum()),
+                nbytes(q, k, v, q, seg, mask) + 2 * 4 * t * d)
+    print(f"  K3 at B{b} H{h} T{t} D64, {n_seg} segments of ~{seg_len} per row + padding, key "
+          f"mask ({per_block:.2f} of {-(-t // fa.KERNEL_TILE)} key tiles per 128-query block, "
+          f"computed on the host from the extents): the call with RoPE (pre-pass + loop) "
+          f"{k3t['call']:.4f} ms, plain {k3t['plain']:.4f} ms, bound {k3b['bound_ms']:.4f} ms "
+          f"({k3b['bound_by']}); the Hopper loop alone on pre-rotated q/k {k3t['kernel']:.4f} ms, "
+          f"SDPA on them {k3t['sdpa']:.4f} ms "
+          f"({sdpa_backend(torch, sdpa(torch, qr, kr, v, seg_mask))}) (medians of 8 samples of "
+          f"3 queued calls, {card})")
     del q, k, v, qr, kr, seg_mask
     torch.cuda.empty_cache()
 
@@ -766,8 +834,10 @@ def phase_k3_k4(torch, dev, card, fa, qkv, lengths_mask, check_close):
         torch.cuda.empty_cache()
     main, other = k4[K4_TIMED[1]], k4[K4_TIMED[0]]
     return {
-        "seg_block_attention": dict(max_abs_err=max(k3_errs), ms=k3t["kernel"],
-                                    plain_ms=k3t["plain"], library_ms=k3t["sdpa"], **k3b),
+        # ms is the call with RoPE, as in earlier runs; loop_ms the loop alone
+        "seg_block_attention": dict(max_abs_err=max(k3_errs), ms=k3t["call"],
+                                    plain_ms=k3t["plain"], library_ms=k3t["sdpa"], **k3b,
+                                    loop_ms=k3t["kernel"]),
         "grouped_attention_bthd": dict(max_abs_err=max(k4_errs), **main, other_shapes=[other]),
         "rope_qk": rope,
     }
@@ -850,8 +920,8 @@ def packed_rows(torch, dev, esm2, token_list, n_rows, row_len):
 
 
 def phase_segment_packed(torch, dev, card, fa, esm2, check_close, packed_scores):
-    """11. The segment-packed path at row_len 4096 (K3 in every layer),
-    twice; the second run is timed and counted."""
+    """11. The segment-packed path at row_len 4096 (K3 and its pre-pass in
+    every layer), twice; the second run is timed and counted."""
     from proteingym_tpu_torch.models import packed_scoring
 
     print(f"[segment_packed] score_assays_packed(seg_apply_fn=..., row_len={SEG_ROW_LEN}) "
@@ -882,8 +952,10 @@ def phase_segment_packed(torch, dev, card, fa, esm2, check_close, packed_scores)
     print(f"  {n_mut} scores in {runs[1]:.3f} s -> {n_mut / runs[1]:.2f} mutants/s "
           f"(warm-up run {runs[0]:.2f} s); {n_rows} rows of {SEG_ROW_LEN} tokens, "
           f"{sum(counts.values())} masked rows packed ({card})")
-    print(f"  launches {launches} (expected 33 layers x {n_fwd} forwards = {expected} of K3)")
-    check_launches("segment-packed", launches, {"seg_block_attention": expected})
+    print(f"  launches {launches} (expected 33 layers x {n_fwd} forwards = {expected} of K3 "
+          f"and of its rope_qk pre-pass)")
+    check_launches("segment-packed", launches, {"seg_block_attention": expected,
+                                                "rope_qk": expected})
     errs = [float(np.abs(got - packed_scores[length]).max())
             for got, length in zip(scores, SEG_MIX)]
     if not all(np.isfinite(s).all() for s in scores):
@@ -1527,7 +1599,8 @@ def main() -> int:
                            "ms": ms, "plain_ms": plain_ms}]),
         "flash_attention": dict(max_abs_err=k2["max_abs_err"], ms=k2["ms"],
                                 plain_ms=k2["plain_ms"], library_ms=k2["library_ms"],
-                                bound_ms=k2["bound_ms"], bound_by=k2["bound_by"]),
+                                bound_ms=k2["bound_ms"], bound_by=k2["bound_by"],
+                                call_ms=k2["call_ms"], sdpa_causal_ms=k2["sdpa_causal_ms"]),
         **k3_k4,
         "cluster_counts": dict(max_abs_err=0.0, **k5),
     }

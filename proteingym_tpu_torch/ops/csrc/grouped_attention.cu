@@ -1,12 +1,22 @@
-// Fused multi-head attention for short protein contexts and PoET's self
-// tier, hand-written for Hopper (sm_90a), with plain C entry points loaded
-// through ctypes. Three entries:
+// Fused multi-head attention for every attention kernel of the port,
+// hand-written for Hopper (sm_90a), with plain C entry points loaded through
+// ctypes. Two attention entries and the pre-pass alone:
 //
-// pgym_grouped_attention (K1) replaces
-// proteingym_tpu/ops/flash_attention.py::_grouped_attention_kernel (:181,
-// the Pallas TPU kernel behind grouped_mha / mha for T <= 1024): q, k, v and
-// out in (B, H, T, D) order of strides, with a key-padding mask, an (H, T)
-// bias, segment ids, causal masking and RoPE.
+// pgym_grouped_attention takes q, k, v and out in (B, H, T, D) order of
+// strides, with a key-padding mask, an (H, T) bias, segment ids, causal
+// masking and RoPE. Three wrappers launch it, one for each TPU kernel of
+// proteingym_tpu/ops/flash_attention.py it replaces (each counts its own
+// launches):
+//   - grouped_mha (K1): ::_grouped_attention_kernel (:181, behind mha for
+//     T <= 1024 and PoET's self tier);
+//   - flash_mha (K2): ::_attention_kernel (:48, the long-context kernel
+//     behind mha for T > 1024 without segments, PoET's multi tier): causal
+//     + key mask [+ bias] on q/k the caller rotated, so the pre-pass only
+//     scales q, as the JAX wrapper's bf16(q * sm_scale) does;
+//   - seg_block_mha (K3): ::_seg_block_kernel (:656, the extent-sparse
+//     kernel behind mha for segmented rows longer than 1024, ESM's
+//     segment-packed rows): segments + key mask + RoPE, whose key-tile
+//     extents skip the tiles that share no segment with a query tile.
 //
 // pgym_grouped_attention_bthd (K4) replaces ::_bthd_attention_kernel (:440,
 // behind grouped_mha_bthd / mha_natural): the same math read and written in
@@ -19,7 +29,7 @@
 // for RoPE or a scale other than 1; its q' and k' go to a scratch buffer the
 // caller passes) and then the Hopper loop of hopper_attention.cuh (TMA
 // rings, wgmma, key-tile extents) on the rotated and scaled q and k. One
-// entry for both keeps the host's work per call to one foreign call. For
+// entry for all keeps the host's work per call to one foreign call. For
 // float32 both launch the scalar kernel of grouped_attention.cuh (the small
 // float32 presets; tensor cores would round the operands), which rotates and
 // scales on load.
@@ -178,11 +188,12 @@ cudaError_t launch_entry(const void* q, const void* k, const void* v, void* out,
     hp.causal = causal;
     return launch_hopper_attention(q, k, v, s, hp, D, stream);
   }
+  if (dtype != 0) return cudaErrorInvalidValue;
   Params p = make_params(q, k, v, out, B, H, T, key_mask, seg, causal, cos_t, sin_t,
                          sm_scale);
   set_strides(p, strides);
   p.bias = bias;
-  return launch_grouped(p, D, dtype, stream);
+  return launch_grouped_f32(p, D, stream);
 }
 
 }  // namespace

@@ -1,9 +1,8 @@
-// The mma.sync and float32 device code of the grouped attention kernels.
-// The extent-sparse segmented entry (seg_block_attention.cu, K3) launches
-// both through launch_grouped; the (B, H, T, D) and (B, T, H, D) entries in
-// grouped_attention.cu (K1, K4) launch the float32 kernel from here and,
-// for bfloat16, the Hopper loop of hopper_attention.cuh after their own
-// pre-pass (rope_qk_kernel), which rotates as the plain version does.
+// The float32 device code of the attention entries in grouped_attention.cu:
+// every wrapper (grouped_mha K1, flash_mha K2, seg_block_mha K3,
+// grouped_mha_bthd K4) launches this scalar kernel for float32 q/k/v, and the
+// Hopper loop of hopper_attention.cuh for bfloat16. Params also carries the
+// operands of the bf16 pre-pass (rope_qk_kernel in grouped_attention.cu).
 //
 // What it computes: out = softmax(q.k^T [+ bias] [masked]) . v per (batch,
 // head), with
@@ -14,30 +13,18 @@
 //   - optional (B, T) int32 segment ids: block-diagonal attention,
 //   - causal masking,
 //   - optional RoPE applied on load to unrotated q/k from (T, D) float32
-//     cos/sin tables, rotated in float32 and rounded back to the input type
-//     before the products,
-//   - an optional softmax scale folded into q on load (rounded to the input
-//     type, as the JAX wrapper folds it), before the rotation,
-//   - optional key-tile extents: query tile i of batch row b visits only the
-//     key tiles [kt_lo[b, i], kt_hi[b, i]) (all of them when null).
-// A query row whose keys are all masked averages v uniformly over the keys
-// of the tiles it visits (all T keys without extents), as the plain version
-// does; keys at or beyond T take no part.
+//     cos/sin tables, rotated in float32,
+//   - an optional softmax scale folded into q on load, before the rotation.
+// A query row whose keys are all masked averages v uniformly over all T
+// keys, as the plain version does; keys at or beyond T take no part.
 //
-// Design. One thread block per (batch*head, 64-query tile), a loop over
-// 64-key tiles staged in shared memory, and an online softmax
-// (FlashAttention-2's scheme) with float32 running max, denominator and
-// accumulator. The output is acc / max(denom, 1e-30), cast to the input
-// type. There is no cap on T and no head grouping.
-//
-//   bfloat16: four warps, 16 query rows each. q.k^T and p.v run on the tensor
-//     cores (mma.sync m16n8k16, bf16 operands, float32 accumulation); q stays
-//     in registers as mma fragments, the score tile never leaves registers,
-//     and p is rounded to bf16 for the p.v product, as the TPU kernels do.
-//     Head dims that are not a multiple of 16 (24) are zero-padded to 32 in
-//     shared memory.
-//   float32: one thread per query row with scalar float32 FMAs (the tensor
-//     cores would round the operands), for the small float32 presets.
+// Design. One thread block per (batch*head, 64-query tile), one thread per
+// query row with scalar float32 FMAs (the tensor cores would round the
+// operands), a loop over every 64-key tile staged in shared memory, and an
+// online softmax (FlashAttention-2's scheme) with float32 running max,
+// denominator and accumulator. The output is acc / max(denom, 1e-30). There
+// is no cap on T. It serves the small float32 presets and the tests; no card
+// path runs it at a model's full width.
 //
 // Layout. q, k, v and out come with their batch, head and token strides (in
 // elements, (b, h, t) order in Params); the head-dim stride must be 1. A
@@ -63,28 +50,10 @@ struct Params {
   const int* seg;                        // (B, T) or null
   const float* cos_t;                    // (T, D) or null (no RoPE)
   const float* sin_t;
-  const int* kt_lo;  // (B, n_qt) first key tile of each query tile, or null
-  const int* kt_hi;  // (B, n_qt) one past the last key tile
-  int n_qt;          // query tiles per batch row in kt_lo/kt_hi
   float sm_scale;
   int B, H, T;
   int causal;
 };
-
-// the key tiles [*begin, *end) that query tile qt of batch row b visits
-__device__ __forceinline__ void key_tile_range(const Params& p, int b, int qt,
-                                               int* begin, int* end) {
-  const int n_tiles = (p.T + kTile - 1) / kTile;
-  *begin = 0;
-  *end = n_tiles;
-  if (p.kt_lo != nullptr) {
-    const long long e = (long long)b * p.n_qt + qt;
-    *begin = max(p.kt_lo[e], 0);
-    *end = min(p.kt_hi[e], n_tiles);
-  }
-}
-
-enum KeyState { kLive = 0, kMasked = 1, kBeyondT = 2 };
 
 // per-key state of the tile starting at k0, one key per thread tid < kTile
 __device__ __forceinline__ void load_key_info(const Params& p, int b, int h,
@@ -121,224 +90,6 @@ __device__ __forceinline__ float masked_score(const Params& p, float s, int j,
     s = kNegInf;
   if (state == kBeyondT) s = -INFINITY;
   return s;
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16: tensor-core (mma.sync) path
-// ---------------------------------------------------------------------------
-
-// elements c..c+N-1 of row `row` (position t) of a q or k block, scaled (q
-// only) and rotated in float32, each step rounded to bf16 as the TPU kernel
-// rounds. N divides D/2, so a chunk never straddles the rotate-half seam.
-template <int D, int N>
-__device__ __forceinline__ void load_qk(const Params& p,
-                                        const __nv_bfloat16* row, int t, int c,
-                                        float scale, float* x) {
-  constexpr int kHalf = D / 2;
-  static_assert(kHalf % N == 0, "a chunk must not straddle the RoPE halves");
-  load_bf16<N>(row + c, x);
-  if (scale != 1.0f) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) x[i] = round_bf16(x[i] * scale);
-  }
-  if (p.cos_t == nullptr) return;
-  float partner[N];
-  load_bf16<N>(row + (c < kHalf ? c + kHalf : c - kHalf), partner);
-  const float sign = c < kHalf ? -1.0f : 1.0f;
-  const float4* cs = reinterpret_cast<const float4*>(p.cos_t + (long long)t * D + c);
-  const float4* sn = reinterpret_cast<const float4*>(p.sin_t + (long long)t * D + c);
-#pragma unroll
-  for (int i4 = 0; i4 < N / 4; ++i4) {
-    const float4 c4 = cs[i4];
-    const float4 s4 = sn[i4];
-    const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
-    const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = 4 * i4 + u;
-      float y = partner[i];
-      if (scale != 1.0f) y = round_bf16(y * scale);
-      x[i] = round_bf16(x[i] * cv[u] + sign * y * sv[u]);
-    }
-  }
-}
-
-// D: the head dim; DP: D rounded up to the mma depth of 16
-template <int D, int DP>
-__global__ void __launch_bounds__(kMmaThreads)
-grouped_attention_bf16_kernel(const Params p) {
-  static_assert(DP % 16 == 0 && DP >= D, "DP pads D to a multiple of 16");
-  constexpr int kRow = DP + 8;      // q/k tile row stride: conflict-free reads
-  constexpr int kVRow = kTile + 8;  // transposed v tile row stride
-  constexpr int kVec = (D / 2) % 8 == 0 ? 8 : 4;  // bf16 per staging load
-  constexpr int kChunks = DP / kVec;              // staging loads per row
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem4);  // [64][kRow]
-  __nv_bfloat16* ks = qs + kTile * kRow;                         // [64][kRow]
-  __nv_bfloat16* vt = ks + kTile * kRow;                         // [DP][kVRow]
-  __shared__ float kbias[kTile];
-  __shared__ int kseg[kTile];
-  __shared__ int kstate[kTile];
-
-  const int bh = blockIdx.x;
-  const int b = bh / p.H;
-  const int h = bh - b * p.H;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // mma group: rows g and g + 8 of the warp's 16
-  const int t4 = lane & 3;  // mma thread in group: columns 2*t4, 2*t4 + 1
-  const int q0 = blockIdx.y * kTile;
-
-  const __nv_bfloat16* qg =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.sq[0] + h * p.sq[1];
-  const __nv_bfloat16* kg =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.sk[0] + h * p.sk[1];
-  const __nv_bfloat16* vg =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.sv[0] + h * p.sv[1];
-
-  for (int e = tid; e < kTile * kChunks; e += kMmaThreads) {
-    const int r = e / kChunks;
-    const int c = (e - r * kChunks) * kVec;
-    const int qi = q0 + r;
-    float x[kVec] = {};
-    if (c < D && qi < p.T)
-      load_qk<D, kVec>(p, qg + qi * p.sq[2], qi, c, p.sm_scale, x);
-    store_bf16<kVec>(qs + r * kRow + c, x);
-  }
-  int qrow[2], qseg[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    qrow[r] = q0 + warp * 16 + g + 8 * r;
-    qseg[r] = (p.seg != nullptr && qrow[r] < p.T)
-                  ? p.seg[(long long)b * p.T + qrow[r]]
-                  : 0;
-  }
-  __syncthreads();
-
-  uint32_t qa[DP / 16][4];  // the warp's 16 q rows as mma A fragments
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const __nv_bfloat16* base = qs + (warp * 16 + g) * kRow + kk * 16 + 2 * t4;
-    qa[kk][0] = ld_u32(base);
-    qa[kk][1] = ld_u32(base + 8 * kRow);
-    qa[kk][2] = ld_u32(base + 8);
-    qa[kk][3] = ld_u32(base + 8 * kRow + 8);
-  }
-
-  float o[DP / 8][4];  // output accumulator, C fragments over DP/8 n-tiles
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
-  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g, g + 8
-  float l[2] = {0.0f, 0.0f};            // this thread's share of the sums
-
-  int kt_begin, kt_end;
-  key_tile_range(p, b, blockIdx.y, &kt_begin, &kt_end);
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile is fully consumed
-    for (int e = tid; e < kTile * kChunks; e += kMmaThreads) {
-      const int j = e / kChunks;
-      const int c = (e - j * kChunks) * kVec;
-      const int kj = k0 + j;
-      float kx[kVec] = {}, vx[kVec] = {};
-      if (c < D && kj < p.T) {
-        load_qk<D, kVec>(p, kg + kj * p.sk[2], kj, c, 1.0f, kx);
-        load_bf16<kVec>(vg + kj * p.sv[2] + c, vx);
-      }
-      store_bf16<kVec>(ks + j * kRow + c, kx);
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) vt[(c + i) * kVRow + j] = __float2bfloat16(vx[i]);
-    }
-    load_key_info(p, b, h, k0, tid, kstate, kbias, kseg);
-    __syncthreads();
-
-    // s = q . k^T for the warp's 16 rows x 64 keys (8 n-tiles of 8 keys)
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        const __nv_bfloat16* kb = ks + (j * 8 + g) * kRow + kk * 16 + 2 * t4;
-        mma_16816(s[j], qa[kk], ld_u32(kb), ld_u32(kb + 8));
-      }
-    }
-
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        s[j][e] = masked_score(p, s[j][e], j * 8 + 2 * t4 + (e & 1), k0,
-                               qrow[r], qseg[r], kstate, kbias, kseg);
-        mx[r] = fmaxf(mx[r], s[j][e]);
-      }
-    }
-    float m_use[2], alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      // the four threads of a group hold the same two rows
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      // -inf only while every key seen lies beyond T; exp(-inf) = 0 below
-      m_use[r] = m_new == -INFINITY ? 0.0f : m_new;
-      alpha[r] = __expf(m[r] - m_use[r]);
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pj = __expf(s[j][e] - m_use[e >> 1]);
-        l[e >> 1] += pj;
-        s[j][e] = pj;
-      }
-    }
-
-    // o += p . v: p's C fragments are the A fragments of 16-key steps
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
-        const __nv_bfloat16* vb = vt + (n * 8 + g) * kVRow + kk * 16 + 2 * t4;
-        mma_16816(o[n], pa, ld_u32(vb), ld_u32(vb + 8));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    if (qrow[r] >= p.T) continue;
-    const float inv = 1.0f / fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(p.o) + b * p.so[0] +
-                          h * p.so[1] + qrow[r] * p.so[2];
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int c = n * 8 + 2 * t4;  // D is even: the pair is in or out
-      if (c < D)
-        *reinterpret_cast<__nv_bfloat162*>(orow + c) =
-            __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -400,9 +151,8 @@ grouped_attention_f32_kernel(const Params p) {
   float m = -INFINITY;  // running max (-inf until a key is seen)
   float l = 0.0f;       // running denominator
 
-  int kt_begin, kt_end;
-  key_tile_range(p, b, blockIdx.y, &kt_begin, &kt_end);
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
+  const int n_tiles = (p.T + kTile - 1) / kTile;
+  for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile is fully consumed
     for (int e = tid; e < kTile * D; e += kTile) {
@@ -480,16 +230,20 @@ grouped_attention_f32_kernel(const Params p) {
 // launch
 // ---------------------------------------------------------------------------
 
-template <int D, int DP>
-cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
-  const size_t smem = (2 * kTile * (DP + 8) + DP * (kTile + 8)) * sizeof(__nv_bfloat16);
-  return launch_tiles(grouped_attention_bf16_kernel<D, DP>, p, kMmaThreads, smem, stream);
-}
-
+// a (B*H, ceil(T/kTile)) grid, the dynamic shared-memory limit raised first
+// when the K/V tiles need more than 48 KB
 template <int D>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
-  return launch_tiles(grouped_attention_f32_kernel<D>, p, kTile,
-                      2 * kTile * D * sizeof(float), stream);
+  auto kernel = grouped_attention_f32_kernel<D>;
+  const size_t smem = 2 * kTile * D * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(p.B * p.H, (p.T + kTile - 1) / kTile);
+  kernel<<<grid, kTile, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 // The operands every entry passes; the optional ones may be null.
@@ -524,28 +278,17 @@ inline void set_strides(Params& p, const long long* strides) {
   }
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaGetLastError()
-// (cudaErrorInvalidValue for a shape or type the kernel does not take); the
-// launch does not synchronise.
-inline cudaError_t launch_grouped(const Params& p, int D, int dtype,
-                                  cudaStream_t s) {
+// The float32 kernel on float32 q/k/v. Returns the launch's
+// cudaGetLastError() (cudaErrorInvalidValue for a shape the kernel does not
+// take); the launch does not synchronise.
+inline cudaError_t launch_grouped_f32(const Params& p, int D, cudaStream_t s) {
   if (p.B <= 0 || p.H <= 0 || p.T <= 0) return cudaErrorInvalidValue;
-  if (dtype == 1) {
-    switch (D) {
-      case 16: return launch_bf16<16, 16>(p, s);
-      case 24: return launch_bf16<24, 32>(p, s);
-      case 32: return launch_bf16<32, 32>(p, s);
-      case 64: return launch_bf16<64, 64>(p, s);
-      case 128: return launch_bf16<128, 128>(p, s);
-    }
-  } else if (dtype == 0) {
-    switch (D) {
-      case 16: return launch_f32<16>(p, s);
-      case 24: return launch_f32<24>(p, s);
-      case 32: return launch_f32<32>(p, s);
-      case 64: return launch_f32<64>(p, s);
-      case 128: return launch_f32<128>(p, s);
-    }
+  switch (D) {
+    case 16: return launch_f32<16>(p, s);
+    case 24: return launch_f32<24>(p, s);
+    case 32: return launch_f32<32>(p, s);
+    case 64: return launch_f32<64>(p, s);
+    case 128: return launch_f32<128>(p, s);
   }
   return cudaErrorInvalidValue;
 }

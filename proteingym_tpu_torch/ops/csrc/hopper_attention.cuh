@@ -1,13 +1,18 @@
-// The Hopper loop of the grouped attention kernels K1 and K4: bf16 q/k/v,
-// TMA-fed shared-memory rings, wgmma tensor-core products and a float32
-// online softmax in registers. grouped_attention.cu launches it from both
-// of its entries (pgym_grouped_attention, the (B, H, T, D) entry, and
-// pgym_grouped_attention_bthd, the (B, T, H, D) one); the extent-sparse
-// kernel K3 stays on the mma.sync loop of grouped_attention.cuh.
+// The Hopper loop of the attention kernels K1-K4: bf16 q/k/v, TMA-fed
+// shared-memory rings, wgmma tensor-core products and a float32 online
+// softmax in registers. grouped_attention.cu launches it from both of its
+// entries (pgym_grouped_attention, the (B, H, T, D) entry, and
+// pgym_grouped_attention_bthd, the (B, T, H, D) one).
 //
-// Replaces, for bfloat16 inputs: proteingym_tpu/ops/flash_attention.py::
-// _grouped_attention_kernel (:181, behind grouped_mha) and
-// ::_bthd_attention_kernel (:440, behind grouped_mha_bthd).
+// Replaces, for bfloat16 inputs, every attention kernel of
+// proteingym_tpu/ops/flash_attention.py: _grouped_attention_kernel (:181,
+// behind grouped_mha; K1), _attention_kernel (:48, the long-context kernel
+// behind flash_mha, PoET's multi tier: causal + key mask [+ (H, T) bias],
+// no RoPE; K2), _bthd_attention_kernel (:440, behind grouped_mha_bthd; K4)
+// and _seg_block_kernel (:656, the extent-sparse kernel behind
+// seg_block_mha, ESM's segment-packed rows: segments + key mask + RoPE;
+// K3). The wrappers differ only in the operands they pass and the key-tile
+// extents they compute.
 //
 // What it computes: out = softmax(q.k^T [+ bias] [masked]) . v per (batch,
 // head) on q and k that arrive ROTATED AND SCALED: the entries of
@@ -31,14 +36,32 @@
 // is finite and differs from the plain version's, and callers never consume
 // it. Live rows (segment > 0) get exact segmented attention.
 //
+// Within a block's extents each warpgroup (64 query rows) skips, for its
+// own rows, the tiles it cannot need: it still waits for the tile and
+// arrives on the stage's `empty` barrier, but runs no product or softmax.
+//   - Segments: a tile whose segment ids [seg_lo, seg_hi] (staged in
+//     KeyInfo) are disjoint from the ids of the warpgroup's rows: it holds
+//     no key of theirs. A 128-row block that straddles a segment boundary
+//     visits the union of both warpgroups' tiles, so this halves the work of
+//     such blocks at ESM's 250-token segments.
+//   - Causal: a tile wholly in the future of the warpgroup's rows (warpgroup
+//     0 on the block's last key tile), unless a row of the warpgroup has no
+//     live key so far (its running max is still the fill): such a row
+//     averages v over every key, as the plain version does. The warpgroup
+//     votes once, at its first such tile, when every key at or before its
+//     rows has been seen. (The extents alone cannot say this: for the last
+//     query tile the diagonal bound and "every tile" are the same.)
+// Skipping a tile is exact for every row with a live key: each key of the
+// tile takes the fill for that row, and exp(-1e30 - m) is 0. Both decisions
+// are uniform over the warpgroup (the ids' range and the vote go through
+// shared memory and a named barrier), so its wgmma stay aligned.
+//
 // What bounds it. At ESM2-650M's window bucket (B=32, H=20, T=1024, D=64)
 // a call needs 1.72e11 FLOP of products (174 us at 989 TFLOP/s) and moves
 // 336 MB (100 us at 3.35 TB/s): the tensor cores bound it. At PoET's self
-// tier the extents leave ~1.9e10 FLOP against 285 MB: bytes bound it. The
-// mma.sync loop it replaces reached ~48 TFLOP/s: staging copies did not
-// overlap the products, k was rotated again for every query tile, v was
-// transposed through scalar stores and every score went through the mask
-// select. Here:
+// tier the extents leave ~1.9e10 FLOP against 285 MB: bytes bound it. At
+// PoET's multi tier (B=8, H=16, T=4352, causal) the products need 3.1e11
+// FLOP: the tensor cores bound it. What the design does about it:
 //   - q and k are rotated and scaled once per call (the pre-pass);
 //   - one producer warp keeps a ring of kStages K/V tiles in flight with
 //     TMA (cp.async.bulk.tensor, mbarrier full/empty pairs), staging each
@@ -58,11 +81,15 @@
 //   - query tiles of one (batch, head) are neighbours in the grid, so their
 //     K/V tiles are read from HBM once and then from L2; up to D = 64 two
 //     blocks share an SM, so one block's start (barriers, first loads)
-//     overlaps the other's products.
+//     overlaps the other's products;
+//   - causal calls number the query tiles of each (batch, head) from the
+//     last (the longest) down, so the blocks with most key tiles start
+//     first and the last wave holds short ones.
 // Measured on the card (NVIDIA H100 80GB HBM3, 700 W), the loop is not at
-// either bound: ~0.6 ms at the window bucket (~275 TFLOP/s). By count the
-// softmax's 6.7e8 exponentials there take the special-function units about
-// as long as the products take the tensor cores. PERF.md keeps the numbers.
+// either bound: ~0.6 ms at the window bucket (~290 TFLOP/s), ~1.1 ms at
+// PoET's multi tier. By count the softmax's 6.7e8 exponentials at the
+// window bucket take the special-function units about as long as the
+// products take the tensor cores. PERF.md keeps the numbers.
 //
 // Layout. q, k, v are read through 4-D TMA tensor maps (D, T, H, B) built
 // on the host from the tensors' (b, h, t) strides (16-byte multiples, unit
@@ -87,8 +114,6 @@ constexpr int kStages = 4;    // ring depth
 constexpr int kConsumers = 256;  // two warpgroups
 constexpr int kHopperThreads = kConsumers + 32;  // + one producer warp
 constexpr int kProducerWarp = kConsumers / 32;
-
-enum HopKeyState { kHopLive = 0, kHopMasked = 1, kHopBeyondT = 2 };
 
 struct HopperParams {
   void* o;
@@ -350,6 +375,11 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2], const uint32_t (&a)
   else wgmma_rs_n128(o, a, db);
 }
 
+// all 128 threads of warpgroup wg (named barrier 1 + wg; 0 is __syncthreads)
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+}
+
 // D: the head dim; DP: D rounded up to 16. Grid (ceil(T / 128), B * H),
 // kHopperThreads threads, HopperShape<DP>::kSmem bytes of dynamic shared
 // memory.
@@ -368,8 +398,13 @@ hopper_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::kBarOff);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + kStages;
+  // per consumer warp: the segment ids of its rows (min, max) and whether
+  // one of its rows has no live key yet, read back by its warpgroup
+  __shared__ int2 warp_ids[kConsumers / 32];
+  __shared__ int warp_dead[kConsumers / 32];
 
-  const int qt = blockIdx.x;
+  // causal: the longest query tiles first (see the top of the file)
+  const int qt = p.causal ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x;
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
@@ -439,11 +474,11 @@ hopper_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const int j = lane + 32 * u;
-        const int state = k0 + j >= p.T ? kHopBeyondT : nmask[u] ? kHopLive : kHopMasked;
+        const int state = k0 + j >= p.T ? kBeyondT : nmask[u] ? kLive : kMasked;
         ki.state[j] = state;
         ki.bias[j] = nbias[u];
         ki.seg[j] = nseg[u];
-        live = live && state == kHopLive;
+        live = live && state == kLive;
         seg_lo = min(seg_lo, nseg[u]);
         seg_hi = max(seg_hi, nseg[u]);
       }
@@ -465,12 +500,35 @@ hopper_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int wg = warp >> 2;
   const int g = lane >> 2;  // rows g and g + 8 of the warp's 16
   const int t4 = lane & 3;  // columns 2 t4, 2 t4 + 1 of each 8-column block
+  const int r0 = q0 + 64 * wg;  // the warpgroup's first row
   int row[2], qseg[2];
+  int ids_lo = 0x7fffffff, ids_hi = -0x7fffffff;  // ids of the thread's rows below T
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    row[r] = q0 + 64 * wg + 16 * (warp & 3) + g + 8 * r;
+    row[r] = r0 + 16 * (warp & 3) + g + 8 * r;
     qseg[r] = (p.seg != nullptr && row[r] < p.T) ? p.seg[(long long)b * p.T + row[r]] : 0;
+    if (row[r] < p.T) {
+      ids_lo = min(ids_lo, qseg[r]);
+      ids_hi = max(ids_hi, qseg[r]);
+    }
   }
+  // [wg_lo, wg_hi]: the segment ids of the warpgroup's rows below T (empty
+  // when it has none), the same in all its threads
+  int wg_lo = ids_lo, wg_hi = ids_hi;
+  if (p.seg != nullptr) {
+    ids_lo = __reduce_min_sync(0xffffffffu, ids_lo);
+    ids_hi = __reduce_max_sync(0xffffffffu, ids_hi);
+    if (lane == 0) warp_ids[warp] = make_int2(ids_lo, ids_hi);
+    warpgroup_sync(wg);
+#pragma unroll
+    for (int w = 4 * wg; w < 4 * wg + 4; ++w) {
+      wg_lo = min(wg_lo, warp_ids[w].x);
+      wg_hi = max(wg_hi, warp_ids[w].y);
+    }
+  }
+  // causal: -1 until the warpgroup's first tile wholly in its rows' future,
+  // then whether it skips such tiles (1) or not (0)
+  int future_skip = -1;
   const unsigned char* qtile = qs + wg * S::kTileBytes;
 
   float o[DP / 2];
@@ -486,6 +544,27 @@ hopper_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(&full[s], (it / kStages) & 1);
     const unsigned char* ktile = ks + s * S::kTileBytes;
     const unsigned char* vtile = vs + s * S::kTileBytes;
+    const KeyInfo& ki = kinfo[s];
+
+    // the tiles this warpgroup skips (see the top of the file); every
+    // operand of the decision is uniform over the warpgroup
+    bool skip = r0 >= p.T ||
+                (p.seg != nullptr && (ki.seg_hi < wg_lo || ki.seg_lo > wg_hi));
+    if (!skip && p.causal && k0 > r0 + 63) {
+      if (future_skip < 0) {  // every key at or before the rows has been seen
+        const bool dead = (row[0] < p.T && m[0] == kNegInf) || (row[1] < p.T && m[1] == kNegInf);
+        const bool any_dead = __any_sync(0xffffffffu, dead);
+        if (lane == 0) warp_dead[warp] = any_dead;
+        warpgroup_sync(wg);
+        future_skip = !(warp_dead[4 * wg] | warp_dead[4 * wg + 1] | warp_dead[4 * wg + 2] |
+                        warp_dead[4 * wg + 3]);
+      }
+      skip = future_skip;
+    }
+    if (skip) {
+      mbar_arrive(&empty[s]);
+      continue;
+    }
 
     // s = q . k^T: 64 rows x 64 keys per warpgroup, depth DP
     float sc[32];
@@ -501,7 +580,6 @@ hopper_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(sc);
 
     // sc[4 j + e]: row row[e >> 1], key k0 + 8 j + 2 t4 + (e & 1)
-    const KeyInfo& ki = kinfo[s];
     if (p.bias != nullptr) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -528,10 +606,10 @@ hopper_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
           const int state = (e & 1) ? st.y : st.x;
           const int kseg = (e & 1) ? sg.y : sg.x;
           float x = sc[4 * j + e];
-          if (state == kHopMasked || (p.seg != nullptr && kseg != qseg[r]) ||
+          if (state == kMasked || (p.seg != nullptr && kseg != qseg[r]) ||
               (p.causal && k0 + c + (e & 1) > row[r]))
             x = kNegInf;
-          if (state == kHopBeyondT) x = -INFINITY;
+          if (state == kBeyondT) x = -INFINITY;
           sc[4 * j + e] = x;
         }
       }

@@ -1,33 +1,32 @@
 """Multi-head attention: the hand-written Hopper kernels and their plain
 versions (counterpart of proteingym_tpu/ops/flash_attention.py).
 
-``grouped_mha`` wraps the CUDA kernel ``csrc/grouped_attention.cu``, the
-port of the Pallas kernel ``_grouped_attention_kernel``. It takes the JAX
-wrapper's argument contract: q/k/v (B, H, T, D), ``key_mask`` (B, T) bool
-(True = attend), ``bias`` (H, T) additive per-head key bias, ``causal``,
-``sm_scale``, ``rope_base`` (q/k arrive unrotated) and ``segment_ids``
-(B, T) int, 0 = padding, for block-diagonal attention.
+Four wrappers, one per Pallas kernel, all launching the entries of the CUDA
+source ``csrc/grouped_attention.cu``:
 
-``grouped_mha_bthd`` is the port of the heads-mid Pallas kernel
-``_bthd_attention_kernel``: the same math on (B, T, H, D) tensors without
-a bias, launched through the (B, T, H, D) entry of the same CUDA source.
+- ``grouped_mha``, the port of ``_grouped_attention_kernel``. It takes the
+  JAX wrapper's argument contract: q/k/v (B, H, T, D), ``key_mask`` (B, T)
+  bool (True = attend), ``bias`` (H, T) additive per-head key bias,
+  ``causal``, ``sm_scale``, ``rope_base`` (q/k arrive unrotated) and
+  ``segment_ids`` (B, T) int, 0 = padding, for block-diagonal attention;
+- ``grouped_mha_bthd``, the port of the heads-mid ``_bthd_attention_kernel``:
+  the same math on (B, T, H, D) tensors without a bias, through the
+  (B, T, H, D) entry;
+- ``flash_mha``, the port of the long-context ``_attention_kernel``: the
+  contract without ``rope_base`` and ``segment_ids`` (PoET's multi tier);
+- ``seg_block_mha``, the port of the extent-sparse ``_seg_block_kernel``:
+  segmented attention with a key mask, no bias and no causal mask (ESM's
+  segment-packed rows).
 
-For bfloat16 both run, in one foreign call, a pre-pass kernel that rotates
+For bfloat16 each runs, in one foreign call, a pre-pass kernel that rotates
 and scales q and k once (``rope_qk`` launches it alone) and the Hopper loop
 (``csrc/hopper_attention.cuh``), which visits only the key tiles of
 ``_key_tile_extents`` for segmented and causal calls. A model computes
 those once per forward through a ``KeyTiles`` it passes to every layer.
 Padding rows (segment 0) of a segmented call are finite but are not the
-plain version's; callers never consume them.
-
-``flash_mha`` wraps ``csrc/flash_attention.cu``, the port of the Pallas
-long-context kernel ``_attention_kernel``: the same contract without
-``rope_base`` and ``segment_ids``; causal calls skip the key tiles above
-the diagonal.
-
-``seg_block_mha`` wraps ``csrc/seg_block_attention.cu``, the port of the
-extent-sparse Pallas kernel ``_seg_block_kernel``: segmented attention
-that visits only the key tiles sharing a segment with each query tile.
+plain version's; callers never consume them. For float32 each launches
+the scalar kernel of ``csrc/grouped_attention.cuh``, which visits every
+key tile (the small float32 presets).
 
 ``mha`` and ``mha_natural`` dispatch as the JAX functions do on a TPU. On
 a CPU tensor each wrapper runs its plain PyTorch version (``reference_mha``,
@@ -60,18 +59,11 @@ LAUNCHES = {"grouped_attention": 0, "grouped_attention_bthd": 0, "rope_qk": 0,
 # long-context kernel (the JAX dispatcher's threshold)
 GROUPED_MAX_SEQ_LEN = 1024
 
-# the JAX extent-sparse kernel's block edge; ``_seg_block_dispatch`` pads
-# rows to a multiple of it, as the JAX dispatch does
-SEG_BLOCK = 128
-# the Hopper kernels' key tile edge (kTile in attention_common.cuh), also the
-# query tile of the mma.sync kernels: extents are counted in key tiles
+# the Hopper loop's key tile edge (kTile in attention_common.cuh): extents
+# are counted in key tiles
 KERNEL_TILE = 64
 # query rows per block of the Hopper loop (kQRows in hopper_attention.cuh)
 Q_TILE = 128
-
-
-def _round_up(n: int, m: int) -> int:
-    return ((n + m - 1) // m) * m
 
 
 def reference_mha(
@@ -130,17 +122,19 @@ def plain_rope_qk(q, k, sm_scale=1.0, rope_base=None):
     return q, k
 
 
-def plain_seg_block_mha(q, k, v, segment_ids, sm_scale=None, rope_base=None):
+def plain_seg_block_mha(q, k, v, segment_ids, key_mask=None, sm_scale=None,
+                        rope_base=None):
     """``seg_block_mha``'s plain version, in the JAX wrapper's order: RoPE
     in-graph, q scaled in float32 and rounded to the input dtype, then
-    attention within segments (no key mask: callers fold it into the
-    segment ids)."""
+    attention within segments to the keys ``key_mask`` keeps (the JAX
+    dispatch folds the mask into the ids: masked keys join segment 0,
+    which live rows never attend, so live rows see the same keys)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if rope_base is not None:
         q, k = apply_rotary_bhtd(q, k, rope_base)
     q = (q.float() * sm_scale).to(q.dtype)
-    return reference_mha(q, k, v, sm_scale=1.0, segment_ids=segment_ids)
+    return reference_mha(q, k, v, key_mask=key_mask, sm_scale=1.0, segment_ids=segment_ids)
 
 
 @functools.lru_cache(maxsize=1)
@@ -181,38 +175,6 @@ def _aligned_rows(x: torch.Tensor) -> bool:
     return x.data_ptr() % 16 == 0 and all(s % 8 == 0 and s > 0 for s in x.stride()[:3])
 
 
-@functools.lru_cache(maxsize=1)
-def _flash_lib():
-    from proteingym_tpu_torch.ops._build import load_library
-
-    lib = load_library("flash_attention")
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.pgym_flash_attention.argtypes = [
-        vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
-        vp, i64, i64, i32, ctypes.c_float, vp,
-    ]
-    lib.pgym_flash_attention.restype = i32
-    lib.pgym_flash_error_string.argtypes = [i32]
-    lib.pgym_flash_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.lru_cache(maxsize=1)
-def _seg_block_lib():
-    from proteingym_tpu_torch.ops._build import load_library
-
-    lib = load_library("seg_block_attention")
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.pgym_seg_block_attention.argtypes = [
-        vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
-        vp, vp, vp, i32, vp, vp, ctypes.c_float, vp,
-    ]
-    lib.pgym_seg_block_attention.restype = i32
-    lib.pgym_seg_block_error_string.argtypes = [i32]
-    lib.pgym_seg_block_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _checked_qkv(q, k, v):
     """Raise for what the attention kernels do not take; return q/k/v with
     bf16 views that are not aligned for 16-byte loads copied."""
@@ -244,12 +206,6 @@ def _strides(q, k, v, out):
     return (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]
     )
-
-
-def _checked_segments(segment_ids, b, t, dev):
-    if segment_ids.shape != (b, t):
-        raise ValueError(f"segment_ids must be (B, T)={b, t}, got {tuple(segment_ids.shape)}")
-    return segment_ids.to(device=dev, dtype=torch.int32).contiguous()
 
 
 def _ptr(x):
@@ -363,13 +319,15 @@ class KeyTiles:
 
 
 def _launch_grouped_attention(q, k, v, key_mask, bias, causal, sm_scale,
-                              rope_base, segment_ids, key_tiles, bthd=False):
+                              rope_base, segment_ids, key_tiles, bthd=False,
+                              counter="grouped_attention"):
     """Launch the grouped kernel on (B, H, T, D) tensors, or with ``bthd``
     its (B, T, H, D) entry (no bias) on (B, T, H, D) tensors; the result
     comes in the same layout. bfloat16 runs the pre-pass (when there is
     RoPE or a scale) and the Hopper loop with key-tile extents, in one
     foreign call; float32 the scalar kernel, which rotates and scales on
-    load."""
+    load. The launch is counted under ``counter`` (the wrapper's TPU
+    kernel), plus ``rope_qk`` when the pre-pass ran."""
     q, k, v = _checked_qkv(q, k, v)
     if bthd:
         b, t, h, d = q.shape
@@ -381,21 +339,21 @@ def _launch_grouped_attention(q, k, v, key_mask, bias, causal, sm_scale,
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=dev)
     if not bthd:
         out = out.permute(0, 2, 1, 3)
+    for name, x, shape in (("key_mask", key_mask, (b, t)), ("bias", bias, (h, t)),
+                           ("segment_ids", segment_ids, (b, t))):
+        if x is not None and x.shape != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
     lo = hi = scratch = cos = sin = None
     if q.dtype == torch.bfloat16 and (segment_ids is not None or causal):
-        # from the caller's tensors, before the checks below convert them
+        # from the caller's tensors, before the lines below convert them
         tiles = key_tiles or KeyTiles(segment_ids, key_mask, causal)
         lo, hi = tiles.extents(b, t, dev)
     if key_mask is not None:
-        if key_mask.shape != (b, t):
-            raise ValueError(f"key_mask must be (B, T)={b, t}, got {tuple(key_mask.shape)}")
         key_mask = key_mask.to(device=dev, dtype=torch.bool).contiguous()
     if bias is not None:
-        if bias.shape != (h, t):
-            raise ValueError(f"bias must be (H, T)={h, t}, got {tuple(bias.shape)}")
         bias = bias.to(device=dev, dtype=torch.float32).contiguous()
     if segment_ids is not None:
-        segment_ids = _checked_segments(segment_ids, b, t, dev)
+        segment_ids = segment_ids.to(device=dev, dtype=torch.int32).contiguous()
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     if rope_base is not None:
@@ -425,11 +383,10 @@ def _launch_grouped_attention(q, k, v, key_mask, bias, causal, sm_scale,
                 _ptr(cos), _ptr(sin), float(sm_scale), _ptr(lo), _ptr(hi), n_qt,
                 _ptr(scratch), stream,
             )
-    name = "grouped_attention_bthd" if bthd else "grouped_attention"
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: "
+        raise RuntimeError(f"{counter} launch failed: "
                            + lib.pgym_cuda_error_string(err).decode())
-    LAUNCHES[name] += 1
+    LAUNCHES[counter] += 1
     if prepass:
         LAUNCHES["rope_qk"] += 1
     return out
@@ -498,61 +455,13 @@ def grouped_mha_bthd(
         key_tiles.check(segment_ids, key_mask, causal)
     if q.device.type == "cuda":
         return _launch_grouped_attention(q, k, v, key_mask, None, causal, sm_scale,
-                                         rope_base, segment_ids, key_tiles, bthd=True)
+                                         rope_base, segment_ids, key_tiles, bthd=True,
+                                         counter="grouped_attention_bthd")
     if q.device.type == "cpu":
         return plain_mha_bthd(q, k, v, key_mask=key_mask, causal=causal,
                               sm_scale=sm_scale, rope_base=rope_base,
                               segment_ids=segment_ids)
     raise ValueError(f"no attention path for device {q.device}")
-
-
-def _key_bias(key_mask, bias, b, h, t, dev):
-    """The long-context kernel's key-bias rows, as the JAX wrapper folds
-    them: -1e30 at masked keys plus the (H, T) bias, float32. Returns
-    (rows or None, batch stride, head stride); a row shared by all heads
-    or all batch rows is stored once."""
-    if key_mask is not None and key_mask.shape != (b, t):
-        raise ValueError(f"key_mask must be (B, T)={b, t}, got {tuple(key_mask.shape)}")
-    if bias is not None and bias.shape != (h, t):
-        raise ValueError(f"bias must be (H, T)={h, t}, got {tuple(bias.shape)}")
-    mask_row = None
-    if key_mask is not None:
-        key_mask = key_mask.to(device=dev, dtype=torch.bool)
-        mask_row = torch.where(key_mask, 0.0, NEG_INF).to(torch.float32)
-    if bias is not None:
-        bias = bias.to(device=dev, dtype=torch.float32)
-    if mask_row is None and bias is None:
-        return None, 0, 0
-    if bias is None:
-        return mask_row.contiguous(), t, 0
-    if mask_row is None:
-        return bias.contiguous(), 0, t
-    return (mask_row[:, None, :] + bias[None]).contiguous(), h * t, t
-
-
-def _launch_flash_attention(q, k, v, key_mask, bias, causal, sm_scale):
-    q, k, v = _checked_qkv(q, k, v)
-    b, h, t, d = q.shape
-    dev = q.device
-    out = torch.empty((b, t, h, d), dtype=q.dtype, device=dev).permute(0, 2, 1, 3)
-    kbias, kb_b, kb_h = _key_bias(key_mask, bias, b, h, t, dev)
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(d)
-    lib = _flash_lib()
-    with torch.cuda.device(dev):
-        err = lib.pgym_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _strides(q, k, v, out), b, h, t, d, _DTYPE_CODES[q.dtype],
-            _ptr(kbias), kb_b, kb_h, int(bool(causal)), float(sm_scale),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            "flash_attention launch failed: "
-            + lib.pgym_flash_error_string(err).decode()
-        )
-    LAUNCHES["flash_attention"] += 1
-    return out
 
 
 def flash_mha(
@@ -563,12 +472,24 @@ def flash_mha(
     bias: Optional[torch.Tensor] = None,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    key_tiles: Optional[KeyTiles] = None,
 ) -> torch.Tensor:
     """Long-context fused attention, (B, H, T, D) -> (B, H, T, D), q/k
-    already rotated. CUDA tensors launch the Hopper kernel (any T, head dims
-    in HEAD_DIMS, float32 or bfloat16); CPU tensors take ``reference_mha``."""
+    already rotated (PoET's multi tier). CUDA tensors launch the grouped
+    kernel's (B, H, T, D) entry with ``key_mask``, the (H, T) ``bias`` and
+    ``causal`` as their own operands and no RoPE: for bfloat16 the pre-pass
+    only scales q (the JAX wrapper's ``bf16(q * sm_scale)``) and the Hopper
+    loop stops causal calls at the diagonal, except that a query tile
+    holding a row with no live key at or before it visits every tile, so
+    that row averages v over all T keys as the plain version does. Any T,
+    head dims in HEAD_DIMS, float32 or bfloat16; counted under
+    ``flash_attention``. CPU tensors take ``reference_mha``. ``key_tiles``
+    as in ``grouped_mha``."""
+    if key_tiles is not None:
+        key_tiles.check(None, key_mask, causal)
     if q.device.type == "cuda":
-        return _launch_flash_attention(q, k, v, key_mask, bias, causal, sm_scale)
+        return _launch_grouped_attention(q, k, v, key_mask, bias, causal, sm_scale, None,
+                                         None, key_tiles, counter="flash_attention")
     if q.device.type == "cpu":
         return reference_mha(q, k, v, key_mask=key_mask, bias=bias,
                              causal=causal, sm_scale=sm_scale)
@@ -576,14 +497,13 @@ def flash_mha(
 
 
 def _segment_block_extents(segment_ids: torch.Tensor, n_qb: int,
-                           block: int = SEG_BLOCK, key_block: Optional[int] = None):
+                           block: int, key_block: Optional[int] = None):
     """(B, T) contiguous segment ids, T = n_qb * block -> per-query-block
     key-block extents [lo, hi) in ``key_block`` units (default ``block``),
     both (B, n_qb) int32, on the ids' device: the first key block holding
     the start of any segment the query block touches, and one past the key
-    block holding the last end. ``block`` is SEG_BLOCK for the JAX kernel's
-    extents, KERNEL_TILE for the extent-sparse kernel's and Q_TILE (with
-    key blocks of KERNEL_TILE) for the Hopper loop's."""
+    block holding the last end. The Hopper loop takes blocks of Q_TILE
+    query rows and key blocks of KERNEL_TILE."""
     key_block = key_block or block
     b, t = segment_ids.shape
     if t != n_qb * block:
@@ -602,79 +522,46 @@ def _segment_block_extents(segment_ids: torch.Tensor, n_qb: int,
     return lo.int(), hi.int()
 
 
-def _launch_seg_block_attention(q, k, v, segment_ids, sm_scale, rope_base):
-    q, k, v = _checked_qkv(q, k, v)
-    b, h, t, d = q.shape
-    dev = q.device
-    seg = _checked_segments(segment_ids, b, t, dev)
-    n_qt = -(-t // KERNEL_TILE)
-    # the extents of the last, ragged tile count its missing keys as padding
-    seg_tiles = F.pad(seg, (0, n_qt * KERNEL_TILE - t))
-    lo, hi = (x.contiguous() for x in _segment_block_extents(seg_tiles, n_qt, KERNEL_TILE))
-    out = torch.empty((b, t, h, d), dtype=q.dtype, device=dev).permute(0, 2, 1, 3)
-    cos = sin = None
-    if rope_base is not None:
-        cos, sin = _rope_tables(t, d, float(rope_base), dev)
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(d)
-    lib = _seg_block_lib()
-    with torch.cuda.device(dev):
-        err = lib.pgym_seg_block_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _strides(q, k, v, out), b, h, t, d, _DTYPE_CODES[q.dtype],
-            seg.data_ptr(), lo.data_ptr(), hi.data_ptr(), n_qt,
-            _ptr(cos), _ptr(sin), float(sm_scale),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            "seg_block_attention launch failed: "
-            + lib.pgym_seg_block_error_string(err).decode()
-        )
-    LAUNCHES["seg_block_attention"] += 1
-    return out
-
-
 def seg_block_mha(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     segment_ids: torch.Tensor,
+    key_mask: Optional[torch.Tensor] = None,
     sm_scale: Optional[float] = None,
     rope_base: Optional[float] = None,
+    key_tiles: Optional[KeyTiles] = None,
 ) -> torch.Tensor:
     """Extent-sparse block-diagonal attention for segment-packed rows,
-    (B, H, T, D) -> (B, H, T, D). ``segment_ids`` (B, T) int, contiguous
-    runs, 0 = padding; no key mask (fold it into the ids) and no bias or
-    causal mask. Live queries get dense segmented attention; padding
-    queries compute garbage that callers never consume. With ``rope_base``
-    q/k arrive unrotated; ``sm_scale`` None means 1/sqrt(D).
+    (B, H, T, D) -> (B, H, T, D). ``segment_ids`` (B, T) int, 0 = padding;
+    ``key_mask`` (B, T) as in ``grouped_mha``; no bias or causal mask.
+    Live queries get dense segmented attention to the live keys of their
+    segment; padding queries compute values that callers never consume.
+    With ``rope_base`` q/k arrive unrotated; ``sm_scale`` None means
+    1/sqrt(D). ``key_tiles`` as in ``grouped_mha``.
 
-    CUDA tensors launch the Hopper kernel, which visits only the key tiles
-    that share a segment with each 64-query tile (any T, head dims in
-    HEAD_DIMS, float32 or bfloat16); CPU tensors take
-    ``plain_seg_block_mha``. The JAX kernel needs T to be a multiple of
-    SEG_BLOCK; neither version here does."""
+    CUDA tensors launch the grouped kernel's (B, H, T, D) entry, counted
+    under ``seg_block_attention``: for bfloat16 the pre-pass rotates and
+    scales q/k and the Hopper loop visits only the key tiles that share a
+    segment with each query tile (a warpgroup of 64 rows skips those that
+    share none with its own rows); float32 takes the scalar kernel (any T,
+    head dims in HEAD_DIMS). CPU tensors take ``plain_seg_block_mha``. The
+    JAX kernel needs T to be a multiple of its 128-row block; neither
+    version here does.
+
+    Rounding order: the pre-pass scales q, rounds it to bf16, then
+    rotates; the plain version (the JAX wrapper's order) rotates first and
+    scales after. The two agree bit for bit when ``sm_scale`` is 1 (ESM
+    pre-scales q) and within one bf16 rounding of q otherwise."""
+    if key_tiles is not None:
+        key_tiles.check(segment_ids, key_mask, False)
     if q.device.type == "cuda":
-        return _launch_seg_block_attention(q, k, v, segment_ids, sm_scale, rope_base)
+        return _launch_grouped_attention(q, k, v, key_mask, None, False, sm_scale, rope_base,
+                                         segment_ids, key_tiles, counter="seg_block_attention")
     if q.device.type == "cpu":
-        return plain_seg_block_mha(q, k, v, segment_ids, sm_scale=sm_scale,
-                                   rope_base=rope_base)
+        return plain_seg_block_mha(q, k, v, segment_ids, key_mask=key_mask,
+                                   sm_scale=sm_scale, rope_base=rope_base)
     raise ValueError(f"no attention path for device {q.device}")
-
-
-def _seg_block_dispatch(q, k, v, segment_ids, sm_scale=None, rope_base=None):
-    """Packed rows longer than GROUPED_MAX_SEQ_LEN: as the JAX dispatch
-    does, pad T to a multiple of SEG_BLOCK (padding is segment 0, which
-    live queries never attend), run ``seg_block_mha`` and slice the output
-    back to T."""
-    t = q.shape[2]
-    t_pad = _round_up(t, SEG_BLOCK)
-    if t_pad != t:
-        q, k, v = (F.pad(x, (0, 0, 0, t_pad - t)) for x in (q, k, v))
-        segment_ids = F.pad(segment_ids, (0, t_pad - t))
-    return seg_block_mha(q, k, v, segment_ids, sm_scale=sm_scale,
-                         rope_base=rope_base)[:, :, :t]
 
 
 def mha(q, k, v, key_mask=None, bias=None, causal=False, sm_scale=None,
@@ -685,17 +572,16 @@ def mha(q, k, v, key_mask=None, bias=None, causal=False, sm_scale=None,
     - longer, without ``segment_ids``: RoPE in-graph when ``rope_base`` is
       set, then the long-context ``flash_mha``;
     - longer, with ``segment_ids``, no bias and not causal (ESM's packed
-      rows): ``key_mask`` folded into the segment ids (masked keys join
-      segment 0), then the extent-sparse ``seg_block_mha`` through
-      ``_seg_block_dispatch``. The ids must run contiguously: a masked hole
-      inside a segment would split its run;
+      rows): the extent-sparse ``seg_block_mha``, with ``key_mask`` as its
+      own operand (the JAX dispatch folds it into the ids and pads T to a
+      multiple of 128; live rows see the same keys either way);
     - longer, with ``segment_ids`` and causal or a bias (PoET's self tier):
       ``grouped_mha``, which has no context cap here. The JAX package takes
       its dense XLA path there, which computes the same function.
 
-    ``key_tiles`` (see ``KeyTiles``) goes to ``grouped_mha``; the other
-    kernels find their tiles themselves. Each wrapper runs its plain
-    version on CPU tensors, so the routing is the same on both devices."""
+    ``key_tiles`` (see ``KeyTiles``) goes to the wrapper taken, with the
+    caller's own mask tensors. Each wrapper runs its plain version on CPU
+    tensors, so the routing is the same on both devices."""
     if q.shape[2] <= GROUPED_MAX_SEQ_LEN or (
             segment_ids is not None and (causal or bias is not None)):
         return grouped_mha(q, k, v, key_mask=key_mask, bias=bias, causal=causal,
@@ -705,12 +591,9 @@ def mha(q, k, v, key_mask=None, bias=None, causal=False, sm_scale=None,
         if rope_base is not None:
             q, k = apply_rotary_bhtd(q, k, rope_base)
         return flash_mha(q, k, v, key_mask=key_mask, bias=bias, causal=causal,
-                         sm_scale=sm_scale)
-    if key_mask is not None:
-        segment_ids = torch.where(key_mask.to(segment_ids.device, torch.bool),
-                                  segment_ids, 0)
-    return _seg_block_dispatch(q, k, v, segment_ids, sm_scale=sm_scale,
-                               rope_base=rope_base)
+                         sm_scale=sm_scale, key_tiles=key_tiles)
+    return seg_block_mha(q, k, v, segment_ids, key_mask=key_mask, sm_scale=sm_scale,
+                         rope_base=rope_base, key_tiles=key_tiles)
 
 
 def mha_natural(q, k, v, key_mask=None, bias=None, causal=False,

@@ -29,7 +29,7 @@ selects the other ESM strategies (per assay only).
 ``merge`` joins each model's score files onto the assays and runs on the
 host; ``evaluate`` and ``evaluate-clinical`` write the JAX package's metric
 CSVs with the per-assay metrics computed on ``--device``. Without
-``--config`` the registry packaged with the JAX package is read.
+``--config`` the port's packaged registry is read.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ import numpy as np
 
 from proteingym_tpu_torch.data.mutants import apply_mutant
 from proteingym_tpu_torch.data.reference import load_reference
+from proteingym_tpu_torch.data.table import format_cell
 from proteingym_tpu_torch.devices import resolve_device
 from proteingym_tpu_torch.pipeline.manifest import Manifest
 from proteingym_tpu_torch.pipeline.scorers import (
@@ -68,7 +69,8 @@ def _parse_extra(pairs):
 
 def _load_registry_arg(config_path, dataset, mutation_type, constants_path=None):
     """--config points at a ProteinGym-format config.json; without it the
-    packaged registry (proteingym_tpu/configs/registry.json) is read."""
+    port's packaged registry (proteingym_tpu_torch/configs/registry.json)
+    is read."""
     from proteingym_tpu_torch.data.registry import load_packaged_registry, load_registry
 
     if config_path:
@@ -85,13 +87,14 @@ def _read_csv(path: Path):
 
 
 def _write_scores(path: Path, columns, rows, scores) -> None:
-    """The input columns plus one column per score array."""
+    """The input columns plus one column per score array; a NaN score is
+    an empty field, as pandas ``to_csv`` writes it in the JAX CLI."""
     with open(path, "w", newline="") as f:
         writer = csv.writer(f)
         writer.writerow(columns + list(scores))
         for i, row in enumerate(rows):
             writer.writerow([row[c] for c in columns]
-                            + [repr(float(v[i])) for v in scores.values()])
+                            + [format_cell(float(v[i])) for v in scores.values()])
 
 
 def _emit_throughput(log, label, n_mutants, seconds) -> None:

@@ -189,6 +189,43 @@ def test_dispatcher_long_rows_match_jax_mha(monkeypatch, case):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("t", [1152, 4352])
+@pytest.mark.parametrize("branch", ["flash_causal_mask", "seg_block_unfolded_mask"])
+def test_mha_long_branches_take_key_tiles_and_match_jax_mha(monkeypatch, branch, t):
+    # a model's KeyTiles, made from the very mask tensors it hands mha, goes
+    # through both long branches; the JAX dispatcher on the CPU takes its
+    # reference path, which computes the same function
+    rng = np.random.default_rng(t)
+    q, k, v = _qkv(t, t, b=2, h=1, d=16)
+    if branch == "flash_causal_mask":
+        mask = _lengths_mask(t, [t, t - 77])
+        mask[1, :100] = False  # rows 0..99 of batch row 1 see no live key
+        seg, live = None, np.ones((2, t), bool)
+    else:
+        cuts = [np.sort(rng.choice(np.arange(50, t - 60), 5, replace=False)) for _ in range(2)]
+        seg = np.zeros((2, t), np.int32)
+        for i, c in enumerate(cuts):  # each row its own cuts, then padding
+            for s_id, (lo, hi) in enumerate(zip([0, *c], [*c, t - 40]), start=1):
+                seg[i, lo:hi] = s_id
+        mask = seg > 0
+        mask[0, cuts[0][1] - 20:cuts[0][1]] = False  # keys inside a segment
+        live = mask
+    tmask = torch.from_numpy(mask)
+    tseg = None if seg is None else torch.from_numpy(seg)
+    tiles = tfa.KeyTiles(tseg, tmask, causal=seg is None)
+    calls = _recording(monkeypatch)
+    monkeypatch.setattr(tfa, "seg_block_mha", lambda *a, _f=tfa.seg_block_mha, **kw:
+                        calls.append("seg_block_mha") or _f(*a, **kw))
+    got = tfa.mha(*(torch.from_numpy(x) for x in (q, k, v)), key_mask=tmask,
+                  causal=seg is None, rope_base=10000.0, segment_ids=tseg, key_tiles=tiles)
+    assert calls == ["flash_mha" if seg is None else "seg_block_mha"]
+    want = jfa.mha(*(jnp.asarray(x) for x in (q, k, v)), key_mask=jnp.asarray(mask),
+                   causal=seg is None, rope_base=10000.0,
+                   segment_ids=None if seg is None else jnp.asarray(seg))
+    tr = lambda x: np.asarray(x).transpose(0, 2, 1, 3)[live]
+    np.testing.assert_allclose(tr(got.numpy()), tr(want), atol=ATOL, rtol=0)
+
+
 def test_flash_no_path_for_other_devices():
     q = torch.empty(1, 1, 8, 16, device="meta")
     with pytest.raises(ValueError, match="no attention path"):
@@ -214,19 +251,14 @@ def test_kernel_library_name_tracks_included_headers(tmp_path, monkeypatch):
 
 
 def test_shipped_attention_kernels_share_one_header():
-    # every attention kernel includes the common helpers; the mma.sync
-    # loop's device code is shared by the grouped entries and the
-    # extent-sparse one
-    assert [f.name for f in _build.source_files("flash_attention")] == [
-        "flash_attention.cu", "attention_common.cuh"]
-    # the grouped entries (K1, K4) and the pre-pass add the Hopper loop;
-    # the extent-sparse kernel (K3) keeps the mma.sync loop alone
+    # one attention source serves every attention wrapper (K1-K4 and the
+    # pre-pass): its float32 kernel, the Hopper loop and the common helpers
     assert [f.name for f in _build.source_files("grouped_attention")] == [
         "grouped_attention.cu", "grouped_attention.cuh", "hopper_attention.cuh",
         "attention_common.cuh"]
-    assert [f.name for f in _build.source_files("seg_block_attention")] == [
-        "seg_block_attention.cu", "grouped_attention.cuh", "attention_common.cuh"]
     assert [f.name for f in _build.source_files("cluster_counts")] == ["cluster_counts.cu"]
+    assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
+        "cluster_counts.cu", "grouped_attention.cu"]
 
 
 def test_kernel_library_name_tracks_source():

@@ -97,6 +97,31 @@ def test_port_cli_matches_jax_cli(assays, mode):
     assert "throughput_summary" in events
 
 
+def test_nan_score_cells_are_written_as_the_jax_cli_writes_them(tmp_path):
+    # the JAX CLI writes each scores frame with pandas to_csv, whose NaN is
+    # an empty field; the port's writer gives the same fields
+    import pandas as pd
+
+    columns = ["mutant", "DMS_score", "mutated_sequence"]
+    rows = [{"mutant": "A1C", "DMS_score": "0.5", "mutated_sequence": "CKT"},
+            {"mutant": "K2P", "DMS_score": "-1.25", "mutated_sequence": "APT"},
+            {"mutant": "T3W", "DMS_score": "2.0", "mutated_sequence": "AKW"},
+            {"mutant": "A1C:K2P", "DMS_score": "0.125", "mutated_sequence": "CPT"}]
+    scores = {"model_score": np.array([-0.1, np.nan, 1e-07, 123456789.0]),
+              "other_score": np.array([np.nan, -1.2345678901234567, 3.0, np.nan])}
+    tcli._write_scores(tmp_path / "port.csv", columns, rows, scores)
+    frame = pd.DataFrame({c: [r[c] for r in rows] for c in columns})
+    for name, values in scores.items():
+        frame[name] = values
+    frame.to_csv(tmp_path / "jax.csv", index=False)
+    with open(tmp_path / "port.csv", newline="") as f:
+        got = list(csv.reader(f))
+    with open(tmp_path / "jax.csv", newline="") as f:
+        want = list(csv.reader(f))
+    assert got == want
+    assert got[2][3] == "" and got[1][4] == ""
+
+
 def test_resume_skips_done_and_isolates_failures(tmp_path):
     ref, dms_dir, ids = _write_assays(tmp_path, n_assays=2)
     bad = dms_dir / f"{ids[1]}.csv"

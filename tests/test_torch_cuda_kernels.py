@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (grouped attention and its heads-mid entry on
-the Hopper loop with its pre-pass, long-context and extent-sparse segmented
-attention, cluster counts) against their plain PyTorch versions on the card.
+"""The port's CUDA kernels (the four attention wrappers, grouped, heads-mid,
+long-context and extent-sparse segmented, on the Hopper loop with its
+pre-pass in bf16 and on the scalar kernel in float32; cluster counts)
+against their plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one; the kernels have no CPU mode. The file imports neither jax nor the
@@ -130,15 +131,24 @@ def test_model_forward_goes_through_the_kernel(dtype, dev):
     torch.testing.assert_close(got, want, atol=TOL[dtype] * 5, rtol=0)
 
 
-# the long-context kernel: name -> (T, head dim, keyword arguments)
+# the long-context kernel (K2): name -> (T, head dim, keyword arguments). In
+# bf16 it runs the Hopper loop after the pre-pass (q scaled, no rotation),
+# in float32 the scalar kernel
 FLASH_CASES = {
     "plain": (1100, 64, {}),
     "causal_mask": (2048, 64, {"causal": True, "key_mask": _lengths_mask(2048, [2048, 1500])}),
     "alibi_causal": (1536, 64, {"bias": _alibi(4, 1536), "causal": True}),
     "dead_rows_causal": (1037, 32, {"causal": True, "key_mask": torch.stack([
         torch.arange(1037) >= 7, torch.zeros(1037, dtype=torch.bool)])}),
+    # rows 1024..1059 of batch row 1 see no live key: the last query tile's
+    # first warpgroup must not skip the tile in its future (keys 1088..1099,
+    # whose v the test offsets so that dropping them moves those rows by ~0.09)
+    "dead_rows_in_the_last_query_tile": (1100, 64, {"causal": True, "key_mask": torch.stack([
+        torch.ones(1100, dtype=torch.bool), torch.arange(1100) >= 1060])}),
     "hd24_scale": (1111, 24, {"sm_scale": 0.3, "key_mask": _lengths_mask(1111, [1111, 999])}),
     "hd128_causal": (1200, 128, {"causal": True}),
+    "prescaled_no_prepass": (1300, 64, {"sm_scale": 1.0, "causal": True,
+                                        "key_mask": _lengths_mask(1300, [1300, 1250])}),
 }
 
 
@@ -149,13 +159,52 @@ def test_flash_kernel_matches_plain(case, dtype, dev):
     gen = torch.Generator().manual_seed(50 + sorted(FLASH_CASES).index(case))
     q, k, v = (torch.randn(2, t, 4, d, generator=gen).to(dev, dtype).permute(0, 2, 1, 3)
                for _ in range(3))
+    if kw.get("sm_scale") == 1.0:  # the caller pre-scaled q
+        q = q * d ** -0.5
+    if case == "dead_rows_in_the_last_query_tile":  # the dead rows' mean of v
+        v = v.clone()
+        v[:, :, 1088:] += 8  # each dead row gains 8 * 12 / 1100 from these keys
     kw = {n: x.to(dev) if torch.is_tensor(x) else x for n, x in kw.items()}
-    before = fa.LAUNCHES["flash_attention"]
+    before = dict(fa.LAUNCHES)
     got = fa.flash_mha(q, k, v, **kw).float()
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_attention"] == before + 1
+    prepass = dtype == torch.bfloat16 and kw.get("sm_scale") != 1.0
+    assert {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES} == {
+        **{n: 0 for n in fa.LAUNCHES}, "flash_attention": 1, "rope_qk": int(prepass)}
     want = fa.reference_mha(q.float(), k.float(), v.float(), **kw)
     torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _per_row(fn, plain, q, k, v, **kw):
+    """The call on the whole batch and its plain version one batch row at a
+    time (a float32 (H, T, T) score block per row), both float32."""
+    got = fn(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    rows = {n: x for n, x in kw.items() if n in ("key_mask", "segment_ids")}
+    rest = {n: x for n, x in kw.items() if n not in rows and n != "key_tiles"}
+    want = torch.cat([plain(*(x[i:i + 1].float() for x in (q, k, v)),
+                            **{n: x[i:i + 1] for n, x in rows.items()}, **rest)
+                      for i in range(q.shape[0])])
+    return got, want
+
+
+def test_flash_kernel_at_poet_multi_tier_shape(dev):
+    # PoET's multi tier at batch 8: causal, each row its own valid length, one
+    # row whose first 300 keys are masked (its first rows see no live key),
+    # the forward's shared KeyTiles; every row is compared
+    b, h, t, d = 8, 16, 4352, 64
+    gen = torch.Generator().manual_seed(4352)
+    q, k, v = (torch.randn(b, t, h, d, generator=gen).to(dev, torch.bfloat16).permute(0, 2, 1, 3)
+               for _ in range(3))
+    mask = _lengths_mask(t, [t - 37 * i for i in range(b)]).to(dev)
+    mask[3, :300] = False
+    tiles = fa.KeyTiles(key_mask=mask, causal=True)
+    before = dict(fa.LAUNCHES)
+    got, want = _per_row(fa.flash_mha, fa.reference_mha, q, k, v, key_mask=mask, causal=True,
+                         key_tiles=tiles)
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert fa.LAUNCHES["rope_qk"] == before["rope_qk"] + 1
+    torch.testing.assert_close(got, want, atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16])
 
 
 def test_dispatcher_takes_the_flash_kernel_beyond_1024(dev):
@@ -167,6 +216,8 @@ def test_dispatcher_takes_the_flash_kernel_beyond_1024(dev):
     fa.mha(q[:, :, :1024], q[:, :, :1024], q[:, :, :1024])
     assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
     assert fa.LAUNCHES["grouped_attention"] == before["grouped_attention"] + 2
+    # each call scales q in the pre-pass (the default scale)
+    assert fa.LAUNCHES["rope_qk"] == before["rope_qk"] + 3
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(dev):
@@ -220,8 +271,17 @@ def _runs(b, t, bounds):
     return seg
 
 
+def _holes(seg, *spans):
+    """seg > 0 with the keys of each (row, start, stop) span masked too."""
+    mask = seg > 0
+    for row, lo, hi in spans:
+        mask[row, lo:hi] = False
+    return mask
+
+
 # the extent-sparse kernel (K3): name -> (T, head dim, segment ids, keyword
-# arguments); segments cross the 64-token tiles
+# arguments); segments cross the 64-token tiles. In bf16 it runs the Hopper
+# loop after the pre-pass, in float32 the scalar kernel
 SEG_CASES = {
     "tail_and_crossings": (512, 64, _runs(2, 512, [0, 200, 310, 470]), {}),
     "one_segment": (512, 64, _runs(2, 512, [0, 512]), {"rope_base": 10000.0}),
@@ -229,6 +289,10 @@ SEG_CASES = {
     "ragged_T": (1100, 32, _runs(2, 1100, [0, 90, 91, 500, 1037]), {"rope_base": 10000.0}),
     "scale_hd16": (300, 16, _runs(2, 300, [0, 120, 260]), {"sm_scale": 0.3}),
     "hd128": (1152, 128, _runs(1, 1152, [0, 300, 700, 1100]), {}),
+    "mask_holes_prescaled": (1300, 64, _runs(2, 1300, [0, 250, 500, 750, 1000, 1250]),
+                             {"sm_scale": 1.0, "rope_base": 10000.0,
+                              "key_mask": _holes(_runs(2, 1300, [0, 250, 500, 750, 1000, 1250]),
+                                                 (0, 230, 250), (1, 700, 720))}),
 }
 
 
@@ -240,19 +304,58 @@ def test_seg_block_kernel_matches_plain(case, dtype, dev):
     gen = torch.Generator().manual_seed(70 + sorted(SEG_CASES).index(case))
     q, k, v = (torch.randn(b, t, 4, d, generator=gen).to(dev, dtype).permute(0, 2, 1, 3)
                for _ in range(3))
+    if kw.get("sm_scale") == 1.0:  # the caller pre-scaled q, as ESM does
+        q = q * d ** -0.5
     seg = seg.to(dev)
-    before = fa.LAUNCHES["seg_block_attention"]
+    kw = {n: x.to(dev) if torch.is_tensor(x) else x for n, x in kw.items()}
+    before = dict(fa.LAUNCHES)
     got = fa.seg_block_mha(q, k, v, seg, **kw).float()
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["seg_block_attention"] == before + 1
+    prepass = dtype == torch.bfloat16 and (kw.get("sm_scale") != 1.0 or "rope_base" in kw)
+    assert {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES} == {
+        **{n: 0 for n in fa.LAUNCHES}, "seg_block_attention": 1, "rope_qk": int(prepass)}
     want = fa.plain_seg_block_mha(q.float(), k.float(), v.float(), seg, **kw)
     live = (seg > 0).cpu()  # padding queries are never consumed
+    if "key_mask" in kw:
+        live &= kw["key_mask"].cpu()
     tr = lambda x: x.transpose(1, 2).cpu()[live]
     torch.testing.assert_close(tr(got), tr(want), atol=TOL[dtype], rtol=TOL[dtype])
 
 
+def test_seg_block_kernel_at_segment_packed_shape(dev):
+    # ESM's segment-packed rows at batch 8: 16 segments of ~250 tokens, each
+    # row its own cuts, then padding; the unfolded key mask and the forward's
+    # shared KeyTiles; live rows are compared
+    b, h, t, d = 8, 20, 4096, 64
+    gen = torch.Generator().manual_seed(4096)
+    seg = torch.zeros(b, t, dtype=torch.int32)
+    for i in range(b):
+        lengths = 250 + torch.randint(-20, 6, (16,), generator=gen)
+        ends = torch.cumsum(lengths, 0).tolist()
+        seg[i] = _runs(1, t, [0, *ends])[0]
+    seg = seg.to(dev)
+    mask = seg > 0
+    q, k, v = (torch.randn(b, t, h, d, generator=gen).to(dev, torch.bfloat16).permute(0, 2, 1, 3)
+               for _ in range(3))
+    q = q * d ** -0.5  # ESM pre-scales q and passes sm_scale=1
+    tiles = fa.KeyTiles(seg, mask)
+    kw = dict(segment_ids=seg, key_mask=mask, sm_scale=1.0, rope_base=10000.0, key_tiles=tiles)
+    before = dict(fa.LAUNCHES)
+    got, want = _per_row(lambda q, k, v, segment_ids, **kw: fa.seg_block_mha(
+        q, k, v, segment_ids, **kw), lambda q, k, v, segment_ids, **kw: fa.plain_seg_block_mha(
+        q, k, v, segment_ids, **kw), q, k, v, **kw)
+    assert fa.LAUNCHES["seg_block_attention"] == before["seg_block_attention"] + 1
+    assert fa.LAUNCHES["rope_qk"] == before["rope_qk"] + 1
+    live = mask.cpu()
+    tr = lambda x: x.transpose(1, 2).cpu()[live]
+    torch.testing.assert_close(tr(got), tr(want), atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_dispatcher_folds_the_key_mask_into_the_extent_sparse_kernel(dtype, dev):
+    # the JAX dispatch folds the key mask into the ids; the port hands the
+    # mask to the kernel as its own operand, and live rows see the same keys
     t = 1152
     gen = torch.Generator().manual_seed(90)
     q, k, v = (torch.randn(2, t, 4, 64, generator=gen).to(dev, dtype).permute(0, 2, 1, 3)
@@ -265,6 +368,7 @@ def test_dispatcher_folds_the_key_mask_into_the_extent_sparse_kernel(dtype, dev)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["seg_block_attention"] == before["seg_block_attention"] + 1
     assert fa.LAUNCHES["grouped_attention"] == before["grouped_attention"]
+    assert fa.LAUNCHES["rope_qk"] == before["rope_qk"] + int(dtype == torch.bfloat16)
     want = fa.plain_mha(q.float(), k.float(), v.float(), key_mask=mask, segment_ids=seg,
                         rope_base=10000.0)
     live = mask.cpu()
@@ -312,9 +416,9 @@ def test_segmented_model_forward_takes_the_expected_kernel(t, entry, dev):
     got = apply_fn(toks, seg)
     torch.cuda.synchronize()
     counts = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
-    # the Hopper loop takes q/k rotated by the pre-pass; K3 rotates on load
-    rotated = {"rope_qk": config.num_layers} if entry == "grouped_attention_bthd" else {}
-    assert counts == {**{n: 0 for n in fa.LAUNCHES}, entry: config.num_layers, **rotated}
+    # both entries run the Hopper loop on q/k rotated by the pre-pass
+    assert counts == {**{n: 0 for n in fa.LAUNCHES}, entry: config.num_layers,
+                      "rope_qk": config.num_layers}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(esm2, "mha_natural", fa.plain_mha_bthd)
         want = apply_fn(toks, seg)
@@ -493,6 +597,8 @@ def test_poet_forward_goes_through_both_kernels(dev):
     got = poet.token_logprobs(model, tok, seg, pos, val)
     assert fa.LAUNCHES["grouped_attention"] == before["grouped_attention"] + config.num_layers
     assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + config.num_layers
+    # the self tier's pre-pass rotates and scales, the multi tier's scales q
+    assert fa.LAUNCHES["rope_qk"] == before["rope_qk"] + 2 * config.num_layers
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(poet, "mha", fa.plain_mha)
         want = poet.token_logprobs(model, tok, seg, pos, val)

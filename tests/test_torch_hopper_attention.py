@@ -8,9 +8,9 @@ decide which key tiles each 128-query tile visits.
   key) pair that the plain version lets a live row attend lies in its
   query tile's extent, on contiguous runs the extents are tight, and a
   row whose ids come back visits every tile;
-- a plain emulation of the loop that drops the tiles outside the extents
-  equals ``plain_mha`` on live rows (every row for unsegmented causal
-  calls).
+- a plain emulation of the loop that drops the tiles outside the extents,
+  and the tiles each 64-row warpgroup skips within them, equals
+  ``plain_mha`` on live rows (every row for unsegmented causal calls).
 
 The CUDA loop itself is compared with the plain version on the card in
 tests/test_torch_cuda_kernels.py and by chip_smoke.py.
@@ -112,6 +112,17 @@ def _extents(b, t, seg, mask, causal):
     return tuple(x.numpy() for x in ext)
 
 
+def _packed_runs(b, t, rng, n=16, length=250):
+    """(b, t) int32: ``n`` segments of about ``length`` tokens, each batch
+    row its own cuts, then padding (ESM's segment-packed rows)."""
+    seg = np.zeros((b, t), np.int32)
+    for i in range(b):
+        ends = np.cumsum(length + rng.integers(-20, 6, n))
+        for s_id, (lo, hi) in enumerate(zip([0, *ends[:-1]], ends), start=1):
+            seg[i, lo:hi] = s_id
+    return seg
+
+
 EXTENT_CASES = {  # name -> (T, segmented, key mask, causal)
     "segments_T77": (77, True, False, False),
     "segments_T300": (300, True, False, False),
@@ -123,6 +134,12 @@ EXTENT_CASES = {  # name -> (T, segmented, key mask, causal)
     "segments_split_runs_causal_T1037": (1037, "split", False, True),
     "causal_T256": (256, False, False, True),
     "causal_mask_dead_rows_T1037": (1037, False, True, True),
+    # K2's main-path shape: each row its own valid length, one row whose
+    # first keys are masked
+    "k2_causal_mask_T4352": (4352, False, True, True),
+    # K3's main-path shape: 16 x ~250 with each row's own cuts, the mask
+    # unfolded (with a hole inside a segment)
+    "k3_packed_segments_mask_T4096": (4096, "packed", True, False),
 }
 
 
@@ -131,14 +148,19 @@ def test_extents_cover_every_live_pair_and_are_tight(case):
     t, segmented, masked, causal = EXTENT_CASES[case]
     rng = np.random.default_rng(sorted(EXTENT_CASES).index(case))
     b = 3
-    seg = _runs(b, t, rng, n_max=16 if t > 1000 else 6) if segmented else None
+    if segmented == "packed":
+        seg = _packed_runs(b, t, rng)
+    else:
+        seg = _runs(b, t, rng, n_max=16 if t > 1000 else 6) if segmented else None
     split = segmented == "split"
     if split:
         _split_runs(seg)
     mask = None
     if masked:
-        mask = seg > 0 if segmented else _lengths_mask(t, [t, t - 5, t])
-        if not segmented:
+        mask = seg > 0 if segmented else _lengths_mask(t, [t, t - 5 - t // 10, t - 3])
+        if segmented:
+            mask[1, 300:320] = False  # keys inside a segment
+        else:
             mask[2, :200] = False  # rows 0..199 of batch row 2 see no live key
     lo, hi = _extents(b, t, seg, mask, causal)
     n_qt, n_kt = -(-t // tfa.Q_TILE), -(-t // tfa.KERNEL_TILE)
@@ -170,28 +192,73 @@ def test_no_extents_without_segments_or_causal():
                                  "cpu") is None
 
 
+def _allowed_t(b, t, key_mask=None, causal=False, segment_ids=None):
+    """(B, T, T) bool: the pairs the plain version does not fill (torch)."""
+    ok = torch.ones(b, t, t, dtype=torch.bool)
+    if key_mask is not None:
+        ok &= key_mask[:, None, :]
+    if segment_ids is not None:
+        ok &= segment_ids[:, :, None] == segment_ids[:, None, :]
+    if causal:
+        ok &= torch.ones(t, t, dtype=torch.bool).tril()
+    return ok
+
+
+def _visited(b, t, lo, hi, key_mask=None, causal=False, segment_ids=None):
+    """(B, T, n_kt) bool: the key tiles whose products each query row's
+    warpgroup runs in the Hopper loop, and the number of (warpgroup, tile)
+    pairs skipped inside the extents. Within its block's extents
+    [lo, hi), in order, a warpgroup of 64 rows skips a tile
+    - whose key ids [min, max] miss the ids of its rows below T, or
+    - that lies wholly in its rows' future (causal), unless one of its rows
+      has met no key it may attend in the tiles it ran before (the vote at
+      the first such tile)."""
+    n_kt = -(-t // tfa.KERNEL_TILE)
+    ok = _allowed_t(b, t, key_mask, causal, segment_ids)
+    seg = None if segment_ids is None else segment_ids.long()
+    out = torch.zeros(b, t, n_kt, dtype=torch.bool)
+    skipped = 0
+    for bi in range(b):
+        for qt in range(lo.shape[1]):
+            for r0 in range(qt * tfa.Q_TILE, min(t, (qt + 1) * tfa.Q_TILE), 64):
+                rows = torch.arange(r0, min(r0 + 64, t))
+                seen = torch.zeros(rows.numel(), dtype=torch.bool)
+                vote = None
+                for kt in range(int(lo[bi, qt]), int(hi[bi, qt])):
+                    k0 = kt * tfa.KERNEL_TILE
+                    keys = torch.arange(k0, k0 + tfa.KERNEL_TILE)
+                    if seg is not None:
+                        ids = torch.where(keys < t, seg[bi, keys.clamp(max=t - 1)], 0)
+                        mine = seg[bi, rows]
+                        if ids.max() < mine.min() or ids.min() > mine.max():
+                            skipped += 1
+                            continue
+                    if causal and k0 > r0 + 63:
+                        if vote is None:
+                            vote = bool(seen.all())
+                        if vote:
+                            skipped += 1
+                            continue
+                    out[bi, rows, kt] = True
+                    seen |= ok[bi][rows][:, keys[keys < t]].any(dim=1)
+    return out, skipped
+
+
 def _emulate(q, k, v, lo, hi, key_mask=None, bias=None, causal=False, segment_ids=None):
-    """The Hopper loop's arithmetic in float64: per 128-query tile, only the
-    keys of the tiles [lo, hi) take part (-inf outside them); masked pairs
-    take the finite fill, as in the kernel."""
+    """The Hopper loop's arithmetic in float64: each query row takes only
+    the keys of the tiles its warpgroup runs (``_visited``; -inf outside
+    them); masked pairs take the finite fill, as in the kernel. Returns the
+    output and the number of warpgroup tiles skipped inside the extents."""
     b, h, t, d = q.shape
     s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) / np.sqrt(d)
     if bias is not None:
         s = s + bias.double()[None, :, None, :]
-    fill = torch.zeros(b, 1, t, t, dtype=torch.bool)
-    if key_mask is not None:
-        fill |= ~key_mask[:, None, None, :]
-    if segment_ids is not None:
-        fill |= (segment_ids[:, None, :, None] != segment_ids[:, None, None, :])
-    if causal:
-        fill |= torch.ones(t, t, dtype=torch.bool).triu(1)
-    s = s.masked_fill(fill, tfa.NEG_INF)
+    s = s.masked_fill(~_allowed_t(b, t, key_mask, causal, segment_ids)[:, None], tfa.NEG_INF)
+    visited, skipped = _visited(b, t, lo, hi, key_mask, causal, segment_ids)
     key_tile = torch.arange(t) // tfa.KERNEL_TILE
-    q_tile = torch.arange(t) // tfa.Q_TILE
-    lo_q, hi_q = lo.long()[:, q_tile], hi.long()[:, q_tile]  # (B, T) per query row
-    outside = (key_tile[None, None, :] < lo_q[:, :, None]) | (key_tile[None, None, :] >= hi_q[:, :, None])
-    s = s.masked_fill(outside[:, None], float("-inf"))
-    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v.double()).float()
+    s = s.masked_fill(~visited[:, :, key_tile][:, None], float("-inf"))
+    out = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v.double()).float()
+    return out, skipped
 
 
 EMULATION_CASES = {  # name -> (T, keyword arguments built from numpy)
@@ -200,6 +267,11 @@ EMULATION_CASES = {  # name -> (T, keyword arguments built from numpy)
     "causal_with_dead_rows": (400, "causal_mask"),
     "causal_alibi": (300, "causal_alibi"),
     "segments_whose_ids_come_back": (700, "segments_split"),
+    # 16 x ~250 per row, the key mask unfolded, with a hole in a segment
+    "segments_and_an_unfolded_mask": (1300, "segments_packed"),
+    # rows 384..459 of batch row 1 see no live key: the last query tile's
+    # first warpgroup must run the tile in its future (all T keys)
+    "causal_dead_rows_in_the_last_query_tile": (500, "causal_mask_late"),
 }
 
 
@@ -212,17 +284,23 @@ def test_dropping_the_skipped_tiles_equals_plain_on_live_rows(case):
                for _ in range(3))
     kw = {}
     if kind.startswith("segments"):
-        seg = _runs(b, t, rng, n_max=12)
-        if kind.endswith("split"):
-            _split_runs(seg)
-        kw = {"segment_ids": torch.from_numpy(seg), "key_mask": torch.from_numpy(seg > 0),
+        if kind.endswith("packed"):
+            seg = _packed_runs(b, t, rng, n=5)
+            mask = seg > 0
+            mask[0, 240:260] = False  # keys inside a segment
+        else:
+            seg = _runs(b, t, rng, n_max=12)
+            if kind.endswith("split"):
+                _split_runs(seg)
+            mask = seg > 0
+        kw = {"segment_ids": torch.from_numpy(seg), "key_mask": torch.from_numpy(mask),
               "causal": kind.endswith("causal")}
         live = torch.from_numpy(seg > 0)
     else:
         kw = {"causal": True}
-        if kind == "causal_mask":
-            mask = _lengths_mask(t, [t, t])
-            mask[1, :150] = False  # rows 0..149 of batch row 1 see no live key
+        if kind.startswith("causal_mask"):
+            mask = _lengths_mask(t, [t, t - 30])
+            mask[1, :150 if kind == "causal_mask" else 460] = False  # rows with no live key
             kw["key_mask"] = torch.from_numpy(mask)
         else:
             slopes = 2.0 ** (-8.0 * np.arange(1, h + 1) / h)
@@ -232,7 +310,9 @@ def test_dropping_the_skipped_tiles_equals_plain_on_live_rows(case):
                                    kw["causal"], "cpu")
     if not kind.endswith("split"):
         assert (hi - lo).float().mean() < -(-t // tfa.KERNEL_TILE)  # some tiles are skipped
-    got = _emulate(q, k, v, lo, hi, **kw)
+    got, skipped = _emulate(q, k, v, lo, hi, **kw)
+    if kind != "segments_split":
+        assert skipped > 0  # warpgroups skip tiles inside their blocks' extents
     want = tfa.plain_mha(q, k, v, **kw)
     tr = lambda x: x.transpose(1, 2)[live]
     np.testing.assert_allclose(tr(got).numpy(), tr(want).numpy(), atol=F32_ATOL, rtol=0)

@@ -50,7 +50,7 @@ def _runs(t, bounds):
 def test_segment_block_extents_match_jax_on_the_documented_case():
     seg = np.zeros((1, 512), np.int32)
     seg[0, :200], seg[0, 200:310], seg[0, 310:470] = 1, 2, 3
-    lo, hi = tfa._segment_block_extents(torch.from_numpy(seg), 4)
+    lo, hi = tfa._segment_block_extents(torch.from_numpy(seg), 4, 128)
     np.testing.assert_array_equal(lo.numpy()[0], [0, 0, 1, 2])
     np.testing.assert_array_equal(hi.numpy()[0], [2, 3, 4, 4])
     jlo, jhi = jfa._segment_block_extents(jnp.asarray(seg), 4)
@@ -62,13 +62,13 @@ def test_segment_block_extents_match_jax_on_the_documented_case():
 def test_segment_block_extents_match_jax_on_random_segmentations(seed):
     rng = np.random.default_rng(seed)
     b, n_qb = 3, 8
-    t = n_qb * tfa.SEG_BLOCK
+    t = n_qb * 128  # the JAX kernel's block edge
     seg = np.zeros((b, t), np.int32)
     for i in range(b):
         cuts = np.sort(rng.choice(np.arange(1, t), rng.integers(1, 12), replace=False))
         live_end = rng.integers(cuts[-1], t + 1)  # a padded tail, maybe empty
         seg[i] = _runs(t, [0, *cuts, live_end])
-    lo, hi = tfa._segment_block_extents(torch.from_numpy(seg), n_qb)
+    lo, hi = tfa._segment_block_extents(torch.from_numpy(seg), n_qb, 128)
     jlo, jhi = jfa._segment_block_extents(jnp.asarray(seg), n_qb)
     np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo))
     np.testing.assert_array_equal(hi.numpy(), np.asarray(jhi))
@@ -127,28 +127,31 @@ def test_seg_block_mha_explicit_scale_matches_jax_kernel():
 
 
 def test_seg_block_dispatch_pads_unaligned_rows_like_jax():
+    # the JAX dispatch pads T to a multiple of SEG_BLOCK; the port takes any
+    # T as it is, and live rows get the same result
     b, h, t, d = 1, 2, 300, 16  # not a multiple of SEG_BLOCK
     q, k, v = _qkv(10, (b, h, t, d))
     seg = _runs(t, [0, 120, 260])[None]
     want = jfa._seg_block_dispatch(*(jnp.asarray(x) for x in (q, k, v)), jnp.asarray(seg),
                                    interpret=True)
-    got = tfa._seg_block_dispatch(*(torch.from_numpy(x) for x in (q, k, v)),
-                                  torch.from_numpy(seg))
+    got = tfa.seg_block_mha(*(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(seg))
     assert got.shape == want.shape == (b, h, t, d)
     np.testing.assert_allclose(_live_rows(got, seg), _live_rows(want, seg), atol=ATOL, rtol=0)
 
 
 def test_seg_block_dispatch_honours_a_folded_key_mask_like_jax():
+    # the JAX dispatch folds the key mask into the ids; the port takes the
+    # mask as its own operand: live rows see the same keys either way
     b, h, t, d = 1, 2, 256, 16
     q, k, v = _qkv(12, (b, h, t, d))
     seg = _runs(t, [0, 200])[None]
     mask = np.ones((b, t), bool)
     mask[0, 150:200] = False  # masked keys inside segment 1
-    folded = np.where(mask, seg, 0)  # what mha computes before dispatch
+    folded = np.where(mask, seg, 0)  # what the JAX mha computes before dispatch
     want = jfa._seg_block_dispatch(*(jnp.asarray(x) for x in (q, k, v)), jnp.asarray(folded),
                                    interpret=True)
-    got = tfa._seg_block_dispatch(*(torch.from_numpy(x) for x in (q, k, v)),
-                                  torch.from_numpy(folded))
+    got = tfa.seg_block_mha(*(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(seg),
+                            key_mask=torch.from_numpy(mask))
     live = (seg > 0) & mask
     np.testing.assert_allclose(_live_rows(got, live), _live_rows(want, live), atol=ATOL, rtol=0)
 
@@ -205,7 +208,7 @@ def test_seg_block_mha_has_no_path_for_other_devices_and_extents_need_whole_bloc
     with pytest.raises(ValueError, match="no attention path"):
         tfa.seg_block_mha(q.to("meta"), q.to("meta"), q.to("meta"), torch.ones(1, 64))
     with pytest.raises(ValueError, match="not 2 blocks"):
-        tfa._segment_block_extents(torch.ones(1, 200, dtype=torch.int32), 2)
+        tfa._segment_block_extents(torch.ones(1, 200, dtype=torch.int32), 2, 128)
 
 
 # ---- grouped_mha_bthd and mha_natural -------------------------------------

@@ -10,16 +10,19 @@ one card compare two versions of the kernels. Every tree is measured once
 per round, in the order given and then reversed, ``--rounds`` times (for
 trees A and B: A, B, B, A, ...). Needs an NVIDIA GPU.
 
-Calls (bf16, seeded random inputs, each as its model makes it):
+Calls (bf16, seeded random inputs, each as its model makes it, with the
+forward's shared ``KeyTiles`` where the tree has them):
 
 - K4 through ``grouped_mha_bthd`` with ESM's arguments (key mask, RoPE,
   sm_scale 1) at B16 H20 T256 D64 (the L=250 table) and B32 H20 T1024 D64
   (the packed path's window bucket);
 - K1 through ``grouped_mha`` with PoET's self-tier arguments (16 segments,
-  causal, RoPE, default scale, and the forward's shared ``KeyTiles`` where
-  the tree has them) at B8 H16 T4352 D64;
-- K3 through ``seg_block_mha`` at B8 H20 T4096 D64, 16 segments of 250 (the
-  segment-packed rows), as a control.
+  causal, RoPE, default scale) at B8 H16 T4352 D64;
+- K2 through ``mha`` with PoET's multi-tier arguments (causal, each row its
+  own valid length, default scale, q/k already rotated) at B8 H16 T4352 D64;
+- K3 through ``mha`` with ESM's segment-packed arguments (16 segments of
+  ~250 per row, each row its own cuts, the key mask, RoPE, sm_scale 1) at
+  B8 H20 T4096 D64.
 
 With ``--e2e``, the paths that run them, with seeded random weights at full
 width and depth (host clock, ended by ``torch.cuda.synchronize()``; the
@@ -27,8 +30,10 @@ median of as many calls as fill a second, 3 to 50):
 ESM2-650M's masked-marginal table of an L=250 sequence (16 forwards of
 16 x 256) and its WT-marginal table (one forward of 1 x 252), PoET-200M's
 per-token log-probs of 8 rows of 16 context sequences of 250 residues
-plus a query (T = 4,282), and ``score_assays_packed`` on the six-assay
-production mix (L = 72 .. 1500, all single mutants, chunk 32).
+plus a query (T = 4,282), ESM2-650M's segmented forward of 8 rows of 4,096
+tokens packing 16 sequences of 250 tokens each, and
+``score_assays_packed`` on the six-assay production mix (L = 72 .. 1500,
+all single mutants, chunk 32).
 
 Prints one JSON line per tree and round: the card's name and power limit,
 the median milliseconds per call (CUDA events around 10 queued calls,
@@ -64,8 +69,10 @@ def load_port(tree: Path):
                              "models.packed_scoring", "models.poet")}
         # build and load now: the wrappers import _build lazily, and a
         # later tree's package will have replaced it in sys.modules
+        # (trees before the loop took K2 and K3 have a library for each)
         for lib in ("_kernel_lib", "_seg_block_lib", "_flash_lib"):
-            getattr(mods["flash_attention"], lib)()
+            if hasattr(mods["flash_attention"], lib):
+                getattr(mods["flash_attention"], lib)()
     finally:
         sys.path.pop(0)
     for mod in mods.values():
@@ -104,13 +111,23 @@ def calls(torch, fa, dev):
     out[f"K1 B{b} H{h} T{t} D64 16 segments+causal+rope"] = lambda: fa.grouped_mha(
         q, k, v, segment_ids=seg, causal=True, rope_base=10000.0, **tiles)
 
+    mask = lengths_mask(b, t, [t - 7 * i for i in range(b)])
+    k2_tiles = fa.KeyTiles(key_mask=mask, causal=True)
+    out[f"K2 B{b} H{h} T{t} D64 causal+mask"] = lambda: fa.mha(
+        q, k, v, key_mask=mask, causal=True, key_tiles=k2_tiles)
+
     b, h, t = 8, 20, 4096
     seg3 = torch.zeros(b, t, dtype=torch.int32, device=dev)
-    for i in range(16):
-        seg3[:, 250 * i:250 * (i + 1)] = i + 1
+    for i in range(b):  # 16 segments of ~250, each row its own cuts, then padding
+        ends = np.cumsum(250 + rs.randint(-20, 6, 16))
+        for s_id, (lo, hi) in enumerate(zip([0, *ends[:-1]], ends), start=1):
+            seg3[i, lo:hi] = s_id
+    mask3 = seg3 > 0
+    k3_tiles = fa.KeyTiles(seg3, mask3)
     q3, k3, v3 = (x.transpose(1, 2) for x in bthd(b, h, t))
-    out[f"K3 B{b} H{h} T{t} D64 16x250+rope"] = lambda: fa.seg_block_mha(
-        q3, k3, v3, seg3, sm_scale=1.0, rope_base=10000.0)
+    out[f"K3 B{b} H{h} T{t} D64 16x~250+mask+rope"] = lambda: fa.mha(
+        q3, k3, v3, key_mask=mask3, sm_scale=1.0, rope_base=10000.0, segment_ids=seg3,
+        key_tiles=k3_tiles)
     return out
 
 
@@ -140,6 +157,15 @@ def paths(torch, mods, dev):
     ctx = [synth_seq(rs, 250) for _ in range(16)]
     rows = poet.build_rows(ctx, [synth_seq(rs, 250) for _ in range(8)])
     tok, seg, pos, val = (torch.from_numpy(a).to(dev) for a in rows[:4])
+    seg_fn = esm2.make_segmented_apply_fn(model)
+    packed_tok = torch.full((8, 4096), esm2.ALPHABET.padding_idx, dtype=torch.long)
+    packed_seg = torch.zeros(8, 4096, dtype=torch.int32)
+    for r in range(8):  # 16 sequences of 248 residues (250 tokens) per row
+        for s_id in range(16):
+            toks = esm2.ALPHABET.tokenize(synth_seq(rs, 248))
+            packed_tok[r, 250 * s_id:250 * (s_id + 1)] = torch.from_numpy(toks.astype(np.int64))
+            packed_seg[r, 250 * s_id:250 * (s_id + 1)] = s_id + 1
+    packed_tok, packed_seg = packed_tok.to(dev), packed_seg.to(dev)
     return {
         "ESM2-650M masked table L=250": lambda: esm_scoring.masked_marginal_table(
             model, tokens, chunk=16, window=config.max_positions, pad_to_multiple=64),
@@ -147,6 +173,7 @@ def paths(torch, mods, dev):
             model, tokens, window=config.max_positions),
         f"PoET-200M log-probs 8 x {tok.shape[1]}": lambda: poet.token_logprobs(
             pmodel, tok, seg, pos, val),
+        "ESM2-650M segment-packed forward 8 x 4096": lambda: seg_fn(packed_tok, packed_seg),
         "score_assays_packed production mix": lambda: packed.score_assays_packed(
             model, assays, chunk=32, window=config.max_positions),
     }
