@@ -22,10 +22,16 @@ Phases (any failure raises, and the script exits non-zero):
    compared.
 5. windowed: ``esm2_t6_8M`` on an L=1100 assay, through the CLI, so every
    row takes the optimal-window path at T=1024.
-6. cluster counts (K5): the sequence-weight kernel against its plain
-   version, counts equal exactly, on ragged alignments with all-gap and
-   duplicated rows, then on a seeded synthetic MSA at N=16,384, L=300;
-   both timed there.
+6. cluster counts (K5, the int8 tensor-core Gram with the count fused
+   in): the sequence-weight kernel against its plain version, counts equal
+   exactly, on ragged alignments with all-gap and duplicated rows, then on
+   seeded synthetic MSAs at N=16,384, L=300 (the ``kernels`` line's
+   shape), N=65,536, L=300 and N=8,192, L=1,000: each held exactly, timed
+   beside its plain version, with its bound (int8, and bf16 beside it),
+   the TOP/s reached and the call's peak device memory; the compiler's
+   registers, shared memory and spills of the kernel; at N=16,384 cuBLAS's
+   int8 Gram of the full square on the same one-hot (``torch._int_mm``),
+   a reading aid that is not K5's function.
 7. long-context attention (K2, the Hopper loop in bf16 and the scalar
    kernel in float32): against the plain version (causal + mask at T=2048
    and 4352, ALiBi + causal, ragged T, fully masked rows); K1 at PoET's
@@ -78,7 +84,8 @@ Every phase holds the port to its rule: no module of the JAX package
 (``proteingym_tpu``) may be loaded. It prints one JSON line describing the
 kernels (time, plain version, the PyTorch call for the same function where
 there is one, the bound: the larger of bytes over 3.35 TB/s and operations
-over 989 TFLOP/s, the H100 SXM's peaks), then, as its last line,
+over 989 TFLOP/s in bf16 or 1,979 TOP/s in int8 for K5, the H100 SXM's
+peaks), then, as its last line,
 ``{"ok": true, "device": {...}}``. With no CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 """
@@ -137,11 +144,12 @@ TABLE_ATOL = 1e-1
 POET_LOGP_ATOL = 1e-1
 GAP_AA = "-" + AA
 
-# H100 SXM peaks (dense bf16 tensor cores, HBM3) for the bounds
-PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
+# H100 SXM peaks (dense bf16 and int8 tensor cores, HBM3) for the bounds
+PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES_PER_S = 989e12, 1979e12, 3.35e12
 
 # the shapes of phases 6-8
-K5_TIMED = (16384, 300)  # (N, L) of the timed synthetic MSA
+# (N, L) of the timed synthetic MSAs; the first is the kernels line's shape
+K5_TIMED = ((16384, 300), (65536, 300), (8192, 1000))
 POET_ROW = (8, 16, 4352)  # (B, H, T) of PoET's attention calls at batch 8
 POET_SLICE = dict(preset="poet_200m", length=250, n_seqs=16384, n_mut=128,
                   batch=8, n_samples=2, max_context_tokens=4096)
@@ -204,10 +212,11 @@ def check_launches(what, launches, want):
         fail(f"{what}: launch counts {launches}, expected {full}")
 
 
-def bound(flops, nbytes):
-    """The least time the card could take for work of ``flops`` bf16
-    operations and ``nbytes`` of memory traffic, and which side sets it."""
-    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    """The least time the card could take for work of ``flops`` operations
+    at ``peak`` per second (bf16 unless given) and ``nbytes`` of memory
+    traffic, and which side sets it."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
@@ -354,11 +363,16 @@ def n_chunk_forwards(seq_len, chunk, pad_to_multiple=64):
 
 
 def phase_cluster_counts(torch, dev, card):
-    """6. K5 against its plain version, counts equal exactly; both timed at
-    N=16,384, L=300."""
+    """6. K5 against its plain version, counts equal exactly, on ragged
+    alignments and at the three timed shapes; each timed shape beside its
+    plain version, bounds, TOP/s and peak memory."""
     from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.ops import _build
 
     print("[cluster_counts] K5 vs plain num_cluster_members on the card (exact)")
+    for line in _build.build_log("cluster_counts").splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            print("  ptxas cluster_counts:", line.strip())
     rs = np.random.RandomState(0)
     for n, length, seed in ((1000, 123, 1), (4099, 300, 2), (77, 9, 3)):
         codes = synth_family(rs.randint(1, 21, length), n, seed)
@@ -374,26 +388,62 @@ def phase_cluster_counts(torch, dev, card):
         if not same:
             fail(f"cluster counts differ from the plain version at N={n}, L={length}")
 
-    n, length = K5_TIMED
-    codes = synth_family(np.random.RandomState(5).randint(1, 21, length), n, 6)
-    m = torch.from_numpy(codes).to(dev)
-    got = W.num_cluster_members_cuda(m, 0.8)
-    if not torch.equal(got, W.num_cluster_members(m, 0.8)):
-        fail(f"cluster counts differ from the plain version at N={n}, L={length}")
-    counts = got.cpu().numpy()
-    neff = float(np.sum(1.0 / counts[counts > 0]))
-    t = median_pair(torch, {
-        "kernel": lambda: W.num_cluster_members_cuda(m, 0.8),
-        "plain": lambda: W.num_cluster_members(m, 0.8),
-    }, reps=3, inner=3)
-    # the work of the TPU kernel's formulation: a one-hot (N, 20 L) Gram in
-    # bf16 over the upper triangle, 2 operations per multiply-add
-    b = bound(n * (n + 1) / 2 * 20 * length * 2, nbytes(m) + 4 * n)
-    print(f"  N={n} L={length}: counts {int(counts.min())}..{int(counts.max())}, "
-          f"Neff {neff:.1f}; kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
-          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); no single PyTorch call computes "
-          f"it (medians of 12 samples of 3 queued calls, {card})")
-    return {"ms": t["kernel"], "plain_ms": t["plain"], "library_ms": None, **b}
+    shapes = []
+    for idx, (n, length) in enumerate(K5_TIMED):
+        codes = synth_family(np.random.RandomState(5 + idx).randint(1, 21, length), n, 6 + idx)
+        m = torch.from_numpy(codes).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        got = W.num_cluster_members_cuda(m, 0.8)
+        torch.cuda.synchronize()
+        peak_mib = (torch.cuda.max_memory_allocated() - held) / 2**20
+        if not torch.equal(got, W.num_cluster_members(m, 0.8)):
+            fail(f"cluster counts differ from the plain version at N={n}, L={length}")
+        counts = got.cpu().numpy()
+        neff = float(np.sum(1.0 / counts[counts > 0]))
+        reps, inner, rounds = (3, 3, 2) if n <= 16384 else (2, 2, 1)
+        t = median_pair(torch, {
+            "kernel": lambda: W.num_cluster_members_cuda(m, 0.8),
+            "plain": lambda: W.num_cluster_members(m, 0.8),
+        }, reps=reps, inner=inner, rounds=rounds)
+        # the upper-triangle one-hot Gram (20 L per pair, 2 operations per
+        # multiply-add) on the int8 tensor cores, and in bf16 beside it;
+        # the bytes: the codes read once, the counts written once
+        ops = n * (n + 1) / 2 * 20 * length * 2
+        b = bound(ops, nbytes(m) + 4 * n, PEAK_INT8_OPS)
+        bf16_ms = bound(ops, nbytes(m) + 4 * n)["bound_ms"]
+        tops = ops / t["kernel"] / 1e9
+        samples = 2 * rounds * reps
+        print(f"  N={n} L={length}: counts {int(counts.min())}..{int(counts.max())}, "
+              f"Neff {neff:.1f}, equal to the plain version; kernel {t['kernel']:.4f} ms "
+              f"({tops:.1f} TOP/s, {tops / PEAK_INT8_OPS * 1e12:.1%} of the int8 peak), "
+              f"plain {t['plain']:.4f} ms, bound {b['bound_ms']:.4f} ms int8 "
+              f"({b['bound_by']}), {bf16_ms:.4f} ms bf16; peak device memory of the call "
+              f"{peak_mib:.1f} MiB (medians of {samples} samples of {inner} queued calls, "
+              f"{card})")
+        shapes.append({"shape": f"N={n} L={length}", "ms": t["kernel"], "plain_ms": t["plain"],
+                       **b, "peak_mib": peak_mib})
+        if idx == 0:  # cuBLAS's int8 Gram of the full square, on the kernel's one-hot
+            onehot = W.one_hot_nogap(m.to(torch.int32))
+            try:
+                int_mm = median_pair(torch, {"int_mm": lambda: torch._int_mm(onehot, onehot.t())},
+                                     reps=3, inner=3)["int_mm"]
+                print(f"  reading aid, not K5's function: torch._int_mm(onehot, onehot.T), the "
+                      f"full {n} x {n} int32 Gram, {int_mm:.4f} ms "
+                      f"({2 * n * n * onehot.shape[1] / int_mm / 1e9:.1f} TOP/s on "
+                      f"K_pad={onehot.shape[1]}; {card})")
+            except RuntimeError as e:  # a reading aid, not a check
+                int_mm = None
+                print(f"  torch._int_mm not run: {e}")
+            del onehot
+            torch.cuda.empty_cache()
+        del m, got
+    first = shapes[0]
+    return {"ms": first["ms"], "plain_ms": first["plain_ms"], "library_ms": None,
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "peak_mib": first["peak_mib"], "int_mm_full_square_ms": int_mm,
+            "other_shapes": shapes[1:]}
 
 
 def phase_long_attention(torch, dev, card, fa, qkv, lengths_mask, check_close):

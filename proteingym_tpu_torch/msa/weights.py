@@ -10,11 +10,14 @@ kernel's: strict, in float32, with the threshold computed in float32. The
 count includes self; all-gap rows get count 0 and weight 0.
 
 ``num_cluster_members_cuda`` wraps the CUDA kernel ``csrc/cluster_counts.cu``,
-the port of the Pallas kernel inside ``num_cluster_members_pallas``.
-``num_cluster_members`` is its plain version: a blocked Gram matrix of the
-gap-free one-hot, float32 on the CPU and bf16 on the GPU (where it serves
-only as the kernel's comparison). ``sequence_weights`` runs the kernel for
-``device="cuda"`` and the plain version for ``device="cpu"``.
+the port of the Pallas kernel inside ``num_cluster_members_pallas``: an int8
+one-hot pre-pass, then a tensor-core Gram over the upper-triangle tiles,
+with the threshold count fused in. ``one_hot_nogap`` is
+the pre-pass's plain version (the layout the kernel reads).
+``num_cluster_members`` is the kernel's plain version: a blocked Gram matrix
+of the gap-free one-hot, float32 on the CPU and bf16 on the GPU (where it
+serves only as the kernel's comparison). ``sequence_weights`` runs the kernel
+for ``device="cuda"`` and the plain version for ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -40,18 +43,25 @@ LAUNCHES = {"cluster_counts": 0}
 _EXACT_BF16_COLUMNS = 256
 _ROW_BLOCK = 512  # rows of the plain version's Gram per matmul
 
+# the kernel's one-hot depth per ring stage (one 128-byte swizzle row), kBK
+# of csrc/cluster_counts.cu: the one-hot's rows are padded to it, and the
+# kernel's entry refuses a depth that is not a multiple of it
+K_ALIGN = 128
+
 
 def _prepare(matrix, identity_threshold: float, device):
-    """(N, L) codes -> (codes with non-amino-acid codes zeroed, L_nongap,
-    float32 thresholds), all on ``device``."""
+    """(N, L) codes -> (int32 codes, L_nongap, float32 thresholds), all on
+    ``device``. Codes outside 1..20 are passed on as they are: neither the
+    plain version nor the kernel lets them match."""
     m = torch.as_tensor(matrix).to(device=device, dtype=torch.int32)
     if m.ndim != 2:
         raise ValueError(f"expected an (N, L) code matrix, got shape {tuple(m.shape)}")
     l_non_gap = (m != 0).sum(dim=1)
-    thr = (torch.tensor(identity_threshold, dtype=torch.float32, device=m.device)
-           * l_non_gap.clamp(min=1).to(torch.float32))
-    codes = torch.where((m >= 1) & (m <= NUM_AA), m, torch.zeros_like(m))
-    return codes, l_non_gap, thr
+    # float32(identity) * max(L_nongap, 1), rounded once to float32: the
+    # scalar is the float32 value, and a Python number makes no device tensor
+    # (a blocking copy that would stall the caller's queue)
+    thr = l_non_gap.clamp(min=1).to(torch.float32) * float(np.float32(identity_threshold))
+    return m, l_non_gap, thr
 
 
 def num_cluster_members(matrix, identity_threshold: float) -> torch.Tensor:
@@ -76,13 +86,29 @@ def num_cluster_members(matrix, identity_threshold: float) -> torch.Tensor:
     return torch.where(l_non_gap > 0, counts, torch.zeros_like(counts))
 
 
+def one_hot_depth(length: int) -> int:
+    """Bytes per row of the kernel's one-hot: 20 L padded to K_ALIGN."""
+    return max(1, -(-NUM_AA * length // K_ALIGN)) * K_ALIGN
+
+
+def one_hot_nogap(codes: torch.Tensor) -> torch.Tensor:
+    """The kernel pre-pass's plain version: (N, L) codes -> int8 (N, K_pad)
+    one-hot, column c's 20 channels at 20 c .. 20 c + 19 (code a at 20 c +
+    a - 1), zero for codes outside 1..20 and past 20 L."""
+    n, length = codes.shape
+    out = torch.zeros((n, one_hot_depth(length)), dtype=torch.int8, device=codes.device)
+    aa = torch.arange(1, NUM_AA + 1, device=codes.device, dtype=codes.dtype)
+    out[:, :NUM_AA * length] = (codes[:, :, None] == aa).reshape(n, -1).to(torch.int8)
+    return out
+
+
 @functools.lru_cache(maxsize=1)
 def _kernel_lib():
     from proteingym_tpu_torch.ops._build import load_library
 
     lib = load_library("cluster_counts")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.pgym_cluster_counts.argtypes = [vp, i32, i32, vp, vp, vp]
+    lib.pgym_cluster_counts.argtypes = [vp, i32, i32, vp, vp, vp, i32, vp]
     lib.pgym_cluster_counts.restype = i32
     lib.pgym_cluster_error_string.argtypes = [i32]
     lib.pgym_cluster_error_string.restype = ctypes.c_char_p
@@ -95,19 +121,18 @@ def num_cluster_members_cuda(matrix: torch.Tensor, identity_threshold: float) ->
     if not torch.is_tensor(matrix) or matrix.device.type != "cuda":
         raise ValueError("num_cluster_members_cuda takes a CUDA tensor")
     codes, l_non_gap, thr = _prepare(matrix, identity_threshold, matrix.device)
+    codes = codes.contiguous()
     n, length = codes.shape
     if n == 0:
         return torch.zeros(0, dtype=torch.float32, device=matrix.device)
-    words = max(1, -(-length // 4))
-    packed = torch.zeros((n, 4 * words), dtype=torch.uint8, device=codes.device)
-    packed[:, :length] = codes.to(torch.uint8)
-    packed = packed.view(torch.int32)  # four codes per word, (N, words)
+    k_pad = one_hot_depth(length)
+    onehot = torch.empty((n, k_pad), dtype=torch.int8, device=codes.device)  # pre-pass output
     counts = torch.zeros(n, dtype=torch.int32, device=codes.device)
     lib = _kernel_lib()
     with torch.cuda.device(codes.device):
         err = lib.pgym_cluster_counts(
-            packed.data_ptr(), n, words, thr.data_ptr(), counts.data_ptr(),
-            torch.cuda.current_stream(codes.device).cuda_stream,
+            codes.data_ptr(), n, length, thr.data_ptr(), counts.data_ptr(),
+            onehot.data_ptr(), k_pad, torch.cuda.current_stream(codes.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError("cluster_counts launch failed: "

@@ -102,9 +102,8 @@
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: nothing links libcuda)
-
 #include "attention_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -163,59 +162,10 @@ struct HopperShape {
   static constexpr int kBlocksPerSM = DP <= 64 ? 2 : 1;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// arrive and add `bytes` to the transaction count the phase waits for
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// wait until the phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one TMA box of a (D, T, H, B) tensor map into shared memory; completion
-// is counted in bytes on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int d0, int t0, int h, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(d0), "r"(t0), "r"(h),
-      "r"(b)
-      : "memory");
-}
-
-// a wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (16-byte units) and the swizzle layout type
+// a wgmma shared-memory matrix descriptor in the swizzle of head dim DP
 template <int DP>
 __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (HopperShape<DP>::kLayout << 62);
+  return make_smem_desc(p, lbo, sbo, HopperShape<DP>::kLayout);
 }
 
 // K-major operand (Q or K tile: 64 rows x DP, d contiguous), depth step kk
@@ -236,26 +186,6 @@ __device__ __forceinline__ uint64_t desc_mn_major(const unsigned char* tile, int
   using S = HopperShape<DP>;
   return smem_desc<DP>(tile + 16 * kk * S::kRowBytes, S::kBoxBytes, 8 * S::kRowBytes);
 }
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// keep the compiler from moving register reads or writes of an
-// accumulator across the asynchronous wgmma that owns it
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
 
 // ---------------------------------------------------------------------------
 // wgmma: bf16 operands, float32 accumulators (64 rows per warpgroup)
@@ -576,7 +506,7 @@ hopper_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int kk = 0; kk < DP / 16; ++kk)
       wgmma_ss_n64(sc, desc_k_major<DP>(qtile, kk), desc_k_major<DP>(ktile, kk));
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(sc);
 
     // sc[4 j + e]: row row[e >> 1], key k0 + 8 j + 2 t4 + (e & 1)
@@ -655,7 +585,7 @@ hopper_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wgmma_pv<DP>(o, pa[kk], desc_mn_major<DP>(vtile, kk));
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(o);
     mbar_arrive(&empty[s]);
   }
@@ -681,27 +611,6 @@ hopper_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
 // ---------------------------------------------------------------------------
 // host side: tensor maps and the launch
 // ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled (libcuda), looked up through the runtime's
-// entry-point query so the library needs no -lcuda; null when missing
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                                &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
 
 // the (D, T, H, B) tensor map of a bf16 tensor with (b, h, t) strides s (in
 // elements, unit head-dim stride), boxes of `box` columns x 64 rows

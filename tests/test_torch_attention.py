@@ -252,11 +252,13 @@ def test_kernel_library_name_tracks_included_headers(tmp_path, monkeypatch):
 
 def test_shipped_attention_kernels_share_one_header():
     # one attention source serves every attention wrapper (K1-K4 and the
-    # pre-pass): its float32 kernel, the Hopper loop and the common helpers
+    # pre-pass): its float32 kernel, the Hopper loop and the common helpers;
+    # the loop's mbarrier/TMA/wgmma wrappers are shared with K5
     assert [f.name for f in _build.source_files("grouped_attention")] == [
         "grouped_attention.cu", "grouped_attention.cuh", "hopper_attention.cuh",
-        "attention_common.cuh"]
-    assert [f.name for f in _build.source_files("cluster_counts")] == ["cluster_counts.cu"]
+        "attention_common.cuh", "hopper_common.cuh"]
+    assert [f.name for f in _build.source_files("cluster_counts")] == [
+        "cluster_counts.cu", "hopper_common.cuh"]
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
         "cluster_counts.cu", "grouped_attention.cu"]
 

@@ -563,14 +563,51 @@ def _alignment(seed, n, length):
     return m.astype(np.int8)
 
 
-@pytest.mark.parametrize("n,length", [(1, 5), (63, 7), (65, 300), (1000, 123), (3000, 517)])
-def test_cluster_count_kernel_equals_plain(n, length, dev):
+# theta 0.32: rows that agree at 17 of 25 columns are a float32 threshold
+# tie (17 > float32(0.68) * 25 is false), a miss on both sides
+TIE_THETA = 0.32
+
+
+def _ties(n):
+    """n rows of L=25 cycling through three rows; rows 0 and 1 agree at 17
+    of their 25 columns, so every pair of them is a tie at TIE_THETA."""
+    base = (np.arange(25) % 20 + 1).astype(np.int8)
+    other = base.copy()
+    other[:8] = other[:8] % 20 + 1
+    return np.stack([base, other, base[::-1]])[np.arange(n) % 3]
+
+
+# the kernel's tiles are 128 rows x 256 columns and 128 one-hot bytes (6.4
+# alignment columns) deep: N below, at and past a tile side, N that crosses
+# both sides (389, 4099), one chunk of depth (L=5), 47 (L=300) and 157
+# (L=1000); _alignment adds code 21, an all-gap row and duplicated rows
+@pytest.mark.parametrize("n,length", [(1, 5), (63, 7), (65, 300), (1000, 123), (3000, 517),
+                                      (1, 1000), (127, 300), (129, 5), (389, 1000),
+                                      (4099, 300), (4099, 5)])
+@pytest.mark.parametrize("theta", [0.2, TIE_THETA])
+def test_cluster_count_kernel_equals_plain(n, length, theta, dev):
     m = torch.from_numpy(_alignment(n + length, n, length))
     before = msa_weights.LAUNCHES["cluster_counts"]
-    got = msa_weights.num_cluster_members_cuda(m.to(dev), 0.8)
+    got = msa_weights.num_cluster_members_cuda(m.to(dev), 1.0 - theta)
+    torch.cuda.synchronize()
     assert msa_weights.LAUNCHES["cluster_counts"] == before + 1
-    assert torch.equal(got, msa_weights.num_cluster_members(m.to(dev), 0.8))
-    assert torch.equal(got.cpu(), msa_weights.num_cluster_members(m, 0.8))
+    assert torch.equal(got, msa_weights.num_cluster_members(m.to(dev), 1.0 - theta))
+    assert torch.equal(got.cpu(), msa_weights.num_cluster_members(m, 1.0 - theta))
+
+
+@pytest.mark.parametrize("n", [3, 300, 4099])
+def test_cluster_count_kernel_at_threshold_ties(n, dev):
+    m = torch.from_numpy(_ties(n))
+    before = msa_weights.LAUNCHES["cluster_counts"]
+    got = msa_weights.num_cluster_members_cuda(m.to(dev), 1.0 - TIE_THETA)
+    torch.cuda.synchronize()
+    assert msa_weights.LAUNCHES["cluster_counts"] == before + 1
+    want = msa_weights.num_cluster_members(m, 1.0 - TIE_THETA)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, msa_weights.num_cluster_members(m.to(dev), 1.0 - TIE_THETA))
+    # each row counts only the rows equal to it: every tie is a miss
+    cls = np.arange(n) % 3
+    assert torch.equal(want, torch.from_numpy(np.bincount(cls)[cls].astype(np.float32)))
 
 
 def test_sequence_weights_on_the_card_equal_cpu(dev):

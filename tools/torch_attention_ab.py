@@ -22,7 +22,9 @@ forward's shared ``KeyTiles`` where the tree has them):
   own valid length, default scale, q/k already rotated) at B8 H16 T4352 D64;
 - K3 through ``mha`` with ESM's segment-packed arguments (16 segments of
   ~250 per row, each row its own cuts, the key mask, RoPE, sm_scale 1) at
-  B8 H20 T4096 D64.
+  B8 H20 T4096 D64;
+- K5 through ``num_cluster_members_cuda`` (the sequence-weight neighbour
+  counts, identity 0.8) on a seeded synthetic MSA of N=16,384, L=300.
 
 With ``--e2e``, the paths that run them, with seeded random weights at full
 width and depth (host clock, ended by ``torch.cuda.synchronize()``; the
@@ -59,20 +61,21 @@ import numpy as np
 
 def load_port(tree: Path):
     """The port's modules in ``tree`` (built there): flash_attention, esm2,
-    esm_scoring, packed_scoring and poet, as a dict."""
+    esm_scoring, packed_scoring, poet and weights, as a dict."""
     for name in [m for m in sys.modules if m.startswith("proteingym_tpu_torch")]:
         del sys.modules[name]
     sys.path.insert(0, str(tree))
     try:
         mods = {name.rsplit(".", 1)[-1]: importlib.import_module(f"proteingym_tpu_torch.{name}")
                 for name in ("ops.flash_attention", "models.esm2", "models.esm_scoring",
-                             "models.packed_scoring", "models.poet")}
+                             "models.packed_scoring", "models.poet", "msa.weights")}
         # build and load now: the wrappers import _build lazily, and a
         # later tree's package will have replaced it in sys.modules
         # (trees before the loop took K2 and K3 have a library for each)
         for lib in ("_kernel_lib", "_seg_block_lib", "_flash_lib"):
             if hasattr(mods["flash_attention"], lib):
                 getattr(mods["flash_attention"], lib)()
+        mods["weights"]._kernel_lib()
     finally:
         sys.path.pop(0)
     for mod in mods.values():
@@ -81,7 +84,8 @@ def load_port(tree: Path):
     return mods
 
 
-def calls(torch, fa, dev):
+def calls(torch, mods, dev):
+    fa, weights = mods["flash_attention"], mods["weights"]
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def bthd(b, h, t, d=64):
@@ -128,6 +132,15 @@ def calls(torch, fa, dev):
     out[f"K3 B{b} H{h} T{t} D64 16x~250+mask+rope"] = lambda: fa.mha(
         q3, k3, v3, key_mask=mask3, sm_scale=1.0, rope_base=10000.0, segment_ids=seg3,
         key_tiles=k3_tiles)
+
+    n, length = 16384, 300  # a family of n // 16 centres, 0-15% substitutions, ~5% gaps
+    centres = rs.randint(1, 21, (n // 16, length))
+    msa = centres[rs.randint(0, n // 16, n)]
+    sub = rs.rand(n, length) < rs.uniform(0.0, 0.15, (n, 1))
+    msa[sub] = rs.randint(1, 21, sub.sum())
+    msa[rs.rand(n, length) < 0.05] = 0
+    msa = torch.from_numpy(msa.astype(np.int8)).to(dev)
+    out[f"K5 N{n} L{length}"] = lambda: weights.num_cluster_members_cuda(msa, 0.8)
     return out
 
 
@@ -235,7 +248,7 @@ def main() -> int:
                           text=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     ports = {tree: load_port(tree) for tree in args.tree}  # builds each tree's kernels
-    fns = {tree: calls(torch, mods["flash_attention"], dev) for tree, mods in ports.items()}
+    fns = {tree: calls(torch, mods, dev) for tree, mods in ports.items()}
     e2e = {tree: paths(torch, mods, dev) for tree, mods in ports.items()} if args.e2e else {}
     words = [w for w in args.only.split(",") if w]
     e2e = {tree: {name: fn for name, fn in fns_.items()
