@@ -79,6 +79,16 @@ Phases (any failure raises, and the script exits non-zero):
    bootstrap 10,000, on the card and on the CPU: every CSV equal at 1e-9,
    the ranking in noise order, Spearman and AUC on the card against scipy;
    (e) ``evaluate-clinical --device cuda``.
+13. MSA Transformer: ``score --model msa_transformer --checkpoint
+   esm_msa1b_t12_100M`` (seeded random bf16 weights, full width and depth)
+   through the CLI on a synthetic L=250 assay whose 16,384-sequence
+   alignment covers residues 1-240, 384 sampled rows, 1 seed of
+   ProteinGym's 5: K5 once (no weights file beforehand), then exactly 12
+   K1 launches per forward (the column attention, B*C = 4 x 241, T=384)
+   and no other; 128 finite scores, the 8 mutants past the alignment
+   empty, WT 0; the warm k=1 table and the k=8 table timed; the first and
+   last masked columns against the plain attention; K1 at B964 H12 T384
+   held against the plain version and timed beside SDPA and its bound.
 
 Every phase holds the port to its rule: no module of the JAX package
 (``proteingym_tpu``) may be loaded. It prints one JSON line describing the
@@ -99,6 +109,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 from unittest import mock
 
@@ -142,6 +153,11 @@ TABLE_ATOL = 1e-1
 # carried by the residual stream. A wrong mask, segment or rotation shifts
 # them by O(1).
 POET_LOGP_ATOL = 1e-1
+# MSA Transformer log-probs, kernel vs plain attention through 12 bf16
+# layers (12 column-attention calls over 384 rows): the same ~1 bf16 ulp per
+# call, carried by the residual stream, as TABLE_ATOL allows for 33 layers.
+# A wrong mask, layout or scale shifts them by O(1).
+MSA_TABLE_ATOL = 1e-1
 GAP_AA = "-" + AA
 
 # H100 SXM peaks (dense bf16 and int8 tensor cores, HBM3) for the bounds
@@ -166,6 +182,11 @@ PPPL_MUTANTS = 16  # pseudo-ppl: one masked table per mutant and one for the WT
 # (assays, mutants per assay, model noise levels): ProteinGym's 217
 # substitution assays, cut from ~2.5M mutants and 97 models
 EVAL_SCALE = (217, 2000, tuple(0.2 * (j + 1) for j in range(10)))
+# the shapes of phase 13: an L=250 target, its alignment over residues
+# 1-240, 128 mappable and 8 unmappable singles, ProteinGym's 384 sampled
+# rows, the CLI's default batch (4 grids per forward), k=8 timed beside k=1
+MSA_SLICE = dict(preset="esm_msa1b_t12_100M", length=250, covered=240, n_seqs=16384,
+                 n_in=128, n_out=8, rows=384, batch=32, k_cols=8)
 
 
 def fail(msg: str) -> None:
@@ -1417,6 +1438,175 @@ def phase_clinical(cli):
     print("  Summary: " + ", ".join(f"{r[1]} AUC {r[3]} (SE {r[4]})" for r in summary[1:]))
 
 
+def phase_msa_transformer(torch, dev, card, fa, check_close):
+    """13. The MSA Transformer slice through the port's CLI: ``score --model
+    msa_transformer --checkpoint esm_msa1b_t12_100M`` (seeded random bf16
+    weights, full width and depth: 12 layers, width 768, 12 heads of 64)
+    on a synthetic L=250 assay with a 16,384-sequence alignment covering
+    residues 1-240, with no weights file beforehand: K5 writes it once,
+    then each forward launches K1 12 times (the column attention, over
+    R=384 sampled rows, at B*C = 4 x 241) and nothing else, since the model
+    scales q itself. Cut from ProteinGym's protocol: 1 seed of 5 (time).
+    The 8 mutants past the alignment (241-250) must be empty fields, the WT
+    row 0. Then the warm k=1 table once and the k=8 table (median of 3)
+    are timed, the first 4 and the last 4 masked columns recomputed with
+    the plain attention, and K1 timed at the column attention's shape."""
+    from proteingym_tpu_torch.models import msa_transformer as mt
+    from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.msa.parser import load_msa
+    from proteingym_tpu_torch.pipeline import cli
+    from proteingym_tpu_torch.pipeline.scorers import _score_focus_model
+
+    s = MSA_SLICE
+    config = mt.PRESETS[s["preset"]]
+    length, covered, n_seqs, n_in, n_out = (s[key] for key in (
+        "length", "covered", "n_seqs", "n_in", "n_out"))
+    chunk = max(1, s["batch"] // 8)  # the scorer's grids per forward
+    print(f"[msa_transformer] score --model msa_transformer --checkpoint {s['preset']}: "
+          f"L={length}, MSA N={n_seqs} over residues 1-{covered}, {n_in} + {n_out} singles "
+          f"+ WT, {s['rows']} sampled rows, 1 seed")
+    rs = np.random.RandomState(13)
+    target = rs.randint(1, 21, length)
+    seq = "".join(GAP_AA[c] for c in target)
+    mutants = []
+    for lo, hi, n in ((0, covered, n_in), (covered, length, n_out)):
+        for p in sorted(rs.choice(np.arange(lo, hi), n, replace=False)):
+            mutants.append(f"{seq[p]}{p + 1}{rs.choice([a for a in AA if a != seq[p]])}")
+    mutants.append("WT")
+    n_mut = len(mutants)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        msa_dir, weights_dir, out_dir = root / "msa", root / "weights", root / "out"
+        msa_dir.mkdir()
+        write_a2m(msa_dir / "SYNTH.a2m", "SYNTH", synth_family(target[:covered], n_seqs, 13))
+        ref, dms_dir = write_assays(root, [("SYNTH_MSA", seq, mutants)], {
+            "MSA_filename": "SYNTH.a2m", "MSA_start": 1, "MSA_end": covered,
+            "MSA_theta": 0.2, "weight_file_name": "SYNTH.npy",
+        })
+        for counts in (fa.LAUNCHES, W.LAUNCHES):
+            for name in counts:
+                counts[name] = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = cli.main([
+            "score", "--model", "msa_transformer", "--checkpoint", s["preset"],
+            "--msa-dir", str(msa_dir), "--weights-dir", str(weights_dir),
+            "--dms-reference", str(ref), "--dms-dir", str(dms_dir),
+            "--output-dir", str(out_dir), "--batch-size", str(s["batch"]),
+            "--device", "cuda", "--quiet", "--fail-fast",
+            "--extra", f"msa_samples={s['rows']}", "num_seeds=1",
+        ])
+        wall = time.perf_counter() - t0
+        launches = {**fa.LAUNCHES, **W.LAUNCHES}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if rc != 0:
+            fail(f"msa_transformer score CLI exited {rc}")
+        with open(out_dir / "SYNTH_MSA.csv", newline="") as f:
+            cells = [row["esm_msa1b_ensemble"] for row in csv.DictReader(f)]
+        msa = load_msa(msa_dir / "SYNTH.a2m")
+        weights = np.load(weights_dir / "SYNTH.npy")
+
+    total = covered + 1  # [CLS] + the focus columns
+    n_fwd = -(-total // chunk)
+    expected = config.num_layers * n_fwd
+    print(f"  CLI wall {wall:.2f} s incl. weight init, A2M parse, K5 and the k=1 table; "
+          f"peak device memory {peak_gib:.2f} GiB ({card})")
+    print(f"  launches {launches} (expected 1 cluster_counts, {config.num_layers} layers x "
+          f"{n_fwd} forwards = {expected} grouped_attention, no rope_qk: q comes scaled)")
+    check_launches("msa_transformer", launches, {"cluster_counts": 1,
+                                                 "grouped_attention": expected})
+    empty = [i for i, c in enumerate(cells) if c == ""]
+    if len(cells) != n_mut or empty != list(range(n_in, n_in + n_out)):
+        fail(f"CSV: {len(cells)} rows, empty fields at {empty}; expected {n_mut} rows, "
+             f"empty at {n_in}..{n_in + n_out - 1} (the mutants past the alignment)")
+    scores = np.asarray([float(c) for c in cells[:n_in]] + [float(cells[-1])])
+    if not np.isfinite(scores).all() or scores[-1] != 0.0:
+        fail(f"CSV: non-finite scores or a WT score of {cells[-1]!r}")
+    print(f"  CSV: {n_in} finite scores, {n_out} empty fields at rows {n_in}..{n_in + n_out - 1}"
+          f" (past the alignment), WT 0")
+
+    model = mt.init_random(config, seed=0, device=dev)  # the CLI's weights
+    ctx = types.SimpleNamespace(record=types.SimpleNamespace(MSA_start=1))
+
+    def score(k):  # the scorer's work after the model and the alignment are loaded
+        return _score_focus_model(ctx, msa, lambda wt, remapped: mt.score_assay_msa_transformer(
+            model, wt, remapped, msa.sequences(), weights, nseq=s["rows"], seeds=(1,),
+            chunk=chunk, cols_per_forward=k), mutants)
+
+    timed = {}
+    for k, reps in ((1, 1), (s["k_cols"], 3)):
+        if k > 1:
+            score(k)  # warm: k=1 is warm from the CLI run
+        runs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rescored = score(k)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        timed[k] = (statistics.median(runs), rescored)
+    cli_scores = np.asarray([float(c) if c else np.nan for c in cells])
+    if not np.allclose(timed[1][1], cli_scores, atol=1e-4, equal_nan=True):
+        fail("msa_transformer scores recomputed outside the CLI differ from the CLI's")
+    t1, tk = timed[1][0], timed[s["k_cols"]][0]
+    fwd_k = -(-(-(-total // s["k_cols"])) // chunk)
+    print(f"  k=1 table + scores (warm, once): {t1:.3f} s, {n_fwd} forwards of {chunk} x "
+          f"{s['rows']} x {total} -> {n_mut / t1:.2f} mutants/s; k={s['k_cols']}: {tk:.3f} s "
+          f"median of 3, {fwd_k} forwards -> {n_mut / tk:.2f} mutants/s ({card})")
+
+    # the first and the last masked columns, each chunk's grids through the
+    # model with the kernel and with the plain attention
+    tokens = mt.tokenize_msa(mt.sample_msa_weighted(msa.sequences(), weights, s["rows"], 1))
+    base = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+    got, want = [], []
+    for part in (list(range(chunk)), list(range(total - chunk, total))):
+        offs = torch.tensor(part, device=dev)[:, None]
+        grids = base.expand(chunk, -1, -1).clone()
+        grids[torch.arange(chunk, device=dev)[:, None], 0, offs] = mt.ALPHABET.mask_idx
+        with torch.no_grad():
+            got.append(mt._query_log_probs(model, grids, offs)[:, 0])
+            with mock.patch.object(mt, "mha", fa.plain_mha):
+                want.append(mt._query_log_probs(model, grids, offs)[:, 0])
+    check_close(f"log-prob rows of columns 0-{chunk - 1} and {total - chunk}-{total - 1}, "
+                "kernel vs plain attention", torch.cat(got), torch.cat(want),
+                MSA_TABLE_ATOL, 0.0)
+    del model, got, want
+    torch.cuda.empty_cache()
+
+    # K1 at the column attention's shape: (B*C, R, H, D) memory, q pre-scaled
+    b, h, t, d = chunk * total, config.num_heads, s["rows"], config.head_dim
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev).to(torch.bfloat16)
+               .transpose(1, 2) for _ in range(3))
+    q = (q.float() * d ** -0.5).to(torch.bfloat16)
+    lengths = torch.full((b,), t, device=dev)
+    lengths[::7] = t - 48  # some columns with padded rows
+    lengths[3] = 0  # and one with every row masked
+    mask = torch.arange(t, device=dev)[None, :] < lengths[:, None]
+    got = fa.grouped_mha(q, k, v, key_mask=mask, sm_scale=1.0)
+    torch.cuda.synchronize()
+    want = fa.plain_mha(q.float(), k.float(), v.float(), key_mask=mask, sm_scale=1.0)
+    err = check_close(f"K1 B{b} H{h} T{t} D{d} mask, pre-scaled q, vs plain", got, want,
+                      BF16_ATOL, BF16_RTOL)
+    del want
+    times = median_pair(torch, {
+        "kernel": lambda: fa.grouped_mha(q, k, v, key_mask=mask, sm_scale=1.0),
+        "plain": lambda: fa.plain_mha(q, k, v, key_mask=mask, sm_scale=1.0),
+        "sdpa": sdpa(torch, q, k, v, mask[:, None, None, :]),
+    }, reps=3, inner=5, rounds=1)
+    live = float(mask.sum())
+    bnd = bound(4.0 * h * d * t * live, nbytes(q, k, v, got, mask))
+    torch.cuda.empty_cache()
+    print(f"  K1 at B{b} H{h} T{t} D{d}: kernel {times['kernel']:.4f} ms, plain "
+          f"{times['plain']:.4f} ms, SDPA (dense mask) {times['sdpa']:.4f} ms, bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; {card})")
+    return {"launches": launches, "k1_err": err, "k1": dict(
+        shape=f"B{b} H{h} T{t} D{d} mask, q pre-scaled (MSA column attention), loop alone",
+        ms=times["kernel"], plain_ms=times["plain"], library_ms=times["sdpa"],
+        max_abs_err=err, **bnd)}
+
+
 def main() -> int:
     try:
         import torch
@@ -1631,6 +1821,7 @@ def main() -> int:
     phase_merge_evaluate_real(cli, wt)
     phase_evaluate_scale(torch, dev, card, cli)
     phase_clinical(cli)
+    msa_run = phase_msa_transformer(torch, dev, card, fa, check_close)
 
     if "jax" in sys.modules:
         fail("the port imported jax")
@@ -1642,11 +1833,11 @@ def main() -> int:
     measured = {
         # K1's main path is PoET's self tier; the ESM headline shape beside it
         "grouped_attention": dict(
-            max_abs_err=max(max_abs_err, k2["k1_self_err"]),
+            max_abs_err=max(max_abs_err, k2["k1_self_err"], msa_run["k1_err"]),
             shape="B8 H16 T4352 D64, 16 segments + causal",
             **{key: k2["k1"][key] for key in k1_keys},
             other_shapes=[{"shape": "B16 H20 T256 D64 mask+rope, pre-pass + loop",
-                           "ms": ms, "plain_ms": plain_ms}]),
+                           "ms": ms, "plain_ms": plain_ms}, msa_run["k1"]]),
         "flash_attention": dict(max_abs_err=k2["max_abs_err"], ms=k2["ms"],
                                 plain_ms=k2["plain_ms"], library_ms=k2["library_ms"],
                                 bound_ms=k2["bound_ms"], bound_by=k2["bound_by"],
@@ -1657,7 +1848,7 @@ def main() -> int:
     by_path = {"esm": launches, "esm_windowed": win_launches,
                "poet": poet_run["launches"], "esm_packed": packed["launches"],
                "esm_segment_packed": seg_packed["launches"], "esm_wt": wt["wt_launches"],
-               "esm_pppl": wt["pppl_launches"]}
+               "esm_pppl": wt["pppl_launches"], "msa_transformer": msa_run["launches"]}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

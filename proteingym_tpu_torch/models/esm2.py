@@ -317,15 +317,23 @@ def load_fair_esm_state_dict(state_dict: Mapping, config: EsmConfig,
     numpy arrays). Keys the model does not hold (contact head, rotary
     ``inv_freq`` buffers, the tied ``lm_head.weight``) are ignored; a key it
     needs and does not find raises."""
-    model = _empty_model(config, device)
-    for name, param in model.state_dict().items():
-        if name not in state_dict:
-            raise KeyError(f"checkpoint for {config.name} lacks {name!r}")
-        value = state_dict[name]
+    return copy_state_dict(_empty_model(config, device), state_dict, config.name)
+
+
+@torch.no_grad()
+def copy_state_dict(model: nn.Module, state_dict: Mapping, name: str) -> nn.Module:
+    """Copy each of the model's tensors from the same-named entry of
+    ``state_dict`` (tensors or numpy arrays, taken through float32). Entries
+    the model does not hold are ignored; one it needs and does not find, or
+    one of another shape, raises (``name`` labels the checkpoint)."""
+    for key, param in model.state_dict().items():
+        if key not in state_dict:
+            raise KeyError(f"checkpoint for {name} lacks {key!r}")
+        value = state_dict[key]
         if not torch.is_tensor(value):
             value = torch.from_numpy(np.asarray(value, dtype=np.float32))
         if tuple(value.shape) != tuple(param.shape):
-            raise ValueError(f"{name}: checkpoint shape {tuple(value.shape)}, "
+            raise ValueError(f"{key}: checkpoint shape {tuple(value.shape)}, "
                              f"model shape {tuple(param.shape)}")
         param.copy_(value.to(device=param.device, dtype=torch.float32))
     return model

@@ -335,7 +335,9 @@ hopper_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   // causal: the longest query tiles first (see the top of the file)
   const int qt = p.causal ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x;
-  const int bh = blockIdx.y;
+  // (b, h) pairs beyond the grid's y limit (65,535) continue along z
+  const int bh = (int)(blockIdx.z * gridDim.y + blockIdx.y);
+  if (bh >= p.B * p.H) return;  // the last z slice's surplus blocks, before any barrier
   const int b = bh / p.H;
   const int h = bh - b * p.H;
   const int q0 = qt * kQRows;
@@ -653,7 +655,8 @@ cudaError_t launch_hopper(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     if (dev < 32) sized |= 1u << dev;
   }
-  const dim3 grid((p.T + kQRows - 1) / kQRows, p.B * p.H);
+  const int bh = p.B * p.H, bh_y = bh < 65535 ? bh : 65535;
+  const dim3 grid((p.T + kQRows - 1) / kQRows, bh_y, (bh + bh_y - 1) / bh_y);
   kernel<<<grid, kHopperThreads, S::kSmem, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }

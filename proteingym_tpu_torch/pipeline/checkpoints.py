@@ -1,6 +1,7 @@
-"""ESM and PoET checkpoint specs (counterpart of the ESM part of
-proteingym_tpu/pipeline/checkpoints.py and of the PoET branch of
-``resolve_zoo_checkpoint`` in proteingym_tpu/pipeline/scorers.py)."""
+"""ESM, PoET and MSA Transformer checkpoint specs (counterpart of the ESM
+part of proteingym_tpu/pipeline/checkpoints.py, of the PoET branch of
+``resolve_zoo_checkpoint`` and of the weight handling of the
+``msa_transformer`` scorer in proteingym_tpu/pipeline/scorers.py)."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from proteingym_tpu_torch.models import esm2, poet
+from proteingym_tpu_torch.models import esm2, msa_transformer, poet
 
 
 def _load_torch_state_dict(path: Path):
@@ -106,3 +107,22 @@ def load_poet_checkpoint(spec: Optional[str], device="cuda",
         state, _ = _load_torch_state_dict(Path(path))
     model = poet._empty_model(config, device)
     return poet.load_state_dict_poet(model, state), config
+
+
+def load_msa_transformer_checkpoint(
+    spec: Optional[str], device="cuda", seed: int = 0,
+) -> Tuple[msa_transformer.MsaTransformer, msa_transformer.MsaTransformerConfig]:
+    """Resolve an MSA Transformer checkpoint spec to (model on ``device``,
+    config), as the JAX scorer does:
+      - None or a preset name ("esm_msa1b_t12_100M", "msa_tiny") -> random
+        init from ``seed`` (None means the full ``esm_msa1b_t12_100M``)
+      - anything else is a path to a fair-esm ``MSATransformer`` checkpoint,
+        read with the full ``esm_msa1b_t12_100M`` config
+    """
+    presets = msa_transformer.PRESETS
+    if not spec or spec in presets:
+        config = presets[spec or "esm_msa1b_t12_100M"]
+        return msa_transformer.init_random(config, seed=seed, device=device), config
+    config = presets["esm_msa1b_t12_100M"]
+    state, _ = _load_torch_state_dict(Path(spec))
+    return msa_transformer.load_fair_esm_state_dict(state, config, device=device), config

@@ -1,6 +1,6 @@
 """Command line of the PyTorch port (counterpart of
-proteingym_tpu/pipeline/cli.py for ``score --model esm|poet``, ``weights``,
-``merge``, ``evaluate`` and ``evaluate-clinical``).
+proteingym_tpu/pipeline/cli.py for ``score --model esm|poet|msa_transformer``,
+``weights``, ``merge``, ``evaluate`` and ``evaluate-clinical``).
 
     python -m proteingym_tpu_torch.pipeline.cli score --model esm \\
         --checkpoint esm2_t33_650M --dms-reference ref.csv --dms-dir dms/ \\
@@ -8,6 +8,10 @@ proteingym_tpu/pipeline/cli.py for ``score --model esm|poet``, ``weights``,
     python -m proteingym_tpu_torch.pipeline.cli score --model poet \\
         --checkpoint poet_200m --msa-dir msa/ --weights-dir weights/ \\
         --dms-reference ref.csv --dms-dir dms/ --output-dir out/
+    python -m proteingym_tpu_torch.pipeline.cli score --model msa_transformer \\
+        --checkpoint esm_msa1b_t12_100M --msa-dir msa/ --weights-dir weights/ \\
+        --dms-reference ref.csv --dms-dir dms/ --output-dir out/ \\
+        [--extra msa_samples=384 num_seeds=5]
     python -m proteingym_tpu_torch.pipeline.cli weights --msa X.a2m \\
         --theta 0.2 --output weights/X.npy [--device cuda|cpu]
     python -m proteingym_tpu_torch.pipeline.cli merge --dms-reference ref.csv \\

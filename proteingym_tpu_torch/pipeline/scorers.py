@@ -1,6 +1,7 @@
 """Scorer registry (counterpart of proteingym_tpu/pipeline/scorers.py):
-``esm`` (masked marginals) and ``poet`` (MSA-conditioned likelihood), plus
-``score_esm_packed_batch``, the cross-assay packed ESM path.
+``esm`` (masked marginals), ``poet`` (MSA-conditioned likelihood) and
+``msa_transformer`` (MSA masked marginals in focus-column coordinates),
+plus ``score_esm_packed_batch``, the cross-assay packed ESM path.
 
 Each scorer is ``scorer(ctx: ScoreContext) -> {column: scores}``: the CLI
 reads the assay, calls the scorer and writes the input columns plus the
@@ -16,6 +17,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from proteingym_tpu_torch.data.mutants import is_wt_row, parse_mutant
 from proteingym_tpu_torch.data.reference import AssayRecord
 
 SCORERS: Dict[str, Callable] = {}
@@ -165,3 +167,61 @@ def score_poet(ctx: ScoreContext) -> Dict[str, np.ndarray]:
         batch_size=ctx.batch_size,
     )
     return {"PoET_score": scores}
+
+
+def _score_focus_model(ctx: ScoreContext, msa, score_fn, mutants) -> np.ndarray:
+    """Remap DMS-coordinate mutants into trimmed-focus coordinates (through
+    ``record.MSA_start`` and the MSA's focus columns) and run
+    ``score_fn(wt_focus_seq, remapped_mutants)``. Literal wild-type rows
+    score 0; a mutant outside the focus columns, with a wrong wild-type
+    letter or malformed, is NaN."""
+    msa_start = ctx.record.MSA_start or 1
+    col_to_focus = {int(c): i for i, c in enumerate(np.asarray(msa.focus_cols))}
+    wt = msa.focus_seq_trimmed.upper()
+    remapped, valid = [], []
+    for m in mutants:
+        if is_wt_row(m):
+            remapped.append("")
+            valid.append(True)
+            continue
+        try:
+            toks = []
+            for f, pos, t in parse_mutant(m):
+                fi = col_to_focus[pos - msa_start]
+                if wt[fi] != f:
+                    raise KeyError(m)
+                toks.append(f"{f}{fi + 1}{t}")
+        except (KeyError, ValueError, IndexError):
+            valid.append(False)
+            continue
+        remapped.append(":".join(toks))
+        valid.append(True)
+    valid = np.asarray(valid, dtype=bool)
+    out = np.full(len(mutants), np.nan)
+    out[valid] = np.asarray(score_fn(wt, remapped))
+    return out
+
+
+@register_scorer("msa_transformer")
+def score_msa_transformer(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """MSA Transformer ensemble masked marginals (ref
+    esm/compute_fitness.py:355-400): ``--extra msa_samples=`` rows (384)
+    sampled by sequence weight per seed, ``num_seeds=`` seeds (5),
+    ``batch_size // 8`` grids per forward. The table is in trimmed
+    focus-column coordinates, so mutants are remapped first."""
+    from proteingym_tpu_torch.models.msa_transformer import score_assay_msa_transformer
+    from proteingym_tpu_torch.pipeline.checkpoints import load_msa_transformer_checkpoint
+
+    model, _ = load_msa_transformer_checkpoint(ctx.checkpoint, device=ctx.device)
+    msa = ctx.load_msa()
+    scores = _score_focus_model(
+        ctx, msa,
+        lambda wt, remapped: score_assay_msa_transformer(
+            model, wt, remapped, msa.sequences(), msa.weights,
+            nseq=int(ctx.extra.get("msa_samples", 384)),
+            seeds=tuple(range(1, 1 + int(ctx.extra.get("num_seeds", 5)))),
+            chunk=max(1, ctx.batch_size // 8),
+        ),
+        ctx.mutants,
+    )
+    return {"esm_msa1b_ensemble": scores}

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (the four attention wrappers, grouped, heads-mid,
 long-context and extent-sparse segmented, on the Hopper loop with its
 pre-pass in bf16 and on the scalar kernel in float32; cluster counts)
-against their plain PyTorch versions on the card.
+against their plain PyTorch versions on the card, and the model forwards
+that launch them (ESM, PoET, the MSA Transformer's column attention).
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one; the kernels have no CPU mode. The file imports neither jax nor the
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from proteingym_tpu_torch.models import esm2, poet
+from proteingym_tpu_torch.models import esm2, msa_transformer, poet
 from proteingym_tpu_torch.msa import weights as msa_weights
 from proteingym_tpu_torch.ops import flash_attention as fa
 
@@ -685,3 +686,72 @@ def test_batched_assay_metrics_on_the_card_equal_cpu(dev):
     card = core.metrics_to_numpy(out)
     for m in cpu:
         np.testing.assert_allclose(card[m], cpu[m], atol=1e-12, rtol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("r", [77, 384])
+def test_grouped_kernel_at_the_column_attention_layout(r, d, dev):
+    """K1 as the MSA Transformer's column attention calls it: (B*C, R, H, D)
+    memory seen as (B*C, H, R, D), q pre-scaled (sm_scale 1), a key mask
+    with padded rows in some columns and every row of one column masked
+    (that column averages v over all R rows)."""
+    gen = torch.Generator().manual_seed(r + d)
+    bc, h = 2 * 37, 4
+    q, k, v = (torch.randn(bc, r, h, d, generator=gen).to(dev, torch.bfloat16).transpose(1, 2)
+               for _ in range(3))
+    q = (q.float() * d ** -0.5).to(torch.bfloat16)  # as the model scales q
+    mask = torch.ones(bc, r, dtype=torch.bool)
+    mask[5:9, r - 13:] = False
+    mask[11] = False
+    mask = mask.to(dev)
+    before = dict(fa.LAUNCHES)
+    got = fa.mha(q, k, v, key_mask=mask, sm_scale=1.0)
+    assert fa.LAUNCHES["grouped_attention"] == before["grouped_attention"] + 1
+    assert fa.LAUNCHES["rope_qk"] == before["rope_qk"]  # no pre-pass: q came scaled
+    want = fa.plain_mha(q.float(), k.float(), v.float(), key_mask=mask, sm_scale=1.0)
+    torch.testing.assert_close(got.float(), want, atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+    torch.testing.assert_close(got[11].float(), v[11].float().mean(dim=1, keepdim=True)
+                               .expand(-1, r, -1), atol=TOL[torch.bfloat16], rtol=0)
+
+
+def test_grouped_kernel_beyond_65535_batch_head_pairs(dev):
+    """More (b, h) pairs than a grid's y dimension holds (65,535): the
+    column attention reaches them at 6 grids of 1,024 columns x 12 heads
+    (``--batch-size 48``). The Hopper loop spreads them along z."""
+    b, h, t, d = 5462, 12, 70, 16  # 65,544 pairs
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev).to(torch.bfloat16)
+               .transpose(1, 2) for _ in range(3))
+    mask = torch.ones(b, t, dtype=torch.bool, device=dev)
+    mask[-3:, 50:] = False  # rows in the last z slice
+    got = fa.grouped_mha(q, k, v, key_mask=mask, sm_scale=1.0)
+    want = fa.plain_mha(q.float(), k.float(), v.float(), key_mask=mask, sm_scale=1.0)
+    torch.testing.assert_close(got.float(), want, atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+
+
+def test_msa_transformer_forward_goes_through_the_kernel(dev):
+    """A bf16 forward at msa_tiny's width: one K1 launch per layer (the
+    column attention) and nothing else; the logits equal the same forward
+    with the plain attention."""
+    config = msa_transformer.MsaTransformerConfig(
+        name="msa_tiny_bf16", num_layers=2, embed_dim=64, num_heads=4, ffn_dim=128)
+    model = msa_transformer.init_random(config, seed=0, device=dev)
+    rs = np.random.RandomState(0)
+    aa = "ACDEFGHIKLMNPQRSTVWY-"
+    rows = ["".join(rs.choice(list(aa), 40)) for _ in range(24)]
+    tokens = torch.from_numpy(msa_transformer.tokenize_msa(rows)).long().to(dev)
+    tokens = tokens[None].repeat(3, 1, 1)
+    tokens[1, 0, 7] = msa_transformer.ALPHABET.mask_idx
+    tokens[2, :, 30:] = msa_transformer.ALPHABET.padding_idx
+    before = dict(fa.LAUNCHES)
+    with torch.no_grad():
+        got = model(tokens)
+    launched = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
+    assert launched == {**{n: 0 for n in fa.LAUNCHES}, "grouped_attention": config.num_layers}
+    with pytest.MonkeyPatch.context() as mp, torch.no_grad():
+        mp.setattr(msa_transformer, "mha", fa.plain_mha)
+        want = model(tokens)
+    assert got.dtype == torch.float32 and bool(got.isfinite().all())
+    torch.testing.assert_close(got, want, atol=5e-2, rtol=0)

@@ -33,16 +33,21 @@ ESM2-650M's masked-marginal table of an L=250 sequence (16 forwards of
 16 x 256) and its WT-marginal table (one forward of 1 x 252), PoET-200M's
 per-token log-probs of 8 rows of 16 context sequences of 250 residues
 plus a query (T = 4,282), ESM2-650M's segmented forward of 8 rows of 4,096
-tokens packing 16 sequences of 250 tokens each, and
+tokens packing 16 sequences of 250 tokens each,
 ``score_assays_packed`` on the six-assay production mix (L = 72 .. 1500,
-all single mutants, chunk 32).
+all single mutants, chunk 32), and, in trees that have it, one
+ESM-MSA-1b forward (``esm_msa1b_t12_100M``) of 4 grids of 384 sampled
+rows x 241 columns, as the masked-marginal table runs it (path ``MSA``).
 
 Prints one JSON line per tree and round: the card's name and power limit,
 the median milliseconds per call (CUDA events around 10 queued calls,
 ``--samples`` samples), the median host microseconds per call (the host
 clock around the same 10 calls as they are queued, no synchronisation
 inside: what a host-bound forward waits on), and with ``--e2e`` the median
-seconds of each path.
+seconds of each path (``seconds``: the host clock to the synchronise),
+with its device time (``device_s``: CUDA events around the call) and its
+host time (``host_s``: the host clock until the call returns, before the
+synchronise: what it takes to queue the work).
 """
 
 from __future__ import annotations
@@ -61,14 +66,18 @@ import numpy as np
 
 def load_port(tree: Path):
     """The port's modules in ``tree`` (built there): flash_attention, esm2,
-    esm_scoring, packed_scoring, poet and weights, as a dict."""
+    esm_scoring, packed_scoring, poet, weights and, where the tree has it,
+    msa_transformer, as a dict."""
     for name in [m for m in sys.modules if m.startswith("proteingym_tpu_torch")]:
         del sys.modules[name]
+    names = ["ops.flash_attention", "models.esm2", "models.esm_scoring",
+             "models.packed_scoring", "models.poet", "msa.weights"]
+    if (tree / "proteingym_tpu_torch" / "models" / "msa_transformer.py").exists():
+        names.append("models.msa_transformer")
     sys.path.insert(0, str(tree))
     try:
         mods = {name.rsplit(".", 1)[-1]: importlib.import_module(f"proteingym_tpu_torch.{name}")
-                for name in ("ops.flash_attention", "models.esm2", "models.esm_scoring",
-                             "models.packed_scoring", "models.poet", "msa.weights")}
+                for name in names}
         # build and load now: the wrappers import _build lazily, and a
         # later tree's package will have replaced it in sys.modules
         # (trees before the loop took K2 and K3 have a library for each)
@@ -179,6 +188,20 @@ def paths(torch, mods, dev):
             packed_tok[r, 250 * s_id:250 * (s_id + 1)] = torch.from_numpy(toks.astype(np.int64))
             packed_seg[r, 250 * s_id:250 * (s_id + 1)] = s_id + 1
     packed_tok, packed_seg = packed_tok.to(dev), packed_seg.to(dev)
+    out = {}
+    if "msa_transformer" in mods:
+        mt = mods["msa_transformer"]
+        mmodel = mt.init_random(mt.PRESETS["esm_msa1b_t12_100M"], seed=0, device=dev)
+        focus = rs.randint(0, 20, 240)
+        rows = np.tile(focus, (384, 1))
+        sub = rs.rand(384, 240) < 0.3  # a family: 30% of each row substituted
+        rows[sub] = rs.randint(0, 20, int(sub.sum()))
+        msa_tok = torch.as_tensor(mt.tokenize_msa(["".join(AA[c] for c in r) for r in rows]),
+                                  dtype=torch.long, device=dev)
+        grids = msa_tok.expand(4, -1, -1).clone()
+        grids[torch.arange(4), 0, torch.arange(1, 5)] = mt.ALPHABET.mask_idx
+        out[f"MSA forward 4 x 384 x {grids.shape[2]}"] = lambda: mmodel(
+            grids, query_row_only=True)
     return {
         "ESM2-650M masked table L=250": lambda: esm_scoring.masked_marginal_table(
             model, tokens, chunk=16, window=config.max_positions, pad_to_multiple=64),
@@ -189,26 +212,34 @@ def paths(torch, mods, dev):
         "ESM2-650M segment-packed forward 8 x 4096": lambda: seg_fn(packed_tok, packed_seg),
         "score_assays_packed production mix": lambda: packed.score_assays_packed(
             model, assays, chunk=32, window=config.max_positions),
+        **out,
     }
 
 
 def time_s(torch, fn, seconds=1.0):
     """Median seconds of one call, over as many calls as fill ``seconds``
-    (at least 3, at most 50): a ~15 ms host-bound path needs dozens."""
+    (at least 3, at most 50): a ~15 ms host-bound path needs dozens.
+    Returns (wall, device, host): the host clock to the synchronise, CUDA
+    events around the call, the host clock until the call returns."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     reps = min(50, max(3, round(seconds / (time.perf_counter() - t0))))
-    out = []
+    wall, device, host = [], [], []
     for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        start.record()
         fn()
+        end.record()
+        host.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
-        out.append(time.perf_counter() - t0)
-    return statistics.median(out)
+        wall.append(time.perf_counter() - t0)
+        device.append(start.elapsed_time(end) / 1e3)
+    return tuple(statistics.median(x) for x in (wall, device, host))
 
 
 def time_ms(torch, fn, samples, inner=10):
@@ -262,7 +293,9 @@ def main() -> int:
                     "host_us": {name: t[1] for name, t in times.items()}}
             if args.e2e:
                 with torch.no_grad():
-                    line["seconds"] = {name: time_s(torch, fn) for name, fn in e2e[tree].items()}
+                    t = {name: time_s(torch, fn) for name, fn in e2e[tree].items()}
+                for key, i in (("seconds", 0), ("device_s", 1), ("host_s", 2)):
+                    line[key] = {name: v[i] for name, v in t.items()}
             print(json.dumps(line), flush=True)
     return 0
 
