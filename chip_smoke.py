@@ -89,6 +89,25 @@ Phases (any failure raises, and the script exits non-zero):
    empty, WT 0; the warm k=1 table and the k=8 table timed; the first and
    last masked columns against the plain attention; K1 at B964 H12 T384
    held against the plain version and timed beside SDPA and its bound.
+14. Tranception and TranceptEVE: seeded random Tranception-L (bf16, 36
+   layers, width 1280, 20 heads of 64) and an EVE file at EVE's default
+   architecture over the 240 focus columns, written by the script in the
+   reference layout. (a) ``score --model trancepteve --checkpoint Large
+   --extra retrieval_type=TranceptEVE eve_checkpoints=<file>`` through the
+   CLI on phase 13's L=250 target and alignment with all 4,750 singles: K5
+   once, 36 K1 launches per forward and no other kernel, 2 x 149 forwards
+   of 32 x 256 tokens, the JAX table's columns, finite scores; the CLI
+   wall, the prior's and the AR scoring's seconds and the peak memory. (b)
+   ``score --model tranception --checkpoint Large`` on an L=1,500 target
+   with 32 singles: optimal 1,022-residue windows, T=1024. (c) ``score
+   --model eve --checkpoint <file>`` on the L=250 singles and a WT row at
+   2,000 draws: the 190 mutants past the alignment empty, WT 0. (d) two
+   rows of (a) and two windows of (b), both directions, per-token
+   log-probs against the plain attention. (e) K1 at B32 H20 T256 and
+   B32 H20 T1024 with Tranception's slopes and each row's own pad tail,
+   held on live rows and timed beside SDPA (a dense bf16 mask of bias,
+   causal and key mask) and its bound. (f) ``merge`` of the three score
+   files.
 
 Every phase holds the port to its rule: no module of the JAX package
 (``proteingym_tpu``) may be loaded. It prints one JSON line describing the
@@ -158,6 +177,11 @@ POET_LOGP_ATOL = 1e-1
 # call, carried by the residual stream, as TABLE_ATOL allows for 33 layers.
 # A wrong mask, layout or scale shifts them by O(1).
 MSA_TABLE_ATOL = 1e-1
+# Tranception-L per-token log-probs, kernel vs plain attention through 36
+# bf16 layers: ~1 bf16 ulp per attention call carried by the residual
+# stream, as TABLE_ATOL allows for 33 layers. A wrong mask, causal extent,
+# ALiBi slope or pad tail shifts them by O(1).
+TRANCEPTION_LOGP_ATOL = 1e-1
 GAP_AA = "-" + AA
 
 # H100 SXM peaks (dense bf16 and int8 tensor cores, HBM3) for the bounds
@@ -187,6 +211,15 @@ EVAL_SCALE = (217, 2000, tuple(0.2 * (j + 1) for j in range(10)))
 # rows, the CLI's default batch (4 grids per forward), k=8 timed beside k=1
 MSA_SLICE = dict(preset="esm_msa1b_t12_100M", length=250, covered=240, n_seqs=16384,
                  n_in=128, n_out=8, rows=384, batch=32, k_cols=8)
+# the shapes of phase 14: phase 13's L=250 target and alignment with all
+# 4,750 singles (TranceptEVE and EVE) and an L=1,500 target with 32 singles
+# spread over it (Tranception alone, optimal windows of 1,022 residues);
+# EVE at its default architecture over the 240 focus columns; K1 at both
+# Tranception shapes
+TRANCEPTION_SLICE = dict(checkpoint="Large", length=250, covered=240, n_seqs=16384, batch=32,
+                         long_length=1500, long_mutants=32, eve_num_samples=20_000,
+                         eve_scoring_samples=2000)
+K1_TRANCEPTION = ((32, 20, 256), (32, 20, 1024))  # (B, H, T): the L=250 rows, the windows
 
 
 def fail(msg: str) -> None:
@@ -1607,6 +1640,315 @@ def phase_msa_transformer(torch, dev, card, fa, check_close):
         max_abs_err=err, **bnd)}
 
 
+def k1_pairs(lengths, t):
+    """(query, key) pairs K1 computes under causal + a key mask of each
+    row's length: query i meets the live keys up to i."""
+    return sum(n * (n + 1) // 2 + (t - n) * n for n in lengths)
+
+
+def phase_tranception(torch, dev, card, fa, check_close):
+    """14. Tranception and TranceptEVE through the port's CLI (seeded random
+    Tranception-L, full width and depth; EVE at its default architecture
+    from a file in the reference layout): (a) TranceptEVE on phase 13's
+    L=250 target and alignment with all 4,750 singles, (b) Tranception
+    alone on an L=1,500 target (T=1024 windows), (c) EVE's evol indices,
+    (d) kernel against the plain attention in the model, (e) K1 at
+    Tranception's two shapes, (f) merge of the three score files."""
+    from proteingym_tpu_torch.models import ar_scoring, eve, retrieval, tranception
+    from proteingym_tpu_torch.models import trancepteve as te
+    from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.pipeline import cli
+    from proteingym_tpu_torch.pipeline.checkpoints import TRANCEPTION_PRESETS
+
+    s = TRANCEPTION_SLICE
+    length, covered, batch = s["length"], s["covered"], s["batch"]
+    rs = np.random.RandomState(13)  # phase 13's target and alignment
+    codes = rs.randint(1, 21, length)
+    seq = "".join(GAP_AA[c] for c in codes)
+    mutants = [f"{seq[p]}{p + 1}{a}" for p in range(length) for a in AA if a != seq[p]]
+    mut_seqs = [seq[:int(m[1:-1]) - 1] + m[-1] + seq[int(m[1:-1]):] for m in mutants]
+    rs = np.random.RandomState(14)
+    long_seq = "".join(AA[i] for i in rs.randint(0, 20, s["long_length"]))
+    positions = np.linspace(0, s["long_length"] - 1, s["long_mutants"]).astype(int)
+    long_mutants = [f"{long_seq[p]}{p + 1}{AA[(AA.index(long_seq[p]) + 1 + rs.randint(19)) % 20]}"
+                    for p in positions]
+    long_seqs = [long_seq[:p] + m[-1] + long_seq[p + 1:] for p, m in zip(positions, long_mutants)]
+    print(f"[tranception] Tranception-L (seeded random bf16) + EVE ({card}): L={length} with "
+          f"{len(mutants)} singles, MSA N={s['n_seqs']} over residues 1-{covered}; "
+          f"L={s['long_length']} with {len(long_mutants)} singles")
+
+    def reset():
+        for counts in (fa.LAUNCHES, W.LAUNCHES):
+            for name in counts:
+                counts[name] = 0
+
+    spans = {}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans[name] = spans.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    forwards = [0]
+    plain_forward = tranception.Tranception.forward
+
+    def counted_forward(self, tokens):
+        forwards[0] += 1
+        return plain_forward(self, tokens)
+
+    def read_rows(path):
+        with open(path, newline="") as f:
+            return list(csv.reader(f))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        msa_dir, weights_dir = root / "msa", root / "weights"
+        msa_dir.mkdir()
+        write_a2m(msa_dir / "SYNTH.a2m", "SYNTH", synth_family(codes[:covered], s["n_seqs"], 13))
+        eve_config = eve.EveConfig(seq_len=covered)
+        eve_file = root / "eve.pt"
+        torch.save(eve.checkpoint_dict(eve.init_random(eve_config, seed=14, device=dev)),
+                   eve_file)
+        y = np.random.RandomState(15).randn(len(mutants) + 1)
+        (root / "dms").mkdir()
+        write_csv_rows(root / "dms" / "SYNTH_L250.csv", ["mutant", "mutated_sequence", "DMS_score"],
+                       [[m, ms, repr(float(v))] for m, ms, v in zip(mutants, mut_seqs, y)])
+        write_csv_rows(root / "dms" / "SYNTH_L250_WT.csv",
+                       ["mutant", "mutated_sequence", "DMS_score"],
+                       [[m, ms, repr(float(v))] for m, ms, v in
+                        zip(mutants + ["WT"], mut_seqs + [seq], y)])
+        write_csv_rows(root / "dms" / "SYNTH_L1500.csv", ["mutant", "mutated_sequence", "DMS_score"],
+                       [[m, ms, "0.5"] for m, ms in zip(long_mutants, long_seqs)])
+        msa_cells = ["SYNTH.a2m", 1, covered, 0.2, "SYNTH.npy"]
+        write_csv_rows(root / "reference.csv",
+                       ["DMS_id", "DMS_filename", "UniProt_ID", "target_seq", "seq_len",
+                        "MSA_filename", "MSA_start", "MSA_end", "MSA_theta", "weight_file_name"],
+                       [["SYNTH_L250", "SYNTH_L250.csv", "SYNTH", seq, length, *msa_cells],
+                        ["SYNTH_L250_WT", "SYNTH_L250_WT.csv", "SYNTH", seq, length, *msa_cells],
+                        ["SYNTH_L1500", "SYNTH_L1500.csv", "SYNTH", long_seq, s["long_length"],
+                         "", "", "", "", ""]])
+
+        def score(model, dms_id, out, checkpoint, extra=()):
+            rc = cli.main([
+                "score", "--model", model, "--checkpoint", checkpoint, "--dms-id", dms_id,
+                "--msa-dir", str(msa_dir), "--weights-dir", str(weights_dir),
+                "--dms-reference", str(root / "reference.csv"), "--dms-dir", str(root / "dms"),
+                "--output-dir", str(root / out), "--batch-size", str(batch), "--device", "cuda",
+                "--quiet", "--fail-fast", *(["--extra", *extra] if extra else [])])
+            if rc != 0:
+                fail(f"{model} score CLI exited {rc} on {dms_id}")
+            return read_rows(root / out / f"{dms_id}.csv")
+
+        # (a) TranceptEVE on the L=250 singles
+        header = ["mutated_sequence", "avg_score_L_to_R", "avg_score_R_to_L", "avg_score"]
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with mock.patch.object(tranception.Tranception, "forward", counted_forward), \
+                mock.patch.object(retrieval, "hamming_filter",
+                                  timed("msa_filter", retrieval.hamming_filter)), \
+                mock.patch.object(retrieval, "log_msa_prior",
+                                  timed("msa_prior", retrieval.log_msa_prior)), \
+                mock.patch.object(retrieval, "eve_log_prior",
+                                  timed("eve_prior", retrieval.eve_log_prior)), \
+                mock.patch.object(te, "score_trancepteve",
+                                  timed("ar_scoring", te.score_trancepteve)):
+            rows = score("trancepteve", "SYNTH_L250", "TranceptEVE_L", s["checkpoint"], [
+                "retrieval_type=TranceptEVE", f"eve_checkpoints={eve_file}",
+                f"eve_num_samples={s['eve_num_samples']}"])
+        wall = time.perf_counter() - t0
+        launches = {**fa.LAUNCHES, **W.LAUNCHES}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        config = TRANCEPTION_PRESETS[s["checkpoint"]]  # the table the CLI's loader reads
+        per_direction = len(mutants) + 1  # every mutant and one WT row (one window)
+        n_fwd = 2 * -(-per_direction // batch)
+        if forwards[0] != n_fwd:
+            fail(f"trancepteve: {forwards[0]} forwards, expected {n_fwd}")
+        print(f"  (a) launches {launches} (expected 1 cluster_counts, {config.num_layers} layers "
+              f"x {n_fwd} forwards = {config.num_layers * n_fwd} grouped_attention, "
+              "no rope_qk: q comes scaled)")
+        check_launches("trancepteve", launches, {"cluster_counts": 1,
+                                                 "grouped_attention": config.num_layers * n_fwd})
+        if rows[0] != header or [r[0] for r in rows[1:]] != mut_seqs:
+            fail(f"trancepteve CSV: columns {rows[0]}, {len(rows) - 1} rows; expected {header} "
+                 f"over the {len(mut_seqs)} mutated sequences in assay order")
+        scores_a = np.asarray([r[1:] for r in rows[1:]], dtype=np.float64)
+        if not np.isfinite(scores_a).all():
+            fail("trancepteve CSV: non-finite scores")
+        n_draws = max(1, s["eve_num_samples"] // 512) * 512
+        print(f"  (a) {len(mutants)} x 3 finite scores; CLI wall {wall:.2f} s (weight init, A2M "
+              f"parse, K5, priors, scoring); MSA filter {spans['msa_filter']:.3f} s + MSA prior "
+              f"{spans['msa_prior']:.3f} s, EVE prior {spans['eve_prior']:.2f} s ({n_draws} "
+              f"draws), AR scoring {spans['ar_scoring']:.2f} s ({n_fwd} forwards of {batch} x "
+              f"256) -> {len(mutants) / spans['ar_scoring']:.2f} mutants/s; peak device "
+              f"memory {peak_gib:.2f} GiB ({card})")
+        run_a = dict(launches=launches, wall_s=wall, spans=dict(spans), peak_gib=peak_gib,
+                     forwards=n_fwd)
+
+        # (b) Tranception alone, L=1,500: 1,022-residue windows
+        reset()
+        forwards[0] = 0
+        t0 = time.perf_counter()
+        with mock.patch.object(tranception.Tranception, "forward", counted_forward):
+            rows = score("tranception", "SYNTH_L1500", "Tranception_L_no_retrieval",
+                         s["checkpoint"])
+        wall_b = time.perf_counter() - t0
+        launches_b = {**fa.LAUNCHES, **W.LAUNCHES}
+        plans = ar_scoring.get_sequence_slices(long_mutants, long_seqs, long_seq, config.n_ctx - 2)
+        n_fwd_b = 2 * -(-len(plans) // batch)
+        widths = {p.window_end - p.window_start for p in plans}
+        if forwards[0] != n_fwd_b or widths != {config.n_ctx - 2}:
+            fail(f"tranception L=1500: {forwards[0]} forwards (expected {n_fwd_b}), window "
+                 f"widths {widths}")
+        check_launches("tranception L=1500", launches_b,
+                       {"grouped_attention": config.num_layers * n_fwd_b})
+        if rows[0] != header or len(rows) != len(long_mutants) + 1 or not np.isfinite(
+                np.asarray([r[1:] for r in rows[1:]], dtype=np.float64)).all():
+            fail(f"tranception L=1500 CSV: columns {rows[0]}, {len(rows) - 1} rows, or "
+                 "non-finite scores")
+        print(f"  (b) L={s['long_length']}: {len(plans)} rows per direction ({len(long_mutants)} "
+              f"mutants + {len(plans) - len(long_mutants)} WT windows of {config.n_ctx - 2}), "
+              f"{n_fwd_b} forwards of T=1024, launches {launches_b}; CLI wall {wall_b:.2f} s")
+
+        # (c) EVE's evol indices at 2,000 draws
+        reset()
+        t0 = time.perf_counter()
+        rows = score("eve", "SYNTH_L250_WT", "EVE", str(eve_file),
+                     [f"num_samples={s['eve_scoring_samples']}"])
+        wall_c = time.perf_counter() - t0
+        launches_c = {**fa.LAUNCHES, **W.LAUNCHES}
+        check_launches("eve", launches_c, {})  # the weights file exists; EVE runs no kernel
+        cells = [r[-1] for r in rows[1:]]
+        past = [i for i, m in enumerate(mutants) if int(m[1:-1]) > covered]
+        empty = [i for i, c in enumerate(cells) if c == ""]
+        if rows[0] != ["mutant", "mutated_sequence", "DMS_score", "evol_indices"] or \
+                empty != past or len(past) != 190 or cells[-1] != "0.0":
+            fail(f"eve CSV: columns {rows[0]}, {len(empty)} empty fields (expected the 190 "
+                 f"mutants past residue {covered}), WT {cells[-1]!r}")
+        evol = np.asarray([float(c) for c in cells if c])
+        if not np.isfinite(evol).all():
+            fail("eve CSV: non-finite evol indices")
+        n_scored = len(cells) - len(past)
+        print(f"  (c) eve: {n_scored - 1} finite evol indices, 190 empty fields (residues "
+              f"{covered + 1}-{length}), WT 0; CLI wall {wall_c:.2f} s at "
+              f"{s['eve_scoring_samples']} draws -> {n_scored / wall_c:.2f} mutants/s ({card})")
+
+        # (f) merge of the three score files
+        config_json = {
+            "TranceptEVE_L": ("TranceptEVE_L", "avg_score", "mutated_sequence", 1),
+            "Tranception_L_no_retrieval": ("Tranception_L_no_retrieval", "avg_score",
+                                           "mutated_sequence", 1),
+            "EVE_single": ("EVE", "evol_indices", "mutant", -1),
+        }
+        (root / "EVE" / "SYNTH_L250_WT.csv").rename(root / "EVE" / "SYNTH_L250.csv")
+        (root / "config.json").write_text(json.dumps({"model_list_zero_shot_substitutions_DMS": {
+            name: {"input_score_name": col, "location": loc, "directionality": sign, "key": key,
+                   "model_type": "Alignment-based model"}
+            for name, (loc, col, key, sign) in config_json.items()}}))
+        rc = cli.main(["merge", "--dms-reference", str(root / "reference.csv"),
+                       "--dms-dir", str(root / "dms"), "--scores-root", str(root),
+                       "--config", str(root / "config.json"), "--output-dir", str(root / "merged")])
+        if rc != 0:
+            fail(f"merge CLI exited {rc}")
+        merged = read_rows(root / "merged" / "SYNTH_L250.csv")
+        col = {name: merged[0].index(name) for name in ("TranceptEVE_L", "EVE_single")}
+        te_col = [r[col["TranceptEVE_L"]] for r in merged[1:]]
+        eve_col = [r[col["EVE_single"]] for r in merged[1:]]
+        long_merged = read_rows(root / "merged" / "SYNTH_L1500.csv")
+        long_col = [r[long_merged[0].index("Tranception_L_no_retrieval")]
+                    for r in long_merged[1:]]
+        if (len(te_col) != len(mutants) or "" in te_col
+                or [i for i, c in enumerate(eve_col) if c == ""] != past
+                or len(long_col) != len(long_mutants) or "" in long_col):
+            fail("merged files do not hold the three models' scores on their assays")
+        print(f"  (f) merge: SYNTH_L250 {len(mutants)} rows x (TranceptEVE_L, EVE_single: 190 "
+              f"empty past the alignment), SYNTH_L1500 {len(long_mutants)} rows x "
+              "Tranception_L_no_retrieval")
+
+    # (d) two rows of (a) and two windows of (b), both directions, with the
+    # kernel and with the plain attention in the model
+    from proteingym_tpu_torch.pipeline.checkpoints import load_tranception_checkpoint
+
+    model, _ = load_tranception_checkpoint(s["checkpoint"], device=dev)  # the CLI's weights
+    errs = []
+    for rows_of, what in (([mut_seqs[0], mut_seqs[-1]],
+                           f"L={length} rows 0 and {len(mut_seqs) - 1}"),
+                          ([p.sliced_sequence for p in plans if p.mutated_sequence != long_seq][::31],
+                           "L=1500 windows of mutants 0 and 31")):
+        texts = rows_of + [r[::-1] for r in rows_of]  # L->R and R->L
+        width = -(-(len(texts[0]) + 2) // 32) * 32
+        tokens = torch.from_numpy(np.stack([tranception.VOCAB.tokenize(t, pad_to=width)
+                                            for t in texts])).long().to(dev)
+        targets = tokens[:, 1:, None]
+        live = targets[..., 0] != tranception.VOCAB.PAD
+
+        def per_token():  # log p(x_t | x_<t) of each live token, as the scoring reads it
+            return torch.log_softmax(model(tokens), -1)[:, :-1].gather(-1, targets)[..., 0][live]
+
+        with torch.no_grad():
+            got = per_token()
+            with mock.patch.object(tranception, "mha", fa.plain_mha):
+                want = per_token()
+        errs.append(check_close(f"(d) per-token log-probs, {what}, both directions, kernel "
+                                "vs plain", got, want, TRANCEPTION_LOGP_ATOL, 0.0))
+    del model, got, want
+    torch.cuda.empty_cache()
+
+    # (e) K1 alone at Tranception's shapes: q pre-scaled, ALiBi, causal, and
+    # each row's own pad tail
+    records = []
+    for b, h, t in K1_TRANCEPTION:
+        d = 64
+        gen = torch.Generator(device=dev).manual_seed(t)
+        q, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev).to(torch.bfloat16)
+                   .transpose(1, 2) for _ in range(3))
+        q = (q.float() * 0.125).to(torch.bfloat16)
+        lengths = [t - (i * 37) % 97 for i in range(b)]
+        mask = torch.arange(t, device=dev)[None, :] < torch.tensor(lengths, device=dev)[:, None]
+        bias = tranception.alibi_bias(h, t, dev)
+        kw = dict(key_mask=mask, bias=bias, causal=True, sm_scale=1.0)
+        tiles = fa.KeyTiles(None, mask, True)  # the extents, made once as the model does
+        got = fa.grouped_mha(q, k, v, key_tiles=tiles, **kw)
+        torch.cuda.synchronize()
+        want = fa.plain_mha(q.float(), k.float(), v.float(), **kw)
+        err = check_close(f"(e) K1 B{b} H{h} T{t} D{d} ALiBi + causal + pad tails, live rows",
+                          got.transpose(1, 2)[mask], want.transpose(1, 2)[mask],
+                          BF16_ATOL, BF16_RTOL)
+        del want
+        allowed = (torch.ones(t, t, dtype=torch.bool, device=dev).tril()[None]
+                   & mask[:, None, :])  # (B, T, T)
+        dense = torch.where(allowed[:, None], bias[None, :, None, :],
+                            float("-inf")).to(torch.bfloat16)  # (B, H, T, T)
+        times = median_pair(torch, {
+            "kernel": lambda: fa.grouped_mha(q, k, v, key_tiles=tiles, **kw),
+            "call": lambda: fa.grouped_mha(q, k, v, **kw),  # the extents made per call
+            "plain": lambda: fa.plain_mha(q, k, v, **kw),
+            "sdpa": sdpa(torch, q, k, v, dense),
+        }, reps=3, inner=5, rounds=1)
+        del dense
+        torch.cuda.empty_cache()
+        bnd = bound(4.0 * h * d * k1_pairs(lengths, t), nbytes(q, k, v, got, mask, bias))
+        print(f"  (e) K1 at B{b} H{h} T{t} D{d}: kernel {times['kernel']:.4f} ms (with the "
+              f"extents made per call {times['call']:.4f}), plain {times['plain']:.4f} ms, SDPA "
+              f"(dense bf16 mask) {times['sdpa']:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}; {card})")
+        records.append(dict(shape=f"B{b} H{h} T{t} D{d} ALiBi + causal + per-row pad tails, q "
+                                  "pre-scaled (Tranception), extents made once",
+                            ms=times["kernel"], call_ms=times["call"], plain_ms=times["plain"],
+                            library_ms=times["sdpa"], max_abs_err=err, **bnd))
+    print(f"  (d) per-token log-probs, kernel vs plain: max |diff| {max(errs):.3g} over "
+          f"{config.num_layers} bf16 layers (atol {TRANCEPTION_LOGP_ATOL:g}); K1 alone at both shapes: "
+          f"{max(r['max_abs_err'] for r in records):.3g}")
+    return {"launches": run_a["launches"], "long_launches": launches_b, "eve_launches": launches_c,
+            "k1_err": max(r["max_abs_err"] for r in records), "logp_err": max(errs),
+            "k1": records}
+
+
 def main() -> int:
     try:
         import torch
@@ -1822,6 +2164,7 @@ def main() -> int:
     phase_evaluate_scale(torch, dev, card, cli)
     phase_clinical(cli)
     msa_run = phase_msa_transformer(torch, dev, card, fa, check_close)
+    tr_run = phase_tranception(torch, dev, card, fa, check_close)
 
     if "jax" in sys.modules:
         fail("the port imported jax")
@@ -1833,7 +2176,8 @@ def main() -> int:
     measured = {
         # K1's main path is PoET's self tier; the ESM headline shape beside it
         "grouped_attention": dict(
-            max_abs_err=max(max_abs_err, k2["k1_self_err"], msa_run["k1_err"]),
+            max_abs_err=max(max_abs_err, k2["k1_self_err"], msa_run["k1_err"],
+                            tr_run["k1_err"]),
             shape="B8 H16 T4352 D64, 16 segments + causal",
             **{key: k2["k1"][key] for key in k1_keys},
             other_shapes=[{"shape": "B16 H20 T256 D64 mask+rope, pre-pass + loop",
@@ -1848,8 +2192,10 @@ def main() -> int:
     by_path = {"esm": launches, "esm_windowed": win_launches,
                "poet": poet_run["launches"], "esm_packed": packed["launches"],
                "esm_segment_packed": seg_packed["launches"], "esm_wt": wt["wt_launches"],
-               "esm_pppl": wt["pppl_launches"], "msa_transformer": msa_run["launches"]}
-    print(json.dumps({"kernels": [{
+               "esm_pppl": wt["pppl_launches"], "msa_transformer": msa_run["launches"],
+               "trancepteve": tr_run["launches"], "tranception_windows": tr_run["long_launches"],
+               "eve": tr_run["eve_launches"]}
+    records = [{
         "name": name,
         "route": "cuda",
         "source": source,
@@ -1857,7 +2203,15 @@ def main() -> int:
         "launches": sum(c.get(name, 0) for c in by_path.values()),
         **measured[name],
         "launches_by_path": {path: c.get(name, 0) for path, c in by_path.items()},
-    } for name, (source, replaces) in KERNELS.items()]}))
+    } for name, (source, replaces) in KERNELS.items()]
+    # K1 at Tranception's two shapes, each with the launches of its path
+    source, replaces = KERNELS["grouped_attention"]
+    for rec, path in zip(tr_run["k1"], ("trancepteve", "tranception_windows")):
+        records.append({"name": f"grouped_attention:{rec['shape'].split()[2]}_tranception",
+                        "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": by_path[path]["grouped_attention"], "counter":
+                        "grouped_attention", "path": path, **rec})
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

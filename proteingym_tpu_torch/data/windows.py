@@ -8,6 +8,8 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
+
 
 def get_optimal_window(
     mutation_position_relative: int, seq_len_wo_special: int, model_window: int
@@ -26,3 +28,9 @@ def get_optimal_window(
         max(0, mutation_position_relative - half),
         min(seq_len_wo_special, mutation_position_relative + half),
     )
+
+
+def mutation_barycenter(positions_0idx) -> int:
+    """Center of mass of the 0-indexed mutated positions, rounded down
+    (the mean, int-cast, as ref tranception/utils/scoring_utils.py:170-171)."""
+    return int(np.mean(np.asarray(positions_0idx, dtype=np.float64)))

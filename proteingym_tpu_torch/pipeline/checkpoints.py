@@ -1,16 +1,19 @@
-"""ESM, PoET and MSA Transformer checkpoint specs (counterpart of the ESM
-part of proteingym_tpu/pipeline/checkpoints.py, of the PoET branch of
+"""ESM, PoET, MSA Transformer, Tranception and EVE checkpoint specs
+(counterpart of the ESM, Tranception and EVE parts of
+proteingym_tpu/pipeline/checkpoints.py, of the PoET branch of
 ``resolve_zoo_checkpoint`` and of the weight handling of the
-``msa_transformer`` scorer in proteingym_tpu/pipeline/scorers.py)."""
+``msa_transformer`` scorer in proteingym_tpu/pipeline/scorers.py). Orbax
+directories hold JAX arrays and are refused."""
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
-from proteingym_tpu_torch.models import esm2, msa_transformer, poet
+from proteingym_tpu_torch.models import esm2, eve, msa_transformer, poet, tranception
 
 
 def _load_torch_state_dict(path: Path):
@@ -126,3 +129,53 @@ def load_msa_transformer_checkpoint(
     config = presets["esm_msa1b_t12_100M"]
     state, _ = _load_torch_state_dict(Path(spec))
     return msa_transformer.load_fair_esm_state_dict(state, config, device=device), config
+
+
+# Tranception checkpoint specs: a preset name gives seeded random weights
+TRANCEPTION_PRESETS = {spec: tranception.PRESETS[f"tranception_{spec.lower()}"]
+                       for spec in ("Small", "Medium", "Large")}
+# no spec: the tiny preset (float32 here, bf16 in the JAX package)
+TRANCEPTION_TINY = tranception.TranceptionConfig("Tranception_tiny", 2, 64, 4,
+                                                 dtype=torch.float32)
+# the dtype an HF checkpoint runs in, as in the JAX package
+HF_DTYPE = torch.bfloat16
+
+
+def load_tranception_checkpoint(
+    spec: Optional[str], device="cuda", seed: int = 0,
+) -> Tuple[tranception.Tranception, tranception.TranceptionConfig]:
+    """Resolve a Tranception checkpoint spec to (model on ``device``,
+    config):
+      - None -> the tiny 2 x 64 x 4 preset, random init from ``seed``
+      - "Small", "Medium" or "Large" -> that preset (bf16), random init
+      - an HF directory (config.json with n_layer, n_embd, n_head[, n_ctx]
+        and pytorch_model.bin) -> its weights, run in ``HF_DTYPE``
+    An orbax directory written by the JAX package is refused."""
+    if spec is None or spec in TRANCEPTION_PRESETS:
+        config = TRANCEPTION_PRESETS.get(spec, TRANCEPTION_TINY)
+        return tranception.init_random(config, seed=seed, device=device), config
+    path = Path(spec)
+    if not (path / "pytorch_model.bin").exists():
+        raise ValueError(
+            f"{spec!r} is not a Tranception preset ({sorted(TRANCEPTION_PRESETS)}) nor an HF "
+            "directory with pytorch_model.bin; orbax checkpoints are JAX-only"
+        )
+    hf = json.loads((path / "config.json").read_text())
+    config = tranception.TranceptionConfig(
+        name=hf.get("model_type", "tranception"), num_layers=hf["n_layer"],
+        embed_dim=hf["n_embd"], num_heads=hf["n_head"], n_ctx=hf.get("n_ctx", 1024),
+        dtype=HF_DTYPE,
+    )
+    state, _ = _load_torch_state_dict(path / "pytorch_model.bin")
+    return tranception.load_hf_state_dict(state, config, device=device), config
+
+
+def load_eve_checkpoint(spec, device="cuda") -> Tuple[eve.EveModel, eve.EveConfig]:
+    """Resolve one EVE checkpoint spec, a reference EVE checkpoint file
+    (the format the clinical reference's EVE_model_path column names), to
+    (model on ``device``, config). An orbax directory is refused."""
+    path = Path(spec)
+    if not path.is_file():
+        raise ValueError(f"{spec!r} is not an EVE checkpoint file; orbax checkpoint "
+                         "directories are JAX-only")
+    return eve.load_torch_checkpoint(path, device=device)

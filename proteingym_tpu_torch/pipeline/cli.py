@@ -1,6 +1,7 @@
 """Command line of the PyTorch port (counterpart of
-proteingym_tpu/pipeline/cli.py for ``score --model esm|poet|msa_transformer``,
-``weights``, ``merge``, ``evaluate`` and ``evaluate-clinical``).
+proteingym_tpu/pipeline/cli.py for ``score --model esm|poet|msa_transformer|
+tranception|trancepteve|eve|deepsequence``, ``weights``, ``merge``,
+``evaluate`` and ``evaluate-clinical``).
 
     python -m proteingym_tpu_torch.pipeline.cli score --model esm \\
         --checkpoint esm2_t33_650M --dms-reference ref.csv --dms-dir dms/ \\
@@ -12,6 +13,13 @@ proteingym_tpu/pipeline/cli.py for ``score --model esm|poet|msa_transformer``,
         --checkpoint esm_msa1b_t12_100M --msa-dir msa/ --weights-dir weights/ \\
         --dms-reference ref.csv --dms-dir dms/ --output-dir out/ \\
         [--extra msa_samples=384 num_seeds=5]
+    python -m proteingym_tpu_torch.pipeline.cli score --model trancepteve \\
+        --checkpoint Large --msa-dir msa/ --weights-dir weights/ \\
+        --dms-reference ref.csv --dms-dir dms/ --output-dir out/ \\
+        --extra retrieval_type=TranceptEVE eve_checkpoints=eve.pt
+    python -m proteingym_tpu_torch.pipeline.cli score --model eve \\
+        --checkpoint eve.pt --msa-dir msa/ --weights-dir weights/ \\
+        --dms-reference ref.csv --dms-dir dms/ --output-dir out/
     python -m proteingym_tpu_torch.pipeline.cli weights --msa X.a2m \\
         --theta 0.2 --output weights/X.npy [--device cuda|cpu]
     python -m proteingym_tpu_torch.pipeline.cli merge --dms-reference ref.csv \\
@@ -22,9 +30,11 @@ proteingym_tpu/pipeline/cli.py for ``score --model esm|poet|msa_transformer``,
         --clinical-reference clinical.csv --merged-dir merged/ --output-dir bench/
 
 Per assay it writes ``<DMS_id>.csv`` (the input columns, plus
-``mutated_sequence`` when absent, plus the score column) into the output
-directory, with ``manifest.jsonl`` (done/failed per task, for resuming)
-and ``events.jsonl`` (phase timings and throughput) beside it. With
+``mutated_sequence`` when absent, plus the score column; for Tranception
+the scorer's own table, ``mutated_sequence`` and the L->R, R->L and mean
+scores) into the output directory, with ``manifest.jsonl`` (done/failed
+per task, for resuming) and ``events.jsonl`` (phase timings and
+throughput) beside it. With
 ``--packed`` (ESM masked marginals) the masked rows of all selected assays
 share forward batches; the batch is one ``score_packed`` phase and fails
 or succeeds as a whole. ``--extra scoring_strategy=wt-marginals|pseudo-ppl``
@@ -48,7 +58,7 @@ import numpy as np
 
 from proteingym_tpu_torch.data.mutants import apply_mutant
 from proteingym_tpu_torch.data.reference import load_reference
-from proteingym_tpu_torch.data.table import format_cell
+from proteingym_tpu_torch.data.table import Table, write_csv
 from proteingym_tpu_torch.devices import resolve_device
 from proteingym_tpu_torch.pipeline.manifest import Manifest
 from proteingym_tpu_torch.pipeline.scorers import (
@@ -90,15 +100,17 @@ def _read_csv(path: Path):
         return list(reader.fieldnames or []), rows
 
 
-def _write_scores(path: Path, columns, rows, scores) -> None:
-    """The input columns plus one column per score array; a NaN score is
-    an empty field, as pandas ``to_csv`` writes it in the JAX CLI."""
-    with open(path, "w", newline="") as f:
-        writer = csv.writer(f)
-        writer.writerow(columns + list(scores))
-        for i, row in enumerate(rows):
-            writer.writerow([row[c] for c in columns]
-                            + [format_cell(float(v[i])) for v in scores.values()])
+def _score_table(columns, rows, scores) -> Table:
+    """What the CLI writes for an assay: a scorer's own ``Table`` as it is,
+    else the input columns plus one float column per score array. A NaN
+    score is an empty field, as pandas ``to_csv`` writes it in the JAX
+    CLI."""
+    if isinstance(scores, Table):
+        return scores
+    table = Table({c: [row[c] for row in rows] for c in columns}, n_rows=len(rows))
+    for name, values in scores.items():
+        table[name] = np.asarray(values, dtype=np.float64)
+    return table
 
 
 def _emit_throughput(log, label, n_mutants, seconds) -> None:
@@ -171,8 +183,9 @@ def cmd_score(args) -> int:
             _emit_throughput(log, task, len(rows), dt)
             total_mutants += len(rows)
             total_seconds += dt
-            _write_scores(out_path, columns, rows, scores)
-            manifest.mark_done(task, rows=len(rows))
+            table = _score_table(columns, rows, scores)
+            write_csv(out_path, table)
+            manifest.mark_done(task, rows=len(table))
         except Exception as e:  # noqa: BLE001 — per-assay isolation
             failures += 1
             manifest.mark_failed(task, error=repr(e))
@@ -228,7 +241,8 @@ def _cmd_score_packed(args, records, output_dir, log, manifest, device) -> int:
             raise
         return 1
     for rec, columns, rows in tasks:
-        _write_scores(output_dir / f"{rec.DMS_id}.csv", columns, rows, outputs[rec.DMS_id])
+        write_csv(output_dir / f"{rec.DMS_id}.csv",
+                  _score_table(columns, rows, outputs[rec.DMS_id]))
         manifest.mark_done(f"{args.model}/{rec.DMS_id}", rows=len(rows))
     _emit_summary(log, n_total, dt)
     return 0

@@ -1,11 +1,14 @@
 """Scorer registry (counterpart of proteingym_tpu/pipeline/scorers.py):
-``esm`` (masked marginals), ``poet`` (MSA-conditioned likelihood) and
+``esm`` (masked marginals), ``poet`` (MSA-conditioned likelihood),
 ``msa_transformer`` (MSA masked marginals in focus-column coordinates),
+``tranception`` / ``trancepteve`` (autoregressive, with MSA and EVE
+retrieval) and ``eve`` / ``deepsequence`` (evol indices from checkpoints),
 plus ``score_esm_packed_batch``, the cross-assay packed ESM path.
 
-Each scorer is ``scorer(ctx: ScoreContext) -> {column: scores}``: the CLI
-reads the assay, calls the scorer and writes the input columns plus the
-returned score columns.
+A scorer is ``scorer(ctx: ScoreContext)`` and returns either ``{column:
+scores}``, which the CLI writes after the input columns, or a whole
+``Table``, which it writes as it is (Tranception's, as the JAX CLI writes
+its frame).
 """
 
 from __future__ import annotations
@@ -169,12 +172,14 @@ def score_poet(ctx: ScoreContext) -> Dict[str, np.ndarray]:
     return {"PoET_score": scores}
 
 
-def _score_focus_model(ctx: ScoreContext, msa, score_fn, mutants) -> np.ndarray:
+def _score_focus_model(ctx: ScoreContext, msa, score_fn, mutants,
+                       require_alphabet: Optional[str] = None) -> np.ndarray:
     """Remap DMS-coordinate mutants into trimmed-focus coordinates (through
     ``record.MSA_start`` and the MSA's focus columns) and run
     ``score_fn(wt_focus_seq, remapped_mutants)``. Literal wild-type rows
     score 0; a mutant outside the focus columns, with a wrong wild-type
-    letter or malformed, is NaN."""
+    letter or malformed, is NaN, and so is one whose letters fall outside
+    ``require_alphabet`` when given (models with a fixed vocabulary)."""
     msa_start = ctx.record.MSA_start or 1
     col_to_focus = {int(c): i for i, c in enumerate(np.asarray(msa.focus_cols))}
     wt = msa.focus_seq_trimmed.upper()
@@ -190,6 +195,9 @@ def _score_focus_model(ctx: ScoreContext, msa, score_fn, mutants) -> np.ndarray:
                 fi = col_to_focus[pos - msa_start]
                 if wt[fi] != f:
                     raise KeyError(m)
+                if require_alphabet is not None and (
+                        f not in require_alphabet or t not in require_alphabet):
+                    raise KeyError(m)
                 toks.append(f"{f}{fi + 1}{t}")
         except (KeyError, ValueError, IndexError):
             valid.append(False)
@@ -199,6 +207,7 @@ def _score_focus_model(ctx: ScoreContext, msa, score_fn, mutants) -> np.ndarray:
     valid = np.asarray(valid, dtype=bool)
     out = np.full(len(mutants), np.nan)
     out[valid] = np.asarray(score_fn(wt, remapped))
+    out[[is_wt_row(m) for m in mutants]] = 0.0
     return out
 
 
@@ -225,3 +234,95 @@ def score_msa_transformer(ctx: ScoreContext) -> Dict[str, np.ndarray]:
         ctx.mutants,
     )
     return {"esm_msa1b_ensemble": scores}
+
+
+@register_scorer("tranception")
+@register_scorer("trancepteve")
+def score_tranception(ctx: ScoreContext):
+    """Tranception / TranceptEVE autoregressive scoring (ref
+    tranception/score_tranception_proteingym.py, trancepteve/
+    score_trancepteve.py), returning the JAX scorer's table:
+    ``mutated_sequence, avg_score_L_to_R, avg_score_R_to_L, avg_score``.
+
+    ``--extra retrieval_type=Tranception|TranceptEVE`` fuses the assay's
+    MSA prior (and, for TranceptEVE, the EVE prior of
+    ``eve_checkpoints=a.pt,b.pt``, reference EVE files, averaged over
+    ``eve_num_samples=`` draws, 20,000) into the log-probs; without it the
+    model scores alone. --checkpoint follows load_tranception_checkpoint."""
+    from proteingym_tpu_torch.models.trancepteve import (
+        RetrievalConfig, build_priors, score_trancepteve,
+    )
+    from proteingym_tpu_torch.pipeline.checkpoints import (
+        load_eve_checkpoint, load_tranception_checkpoint,
+    )
+
+    model, _ = load_tranception_checkpoint(ctx.checkpoint, device=ctx.device)
+    retrieval_type = ctx.extra.get("retrieval_type")
+    rcfg, msa_lp, eve_lp, alpha, beta = None, None, None, 0.0, 0.0
+    if retrieval_type:
+        msa = ctx.load_msa()
+        rcfg = RetrievalConfig(
+            retrieval_type=retrieval_type,
+            msa_start=(ctx.record.MSA_start or 1) - 1,
+            msa_end=ctx.record.MSA_end or len(ctx.record.target_seq),
+        )
+        eve_models = [load_eve_checkpoint(p, device=ctx.device)[0]
+                      for p in str(ctx.extra.get("eve_checkpoints") or "").split(",") if p]
+        msa_lp, eve_lp, alpha, beta = build_priors(
+            msa.sequences(), msa.weights, ctx.record.target_seq, rcfg,
+            eve_models=eve_models or None, eve_focus_cols=msa.focus_cols,
+            eve_focus_seq=msa.focus_seq_trimmed,
+            eve_num_samples=int(ctx.extra.get("eve_num_samples", 20_000)),
+        )
+    return score_trancepteve(
+        model, ctx.mutants, ctx.mutated_sequences, ctx.record.target_seq, rcfg=rcfg,
+        msa_log_prior=msa_lp, eve_log_prior=eve_lp, alpha=alpha, beta=beta,
+        batch_size=ctx.batch_size,
+    )
+
+
+def _score_eve(ctx: ScoreContext, column: str) -> Dict[str, np.ndarray]:
+    """Evol indices of the EVE models in ``--checkpoint`` (comma-separated
+    reference EVE files; several average into ``{column}_ensemble``) over
+    ``--extra num_samples=`` draws (2,000) from seed ``seed=`` (42), in
+    the alignment's focus coordinates (ref EVE/compute_evol_indices_DMS.py).
+    Mutants off the focus columns or with a letter outside the 20 amino
+    acids are NaN, a literal WT row 0. Training is not ported: without
+    --checkpoint the scorer raises."""
+    from proteingym_tpu_torch.models import eve
+    from proteingym_tpu_torch.pipeline.checkpoints import load_eve_checkpoint
+
+    if not ctx.checkpoint:
+        raise NotImplementedError(
+            "EVE training is not ported yet: pass --checkpoint with reference EVE "
+            "checkpoint files (comma-separated for an ensemble)")
+    msa = ctx.load_msa()
+    members = [load_eve_checkpoint(p, device=ctx.device)[0]
+               for p in str(ctx.checkpoint).split(",")]
+    alphabet = eve.ALPHABET
+    aa_idx = {a: i for i, a in enumerate(alphabet)}
+    # an indeterminate focus letter is an all-zero one-hot row (code -1)
+    focus_codes = np.asarray([aa_idx.get(c, -1) for c in msa.focus_seq_trimmed.upper()])
+    wt_onehot = eve.onehot_sequence(msa.focus_seq_trimmed)
+    num_samples = int(ctx.extra.get("num_samples", 2000))
+    seed = int(ctx.extra.get("seed", 42))
+
+    def score_fn(wt, remapped):
+        onehots = eve.onehot_mutants(focus_codes, remapped, alphabet)
+        return np.mean([eve.evol_indices(m, wt_onehot, onehots, num_samples=num_samples,
+                                         seed=seed) for m in members], axis=0)
+
+    scores = _score_focus_model(ctx, msa, score_fn, ctx.mutants, require_alphabet=alphabet)
+    return {f"{column}_ensemble" if len(members) > 1 else column: scores}
+
+
+@register_scorer("eve")
+def score_eve(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    return _score_eve(ctx, "evol_indices")
+
+
+@register_scorer("deepsequence")
+def score_deepsequence(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """DeepSequence, EVE's ancestor architecture, scored by the same
+    recipe from its checkpoint."""
+    return _score_eve(ctx, "DeepSequence_evol_indices")

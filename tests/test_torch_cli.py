@@ -11,6 +11,7 @@ import torch
 jax = pytest.importorskip("jax")
 
 from proteingym_tpu.pipeline import cli as jcli
+from proteingym_tpu_torch.data.table import write_csv
 from proteingym_tpu_torch.models import esm2 as tesm
 from proteingym_tpu_torch.pipeline import checkpoints as tckpt
 from proteingym_tpu_torch.pipeline import cli as tcli
@@ -109,7 +110,7 @@ def test_nan_score_cells_are_written_as_the_jax_cli_writes_them(tmp_path):
             {"mutant": "A1C:K2P", "DMS_score": "0.125", "mutated_sequence": "CPT"}]
     scores = {"model_score": np.array([-0.1, np.nan, 1e-07, 123456789.0]),
               "other_score": np.array([np.nan, -1.2345678901234567, 3.0, np.nan])}
-    tcli._write_scores(tmp_path / "port.csv", columns, rows, scores)
+    write_csv(tmp_path / "port.csv", tcli._score_table(columns, rows, scores))
     frame = pd.DataFrame({c: [r[c] for r in rows] for c in columns})
     for name, values in scores.items():
         frame[name] = values

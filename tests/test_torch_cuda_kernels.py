@@ -2,7 +2,8 @@
 long-context and extent-sparse segmented, on the Hopper loop with its
 pre-pass in bf16 and on the scalar kernel in float32; cluster counts)
 against their plain PyTorch versions on the card, and the model forwards
-that launch them (ESM, PoET, the MSA Transformer's column attention).
+that launch them (ESM, PoET, the MSA Transformer's column attention,
+Tranception's ALiBi causal attention).
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one; the kernels have no CPU mode. The file imports neither jax nor the
@@ -15,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from proteingym_tpu_torch.models import esm2, msa_transformer, poet
+from proteingym_tpu_torch.models import esm2, msa_transformer, poet, tranception
 from proteingym_tpu_torch.msa import weights as msa_weights
 from proteingym_tpu_torch.ops import flash_attention as fa
 
@@ -755,3 +756,50 @@ def test_msa_transformer_forward_goes_through_the_kernel(dev):
         want = model(tokens)
     assert got.dtype == torch.float32 and bool(got.isfinite().all())
     torch.testing.assert_close(got, want, atol=5e-2, rtol=0)
+
+
+@pytest.mark.parametrize("t", [256, 1024])
+def test_grouped_kernel_with_tranception_alibi_and_pad_tails(t, dev):
+    """K1 in Tranception's mode: q pre-scaled by 2^-3 (sm_scale 1), the
+    grouped ALiBi bias of 20 heads (up to 0.5 x (T - 1)), causal, and a
+    key mask whose pad tail differs per row; held on live query rows."""
+    b, h, d = 8, 20, 64
+    gen = torch.Generator(device=dev).manual_seed(t)
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev).to(torch.bfloat16)
+               .transpose(1, 2) for _ in range(3))
+    q = q * 0.125
+    lengths = [t, t - 1, t - 4, t - 31, t - 64, t - 65, t // 2 + 3, 2]
+    mask = _lengths_mask(t, lengths).to(dev)
+    bias = tranception.alibi_bias(h, t, dev)
+    kw = dict(key_mask=mask, bias=bias, causal=True, sm_scale=1.0)
+    before = dict(fa.LAUNCHES)
+    got = fa.grouped_mha(q, k, v, **kw)
+    assert fa.LAUNCHES["grouped_attention"] == before["grouped_attention"] + 1
+    assert fa.LAUNCHES["rope_qk"] == before["rope_qk"]  # no pre-pass: q comes scaled
+    want = fa.plain_mha(q.float(), k.float(), v.float(), **kw)
+    live = mask  # pad queries are never read
+    torch.testing.assert_close(got.transpose(1, 2)[live].float(), want.transpose(1, 2)[live],
+                               atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16])
+
+
+def test_tranception_forward_goes_through_the_kernel(dev):
+    """A bf16 forward at the tiny preset's width with head dim 64 (the
+    presets'): one K1 launch per layer and nothing else; the log-probs of
+    live positions equal the same forward with the plain attention."""
+    config = tranception.TranceptionConfig("tiny_bf16", 2, 256, 4, n_ctx=1024)
+    model = tranception.init_random(config, seed=0, device=dev)
+    rs = np.random.RandomState(0)
+    rows = [tranception.VOCAB.tokenize("".join(rs.choice(list("ACDEFGHIKLMNPQRSTVWY"), n)),
+                                       pad_to=288) for n in (286, 250, 131, 40)]
+    tokens = torch.from_numpy(np.stack(rows)).long().to(dev)
+    before = dict(fa.LAUNCHES)
+    with torch.no_grad():
+        got = torch.log_softmax(model(tokens), -1)
+    launched = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
+    assert launched == {**{n: 0 for n in fa.LAUNCHES}, "grouped_attention": config.num_layers}
+    with pytest.MonkeyPatch.context() as mp, torch.no_grad():
+        mp.setattr(tranception, "mha", fa.plain_mha)
+        want = torch.log_softmax(model(tokens), -1)
+    live = tokens != tranception.VOCAB.PAD
+    assert got.dtype == torch.float32 and bool(got.isfinite().all())
+    torch.testing.assert_close(got[live], want[live], atol=5e-2, rtol=0)
