@@ -108,6 +108,28 @@ Phases (any failure raises, and the script exits non-zero):
    held on live rows and timed beside SDPA (a dense bf16 mask of bias,
    causal and key mask) and its bound. (f) ``merge`` of the three score
    files.
+15. the indel track and the alignment baselines: the port's Gotoh aligner
+   built with g++, then on an L=400 target with 2,000 unique indel
+   variants and the WT, its 16,384-sequence alignment over residues 1-380:
+   (a) ``score --model trancepteve --indel-mode`` (Tranception-L and EVE
+   at full width, 20,000 prior draws): K5 once and 36 K1 launches per
+   forward and no other kernel, 2 x 63 forwards of 32 x 416 tokens, every
+   variant finite and the WT 0, the aligner's, the realignment's, the EVE
+   prior's and the AR scoring's seconds, the two prior stacks' bytes, the
+   peak memory; then ``tranception`` with MSA retrieval under
+   torch.profiler for the idle share; 8 indel rows' per-token log-probs
+   against the plain attention; K1 at B32 H20 T416 with each row's pad
+   tail of 1-31 held on live rows and timed beside SDPA and its bound.
+   (b) ``score --model hmm``, --indel-mode on that assay and without it on
+   phase 14's L=250 assay: finite scores, WT 0, build and forward seconds,
+   launches per residue step, 64 rows' log-probs against the CPU. (c)
+   ``site_independent`` and ``potts`` (300 Adam steps, float32 without
+   TF32) on phase 14's L=250 target and alignment with its 4,750 singles:
+   the loss falls, the scores are finite and differ, the achieved TFLOP/s,
+   the first 3 steps against float64 on the CPU; the trained model written with
+   ``write_plmc_model`` and scored through --checkpoint gives the same
+   scores. (d) ``merge`` and ``evaluate --mutation-type indels`` of (a)
+   and (b): the Spearman summary names the three models.
 
 Every phase holds the port to its rule: no module of the JAX package
 (``proteingym_tpu``) may be loaded. It prints one JSON line describing the
@@ -220,6 +242,37 @@ TRANCEPTION_SLICE = dict(checkpoint="Large", length=250, covered=240, n_seqs=163
                          long_length=1500, long_mutants=32, eve_num_samples=20_000,
                          eve_scoring_samples=2000)
 K1_TRANCEPTION = ((32, 20, 256), (32, 20, 1024))  # (B, H, T): the L=250 rows, the windows
+# the shapes of phase 15: an L=400 target, its alignment over residues
+# 1-380, 2,000 unique indel variants (700 deletions and 700 insertions of
+# 1-3 residues, 400 substitution-plus-indel doubles, 200 with two indels)
+# and the WT; Tranception-L with EVE at its default architecture over the
+# 380 focus columns and the default 20,000 prior draws; the HMM on it and
+# on phase 14's L=250 assay, and the Potts models there at the scorer's
+# default 300 steps
+INDEL_SLICE = dict(checkpoint="Large", length=400, covered=380, n_seqs=16384, batch=32,
+                   variants=(700, 700, 400, 200), eve_num_samples=20_000, logp_rows=8,
+                   plm_steps=300)
+K1_INDEL = (32, 20, 416)  # (B, H, T): whole indel rows of 394-406 residues, one bucket
+# Potts scores from the model written with write_plmc_model and read back
+# must equal the trained model's exactly: the file holds float32, and the
+# trained h and J are float32 values (Adam updates P from zero with a
+# symmetric gradient, so symmetrising it in float64 changes nothing)
+POTTS_FILE_ATOL = 0.0
+# Card against CPU at phase 15's own sizes, where cuBLAS picks its own
+# algorithms: the HMM's float32 log-probs of HMM_CPU_ROWS rows spread over
+# each assay (the WT among them) against the same forward on the CPU; the
+# Potts trainer's first POTTS_CPU_STEPS Adam steps on all N rows against
+# the same steps in float64 on the CPU: each step's loss (relative) and
+# h and J (relative Frobenius norm; Adam's first steps are near +-lr
+# wherever a gradient is not 0, so an entry whose gradient is within
+# float32 noise of 0 may take the other sign, and a max-abs bound would
+# be lr). Readings on an H100 at 700 W: HMM max |diff| 0; Potts losses
+# 1.1e-5, h 1.6e-4, J 4.2e-4 (J max |diff| 0.055); TF32 in the product
+# would flip far more entries
+HMM_CPU_ROWS, HMM_CPU_ATOL = 64, 1e-4
+POTTS_CPU_STEPS, POTTS_LOSS_RTOL, POTTS_HJ_RTOL = 3, 1e-4, 2e-3
+# float32 H100 SXM peak without TF32 (the Potts trainer's product)
+PEAK_F32_FLOPS = 67e12
 
 
 def fail(msg: str) -> None:
@@ -1685,14 +1738,7 @@ def phase_tranception(torch, dev, card, fa, check_close):
     spans = {}
 
     def timed(name, fn):
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            spans[name] = spans.get(name, 0.0) + time.perf_counter() - t0
-            return out
-        return wrapper
+        return spans_of(torch, spans, name, fn)
 
     forwards = [0]
     plain_forward = tranception.Tranception.forward
@@ -1700,10 +1746,6 @@ def phase_tranception(torch, dev, card, fa, check_close):
     def counted_forward(self, tokens):
         forwards[0] += 1
         return plain_forward(self, tokens)
-
-    def read_rows(path):
-        with open(path, newline="") as f:
-            return list(csv.reader(f))
 
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
@@ -1742,7 +1784,7 @@ def phase_tranception(torch, dev, card, fa, check_close):
                 "--quiet", "--fail-fast", *(["--extra", *extra] if extra else [])])
             if rc != 0:
                 fail(f"{model} score CLI exited {rc} on {dms_id}")
-            return read_rows(root / out / f"{dms_id}.csv")
+            return read_table(root / out / f"{dms_id}.csv")
 
         # (a) TranceptEVE on the L=250 singles
         header = ["mutated_sequence", "avg_score_L_to_R", "avg_score_R_to_L", "avg_score"]
@@ -1855,11 +1897,11 @@ def phase_tranception(torch, dev, card, fa, check_close):
                        "--config", str(root / "config.json"), "--output-dir", str(root / "merged")])
         if rc != 0:
             fail(f"merge CLI exited {rc}")
-        merged = read_rows(root / "merged" / "SYNTH_L250.csv")
+        merged = read_table(root / "merged" / "SYNTH_L250.csv")
         col = {name: merged[0].index(name) for name in ("TranceptEVE_L", "EVE_single")}
         te_col = [r[col["TranceptEVE_L"]] for r in merged[1:]]
         eve_col = [r[col["EVE_single"]] for r in merged[1:]]
-        long_merged = read_rows(root / "merged" / "SYNTH_L1500.csv")
+        long_merged = read_table(root / "merged" / "SYNTH_L1500.csv")
         long_col = [r[long_merged[0].index("Tranception_L_no_retrieval")]
                     for r in long_merged[1:]]
         if (len(te_col) != len(mutants) or "" in te_col
@@ -1947,6 +1989,483 @@ def phase_tranception(torch, dev, card, fa, check_close):
     return {"launches": run_a["launches"], "long_launches": launches_b, "eve_launches": launches_c,
             "k1_err": max(r["max_abs_err"] for r in records), "logp_err": max(errs),
             "k1": records}
+
+
+def indel_variants(seq: str, counts, seed: int):
+    """Distinct indel variants of ``seq``, spread along it: ``counts`` =
+    (deletions, insertions, a substitution plus an indel, two indels),
+    each indel of 1-3 residues at a seeded position."""
+    rs = np.random.RandomState(seed)
+
+    def indel(s, insert):
+        at, size = rs.randint(0, len(s) + 1), rs.randint(1, 4)
+        if insert:
+            return s[:at] + "".join(AA[i] for i in rs.randint(0, 20, size)) + s[at:]
+        return s[:at] + s[at + size:]
+
+    def sub(s):
+        p = rs.randint(len(s))
+        return s[:p] + AA[(AA.index(s[p]) + 1 + rs.randint(19)) % 20] + s[p + 1:]
+
+    makers = (lambda: indel(seq, False), lambda: indel(seq, True),
+              lambda: indel(sub(seq), rs.rand() < 0.5),
+              lambda: indel(indel(seq, rs.rand() < 0.5), rs.rand() < 0.5))
+    out, seen = [], {seq}
+    for n, make in zip(counts, makers):
+        made = 0
+        while made < n:
+            v = make()
+            if v not in seen:
+                seen.add(v)
+                out.append(v)
+                made += 1
+    return out
+
+
+def spans_of(torch, spans, name, fn):
+    """``fn`` with its host seconds, device synchronised at both ends,
+    added to ``spans[name]``."""
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        spans[name] = spans.get(name, 0.0) + time.perf_counter() - t0
+        return out
+    return wrapper
+
+
+def device_seconds(torch, fn):
+    """``fn()``, its wall, the summed device time of what it ran on the
+    card (torch.profiler; None when the profiler reads none) and the
+    number of those launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_time_total > 0]
+    busy = sum(e.device_time_total for e in kernels) / 1e6 if kernels else None
+    return out, wall, busy, sum(e.count for e in kernels)
+
+
+INDEL_REFERENCE = ["DMS_id", "DMS_filename", "UniProt_ID", "target_seq", "seq_len",
+                   "MSA_filename", "MSA_start", "MSA_end", "MSA_theta", "weight_file_name",
+                   "taxon", "coarse_selection_type", "MSA_Neff_L_category",
+                   "DMS_total_number_mutants"]
+
+
+def phase_indels(torch, dev, card, fa, check_close):
+    """15. The indel track and the alignment baselines through the port's
+    CLI: (a) ``score --indel-mode`` with TranceptEVE and then Tranception
+    with MSA retrieval on an L=400 target with 2,000 indel variants and the
+    WT, per-token log-probs of 8 indel rows against the plain attention,
+    and K1 at the indel bucket; (b) ``hmm`` on it with --indel-mode and on
+    phase 14's L=250 substitution assay; (c) ``site_independent`` and
+    ``potts`` (300 Adam steps) on the L=250 assay, the trained model
+    written as a plmc file and scored again through --checkpoint; (d)
+    ``merge`` and ``evaluate --mutation-type indels`` of (a) and (b)."""
+    from proteingym_tpu_torch import native
+    from proteingym_tpu_torch.models import ar_scoring, eve, hmm, potts, retrieval, tranception
+    from proteingym_tpu_torch.models import trancepteve as te
+    from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.pipeline import cli
+    from proteingym_tpu_torch.pipeline.checkpoints import (
+        TRANCEPTION_PRESETS, load_tranception_checkpoint,
+    )
+
+    s = INDEL_SLICE
+    length, covered, batch = s["length"], s["covered"], s["batch"]
+    config = TRANCEPTION_PRESETS[s["checkpoint"]]
+    rs = np.random.RandomState(15)
+    codes = rs.randint(1, 21, length)
+    seq = "".join(GAP_AA[c] for c in codes)
+    variants = indel_variants(seq, s["variants"], 15)
+    assay = variants + [seq]  # the WT last
+    y = np.random.RandomState(16).randn(len(assay))
+    # phase 14's L=250 target, alignment and singles
+    t = TRANCEPTION_SLICE
+    codes250 = np.random.RandomState(13).randint(1, 21, t["length"])
+    seq250 = "".join(GAP_AA[c] for c in codes250)
+    singles = [f"{seq250[p]}{p + 1}{a}" for p in range(t["length"]) for a in AA
+               if a != seq250[p]]
+    t0 = time.perf_counter()
+    native.get_lib()
+    print(f"[indels] L={length} target, {len(variants)} unique indel variants "
+          f"({', '.join(map(str, s['variants']))}: deletions, insertions, substitution + indel, "
+          f"two indels) + WT, MSA N={s['n_seqs']} over residues 1-{covered}; the aligner "
+          f"built with g++ in {time.perf_counter() - t0:.2f} s ({native.library_path().name}); "
+          f"{card}")
+
+    def reset():
+        for counts in (fa.LAUNCHES, W.LAUNCHES):
+            for name in counts:
+                counts[name] = 0
+
+    def launched():
+        return {**fa.LAUNCHES, **W.LAUNCHES}
+
+    forwards = [0]
+    plain_forward = tranception.Tranception.forward
+
+    def counted_forward(self, tokens):
+        forwards[0] += 1
+        return plain_forward(self, tokens)
+
+    plans = ar_scoring.get_sequence_slices(assay, assay, seq, config.n_ctx - 2, indel_mode=True)
+    buckets = ar_scoring._length_buckets(np.asarray([len(p.sliced_sequence) + 2 for p in plans]))
+    n_fwd = 2 * sum(-(-int((buckets == b).sum()) // batch) for b in np.unique(buckets))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        (root / "msa").mkdir()
+        (root / "dms").mkdir()
+        write_a2m(root / "msa" / "SYNTH_INDEL.a2m", "SYNTH_INDEL",
+                  synth_family(codes[:covered], s["n_seqs"], 15))
+        write_a2m(root / "msa" / "SYNTH250.a2m", "SYNTH250",
+                  synth_family(codes250[:t["covered"]], t["n_seqs"], 13))
+        eve_file = root / "eve.pt"
+        torch.save(eve.checkpoint_dict(eve.init_random(eve.EveConfig(seq_len=covered), seed=15,
+                                                       device=dev)), eve_file)
+        cut = np.quantile(y, 0.7)
+        write_csv_rows(root / "dms" / "SYNTH_INDEL.csv",
+                       ["mutant", "mutated_sequence", "DMS_score", "DMS_score_bin"],
+                       [[v, v, repr(float(x)), int(x > cut)] for v, x in zip(assay, y)])
+        write_csv_rows(root / "dms" / "SYNTH_L250.csv", ["mutant", "DMS_score"],
+                       [[m, "0.5"] for m in singles])
+        write_csv_rows(root / "dms" / "SYNTH_L250_WT.csv", ["mutant", "DMS_score"],
+                       [[m, "0.5"] for m in singles + ["WT"]])
+        write_csv_rows(root / "indels.csv", INDEL_REFERENCE, [[
+            "SYNTH_INDEL", "SYNTH_INDEL.csv", "SYNTH", seq, length, "SYNTH_INDEL.a2m", 1,
+            covered, 0.2, "SYNTH_INDEL.npy", "Human", "Stability", "Medium", len(assay)]])
+        write_csv_rows(root / "l250.csv", INDEL_REFERENCE, [
+            [dms_id, f"{dms_id}.csv", "SYNTH", seq250, t["length"], "SYNTH250.a2m", 1,
+             t["covered"], 0.2, "SYNTH250.npy", "Human", "Stability", "Medium", n]
+            for dms_id, n in (("SYNTH_L250", len(singles)), ("SYNTH_L250_WT", len(singles) + 1))])
+
+        def score(model, ref, dms_id, out_dir, checkpoint=None, extra=(), indel=False):
+            rc = cli.main([
+                "score", "--model", model, "--dms-id", dms_id, "--msa-dir", str(root / "msa"),
+                "--weights-dir", str(root / "weights"), "--dms-reference", str(root / ref),
+                "--dms-dir", str(root / "dms"), "--output-dir", str(root / out_dir),
+                "--batch-size", str(batch), "--device", dev.type, "--quiet", "--fail-fast",
+                *(["--indel-mode"] if indel else []),
+                *(["--checkpoint", checkpoint] if checkpoint else []),
+                *(["--extra", *extra] if extra else [])])
+            if rc != 0:
+                fail(f"{model} score CLI exited {rc} on {dms_id}")
+            return read_table(root / out_dir / f"{dms_id}.csv")
+
+        header = ["mutated_sequence", "avg_score_L_to_R", "avg_score_R_to_L", "avg_score"]
+
+        def check_table(rows, what):
+            if rows[0] != header or [r[0] for r in rows[1:]] != assay:
+                fail(f"{what} CSV: columns {rows[0]}, {len(rows) - 1} rows; expected {header} "
+                     f"over the {len(assay)} sequences in assay order")
+            scores = np.asarray([r[1:] for r in rows[1:]], dtype=np.float64)
+            if not np.isfinite(scores).all() or rows[-1][1:] != ["0.0"] * 3:
+                fail(f"{what} CSV: non-finite scores, or the WT row {rows[-1][1:]} is not 0")
+
+        # (a) TranceptEVE --indel-mode
+        spans, stacks = {}, {}
+        make_indel_fusion = retrieval.make_indel_fusion
+
+        def recorded_fusion(*args, **kwargs):
+            fusion, table_of = make_indel_fusion(*args, **kwargs)
+            stacks.update(tables=len(table_of), bytes=nbytes(fusion.msa_lp, fusion.eve_lp),
+                          l_pad=fusion.msa_lp.shape[1])
+            return fusion, table_of
+
+        def run_a(model, out_dir, extra):
+            reset()
+            spans.clear()
+            forwards[0] = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with mock.patch.object(tranception.Tranception, "forward", counted_forward), \
+                    mock.patch.object(retrieval, "_align_to_reference",
+                                      spans_of(torch, spans, "align",
+                                               retrieval._align_to_reference)), \
+                    mock.patch.object(retrieval, "make_indel_fusion",
+                                      spans_of(torch, spans, "realign", recorded_fusion)), \
+                    mock.patch.object(retrieval, "eve_log_prior",
+                                      spans_of(torch, spans, "eve_prior",
+                                               retrieval.eve_log_prior)), \
+                    mock.patch.object(te, "score_trancepteve",
+                                      spans_of(torch, spans, "scoring", te.score_trancepteve)):
+                rows = score(model, "indels.csv", "SYNTH_INDEL", out_dir, s["checkpoint"], extra,
+                             indel=True)
+            wall = time.perf_counter() - t0
+            return rows, wall, launched(), torch.cuda.max_memory_allocated() / 2**30
+
+        rows, wall, launches, peak = run_a("trancepteve", "TranceptEVE_L", [
+            "retrieval_type=TranceptEVE", f"eve_checkpoints={eve_file}",
+            f"eve_num_samples={s['eve_num_samples']}"])
+        if forwards[0] != n_fwd:
+            fail(f"trancepteve --indel-mode: {forwards[0]} forwards, expected {n_fwd}")
+        want = {"cluster_counts": 1, "grouped_attention": config.num_layers * n_fwd}
+        print(f"  (a) launches {launches} (expected {want}; rope_qk and K2-K4 0)")
+        check_launches("trancepteve --indel-mode", launches, want)
+        check_table(rows, "trancepteve --indel-mode")
+        ar_s = spans["scoring"] - spans["realign"]
+        print(f"  (a) TranceptEVE: {stacks['tables']} unique sequences and alignments (the "
+              f"variants and the WT), aligner {spans['align']:.3f} s, realignment (aligner + "
+              f"tables + upload) {spans['realign']:.3f} s; two stacks of {stacks['tables']} x "
+              f"{stacks['l_pad']} x 25 float32, {stacks['bytes'] / 1e6:.1f} MB on the card; EVE "
+              f"prior {spans['eve_prior']:.2f} s; {n_fwd} forwards of {batch} x "
+              f"{int(buckets.max())} ({config.num_layers} K1 each), AR scoring {ar_s:.2f} s -> "
+              f"{len(variants) / ar_s:.2f} mutants/s; CLI wall {wall:.2f} s, peak {peak:.2f} GiB "
+              f"({card})")
+        out["a"] = dict(launches=launches, wall_s=wall, spans=dict(spans), stacks=dict(stacks),
+                        peak_gib=peak, forwards=n_fwd)
+        # Tranception with MSA retrieval, --indel-mode, under the profiler
+        # for the idle share (the weights file exists now: no K5)
+        (rows, wall, launches, peak), wall_p, busy, n_kernels = device_seconds(
+            torch, lambda: run_a("tranception", "Tranception_L", ["retrieval_type=Tranception"]))
+        check_launches("tranception --indel-mode", launches,
+                       {"grouped_attention": config.num_layers * n_fwd})
+        check_table(rows, "tranception --indel-mode")
+        ar_s = spans["scoring"] - spans["realign"]
+        idle = None if busy is None else 1.0 - busy / wall_p
+        print(f"  (a) Tranception + MSA retrieval (under torch.profiler): aligner "
+              f"{spans['align']:.3f} s, realignment {spans['realign']:.3f} s, AR scoring "
+              f"{ar_s:.2f} s -> {len(variants) / ar_s:.2f} mutants/s; CLI wall {wall:.2f} s, "
+              f"peak {peak:.2f} GiB; {n_kernels} kernels, device busy "
+              + ("not read" if busy is None else f"{busy:.2f} s, idle share {idle:.3f}")
+              + f" ({card})")
+        out["a_tranception"] = dict(launches=launches, wall_s=wall, spans=dict(spans),
+                                    device_s=busy, idle=idle, peak_gib=peak)
+
+        # (b) the HMM, --indel-mode on the indel assay and on the L=250
+        # substitution assay (its alignment's weights by K5 here)
+        captured = {}
+        score_sequences = hmm.score_sequences
+
+        def captured_scores(model, seqs, device="cuda"):
+            captured.update(model=model, seqs=list(seqs))
+            captured["out"] = score_sequences(model, seqs, device=device)
+            return captured["out"]
+
+        for what, ref, dms_id, indel, want in (
+                ("indels", "indels.csv", "SYNTH_INDEL", True, {}),
+                ("L=250 substitutions", "l250.csv", "SYNTH_L250_WT", False,
+                 {"cluster_counts": 1})):
+            reset()
+            spans.clear()
+            with mock.patch.object(hmm, "build_profile_hmm",
+                                   spans_of(torch, spans, "build", hmm.build_profile_hmm)), \
+                    mock.patch.object(hmm, "score_sequences",
+                                      spans_of(torch, spans, "forward", captured_scores)):
+                rows = score("hmm", ref, dms_id, "HMM", indel=indel)
+            check_launches(f"hmm {what}", launched(), want)
+            cells = [r[-1] for r in rows[1:]]
+            if rows[0][-1] != "HMM_score" or "" in cells or cells[-1] != "0.0" or not np.isfinite(
+                    np.asarray(cells, dtype=np.float64)).all():
+                fail(f"hmm {what}: column {rows[0][-1]}, {cells.count('')} empty fields, WT "
+                     f"{cells[-1]!r}: expected finite scores and the WT row 0")
+            t_len = max(len(x) for x in captured["seqs"])
+            pick = np.unique(np.linspace(0, len(captured["seqs"]) - 1, HMM_CPU_ROWS).astype(int))
+            on_cpu = score_sequences(captured["model"], [captured["seqs"][k] for k in pick],
+                                     device="cpu")
+            cpu_err = float(np.abs(captured["out"][pick] - on_cpu).max())
+            if not cpu_err <= HMM_CPU_ATOL:
+                fail(f"hmm {what}: {len(pick)} rows' log-probs, card against CPU: max |diff| "
+                     f"{cpu_err:.3g} (atol {HMM_CPU_ATOL:g})")
+            # the forward again under the profiler: launches and device time
+            _, wall_h, busy_h, n_kernels = device_seconds(
+                torch, lambda: score_sequences(captured["model"], captured["seqs"], device=dev))
+            host = None if busy_h is None else 1.0 - busy_h / wall_h
+            print(f"  (b) hmm {what}: {len(cells)} finite scores, WT 0; {captured['model'].L} "
+                  f"match states, build {spans['build']:.3f} s, forward {spans['forward']:.3f} s "
+                  f"for {len(captured['seqs'])} rows x {t_len} steps -> "
+                  f"{len(cells) / spans['forward']:.1f} mutants/s, {n_kernels / t_len:.1f} "
+                  "launches per residue step; profiled: device busy "
+                  + ("not read" if busy_h is None else
+                     f"{busy_h:.3f} s of {wall_h:.3f} s, host share {host:.3f}")
+                  + f"; {len(pick)} rows' log-probs against the CPU: max |diff| {cpu_err:.3g} "
+                  f"(atol {HMM_CPU_ATOL:g}) ({card})")
+            out[f"hmm_{'indel' if indel else 'sub'}"] = dict(
+                spans=dict(spans), launches_per_step=n_kernels / t_len, rows=len(cells),
+                device_s=busy_h, host_share=host, cpu_err=cpu_err)
+
+        # (c) site_independent and potts on the L=250 singles
+        reset()
+        rows_si = score("site_independent", "l250.csv", "SYNTH_L250", "Site_Independent")
+        trained = {}
+        train = potts.train_potts_plm
+
+        def captured_train(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = train(*args, **kwargs)
+            trained.update(model=model, seconds=time.perf_counter() - t0, args=args,
+                           kwargs=kwargs)
+            return model
+
+        spans.clear()
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(potts, "train_potts_plm", captured_train), \
+                mock.patch.object(potts.PottsModel, "delta_hamiltonians",
+                                  spans_of(torch, spans, "dE", potts.PottsModel.delta_hamiltonians)):
+            rows_p = score("potts", "l250.csv", "SYNTH_L250", "EVmutation")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check_launches("site_independent + potts", launched(), {})
+        past = [i for i, m in enumerate(singles) if int(m[1:-1]) > t["covered"]]
+        cols = {}
+        for name, rows in (("Site_Independent_score", rows_si), ("EVmutation_score", rows_p)):
+            cells = [r[-1] for r in rows[1:]]
+            if rows[0][-1] != name or [i for i, c in enumerate(cells) if c == ""] != past:
+                fail(f"{name}: column {rows[0][-1]}, {cells.count('')} empty fields (expected the "
+                     f"{len(past)} mutants past residue {t['covered']})")
+            cols[name] = np.asarray([float(c) for c in cells if c])
+            if not np.isfinite(cols[name]).all():
+                fail(f"{name}: non-finite scores")
+        model, losses = trained["model"], trained["model"].losses
+        diff = float(np.abs(cols["EVmutation_score"] - cols["Site_Independent_score"]).max())
+        if not losses[-1] < losses[0] or diff < 1e-3:
+            fail(f"potts: loss {losses[0]:.4f} -> {losses[-1]:.4f}, max |potts - site "
+                 f"independent| {diff:.3g}")
+        n_rows, lq = len(model.weights), model.L * model.q
+        flops = 4.0 * n_rows * lq * lq * len(losses)  # the product and J's gradient, per step
+        print(f"  (c) potts: {len(losses)} Adam steps on N={n_rows} x L={model.L} x q={model.q}: "
+              f"{trained['seconds']:.2f} s, loss {losses[0]:.4f} (step 1) -> {losses[-1]:.4f} "
+              f"(step {len(losses)}), {flops / trained['seconds'] / 1e12:.1f} TFLOP/s float32 "
+              f"(peak {PEAK_F32_FLOPS / 1e12:.0f} without TF32); dE of {len(singles)} singles "
+              f"{spans['dE']:.3f} s; peak {peak:.2f} GiB; {len(singles) - len(past)} finite scores "
+              f"each, {len(past)} empty past residue {t['covered']}, max |potts - site "
+              f"independent| {diff:.3f} ({card})")
+        # the first steps on the card against the same steps in float64 on the CPU
+        few = dict(trained["kwargs"], steps=POTTS_CPU_STEPS)
+        on_card = train(*trained["args"], **dict(few, device=dev))
+        t0 = time.perf_counter()
+        torch.set_default_dtype(torch.float64)  # every tensor the trainer makes
+        try:
+            on_cpu = train(*trained["args"], **dict(few, device="cpu"))
+        finally:
+            torch.set_default_dtype(torch.float32)
+        cpu_s = time.perf_counter() - t0
+        potts_err = dict(
+            loss=float(np.abs(on_card.losses / on_cpu.losses - 1.0).max()),
+            h=float(np.linalg.norm(on_card.h - on_cpu.h) / np.linalg.norm(on_cpu.h)),
+            J=float(np.linalg.norm(on_card.J - on_cpu.J) / np.linalg.norm(on_cpu.J)),
+            J_max_abs=float(np.abs(on_card.J - on_cpu.J).max()))
+        del on_card, on_cpu
+        print(f"  (c) potts, the first {POTTS_CPU_STEPS} Adam steps on the card against float64 "
+              f"on the CPU ({cpu_s:.1f} s there): losses rel {potts_err['loss']:.3g} (rtol "
+              f"{POTTS_LOSS_RTOL:g}), h rel {potts_err['h']:.3g}, J rel {potts_err['J']:.3g} "
+              f"(rtol {POTTS_HJ_RTOL:g}), J max |diff| {potts_err['J_max_abs']:.3g}")
+        if not (potts_err["loss"] <= POTTS_LOSS_RTOL and potts_err["h"] <= POTTS_HJ_RTOL
+                and potts_err["J"] <= POTTS_HJ_RTOL):
+            fail(f"potts: the card's first {POTTS_CPU_STEPS} steps disagree with float64 on the "
+                 f"CPU: {potts_err}")
+        model_file = root / "potts.model"
+        potts.write_plmc_model(model, model_file)
+        rows_f = score("potts", "l250.csv", "SYNTH_L250", "EVmutation_file", str(model_file))
+        again = np.asarray([float(r[-1]) for r in rows_f[1:] if r[-1]])
+        file_err = float(np.abs(again - cols["EVmutation_score"]).max()) \
+            if len(again) == len(cols["EVmutation_score"]) else float("inf")
+        if not file_err <= POTTS_FILE_ATOL:
+            fail(f"potts from its plmc file: max |diff| {file_err:.3g} (atol {POTTS_FILE_ATOL:g})")
+        print(f"  (c) potts written with write_plmc_model and scored through --checkpoint: max "
+              f"|diff| {file_err:.3g} (atol {POTTS_FILE_ATOL:g})")
+        out["potts"] = dict(train_s=trained["seconds"], loss_first=float(losses[0]),
+                            loss_last=float(losses[-1]), tflops=flops / trained["seconds"] / 1e12,
+                            de_s=spans["dE"], peak_gib=peak, file_err=file_err,
+                            cpu_err=potts_err, cpu_s=cpu_s)
+
+        # (d) merge and evaluate --mutation-type indels of (a) and (b)
+        models = {"TranceptEVE_L": ("TranceptEVE_L", "avg_score"),
+                  "Tranception_L": ("Tranception_L", "avg_score"), "HMM": ("HMM", "HMM_score")}
+        (root / "config.json").write_text(json.dumps({"model_list_zero_shot_indels_DMS": {
+            name: {"input_score_name": col, "location": loc, "directionality": 1,
+                   "key": "mutated_sequence", "model_type": "Alignment-based model"}
+            for name, (loc, col) in models.items()}}))
+        common = ["--dms-reference", str(root / "indels.csv"), "--config",
+                  str(root / "config.json"), "--mutation-type", "indels"]
+        if cli.main(["merge", "--dms-dir", str(root / "dms"), "--scores-root", str(root),
+                     "--output-dir", str(root / "merged"), *common]) != 0:
+            fail("merge --mutation-type indels failed")
+        if cli.main(["evaluate", "--merged-dir", str(root / "merged"), "--output-dir",
+                     str(root / "bench"), "--device", dev.type, "--no-html",
+                     "--bootstrap-samples", "1000", *common]) != 0:
+            fail("evaluate --mutation-type indels failed")
+        summary = root / "bench" / "Spearman" / "Summary_performance_DMS_indels_Spearman.csv"
+        table = read_table(summary) if summary.exists() else [[]]
+        named = sorted(r[1] for r in table[1:])
+        if named != sorted(models):
+            fail(f"{summary.name}: models {named}, expected {sorted(models)}")
+        print("  (d) merge + evaluate --mutation-type indels: " + ", ".join(
+            f"{r[1]} Spearman {r[3]}" for r in table[1:]))
+
+    # the per-token log-probs of 8 indel rows of (a), both directions, with
+    # the kernel and with the plain attention in the model
+    model, _ = load_tranception_checkpoint(s["checkpoint"], device=dev)  # the CLI's weights
+    picks = [variants[i] for i in np.linspace(0, len(variants) - 1, s["logp_rows"]).astype(int)]
+    texts = picks + [r[::-1] for r in picks]
+    width = int(buckets.max())
+    tokens = torch.from_numpy(np.stack([tranception.VOCAB.tokenize(x, pad_to=width)
+                                        for x in texts])).long().to(dev)
+    targets = tokens[:, 1:, None]
+    live = targets[..., 0] != tranception.VOCAB.PAD
+
+    def per_token():
+        return torch.log_softmax(model(tokens), -1)[:, :-1].gather(-1, targets)[..., 0][live]
+
+    with torch.no_grad():
+        got = per_token()
+        with mock.patch.object(tranception, "mha", fa.plain_mha):
+            want = per_token()
+    lens = sorted(len(x) for x in picks)
+    logp_err = check_close(f"(a) per-token log-probs, {len(picks)} indel rows of {lens[0]}-"
+                           f"{lens[-1]} residues, both directions, kernel vs plain", got, want,
+                           TRANCEPTION_LOGP_ATOL, 0.0)
+    del model, got, want
+    torch.cuda.empty_cache()
+
+    # K1 alone at the indel bucket: q pre-scaled, ALiBi, causal, and each
+    # row's own pad tail of 1-31 tokens
+    b, h, t_len = K1_INDEL
+    d = 64
+    gen = torch.Generator(device=dev).manual_seed(t_len)
+    q, k, v = (torch.randn(b, t_len, h, d, generator=gen, device=dev).to(torch.bfloat16)
+               .transpose(1, 2) for _ in range(3))
+    q = (q.float() * 0.125).to(torch.bfloat16)
+    lengths = [t_len - 1 - (i % 31) for i in range(b)]
+    mask = torch.arange(t_len, device=dev)[None, :] < torch.tensor(lengths, device=dev)[:, None]
+    bias = tranception.alibi_bias(h, t_len, dev)
+    kw = dict(key_mask=mask, bias=bias, causal=True, sm_scale=1.0)
+    tiles = fa.KeyTiles(None, mask, True)
+    got = fa.grouped_mha(q, k, v, key_tiles=tiles, **kw)
+    torch.cuda.synchronize()
+    want = fa.plain_mha(q.float(), k.float(), v.float(), **kw)
+    err = check_close(f"K1 B{b} H{h} T{t_len} D{d} ALiBi + causal + pad tails 1-31, live rows",
+                      got.transpose(1, 2)[mask], want.transpose(1, 2)[mask], BF16_ATOL, BF16_RTOL)
+    del want
+    allowed = torch.ones(t_len, t_len, dtype=torch.bool, device=dev).tril()[None] & mask[:, None]
+    dense = torch.where(allowed[:, None], bias[None, :, None, :],
+                        float("-inf")).to(torch.bfloat16)
+    times = median_pair(torch, {
+        "kernel": lambda: fa.grouped_mha(q, k, v, key_tiles=tiles, **kw),
+        "call": lambda: fa.grouped_mha(q, k, v, **kw),
+        "plain": lambda: fa.plain_mha(q, k, v, **kw),
+        "sdpa": sdpa(torch, q, k, v, dense),
+    }, reps=3, inner=5, rounds=1)
+    del dense
+    torch.cuda.empty_cache()
+    bnd = bound(4.0 * h * d * k1_pairs(lengths, t_len), nbytes(q, k, v, got, mask, bias))
+    print(f"  (a) K1 at B{b} H{h} T{t_len} D{d}: kernel {times['kernel']:.4f} ms (with the extents "
+          f"made per call {times['call']:.4f}), plain {times['plain']:.4f} ms, SDPA (dense bf16 "
+          f"mask) {times['sdpa']:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; "
+          f"{card})")
+    out["k1"] = dict(shape=f"B{b} H{h} T{t_len} D{d} ALiBi + causal + per-row pad tails of 1-31, "
+                           "q pre-scaled (whole indel rows), extents made once",
+                     ms=times["kernel"], call_ms=times["call"], plain_ms=times["plain"],
+                     library_ms=times["sdpa"], max_abs_err=err, **bnd)
+    out["logp_err"] = logp_err
+    return out
 
 
 def main() -> int:
@@ -2165,9 +2684,15 @@ def main() -> int:
     phase_clinical(cli)
     msa_run = phase_msa_transformer(torch, dev, card, fa, check_close)
     tr_run = phase_tranception(torch, dev, card, fa, check_close)
+    indel_run = phase_indels(torch, dev, card, fa, check_close)
 
     if "jax" in sys.modules:
         fail("the port imported jax")
+    # the guard below covers the modules of every phase, phase 15's too
+    missing = [m for m in ("proteingym_tpu_torch.native", "proteingym_tpu_torch.models.hmm",
+                           "proteingym_tpu_torch.models.potts") if m not in sys.modules]
+    if missing:
+        fail(f"modules the phases drive were not loaded: {missing}")
     jax_package = sorted(m for m in sys.modules
                          if m == "proteingym_tpu" or m.startswith("proteingym_tpu."))
     if jax_package:
@@ -2177,7 +2702,7 @@ def main() -> int:
         # K1's main path is PoET's self tier; the ESM headline shape beside it
         "grouped_attention": dict(
             max_abs_err=max(max_abs_err, k2["k1_self_err"], msa_run["k1_err"],
-                            tr_run["k1_err"]),
+                            tr_run["k1_err"], indel_run["k1"]["max_abs_err"]),
             shape="B8 H16 T4352 D64, 16 segments + causal",
             **{key: k2["k1"][key] for key in k1_keys},
             other_shapes=[{"shape": "B16 H20 T256 D64 mask+rope, pre-pass + loop",
@@ -2194,7 +2719,8 @@ def main() -> int:
                "esm_segment_packed": seg_packed["launches"], "esm_wt": wt["wt_launches"],
                "esm_pppl": wt["pppl_launches"], "msa_transformer": msa_run["launches"],
                "trancepteve": tr_run["launches"], "tranception_windows": tr_run["long_launches"],
-               "eve": tr_run["eve_launches"]}
+               "eve": tr_run["eve_launches"], "trancepteve_indel": indel_run["a"]["launches"],
+               "tranception_indel": indel_run["a_tranception"]["launches"]}
     records = [{
         "name": name,
         "route": "cuda",
@@ -2211,6 +2737,12 @@ def main() -> int:
                         "route": "cuda", "source": source, "replaces": replaces,
                         "launches": by_path[path]["grouped_attention"], "counter":
                         "grouped_attention", "path": path, **rec})
+    # K1 at the indel bucket, with the launches of the trancepteve --indel-mode path
+    records.append({"name": f"grouped_attention:T{K1_INDEL[2]}_indel", "route": "cuda",
+                    "source": source, "replaces": replaces,
+                    "launches": by_path["trancepteve_indel"]["grouped_attention"],
+                    "counter": "grouped_attention", "path": "trancepteve_indel",
+                    **indel_run["k1"]})
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

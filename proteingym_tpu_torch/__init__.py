@@ -17,8 +17,12 @@ Layout:
   msa/       — A2M parsing, sequence weights (hand-written Hopper kernel)
   ops/       — attention (hand-written Hopper kernels + plain versions),
                rotary tables, gather-then-log-softmax
-  models/    — ESM2/ESM-1b/ESM-1v and PoET as nn.Modules, masked-marginal,
-               packed, WT-marginal and pseudo-ppl scoring
+  native/    — the Gotoh aligner of indel realignment (C++, built with g++
+               at first use)
+  models/    — ESM2/ESM-1b/ESM-1v, PoET, the MSA Transformer, Tranception
+               and EVE as nn.Modules, their scoring paths, the retrieval
+               priors (with indel realignment), the profile HMM and the
+               Potts / site-independent models
   merge/, metrics/ — merge and evaluate without pandas
   pipeline/  — checkpoint specs, scorers, the CLI
 """

@@ -8,7 +8,8 @@ model_pytorch.py:878-928):
 
 with mirroring, (score_L2R(x) + score_R2L(reverse(x))) / 2, per-window
 slicing of long sequences (optimal or sliding), and the delta against the
-wild type scored in the SAME window. Rows are padded into length buckets
+wild type scored in the SAME window (indel assays: whole sequences against
+the whole WT). Rows are padded into length buckets
 of 32 tokens (which fixes the attention's T) and scored in forwards of
 ``batch_size`` rows; the last forward of a bucket takes what is left.
 """
@@ -47,9 +48,8 @@ def get_sequence_slices(
     """The slice plan with a WT row for every mutant window, deduplicated
     in first-seen order (ref scoring_utils.py:152-203): optimal windows
     centred on each mutant's mutation barycenter, or non-overlapping
-    sliding windows."""
-    if indel_mode:
-        raise NotImplementedError("indel scoring (--indel-mode) is not ported yet")
+    sliding windows. With ``indel_mode`` (optimal) each sequence is one
+    whole row and the WT row spans the whole target."""
     plans: List[SlicePlan] = []
     seen = set()
 
@@ -61,11 +61,15 @@ def get_sequence_slices(
 
     if scoring_window == "optimal":
         for mut, seq in zip(mutants, mutated_sequences):
-            positions = [int(tok[1:-1]) - start_idx for tok in mut.split(":")]
-            bary = mutation_barycenter(np.asarray(positions))
-            ws, we = get_optimal_window(bary, len(target_seq), model_context_len)
+            if indel_mode:
+                ws, we = 0, len(seq)
+            else:
+                positions = [int(tok[1:-1]) - start_idx for tok in mut.split(":")]
+                bary = mutation_barycenter(np.asarray(positions))
+                ws, we = get_optimal_window(bary, len(target_seq), model_context_len)
             add(seq, seq[ws:we], ws, we)
-            add(target_seq, target_seq[ws:we], ws, we)
+            wt_we = len(target_seq) if indel_mode else we
+            add(target_seq, target_seq[ws:wt_we], ws, wt_we)
     elif scoring_window == "sliding":
         num_windows = 1 + int(len(target_seq) / model_context_len)
         start = 0
@@ -86,13 +90,14 @@ def _length_buckets(lengths: np.ndarray, granularity: int = 32) -> np.ndarray:
     return ((lengths + granularity - 1) // granularity) * granularity
 
 
-def _block_loglik(logits_fn, tokens, starts, ends, fusion, pad_id, reverse):
+def _block_loglik(logits_fn, tokens, starts, ends, fusion, pad_id, reverse, tables):
     """Summed teacher-forced log-likelihood of each row of one forward."""
     logps = torch.log_softmax(logits_fn(tokens).float(), dim=-1)
     targets = tokens[:, 1:]
     shift = logps[:, :-1]
     if fusion is not None:
-        shift = fusion(shift, targets, starts, ends, reverse)
+        args = (shift, targets, starts, ends, reverse)
+        shift = fusion(*args) if tables is None else fusion(*args, tables)
     token_ll = shift.gather(-1, targets[..., None])[..., 0]
     return (token_ll * (targets != pad_id).float()).sum(dim=1)
 
@@ -109,6 +114,7 @@ def batched_ar_loglik(
     window_ends: Optional[np.ndarray] = None,
     reverse: bool = False,
     device="cuda",
+    fusion_row_tables: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """Teacher-forced log-likelihood of each token row, float64 (N,):
     sum_t log p(x_t | x_<t) over t >= 1 (the first token is context).
@@ -118,7 +124,12 @@ def batched_ar_loglik(
     bucket, and scored ``batch_size`` at a time; the results are read
     back once, after the last forward is queued. ``fusion`` (a
     ``retrieval.Fusion``) rewrites the shifted log-probs with retrieval
-    priors inside each row's window [``window_starts``, ``window_ends``)."""
+    priors inside each row's window [``window_starts``, ``window_ends``);
+    a per-row fusion (indels) reads row i's prior from its table
+    ``fusion_row_tables[i]``."""
+    per_row = bool(getattr(fusion, "per_row", False))
+    if per_row and fusion_row_tables is None:
+        raise ValueError("per-row fusion requires fusion_row_tables")
     n = len(token_rows)
     lengths = np.asarray([len(r) for r in token_rows])
     buckets = _length_buckets(lengths, bucket_granularity)
@@ -128,6 +139,8 @@ def batched_ar_loglik(
         window_ends = lengths
     starts_d = torch.as_tensor(np.asarray(window_starts, np.int64), device=device)
     ends_d = torch.as_tensor(np.asarray(window_ends, np.int64), device=device)
+    tables_d = (torch.as_tensor(np.asarray(fusion_row_tables, np.int64), device=device)
+                if per_row else None)
 
     per_bucket: Dict[int, List[int]] = {}
     for ridx in np.argsort(buckets, kind="stable"):
@@ -142,7 +155,7 @@ def batched_ar_loglik(
             sel = torch.as_tensor(block, device=device)
             pending.append((block, _block_loglik(
                 logits_fn, torch.from_numpy(rows).to(device), starts_d[sel], ends_d[sel],
-                fusion, pad_id, reverse)))
+                fusion, pad_id, reverse, None if tables_d is None else tables_d[sel])))
     out = np.zeros(n, dtype=np.float64)
     for block, lls in pending:
         out[block] = lls.cpu().numpy()
@@ -188,13 +201,17 @@ def score_mutants_ar(
     batch_size: int = 64,
     fusion: Optional[Callable] = None,
     device="cuda",
+    indel_mode: bool = False,
+    fusion_table_of: Optional[Dict[str, int]] = None,
 ) -> Table:
     """The AR pipeline with mirroring and per-window WT deltas (ref
     model_pytorch.py:878-928): the L->R pass, the R->L pass on reversed
     strings (``reverse_logits_fn`` or the same model), window sums per
     sequence (sliding), division by the full sequence length, the delta
     against the WT of the same window (optimal) or the WT total (sliding),
-    averaged over the directions.
+    averaged over the directions. With ``indel_mode`` each sequence is
+    scored whole against the one WT row; ``fusion_table_of`` maps each
+    mutated sequence to its realigned prior table of a per-row fusion.
 
     Returns the JAX frame as a ``Table``: ``mutated_sequence,
     avg_score_L_to_R[, avg_score_R_to_L], avg_score`` with its rows in the
@@ -205,7 +222,10 @@ def score_mutants_ar(
         target_seq if target_seq is not None else mutated_sequences[0],
         model_context_len,
         scoring_window=scoring_window if target_seq is not None else "sliding",
+        indel_mode=indel_mode,
     )
+    tables = (None if fusion_table_of is None else
+              np.asarray([fusion_table_of[p.mutated_sequence] for p in plans], np.int64))
     summed = scoring_window == "sliding" or target_seq is None
 
     def one_direction(reverse: bool):
@@ -216,7 +236,7 @@ def score_mutants_ar(
             fn, rows, pad_id, batch_size=batch_size, fusion=fusion,
             window_starts=np.asarray([p.window_start for p in plans]),
             window_ends=np.asarray([p.window_end for p in plans]),
-            reverse=reverse, device=device,
+            reverse=reverse, device=device, fusion_row_tables=tables,
         )
         seqs = [p.mutated_sequence for p in plans]
         starts = [p.window_start for p in plans]

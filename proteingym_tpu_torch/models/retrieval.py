@@ -19,6 +19,10 @@ VAE prior and the fusion of both into the AR model's log-probs.
   :975-1001).
 - Recalibration: temperature matching of a prior's mean log-prob to the
   transformer's (ref :855-905).
+- Indels: the priors realigned to every indel sequence by the native Gotoh
+  aligner (the role of Clustal Omega, ref tranception/utils/
+  msa_utils.py:141-192), one table per unique sequence, stacked on the
+  device and read row by row by the per-row fusion.
 """
 
 from __future__ import annotations
@@ -159,9 +163,12 @@ def eve_log_prior(
     return prior
 
 
-def msa_alpha(msa_depth: int, retrieval_type: str = "TranceptEVE") -> float:
+def msa_alpha(msa_depth: int, indel_mode: bool = False,
+              retrieval_type: str = "TranceptEVE") -> float:
     if retrieval_type == "Tranception":
         return 0.6
+    if indel_mode:
+        return 0.0 if msa_depth < 10 else 0.5
     if msa_depth < 10:
         return 0.0
     if msa_depth < 10**2:
@@ -173,9 +180,12 @@ def msa_alpha(msa_depth: int, retrieval_type: str = "TranceptEVE") -> float:
     return 0.5
 
 
-def eve_beta(eve_depth: int, retrieval_type: str = "TranceptEVE") -> float:
+def eve_beta(eve_depth: int, indel_mode: bool = False,
+             retrieval_type: str = "TranceptEVE") -> float:
     if retrieval_type == "Tranception":
         return 0.0
+    if indel_mode:
+        return 0.0 if eve_depth < 10 else 0.1
     if eve_depth < 10:
         return 0.0
     if eve_depth < 10**2:
@@ -215,9 +225,80 @@ def _logsumexp_rows(x: np.ndarray) -> np.ndarray:
     return m + np.log(np.exp(x - m).sum(axis=-1, keepdims=True))
 
 
+def _aa_codes(seq: str) -> np.ndarray:
+    """The aligner's int8 codes: amino acid i (any case) -> i + 1, else 0."""
+    return _byte_codes([seq], _aa_table(1, upper=True))[0].clip(0).astype(np.int8)
+
+
+def _realigned_rows(a_cols: np.ndarray, b_cols: np.ndarray) -> np.ndarray:
+    """For each query position, the reference position aligned to it, or
+    -1 where the query residue faces a gap in the reference."""
+    ref_of_col = np.full(len(a_cols) + len(b_cols), -1, dtype=np.int64)
+    aligned = a_cols >= 0
+    ref_of_col[a_cols[aligned]] = np.nonzero(aligned)[0]
+    return ref_of_col[b_cols]
+
+
+def _prior_on_rows(prior: np.ndarray, msa_start: int, msa_end: int, ref_rows: np.ndarray):
+    """``(prior in the query frame, start, end)``: the rows before
+    ``msa_start`` kept, then one row per query residue from ``msa_start``
+    on: the aligned reference row of the region, or all zero. float64."""
+    vocab = prior.shape[1]
+    new_end = msa_start + len(ref_rows)
+    out = np.zeros((new_end, vocab))
+    out[:msa_start] = prior[:msa_start]
+    region = np.asarray(prior[msa_start:msa_end], dtype=np.float64)
+    live = ref_rows >= 0
+    out[msa_start:][live] = region[ref_rows[live]]
+    return out, msa_start, new_end
+
+
+def _align_to_reference(reference_region: str, query_parts: Sequence[str]):
+    """``(a_cols, b_cols)`` of the reference region against each query part
+    (the native Gotoh aligner, all pairs in one call on native threads)."""
+    from proteingym_tpu_torch import native
+
+    pairs = native.affine_align_many(_aa_codes(reference_region),
+                                     [_aa_codes(q) for q in query_parts])
+    return [(a_cols, b_cols) for _, a_cols, b_cols in pairs]
+
+
+def update_msa_prior_indel(
+    msa_log_prior: np.ndarray,
+    msa_start: int,
+    msa_end: int,
+    reference_region: str,
+    mutated_sequence: str,
+):
+    """Realign an indel sequence to the prior's coordinates (the role of
+    Clustal Omega, ref tranception/utils/msa_utils.py:141-192, here the
+    native Gotoh aligner) and rebuild the prior's rows: a reference column
+    facing a query gap (a deletion) drops its row; a query residue facing a
+    reference gap (an insertion) gets an all-zero row, which the fusion
+    reads as AR-only. Rows before ``msa_start`` are kept.
+
+    ``reference_region`` is the WT over [msa_start, msa_end); the query is
+    the mutated sequence from ``msa_start`` on. Returns ``(prior in the
+    query frame, msa_start, new_end)``, float64."""
+    from proteingym_tpu_torch import native
+
+    query = mutated_sequence[msa_start:] if msa_start else mutated_sequence
+    _, a_cols, b_cols = native.affine_align(_aa_codes(reference_region), _aa_codes(query))
+    return _prior_on_rows(msa_log_prior, msa_start, msa_end, _realigned_rows(a_cols, b_cols))
+
+
+def _positions(shift_logps, starts, ends, reverse):
+    """(B, T) full-sequence position of each shift index t: start + t
+    (L->R) or end - 1 - t (R->L)."""
+    t_idx = torch.arange(shift_logps.shape[1], device=shift_logps.device)[None, :]
+    return ends[:, None] - 1 - t_idx if reverse else starts[:, None] + t_idx
+
+
 class Fusion:
     """The priors of one assay on the device, applied to shifted AR
     log-probs: ``fusion(shift_logps, targets, starts, ends, reverse)``."""
+
+    per_row = False
 
     def __init__(self, msa_lp, msa_start, msa_end, alpha, eve_lp=None, beta=0.0,
                  n_special=5):
@@ -226,27 +307,92 @@ class Fusion:
         self.alpha, self.beta = alpha, beta
 
     def __call__(self, shift_logps, targets, starts, ends, reverse):
-        """Masked prior mixing over (batch, time) positions.
-
-        Shift index t sits at full-sequence position start + t (L->R) or
-        end - 1 - t (R->L); mixing applies where that position lies inside
-        [msa_start, msa_end), the target token is an amino acid and the MSA
-        prior row is not all zero, and only to the amino-acid columns."""
-        t_idx = torch.arange(shift_logps.shape[1], device=shift_logps.device)[None, :]
-        pos = ends[:, None] - 1 - t_idx if reverse else starts[:, None] + t_idx
+        pos = _positions(shift_logps, starts, ends, reverse)
         in_range = (pos >= self.msa_start) & (pos < self.msa_end)
-        mask = (in_range & (targets >= self.n_special))[..., None]
         pos_c = pos.clamp(0, self.msa_lp.shape[0] - 1)
-        msa_rows = self.msa_lp[pos_c]  # (B, T, V)
+        return self._mix(shift_logps, targets, in_range, self.msa_lp[pos_c],
+                         None if self.eve_lp is None else self.eve_lp[pos_c])
+
+    def _mix(self, shift_logps, targets, in_range, msa_rows, eve_rows):
+        """Masked prior mixing over (batch, time) positions: where the
+        position lies inside the prior's span, the target token is an amino
+        acid and the MSA prior row (B, T, V) is not all zero, and only on
+        the amino-acid columns; an EVE row of -inf leaves the MSA-only mix."""
+        mask = (in_range & (targets >= self.n_special))[..., None]
         aa_cols = torch.arange(msa_rows.shape[-1], device=msa_rows.device) >= self.n_special
         mask = mask & (msa_rows != 0.0).any(dim=-1, keepdim=True) & aa_cols
         mixed = (1.0 - self.alpha) * shift_logps + self.alpha * msa_rows
-        if self.eve_lp is not None:
-            eve_rows = self.eve_lp[pos_c]
+        if eve_rows is not None:
             finite = torch.isfinite(eve_rows)
             beta_eff = torch.where(finite, self.beta, 0.0)
             mixed = (1.0 - beta_eff) * mixed + beta_eff * torch.where(finite, eve_rows, 0.0)
         return torch.where(mask, mixed, shift_logps)
+
+
+class PerRowFusion(Fusion):
+    """Indel fusion: every row mixes with ITS OWN realigned prior table
+    (positions are in the mutant's frame, so one WT-frame table would be
+    misaligned past the first indel): ``fusion(shift_logps, targets,
+    starts, ends, reverse, table_ids)``, with (n_tables,) spans and
+    (n_tables, L_pad, V) stacks on the device, of which a block gathers
+    only the (B, T, V) rows it reads."""
+
+    per_row = True
+
+    def __call__(self, shift_logps, targets, starts, ends, reverse, table_ids):
+        pos = _positions(shift_logps, starts, ends, reverse)
+        in_range = ((pos >= self.msa_start[table_ids][:, None])
+                    & (pos < self.msa_end[table_ids][:, None]))
+        pos_c = pos.clamp(0, self.msa_lp.shape[1] - 1)
+        tab = table_ids[:, None]
+        return self._mix(shift_logps, targets, in_range, self.msa_lp[tab, pos_c],
+                         None if self.eve_lp is None else self.eve_lp[tab, pos_c])
+
+
+def make_indel_fusion(
+    msa_log_prior: np.ndarray,
+    msa_start: int,
+    msa_end: int,
+    alpha: float,
+    target_seq: str,
+    sequences: Sequence[str],
+    eve_prior: Optional[np.ndarray] = None,
+    beta: float = 0.0,
+    n_special: int = 5,
+    device="cuda",
+):
+    """The per-row fusion of an indel assay and ``{sequence: table id}``.
+
+    One table per unique sequence, then the WT: the WT-frame prior(s)
+    realigned to it (``update_msa_prior_indel``). Each sequence is aligned
+    once and its columns serve both tables; an EVE row at an inserted
+    position is -inf (excluded from the mix), not zero, since zero is a
+    valid EVE log-prob row. The stacks are padded to a multiple of 64 rows
+    (0 for the MSA table, -inf for EVE) and put on ``device`` in float32."""
+    uniq = list(dict.fromkeys(list(sequences) + [target_seq]))
+    queries = [seq[msa_start:] if msa_start else seq for seq in uniq]
+    cols = _align_to_reference(target_seq[msa_start:msa_end], queries)
+    ref_rows = [_realigned_rows(a_cols, b_cols) for a_cols, b_cols in cols]
+    ends = np.asarray([msa_start + len(r) for r in ref_rows], dtype=np.int64)
+    l_pad = 64 * ((int(ends.max()) + 63) // 64)
+    vocab = msa_log_prior.shape[1]
+    msa_stack = np.zeros((len(uniq), l_pad, vocab), dtype=np.float32)
+    eve_stack = None
+    if eve_prior is not None:
+        eve_stack = np.full((len(uniq), l_pad, vocab), -np.inf, dtype=np.float32)
+    for i, rows in enumerate(ref_rows):
+        tab, _, end = _prior_on_rows(msa_log_prior, msa_start, msa_end, rows)
+        msa_stack[i, :end] = tab
+        if eve_stack is not None:
+            ev, _, _ = _prior_on_rows(eve_prior, msa_start, msa_end, rows)
+            ev[~np.any(tab != 0.0, axis=-1)] = -np.inf
+            eve_stack[i, :end] = ev
+    dev = lambda x: torch.as_tensor(x, device=device)
+    f32 = lambda x: dev(np.asarray(x, dtype=np.float32))
+    fusion = PerRowFusion(dev(msa_stack), dev(np.full(len(uniq), msa_start, dtype=np.int64)),
+                          dev(ends), f32(alpha), None if eve_stack is None else dev(eve_stack),
+                          f32(beta), n_special)
+    return fusion, {seq: i for i, seq in enumerate(uniq)}
 
 
 def make_fusion(

@@ -34,6 +34,7 @@ class RetrievalConfig:
     retrieval_type: str = "TranceptEVE"  # or "Tranception"
     msa_start: int = 0  # 0-indexed full-sequence coordinates
     msa_end: int = 0
+    indel_mode: bool = False
     recalibrate: bool = False
 
 
@@ -81,12 +82,12 @@ def build_priors(
     msa_lp = retrieval.log_msa_prior(msa_sequences, msa_weights, rcfg.msa_start,
                                      rcfg.msa_end, full_len, filter_msa=False)
     depth = len(msa_sequences)
-    alpha = retrieval.msa_alpha(depth, rcfg.retrieval_type)
+    alpha = retrieval.msa_alpha(depth, rcfg.indel_mode, rcfg.retrieval_type)
     eve_lp, beta = None, 0.0
     if rcfg.retrieval_type == "TranceptEVE" and eve_models:
         eve_lp = retrieval.eve_log_prior(eve_models, eve_focus_seq, eve_focus_cols,
                                          rcfg.msa_start, full_len, num_samples=eve_num_samples)
-        beta = retrieval.eve_beta(depth, rcfg.retrieval_type)
+        beta = retrieval.eve_beta(depth, rcfg.indel_mode, rcfg.retrieval_type)
     if rcfg.recalibrate and model is not None:
         region = slice(rcfg.msa_start, rcfg.msa_end)
         target = transformer_wt_mean_logprob(model, target_seq, rcfg.msa_start, rcfg.msa_end)
@@ -111,17 +112,25 @@ def score_trancepteve(
     beta: float = 0.0,
     scoring_mirror: bool = True,
     batch_size: int = 32,
+    indel_mode: bool = False,
 ) -> Table:
     """Score an assay with Tranception, fused with the priors when
     ``msa_log_prior`` and ``rcfg`` are given: the ``score_mutants_ar``
-    table, on the model's device."""
+    table, on the model's device. With ``indel_mode`` every sequence is
+    scored whole, against priors realigned to it (``make_indel_fusion``)."""
     device = next(model.parameters()).device
-    fusion = None
+    fusion, table_of = None, None
     if msa_log_prior is not None and rcfg is not None:
-        fusion = retrieval.make_fusion(msa_log_prior, rcfg.msa_start, rcfg.msa_end, alpha,
-                                       eve_prior=eve_log_prior, beta=beta, device=device)
+        if indel_mode:
+            fusion, table_of = retrieval.make_indel_fusion(
+                msa_log_prior, rcfg.msa_start, rcfg.msa_end, alpha, target_seq,
+                mutated_sequences, eve_prior=eve_log_prior, beta=beta, device=device)
+        else:
+            fusion = retrieval.make_fusion(msa_log_prior, rcfg.msa_start, rcfg.msa_end, alpha,
+                                           eve_prior=eve_log_prior, beta=beta, device=device)
     return score_mutants_ar(
         model, VOCAB.tokenize, VOCAB.PAD, mutants, mutated_sequences, target_seq,
         model_context_len=model.config.n_ctx - 2, scoring_mirror=scoring_mirror,
-        batch_size=batch_size, fusion=fusion, device=device,
+        batch_size=batch_size, fusion=fusion, device=device, indel_mode=indel_mode,
+        fusion_table_of=table_of,
     )

@@ -1,0 +1,120 @@
+"""The port's host library: the affine-gap global aligner (Gotoh) that
+realigns Tranception's and TranceptEVE's retrieval priors to every indel
+sequence (counterpart of ``affine_align`` in proteingym_tpu/native).
+
+``pgym_align.cpp`` is compiled by ``g++ -O3 -shared -fPIC`` at first use
+into ``proteingym_tpu_torch/_build/`` (listed in .gitignore), under a name
+that carries a hash of the source and the flags, so an edited source is
+rebuilt and a stale library is never loaded. Importing this module builds
+nothing. A failed build raises with the compiler's output: there is no
+fallback aligner.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+SOURCE = Path(__file__).resolve().parent / "pgym_align.cpp"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+CXX = "g++"
+CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + b"\0" + SOURCE.read_bytes())
+    return BUILD_DIR / f"libpgym_align_{h.hexdigest()[:16]}.so"
+
+
+def _build(out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([CXX, *CXX_FLAGS, str(SOURCE), "-o", tmp],
+                              capture_output=True, text=True, timeout=300)
+    except (OSError, subprocess.SubprocessError) as e:
+        os.unlink(tmp)
+        raise RuntimeError(f"could not run {CXX!r} to build {SOURCE.name}: {e}") from e
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"{CXX} failed to build {SOURCE.name} (exit {proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, out)  # atomic: a concurrent build loses nothing
+
+
+def get_lib() -> ctypes.CDLL:
+    """Build (if needed) and load the aligner's library; cached per process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not path.exists():
+                _build(path)
+            lib = ctypes.CDLL(str(path))
+            i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+            i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+            i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+            lib.pgym_affine_align_batch.argtypes = [
+                i8p, ctypes.c_int64, i8p, i64p, ctypes.c_int64,
+                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                ctypes.c_int32, i32p, i32p, i64p,
+            ]
+            lib.pgym_affine_align_batch.restype = None
+            _lib = lib
+        return _lib
+
+
+def _align(
+    a: np.ndarray,
+    queries: Sequence[np.ndarray],
+    match: int = 200,
+    mismatch: int = -100,
+    gap_open: int = -1000,
+    gap_extend: int = -50,
+) -> List[Tuple[int, np.ndarray, np.ndarray]]:
+    """Global affine-gap alignment (Gotoh) of the int8 code array ``a``
+    (0 never matches) against every query, in one foreign call on every
+    CPU this process may use. The interpreter lock is released once for
+    the whole batch, so a busy Python thread elsewhere in the process does
+    not stall the pairs."""
+    lib = get_lib()
+    a = np.ascontiguousarray(a, dtype=np.int8)
+    qs = [np.ascontiguousarray(q, dtype=np.int8) for q in queries]
+    offsets = np.zeros(len(qs) + 1, dtype=np.int64)
+    offsets[1:] = np.cumsum([len(q) for q in qs])
+    b_all = np.concatenate(qs) if qs else np.zeros(0, dtype=np.int8)
+    out_a = np.full((len(qs), len(a)), -1, dtype=np.int32)
+    out_b = np.full(int(offsets[-1]), -1, dtype=np.int32)
+    lengths = np.zeros(len(qs), dtype=np.int64)
+    lib.pgym_affine_align_batch(a, len(a), b_all, offsets, len(qs), match, mismatch,
+                                gap_open, gap_extend, len(os.sched_getaffinity(0)),
+                                out_a, out_b, lengths)
+    return [(int(lengths[i]), out_a[i], out_b[offsets[i]:offsets[i + 1]])
+            for i in range(len(qs))]
+
+
+def affine_align(a: np.ndarray, b: np.ndarray, **scores) -> Tuple[int, np.ndarray, np.ndarray]:
+    """Global affine-gap alignment of two int8 code arrays, with JAX's
+    defaults (match 200, mismatch -100, gap_open -1000, gap_extend -50)
+    unless ``scores`` names others. Returns ``(alignment_length, a_cols,
+    b_cols)``: the alignment column of each position of ``a`` and of ``b``."""
+    return _align(a, [b], **scores)[0]
+
+
+def affine_align_many(a: np.ndarray, queries: Sequence[np.ndarray]
+                      ) -> List[Tuple[int, np.ndarray, np.ndarray]]:
+    """``affine_align(a, q)`` at the default scores for every query, in
+    one foreign call."""
+    return _align(a, queries)

@@ -1,7 +1,7 @@
 """Command line of the PyTorch port (counterpart of
 proteingym_tpu/pipeline/cli.py for ``score --model esm|poet|msa_transformer|
-tranception|trancepteve|eve|deepsequence``, ``weights``, ``merge``,
-``evaluate`` and ``evaluate-clinical``).
+tranception|trancepteve|eve|deepsequence|site_independent|potts|evmutation|
+hmm``, ``weights``, ``merge``, ``evaluate`` and ``evaluate-clinical``).
 
     python -m proteingym_tpu_torch.pipeline.cli score --model esm \\
         --checkpoint esm2_t33_650M --dms-reference ref.csv --dms-dir dms/ \\
@@ -17,6 +17,13 @@ tranception|trancepteve|eve|deepsequence``, ``weights``, ``merge``,
         --checkpoint Large --msa-dir msa/ --weights-dir weights/ \\
         --dms-reference ref.csv --dms-dir dms/ --output-dir out/ \\
         --extra retrieval_type=TranceptEVE eve_checkpoints=eve.pt
+    python -m proteingym_tpu_torch.pipeline.cli score --model trancepteve \\
+        --indel-mode --checkpoint Large --msa-dir msa/ --weights-dir weights/ \\
+        --dms-reference indels.csv --dms-dir dms_indels/ --output-dir out/ \\
+        --extra retrieval_type=TranceptEVE eve_checkpoints=eve.pt
+    python -m proteingym_tpu_torch.pipeline.cli score --model hmm|potts|site_independent \\
+        --msa-dir msa/ --weights-dir weights/ --dms-reference ref.csv \\
+        --dms-dir dms/ --output-dir out/ [--indel-mode] [--checkpoint X.model]
     python -m proteingym_tpu_torch.pipeline.cli score --model eve \\
         --checkpoint eve.pt --msa-dir msa/ --weights-dir weights/ \\
         --dms-reference ref.csv --dms-dir dms/ --output-dir out/
@@ -165,14 +172,16 @@ def cmd_score(args) -> int:
                 columns.append("mutated_sequence")
                 for row in rows:
                     row["mutated_sequence"] = apply_mutant(rec.target_seq, row["mutant"])
+            key = "mutant" if "mutant" in columns else "mutated_sequence"
             ctx = ScoreContext(
                 record=rec,
-                mutants=[row["mutant"] for row in rows],
+                mutants=[row[key] for row in rows],
                 device=device,
                 mutated_sequences=[row["mutated_sequence"] for row in rows],
                 msa_dir=Path(args.msa_dir) if args.msa_dir else None,
                 weights_dir=Path(args.weights_dir) if args.weights_dir else None,
                 checkpoint=args.checkpoint,
+                indel_mode=args.indel_mode,
                 batch_size=args.batch_size,
                 extra=extra,
             )
@@ -330,6 +339,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cross-assay packed scoring: masked rows from all "
                         "selected assays share forward batches (ESM "
                         "masked-marginals; the production throughput path)")
+    s.add_argument("--indel-mode", action="store_true",
+                   help="indel assays: score whole mutated sequences (Tranception, "
+                        "TranceptEVE and hmm)")
     s.add_argument("--overwrite", action="store_true")
     s.add_argument("--fail-fast", action="store_true")
     s.add_argument("--quiet", action="store_true")

@@ -2,8 +2,10 @@
 ``esm`` (masked marginals), ``poet`` (MSA-conditioned likelihood),
 ``msa_transformer`` (MSA masked marginals in focus-column coordinates),
 ``tranception`` / ``trancepteve`` (autoregressive, with MSA and EVE
-retrieval) and ``eve`` / ``deepsequence`` (evol indices from checkpoints),
-plus ``score_esm_packed_batch``, the cross-assay packed ESM path.
+retrieval, and whole indel sequences with ``indel_mode``), ``eve`` /
+``deepsequence`` (evol indices from checkpoints), the alignment baselines
+``site_independent``, ``potts`` / ``evmutation`` and ``hmm``, plus
+``score_esm_packed_batch``, the cross-assay packed ESM path.
 
 A scorer is ``scorer(ctx: ScoreContext)`` and returns either ``{column:
 scores}``, which the CLI writes after the input columns, or a whole
@@ -44,6 +46,7 @@ class ScoreContext:
     msa_dir: Optional[Path] = None
     weights_dir: Optional[Path] = None
     checkpoint: Optional[str] = None  # checkpoint path or preset name
+    indel_mode: bool = False
     batch_size: int = 32
     extra: dict = dataclasses.field(default_factory=dict)
     _msa: object = dataclasses.field(default=None, init=False, repr=False)
@@ -76,6 +79,71 @@ class ScoreContext:
                 np.save(wpath, weights)
         self._msa = dataclasses.replace(msa, weights=weights)
         return self._msa
+
+    @property
+    def msa_start0(self) -> int:
+        """The alignment's 0-indexed start in full-sequence coordinates."""
+        return (self.record.MSA_start or 1) - 1
+
+
+# ---------------------------------------------------------------------------
+# Alignment-based scorers (from the MSA alone)
+# ---------------------------------------------------------------------------
+
+POTTS_ALPHABET = "-ACDEFGHIKLMNPQRSTVWY"
+
+
+def _index_list(msa, ctx: ScoreContext) -> np.ndarray:
+    """The target-sequence position of each focus column."""
+    start = msa.focus_start if msa.focus_start is not None else (ctx.record.MSA_start or 1)
+    return np.asarray(msa.focus_cols) + start
+
+
+@register_scorer("site_independent")
+def score_site_independent(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """The weighted single-site frequency model, trained from the MSA (ref
+    EVmutation/score_mutants.py:14, to_independent_model)."""
+    from proteingym_tpu_torch.models.potts import train_site_independent
+
+    msa = ctx.load_msa()
+    model = train_site_independent(msa.matrix, msa.weights, POTTS_ALPHABET,
+                                   _index_list(msa, ctx), msa.focus_seq_trimmed)
+    return {"Site_Independent_score": model.delta_hamiltonians(ctx.mutants, device=ctx.device)}
+
+
+@register_scorer("potts")
+@register_scorer("evmutation")
+def score_potts(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """The Potts model of a plmc ``.model`` file given as --checkpoint, or
+    else trained from the MSA by pseudolikelihood (``--extra
+    plm_steps=``, 300 Adam steps)."""
+    from proteingym_tpu_torch.models.potts import read_plmc_model, train_potts_plm
+
+    if ctx.checkpoint:
+        model = read_plmc_model(ctx.checkpoint)
+    else:
+        msa = ctx.load_msa()
+        model = train_potts_plm(msa.matrix, msa.weights, POTTS_ALPHABET, _index_list(msa, ctx),
+                                msa.focus_seq_trimmed,
+                                steps=int(ctx.extra.get("plm_steps", 300)), device=ctx.device)
+    return {"EVmutation_score": model.delta_hamiltonians(ctx.mutants, device=ctx.device)}
+
+
+@register_scorer("hmm")
+def score_hmm(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """Profile-HMM forward log-odds against the WT (ref HMM/score_hmm.py:
+    9-111): substitution assays score the slice the MSA covers,
+    ``--indel-mode`` whole sequences."""
+    from proteingym_tpu_torch.models.hmm import build_profile_hmm, score_sequences
+
+    msa = ctx.load_msa()
+    model = build_profile_hmm(msa.matrix, msa.weights)
+    seqs, wt = list(ctx.mutated_sequences), ctx.record.target_seq
+    if not ctx.indel_mode:
+        s0, s1 = ctx.msa_start0, ctx.record.MSA_end or len(wt)
+        seqs, wt = [s[s0:s1] for s in seqs], wt[s0:s1]
+    lls = score_sequences(model, seqs + [wt], device=ctx.device)
+    return {"HMM_score": lls[:-1] - lls[-1]}
 
 
 @register_scorer("esm")
@@ -248,7 +316,9 @@ def score_tranception(ctx: ScoreContext):
     MSA prior (and, for TranceptEVE, the EVE prior of
     ``eve_checkpoints=a.pt,b.pt``, reference EVE files, averaged over
     ``eve_num_samples=`` draws, 20,000) into the log-probs; without it the
-    model scores alone. --checkpoint follows load_tranception_checkpoint."""
+    model scores alone. With ``--indel-mode`` every sequence is scored
+    whole, against priors realigned to it. --checkpoint follows
+    load_tranception_checkpoint."""
     from proteingym_tpu_torch.models.trancepteve import (
         RetrievalConfig, build_priors, score_trancepteve,
     )
@@ -263,8 +333,9 @@ def score_tranception(ctx: ScoreContext):
         msa = ctx.load_msa()
         rcfg = RetrievalConfig(
             retrieval_type=retrieval_type,
-            msa_start=(ctx.record.MSA_start or 1) - 1,
+            msa_start=ctx.msa_start0,
             msa_end=ctx.record.MSA_end or len(ctx.record.target_seq),
+            indel_mode=ctx.indel_mode,
         )
         eve_models = [load_eve_checkpoint(p, device=ctx.device)[0]
                       for p in str(ctx.extra.get("eve_checkpoints") or "").split(",") if p]
@@ -277,7 +348,7 @@ def score_tranception(ctx: ScoreContext):
     return score_trancepteve(
         model, ctx.mutants, ctx.mutated_sequences, ctx.record.target_seq, rcfg=rcfg,
         msa_log_prior=msa_lp, eve_log_prior=eve_lp, alpha=alpha, beta=beta,
-        batch_size=ctx.batch_size,
+        batch_size=ctx.batch_size, indel_mode=ctx.indel_mode,
     )
 
 

@@ -3,7 +3,8 @@ long-context and extent-sparse segmented, on the Hopper loop with its
 pre-pass in bf16 and on the scalar kernel in float32; cluster counts)
 against their plain PyTorch versions on the card, and the model forwards
 that launch them (ESM, PoET, the MSA Transformer's column attention,
-Tranception's ALiBi causal attention).
+Tranception's ALiBi causal attention), and the HMM forward and the Potts
+trainer on the card against the CPU.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one; the kernels have no CPU mode. The file imports neither jax nor the
@@ -16,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from proteingym_tpu_torch.models import esm2, msa_transformer, poet, tranception
+from proteingym_tpu_torch.models import esm2, hmm, msa_transformer, poet, potts, tranception
 from proteingym_tpu_torch.msa import weights as msa_weights
 from proteingym_tpu_torch.ops import flash_attention as fa
 
@@ -758,11 +759,12 @@ def test_msa_transformer_forward_goes_through_the_kernel(dev):
     torch.testing.assert_close(got, want, atol=5e-2, rtol=0)
 
 
-@pytest.mark.parametrize("t", [256, 1024])
+@pytest.mark.parametrize("t", [256, 416, 1024])
 def test_grouped_kernel_with_tranception_alibi_and_pad_tails(t, dev):
     """K1 in Tranception's mode: q pre-scaled by 2^-3 (sm_scale 1), the
     grouped ALiBi bias of 20 heads (up to 0.5 x (T - 1)), causal, and a
-    key mask whose pad tail differs per row; held on live query rows."""
+    key mask whose pad tail differs per row; held on live query rows.
+    T=416 is the bucket of whole indel rows of a ~400-residue target."""
     b, h, d = 8, 20, 64
     gen = torch.Generator(device=dev).manual_seed(t)
     q, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev).to(torch.bfloat16)
@@ -803,3 +805,49 @@ def test_tranception_forward_goes_through_the_kernel(dev):
     live = tokens != tranception.VOCAB.PAD
     assert got.dtype == torch.float32 and bool(got.isfinite().all())
     torch.testing.assert_close(got[live], want[live], atol=5e-2, rtol=0)
+
+
+def test_grouped_kernel_at_the_indel_bucket_with_every_tail(dev):
+    """K1 at B32 H20 T416 (whole indel rows of a ~400-residue target in
+    one bucket of 32 tokens): each row its own pad tail of 1-31 tokens, as
+    rows of 385-415 tokens have, against the plain version on live rows."""
+    b, h, t, d = 32, 20, 416, 64
+    gen = torch.Generator(device=dev).manual_seed(416)
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev).to(torch.bfloat16)
+               .transpose(1, 2) for _ in range(3))
+    q = q * 0.125
+    mask = _lengths_mask(t, [t - 1 - (i % 31) for i in range(b)]).to(dev)
+    kw = dict(key_mask=mask, bias=tranception.alibi_bias(h, t, dev), causal=True, sm_scale=1.0)
+    got = fa.grouped_mha(q, k, v, key_tiles=fa.KeyTiles(None, mask, True), **kw)
+    want = fa.plain_mha(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(got.transpose(1, 2)[mask].float(), want.transpose(1, 2)[mask],
+                               atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16])
+
+
+def test_hmm_forward_on_the_card_equals_cpu(dev):
+    rs = np.random.RandomState(0)
+    matrix = rs.randint(0, 21, (500, 120)).astype(np.int8)
+    model = hmm.build_profile_hmm(matrix, rs.rand(500))
+    aa = "ACDEFGHIKLMNPQRSTVWYX"
+    seqs = ["".join(aa[i] for i in rs.randint(0, 21, n)) for n in rs.randint(1, 160, 300)]
+    got = hmm.score_sequences(model, seqs, device=dev)
+    want = hmm.score_sequences(model, seqs, device="cpu")
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
+
+
+def test_potts_training_on_the_card_equals_cpu(dev):
+    rs = np.random.RandomState(1)
+    matrix = rs.randint(0, 21, (64, 12)).astype(np.int8)
+    alphabet = "-ACDEFGHIKLMNPQRSTVWY"
+    args = (matrix, rs.rand(64) + 0.1, alphabet, np.arange(1, 13),
+            "".join(alphabet[c] for c in matrix[0]))
+    got = potts.train_potts_plm(*args, steps=30, device=dev)
+    want = potts.train_potts_plm(*args, steps=30, device="cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    np.testing.assert_allclose(got.h, want.h, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got.J, want.J, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got.losses, want.losses, atol=1e-5, rtol=0)
+    muts = ["A1C", "C2W:D3E", "WT"]
+    np.testing.assert_allclose(got.delta_hamiltonians(muts, device=dev),
+                               got.delta_hamiltonians(muts, device="cpu"), atol=1e-10, rtol=0)

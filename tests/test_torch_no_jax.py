@@ -40,6 +40,25 @@ def test_port_imports_without_jax_or_pandas():
     assert proc.stdout.strip() == "ok"
 
 
+def test_native_imports_without_a_compiler(tmp_path):
+    # the aligner's module (and every module that imports it) loads with no
+    # g++ on PATH and builds nothing: the library is built at first use
+    env = {**os.environ, "PYTHONPATH": str(REPO), "CUDA_VISIBLE_DEVICES": "",
+           "PATH": str(tmp_path)}
+    proc = subprocess.run([sys.executable, "-c", textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        from proteingym_tpu_torch import native
+        from proteingym_tpu_torch.models import hmm, potts, retrieval, trancepteve
+        from proteingym_tpu_torch.pipeline import scorers
+        assert native._lib is None
+        assert {"hmm", "potts", "evmutation", "site_independent"} <= set(scorers.SCORERS)
+        print("ok")
+    """)], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_chip_smoke_fails_without_a_gpu(tmp_path):
     proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO,
                           env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},

@@ -87,11 +87,12 @@ def test_log_msa_prior_equals_jax_in_float64(filter_msa, weighted):
 
 
 def test_alpha_and_beta_tables_equal_jax():
-    # the substitution tables: the port has no indel scoring yet
+    # the substitution tables (the indel arms: tests/test_torch_indel.py)
     for depth in (0, 5, 9, 10, 11, 99, 100, 500, 999, 1000, 50_000, 99_999, 10**5, 10**6):
         for kind in ("TranceptEVE", "Tranception"):
-            assert tret.msa_alpha(depth, kind) == jret.msa_alpha(depth, False, kind)
-            assert tret.eve_beta(depth, kind) == jret.eve_beta(depth, False, kind)
+            assert tret.msa_alpha(depth, False, kind) == jret.msa_alpha(depth, False, kind)
+            assert tret.eve_beta(depth, False, kind) == jret.eve_beta(depth, False, kind)
+            assert tret.msa_alpha(depth, retrieval_type=kind) == jret.msa_alpha(depth, False, kind)
 
 
 @pytest.mark.parametrize("target", [-3.2, -3.6, -4.5])  # a mean below -log(20)

@@ -258,8 +258,13 @@ def test_sequence_slices_equal_jax(window, ctx):
     got = tar.get_sequence_slices(mutants, seqs, target, ctx, scoring_window=window)
     want = jar.get_sequence_slices(mutants, seqs, target, ctx, scoring_window=window)
     assert _plan_tuples(got) == _plan_tuples(want)
-    with pytest.raises(NotImplementedError, match="indel"):
-        tar.get_sequence_slices(mutants, seqs, target, ctx, indel_mode=True)
+    # indel mode: whole rows and one WT row spanning the target, whatever
+    # the window
+    got = tar.get_sequence_slices(mutants, seqs, target, ctx, scoring_window=window,
+                                  indel_mode=True)
+    want = jar.get_sequence_slices(mutants, seqs, target, ctx, scoring_window=window,
+                                   indel_mode=True)
+    assert _plan_tuples(got) == _plan_tuples(want)
 
 
 def test_length_buckets_equal_jax():
