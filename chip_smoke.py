@@ -130,6 +130,29 @@ Phases (any failure raises, and the script exits non-zero):
    ``write_plmc_model`` and scored through --checkpoint gives the same
    scores. (d) ``merge`` and ``evaluate --mutation-type indels`` of (a)
    and (b): the Spearman summary names the three models.
+16. the trainers from the alignment, through the port's CLI, on phase
+   14's L=250 target and 16,384-row alignment and phase 15's indel assay,
+   with no weights file, so K5 runs once on every alignment load and
+   nothing else launches a kernel of the port except TranceptEVE's K1: (a)
+   ``train --model eve --steps 10000`` at EVE's default architecture (55M
+   parameters, batch 256, float32 without TF32): the reference EVE file,
+   steps/s, the loss of the first and last 100 steps, peak memory, then
+   ``eve.train`` for 200 steps under torch.profiler (idle share, device
+   time by kind of kernel, launches per step) and the decoder KL timed
+   alone; (b)
+   ``score --model deepsequence`` without --checkpoint (2,000 steps, 2,000
+   draws): finite evol indices under the JAX column, the 190 mutants past
+   the alignment empty; (c) ``score --model trancepteve --extra
+   retrieval_type=TranceptEVE eve_checkpoints=<(a)'s file>`` on the first
+   512 singles: 36 K1 launches per forward at B32 H20 T256, the EVE
+   prior's seconds and mutants/s; (d) ``train --model potts --steps 300``:
+   the ``.model`` file read back equals the trained h and J; (e) ``score
+   --model wavenet`` at its defaults on the indel assay and on the
+   singles: training seconds, mutants/s, the idle share of
+   ``wavenet.train`` for 50 steps and of the scoring; (f) EVE's and
+   WaveNet's first 3 Adam steps on the card against the same steps on the
+   CPU, every draw made once on the CPU: the losses, and each parameter
+   tensor, within the stated tolerances.
 
 Every phase holds the port to its rule: no module of the JAX package
 (``proteingym_tpu``) may be loaded. It prints one JSON line describing the
@@ -144,7 +167,9 @@ checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import csv
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -273,6 +298,29 @@ HMM_CPU_ROWS, HMM_CPU_ATOL = 64, 1e-4
 POTTS_CPU_STEPS, POTTS_LOSS_RTOL, POTTS_HJ_RTOL = 3, 1e-4, 2e-3
 # float32 H100 SXM peak without TF32 (the Potts trainer's product)
 PEAK_F32_FLOPS = 67e12
+# the shapes of phase 16: phase 14's L=250 target and alignment and phase
+# 15's indel assay; EVE at its default architecture for 10,000 steps (cut
+# from train's default of 400,000 for time; the scorer's own default),
+# DeepSequence for 2,000 (cut: time), TranceptEVE on the first 512 of the
+# 4,750 singles (cut: time), Potts at the scorer's 300 steps, WaveNet at
+# its defaults (400 steps)
+TRAINER_SLICE = dict(checkpoint="Large", batch=32, eve_steps=10_000, profiled_steps=200,
+                     deepsequence_steps=2000, deepsequence_samples=2000, trancepteve_mutants=512,
+                     eve_num_samples=20_000, potts_steps=300, wavenet_profiled_steps=50)
+# Card against CPU at phase 16's own sizes: the first TRAINER_CPU_STEPS
+# Adam steps of EVE (lr 1e-4, batch 256 of 16,384 rows) and WaveNet (lr
+# 1e-3, batch 32), every draw made on the CPU and handed to both sides. The
+# losses agree to float32 sums in other orders (relative). A parameter
+# moves by about lr a step, and float32 noise in its gradient moves that by
+# ~lr * 1e-3, far below *_ATOL; but an entry whose gradient is within
+# noise of 0 may step the other way (2 lr a step). So each parameter
+# tensor is held on its own: the share of its entries beyond *_ATOL, its
+# largest difference (2 lr a step), and the Frobenius norm of card - CPU
+# over that of the CPU's update, which a wrong update of any tensor,
+# however small, puts near 1
+TRAINER_CPU_STEPS, TRAINER_CPU_SHARE, TRAINER_CPU_REL_UPDATE = 3, 1e-3, 1e-2
+EVE_CPU_LOSS_RTOL, EVE_CPU_ATOL, EVE_CPU_MAX = 1e-5, 1e-6, 6e-4
+WAVENET_CPU_LOSS_RTOL, WAVENET_CPU_ATOL, WAVENET_CPU_MAX = 1e-5, 1e-5, 6e-3
 
 
 def fail(msg: str) -> None:
@@ -2035,10 +2083,25 @@ def spans_of(torch, spans, name, fn):
     return wrapper
 
 
+def kernel_kind(name: str) -> str:
+    """The kind of a device kernel, from its name: dense products, the
+    normal draws, Adam, the batch draw, or elementwise and reductions."""
+    low = name.lower()
+    if any(key in low for key in ("gemm", "cutlass", "xmma", "splitk")):
+        return "GEMM"
+    if "adam" in low:
+        return "Adam"
+    if "multinomial" in low:
+        return "batch draw"
+    if "normal" in low or "randn" in low:
+        return "normal draws"
+    return "elementwise and reductions"
+
+
 def device_seconds(torch, fn):
     """``fn()``, its wall, the summed device time of what it ran on the
-    card (torch.profiler; None when the profiler reads none) and the
-    number of those launches."""
+    card (torch.profiler; None when the profiler reads none), the number
+    of those launches and their device seconds by ``kernel_kind``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2049,7 +2112,10 @@ def device_seconds(torch, fn):
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages() if e.device_time_total > 0]
     busy = sum(e.device_time_total for e in kernels) / 1e6 if kernels else None
-    return out, wall, busy, sum(e.count for e in kernels)
+    kinds = {}
+    for e in kernels:
+        kinds[kernel_kind(e.key)] = kinds.get(kernel_kind(e.key), 0.0) + e.device_time_total / 1e6
+    return out, wall, busy, sum(e.count for e in kernels), kinds
 
 
 INDEL_REFERENCE = ["DMS_id", "DMS_filename", "UniProt_ID", "target_seq", "seq_len",
@@ -2223,7 +2289,7 @@ def phase_indels(torch, dev, card, fa, check_close):
                         peak_gib=peak, forwards=n_fwd)
         # Tranception with MSA retrieval, --indel-mode, under the profiler
         # for the idle share (the weights file exists now: no K5)
-        (rows, wall, launches, peak), wall_p, busy, n_kernels = device_seconds(
+        (rows, wall, launches, peak), wall_p, busy, n_kernels, _ = device_seconds(
             torch, lambda: run_a("tranception", "Tranception_L", ["retrieval_type=Tranception"]))
         check_launches("tranception --indel-mode", launches,
                        {"grouped_attention": config.num_layers * n_fwd})
@@ -2275,7 +2341,7 @@ def phase_indels(torch, dev, card, fa, check_close):
                 fail(f"hmm {what}: {len(pick)} rows' log-probs, card against CPU: max |diff| "
                      f"{cpu_err:.3g} (atol {HMM_CPU_ATOL:g})")
             # the forward again under the profiler: launches and device time
-            _, wall_h, busy_h, n_kernels = device_seconds(
+            _, wall_h, busy_h, n_kernels, _ = device_seconds(
                 torch, lambda: score_sequences(captured["model"], captured["seqs"], device=dev))
             host = None if busy_h is None else 1.0 - busy_h / wall_h
             print(f"  (b) hmm {what}: {len(cells)} finite scores, WT 0; {captured['model'].L} "
@@ -2465,6 +2531,393 @@ def phase_indels(torch, dev, card, fa, check_close):
                      ms=times["kernel"], call_ms=times["call"], plain_ms=times["plain"],
                      library_ms=times["sdpa"], max_abs_err=err, **bnd)
     out["logp_err"] = logp_err
+    return out
+
+
+def params_against(card_model, cpu_model, start, atol):
+    """Each parameter tensor after Adam steps from the state ``start``:
+    the share of its entries where card and CPU differ by more than
+    ``atol``, its largest |card - CPU|, and ||card - CPU|| / ||CPU -
+    start|| (Frobenius norms in float64). Returns, for each of the three,
+    the worst value over the tensors and the tensor's name."""
+    worst = {"share": (0.0, None), "max_abs": (0.0, None), "rel_update": (0.0, None)}
+    cpu_state = cpu_model.state_dict()
+    for name, value in card_model.state_dict().items():
+        diff = value.cpu().double() - cpu_state[name].double()
+        update = float((cpu_state[name].double() - start[name].double()).norm())
+        off = float(diff.norm())
+        reading = {"share": float((diff.abs() > atol).double().mean()),
+                   "max_abs": float(diff.abs().max()),
+                   "rel_update": off / update if update > 0 else (0.0 if off == 0 else math.inf)}
+        for key, v in reading.items():
+            if v > worst[key][0]:
+                worst[key] = (v, name)
+    return worst
+
+
+def held_to(worst, atol, max_abs):
+    """``params_against``'s readings as a line, and whether they are
+    within ``TRAINER_CPU_SHARE``, ``max_abs`` and
+    ``TRAINER_CPU_REL_UPDATE``."""
+    (share, at_share), (big, at_big), (rel, at_rel) = (
+        worst["share"], worst["max_abs"], worst["rel_update"])
+    line = (f"worst tensor: share beyond {atol:g} {share:.3g} ({at_share}; at most "
+            f"{TRAINER_CPU_SHARE:g}), max |diff| {big:.3g} ({at_big}; at most {max_abs:g}), "
+            f"||card - CPU|| / ||update|| {rel:.3g} ({at_rel}; at most {TRAINER_CPU_REL_UPDATE:g})")
+    return line, share <= TRAINER_CPU_SHARE and big <= max_abs and rel <= TRAINER_CPU_REL_UPDATE
+
+
+def phase_trainers(torch, dev, card, fa):
+    """16. The trainers from the alignment through the port's CLI, on
+    phase 13/14's L=250 target and 16,384-row alignment over residues
+    1-240 and phase 15's L=400 indel assay, with no weights file (so K5
+    runs once per alignment load): (a) ``train --model eve --steps
+    10000`` at EVE's default architecture; (b) ``score --model
+    deepsequence`` without --checkpoint; (c) ``score --model trancepteve``
+    with the EVE file of (a) on the first 512 singles; (d) ``train --model
+    potts``; (e) ``score --model wavenet`` on the indel assay and on the
+    singles; (f) the first Adam steps of EVE and WaveNet on the card
+    against the same steps on the CPU."""
+    from proteingym_tpu_torch.devices import adam
+    from proteingym_tpu_torch.models import eve, potts, retrieval, tranception, wavenet
+    from proteingym_tpu_torch.models import trancepteve as te
+    from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.pipeline import cli
+    from proteingym_tpu_torch.pipeline.checkpoints import TRANCEPTION_PRESETS
+
+    s, t, ind = TRAINER_SLICE, TRANCEPTION_SLICE, INDEL_SLICE
+    length, covered = t["length"], t["covered"]
+    codes = np.random.RandomState(13).randint(1, 21, length)  # phase 13/14's target
+    seq = "".join(GAP_AA[c] for c in codes)
+    singles = [f"{seq[p]}{p + 1}{a}" for p in range(length) for a in AA if a != seq[p]]
+    past = [i for i, m in enumerate(singles) if int(m[1:-1]) > covered]
+    codes400 = np.random.RandomState(15).randint(1, 21, ind["length"])  # phase 15's target
+    seq400 = "".join(GAP_AA[c] for c in codes400)
+    assay = indel_variants(seq400, ind["variants"], 15) + [seq400]
+    config = TRANCEPTION_PRESETS[s["checkpoint"]]
+    phase_t0 = time.perf_counter()
+    print(f"[trainers] EVE, DeepSequence, Potts and WaveNet trained from the alignment through "
+          f"the CLI ({card}): L={length} target with {len(singles)} singles, MSA N={t['n_seqs']} "
+          f"over residues 1-{covered}; L={ind['length']} with {len(assay) - 1} indel variants + "
+          f"WT, MSA N={ind['n_seqs']} over residues 1-{ind['covered']}; no weights file")
+
+    def reset():
+        for counts in (fa.LAUNCHES, W.LAUNCHES):
+            for name in counts:
+                counts[name] = 0
+
+    def launched():
+        return {**fa.LAUNCHES, **W.LAUNCHES}
+
+    def captured(module, name, store):
+        """``module.name`` wrapped to keep its arguments, result and host
+        seconds (device synchronised at both ends) in ``store``."""
+        fn = getattr(module, name)
+
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            store.update(args=args, kwargs=kwargs, out=out,
+                         seconds=store.get("seconds", 0.0) + time.perf_counter() - t0)
+            return out
+        return mock.patch.object(module, name, wrapper)
+
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        (root / "msa").mkdir()
+        (root / "dms").mkdir()
+        write_a2m(root / "msa" / "SYNTH.a2m", "SYNTH", synth_family(codes[:covered], t["n_seqs"], 13))
+        write_a2m(root / "msa" / "SYNTH_INDEL.a2m", "SYNTH_INDEL",
+                  synth_family(codes400[:ind["covered"]], ind["n_seqs"], 15))
+        write_csv_rows(root / "dms" / "SYNTH_L250.csv", ["mutant", "DMS_score"],
+                       [[m, "0.5"] for m in singles])
+        write_csv_rows(root / "dms" / "SYNTH_L250_FIRST.csv", ["mutant", "DMS_score"],
+                       [[m, "0.5"] for m in singles[:s["trancepteve_mutants"]]])
+        write_csv_rows(root / "dms" / "SYNTH_INDEL.csv", ["mutant", "mutated_sequence", "DMS_score"],
+                       [[v, v, "0.5"] for v in assay])
+        cells = ["SYNTH.a2m", 1, covered, 0.2, "SYNTH.npy"]
+        write_csv_rows(root / "reference.csv",
+                       ["DMS_id", "DMS_filename", "UniProt_ID", "target_seq", "seq_len",
+                        "MSA_filename", "MSA_start", "MSA_end", "MSA_theta", "weight_file_name"],
+                       [["SYNTH_L250", "SYNTH_L250.csv", "SYNTH", seq, length, *cells],
+                        ["SYNTH_L250_FIRST", "SYNTH_L250_FIRST.csv", "SYNTH", seq, length, *cells],
+                        ["SYNTH_INDEL", "SYNTH_INDEL.csv", "SYNTH", seq400, ind["length"],
+                         "SYNTH_INDEL.a2m", 1, ind["covered"], 0.2, "SYNTH_INDEL.npy"]])
+        common = ["--dms-reference", str(root / "reference.csv"), "--msa-dir", str(root / "msa"),
+                  "--device", dev.type]
+
+        def train(model, steps):
+            rc = cli.main(["train", "--model", model, "--dms-id", "SYNTH_L250", "--steps",
+                           str(steps), "--seed", "0", "--output-dir", str(root / "models"),
+                           *common])
+            if rc != 0:
+                fail(f"train --model {model} exited {rc}")
+
+        def score(model, dms_id, extra=(), checkpoint=None):
+            rc = cli.main(["score", "--model", model, "--dms-id", dms_id, "--dms-dir",
+                           str(root / "dms"), "--output-dir", str(root / model), "--batch-size",
+                           str(s["batch"]), "--quiet", "--fail-fast", *common,
+                           *(["--checkpoint", checkpoint] if checkpoint else []),
+                           *(["--extra", *extra] if extra else [])])
+            if rc != 0:
+                fail(f"score --model {model} exited {rc} on {dms_id}")
+            return read_table(root / model / f"{dms_id}.csv")
+
+        # (a) train --model eve at the default architecture
+        trained = {}
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with captured(eve, "train", trained):
+            train("eve", s["eve_steps"])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out["launches"]["eve_train"] = launched()
+        check_launches("train --model eve", launched(), {"cluster_counts": 1})
+        eve_file = root / "models" / "eve_SYNTH_L250_seed0"
+        model = trained["out"]
+        losses = model.losses
+        n_params = sum(p.numel() for p in model.parameters())
+        if not (eve_file.is_file() and model.config == eve.EveConfig(seq_len=covered)
+                and len(losses) == s["eve_steps"] and np.isfinite(losses).all()
+                and losses[-100:].mean() < losses[:100].mean()):
+            fail(f"train --model eve: file {eve_file.is_file()}, config {model.config}, "
+                 f"{len(losses)} losses, first 100 {losses[:100].mean():.2f}, last 100 "
+                 f"{losses[-100:].mean():.2f}")
+        steps_per_s = s["eve_steps"] / trained["seconds"]
+        print(f"  (a) train --model eve --steps {s['eve_steps']}: {n_params / 1e6:.2f}M parameters, "
+              f"training {trained['seconds']:.2f} s -> {steps_per_s:.1f} steps/s "
+              f"({1e3 / steps_per_s:.3f} ms a step); loss {losses[:100].mean():.2f} (steps 1-100) "
+              f"-> {losses[-100:].mean():.2f} (last 100); CLI wall {wall:.2f} s (alignment, K5, "
+              f"one-hots, file); peak device memory {peak:.2f} GiB ({card})")
+        onehot, weights, eve_config = trained["args"]
+        # the entry itself under the profiler: eve.train for 200 steps, its
+        # set-up (the init, the one-hots' upload) included
+        n_prof = s["profiled_steps"]
+        prof_model, prof_wall, busy, n_kernels, kinds = device_seconds(
+            torch, lambda: eve.train(onehot, weights, eve_config, steps=n_prof, seed=1, device=dev))
+        # the decoder KL's forward and backward alone: device time and launches
+        prof_model.requires_grad_(True)
+        _, _, kl_busy, kl_launches, _ = device_seconds(torch, lambda: [
+            eve.kld_decoder_params(prof_model).backward() for _ in range(10)])
+        kl_ms = None if kl_busy is None else kl_busy * 1e2
+        print(f"  (a) eve.train for {n_prof} steps profiled: wall {prof_wall:.3f} s, "
+              + ("device busy not read" if busy is None else
+                 f"device busy {busy:.3f} s, idle share {1 - busy / prof_wall:.3f}; by kind "
+                 + ", ".join(f"{k} {v * 1e3 / n_prof:.3f} ms" for k, v in sorted(kinds.items()))
+                 + " a step")
+              + f"; {n_kernels / n_prof:.1f} launches a step; the decoder KL alone (forward and "
+              f"backward): device {kl_ms} ms, {kl_launches / 10:.0f} launches ({card})")
+        out["eve"] = dict(steps=s["eve_steps"], train_s=trained["seconds"], steps_per_s=steps_per_s,
+                          loss_first100=float(losses[:100].mean()),
+                          loss_last100=float(losses[-100:].mean()), peak_gib=peak, cli_wall_s=wall,
+                          params=n_params, profiled_wall_s=prof_wall, busy_s=busy,
+                          idle_share=None if busy is None else 1 - busy / prof_wall,
+                          kinds_ms_per_step={k: v * 1e3 / n_prof for k, v in kinds.items()},
+                          launches_per_step=n_kernels / n_prof, kl_ms=kl_ms,
+                          kl_launches=kl_launches / 10)
+        del prof_model, model, trained
+        torch.cuda.empty_cache()
+
+        # (b) deepsequence without --checkpoint
+        spans = {}
+        reset()
+        t0 = time.perf_counter()
+        with mock.patch.object(eve, "train", spans_of(torch, spans, "train", eve.train)), \
+                mock.patch.object(eve, "evol_indices",
+                                  spans_of(torch, spans, "evol", eve.evol_indices)):
+            table = score("deepsequence", "SYNTH_L250",
+                          [f"train_steps={s['deepsequence_steps']}",
+                           f"num_samples={s['deepsequence_samples']}"])
+        wall_b = time.perf_counter() - t0
+        out["launches"]["deepsequence"] = launched()
+        check_launches("deepsequence", launched(), {"cluster_counts": 1})
+        column = [r[-1] for r in table[1:]]
+        if table[0] != ["mutant", "DMS_score", "mutated_sequence", "DeepSequence_evol_indices"] \
+                or [i for i, c in enumerate(column) if c == ""] != past:
+            fail(f"deepsequence CSV: columns {table[0]}, {column.count('')} empty fields "
+                 f"(expected the {len(past)} mutants past residue {covered})")
+        evol = np.asarray([float(c) for c in column if c])
+        if not (np.isfinite(evol).all() and np.ptp(evol) > 0):
+            fail("deepsequence: non-finite or constant evol indices")
+        print(f"  (b) deepsequence, no checkpoint: {len(evol)} finite evol indices, {len(past)} "
+              f"empty; training {spans['train']:.2f} s ({s['deepsequence_steps']} steps), evol "
+              f"indices {spans['evol']:.2f} s ({s['deepsequence_samples']} draws), CLI wall {wall_b:.2f} s -> "
+              f"{len(singles) / wall_b:.1f} mutants/s ({card})")
+        out["deepsequence"] = dict(train_s=spans["train"], evol_s=spans["evol"], wall_s=wall_b)
+
+        # (c) TranceptEVE with the EVE file of (a)
+        spans = {}
+        forwards = [0]
+        plain_forward = tranception.Tranception.forward
+
+        def counted_forward(self, tokens):
+            forwards[0] += 1
+            return plain_forward(self, tokens)
+
+        reset()
+        n_first = s["trancepteve_mutants"]
+        t0 = time.perf_counter()
+        with mock.patch.object(tranception.Tranception, "forward", counted_forward), \
+                mock.patch.object(retrieval, "eve_log_prior",
+                                  spans_of(torch, spans, "eve_prior", retrieval.eve_log_prior)), \
+                mock.patch.object(te, "score_trancepteve",
+                                  spans_of(torch, spans, "ar_scoring", te.score_trancepteve)):
+            table = score("trancepteve", "SYNTH_L250_FIRST",
+                          ["retrieval_type=TranceptEVE", f"eve_checkpoints={eve_file}",
+                           f"eve_num_samples={s['eve_num_samples']}"],
+                          checkpoint=s["checkpoint"])
+        wall_c = time.perf_counter() - t0
+        n_fwd = 2 * -(-(n_first + 1) // s["batch"])  # the mutants and one WT row, both ways
+        out["launches"]["trancepteve_trained_eve"] = launched()
+        if forwards[0] != n_fwd:
+            fail(f"trancepteve: {forwards[0]} forwards, expected {n_fwd}")
+        check_launches("trancepteve with the trained EVE", launched(),
+                       {"cluster_counts": 1, "grouped_attention": config.num_layers * n_fwd})
+        scores_c = np.asarray([r[1:] for r in table[1:]], dtype=np.float64)
+        if table[0] != ["mutated_sequence", "avg_score_L_to_R", "avg_score_R_to_L", "avg_score"] \
+                or len(scores_c) != n_first or not np.isfinite(scores_c).all():
+            fail(f"trancepteve CSV: columns {table[0]}, {len(scores_c)} rows, or non-finite")
+        print(f"  (c) trancepteve with the EVE file of (a): {n_first} x 3 finite scores; "
+              f"{config.num_layers} x {n_fwd} K1 launches (B{s['batch']} H20 T256) and 1 K5; EVE "
+              f"prior {spans['eve_prior']:.2f} s ({s['eve_num_samples']} draws), AR scoring "
+              f"{spans['ar_scoring']:.2f} s -> {n_first / spans['ar_scoring']:.1f} mutants/s; CLI "
+              f"wall {wall_c:.2f} s -> {n_first / wall_c:.1f} mutants/s ({card})")
+        out["trancepteve"] = dict(eve_prior_s=spans["eve_prior"], ar_s=spans["ar_scoring"],
+                                  wall_s=wall_c, forwards=n_fwd)
+
+        # (d) train --model potts, and its file read back
+        trained = {}
+        reset()
+        with captured(potts, "train_potts_plm", trained):
+            train("potts", s["potts_steps"])
+        out["launches"]["potts_train"] = launched()
+        check_launches("train --model potts", launched(), {"cluster_counts": 1})
+        model = trained["out"]
+        back = potts.read_plmc_model(root / "models" / "potts_SYNTH_L250_seed0.model")
+        f32 = lambda a: np.asarray(a, np.float32).astype(np.float64)
+        file_err = max(float(np.abs(back.h - f32(model.h)).max()),
+                       float(np.abs(back.J - f32(model.J)).max()))
+        if not (file_err <= POTTS_FILE_ATOL and back.target_seq == model.target_seq
+                and np.array_equal(back.index_list, model.index_list)
+                and len(model.losses) == s["potts_steps"]):
+            fail(f"train --model potts: the file read back differs from the trained model "
+                 f"(max |diff| {file_err:.3g}) or its losses ({len(model.losses)}) are short")
+        print(f"  (d) train --model potts --steps {s['potts_steps']}: {trained['seconds']:.2f} s, "
+              f"loss {model.losses[0]:.4f} -> {model.losses[-1]:.4f}; the .model file read back "
+              f"equals the trained h and J (max |diff| {file_err:.3g}, atol {POTTS_FILE_ATOL:g})")
+        out["potts"] = dict(train_s=trained["seconds"], file_err=file_err)
+        del model, back, trained
+
+        # (e) wavenet on the indel assay and on the singles
+        for dms_id, n_rows, path in (("SYNTH_INDEL", len(assay), "wavenet_indel"),
+                                     ("SYNTH_L250", len(singles), "wavenet_sub")):
+            trained, scored = {}, {}
+            reset()
+            t0 = time.perf_counter()
+            with captured(wavenet, "train", trained), \
+                    captured(wavenet, "score_sequences", scored):
+                table = score("wavenet", dms_id)
+            wall_e = time.perf_counter() - t0
+            out["launches"][path] = launched()
+            check_launches(f"wavenet {dms_id}", launched(), {"cluster_counts": 1})
+            values = np.asarray([float(r[-1]) for r in table[1:]])
+            if table[0][-1] != "Wavenet_score" or len(values) != n_rows or not (
+                    np.isfinite(values).all() and np.ptp(values) > 0):
+                fail(f"wavenet {dms_id}: column {table[0][-1]}, {len(values)} rows, or "
+                     "non-finite or constant scores")
+            model, losses = trained["out"]
+            wn_config, seqs = trained["args"][1], trained["args"][2]
+            wn_rows = seqs, trained["kwargs"]["weights"], wn_config
+            # the entries themselves under the profiler: wavenet.train for
+            # 50 steps from a fresh init (its set-up, the rows' encoding,
+            # included), and the scoring
+            short = dataclasses.replace(wn_config, steps=s["wavenet_profiled_steps"])
+            fresh = wavenet.init_random(short, seed=1, device=dev)
+            idle, per_step = {}, {}
+            for what, fn in (("training", lambda: wavenet.train(fresh, short, seqs,
+                                                                weights=wn_rows[1])),
+                             ("scoring", lambda: wavenet.score_sequences(
+                                 model, scored["args"][1], batch=s["batch"]))):
+                _, p_wall, p_busy, per_step[what], _ = device_seconds(torch, fn)
+                idle[what] = None if p_busy is None else 1 - p_busy / p_wall
+            print(f"  (e) wavenet on {dms_id}: {n_rows} finite scores; training "
+                  f"{trained['seconds']:.2f} s ({wn_config.steps} steps, loss {losses[0]:.3f} -> "
+                  f"{losses[-1]:.3f}), scoring {scored['seconds']:.3f} s -> "
+                  f"{n_rows / scored['seconds']:.1f} mutants/s; CLI wall {wall_e:.2f} s; idle "
+                  f"share, training {idle['training']} ({s['wavenet_profiled_steps']} steps "
+                  f"profiled, {per_step['training'] / s['wavenet_profiled_steps']:.0f} launches a "
+                  f"step), scoring {idle['scoring']} ({card})")
+            out[path] = dict(train_s=trained["seconds"], score_s=scored["seconds"], wall_s=wall_e,
+                             rows=n_rows, idle_training=idle["training"],
+                             idle_scoring=idle["scoring"], loss_first=float(losses[0]),
+                             loss_last=float(losses[-1]),
+                             launches_per_step=per_step["training"] / s["wavenet_profiled_steps"])
+            del model, fresh, trained, scored
+
+    # (f) the first Adam steps on the card against the same steps on the
+    # CPU, every draw made once on the CPU and handed to both
+    gen = torch.Generator().manual_seed(16)
+    cpu_rows = torch.from_numpy(np.asarray(onehot, dtype=np.float32))
+    cpu_probs = torch.as_tensor(weights / weights.sum(), dtype=torch.float32)
+    neff = float(weights.sum())
+    on_cpu = eve.init_random(eve_config, seed=16, device="cpu")
+    on_card = eve.load_state_dict(on_cpu.state_dict(), eve_config, device=dev)
+    start = {k: v.clone() for k, v in on_cpu.state_dict().items()}
+    draws = []
+    for _ in range(TRAINER_CPU_STEPS):
+        idx = torch.multinomial(cpu_probs, eve.BATCH_SIZE, replacement=True, generator=gen)
+        draws.append((idx, torch.randn(eve.BATCH_SIZE, eve_config.z_dim, generator=gen),
+                      on_cpu.draw_noise(1, gen)))
+    losses = {}
+    t0 = time.perf_counter()
+    for side, model, where in (("card", on_card, dev), ("cpu", on_cpu, torch.device("cpu"))):
+        model.requires_grad_(True)
+        optimizer = adam(model, 1e-4)
+        losses[side] = [float(eve.train_step(
+            model, optimizer, cpu_rows[idx].to(where), neff, z_noise=z.to(where),
+            decoder_noise=[n.to(where) for n in noise])) for idx, z, noise in draws]
+    cpu_s = time.perf_counter() - t0
+    loss_rel = max(abs(a / b - 1) for a, b in zip(losses["card"], losses["cpu"]))
+    worst = params_against(on_card, on_cpu, start, EVE_CPU_ATOL)
+    line, ok = held_to(worst, EVE_CPU_ATOL, EVE_CPU_MAX)
+    print(f"  (f) EVE's first {TRAINER_CPU_STEPS} Adam steps (batch {eve.BATCH_SIZE} of "
+          f"{len(cpu_rows)} rows, default architecture) on the card against the CPU ({cpu_s:.1f} s "
+          f"for both): losses rel {loss_rel:.3g} (rtol {EVE_CPU_LOSS_RTOL:g}); {line}")
+    if not (loss_rel <= EVE_CPU_LOSS_RTOL and ok):
+        fail(f"EVE: the card's first {TRAINER_CPU_STEPS} steps disagree with the CPU's")
+    out["eve_cpu"] = dict(loss_rel=loss_rel, seconds=cpu_s,
+                          **{k: v for k, (v, _) in worst.items()})
+    del on_card, on_cpu, cpu_rows, draws, start
+    torch.cuda.empty_cache()
+
+    seqs, weights, wn_config = wn_rows
+    tokens, mask, probs = (torch.from_numpy(a) for a in wavenet.training_rows(seqs, weights))
+    gen = torch.Generator().manual_seed(17)
+    on_cpu = wavenet.init_random(wn_config, seed=17, device="cpu")
+    on_card = wavenet.load_state_dict(on_cpu.state_dict(), wn_config, device=dev)
+    start = {k: v.clone() for k, v in on_cpu.state_dict().items()}
+    picks = [torch.multinomial(probs.float(), wn_config.batch, replacement=True, generator=gen)
+             for _ in range(TRAINER_CPU_STEPS)]
+    losses = {}
+    for side, model, where in (("card", on_card, dev), ("cpu", on_cpu, torch.device("cpu"))):
+        model.requires_grad_(True)
+        optimizer = adam(model, wn_config.learning_rate)
+        losses[side] = [float(wavenet.train_step(model, optimizer, tokens[idx].to(where),
+                                                 mask[idx].to(where))) for idx in picks]
+    loss_rel = max(abs(a / b - 1) for a, b in zip(losses["card"], losses["cpu"]))
+    worst = params_against(on_card, on_cpu, start, WAVENET_CPU_ATOL)
+    line, ok = held_to(worst, WAVENET_CPU_ATOL, WAVENET_CPU_MAX)
+    print(f"  (f) WaveNet's first {TRAINER_CPU_STEPS} Adam steps (batch {wn_config.batch} of "
+          f"{len(tokens)} rows x {tokens.shape[1]} tokens) on the card against the CPU: losses rel "
+          f"{loss_rel:.3g} (rtol {WAVENET_CPU_LOSS_RTOL:g}); {line}")
+    if not (loss_rel <= WAVENET_CPU_LOSS_RTOL and ok):
+        fail(f"WaveNet: the card's first {TRAINER_CPU_STEPS} steps disagree with the CPU's")
+    out["wavenet_cpu"] = dict(loss_rel=loss_rel, **{k: v for k, (v, _) in worst.items()})
+    print(f"  [trainers] {time.perf_counter() - phase_t0:.1f} s in all")
     return out
 
 
@@ -2685,12 +3138,14 @@ def main() -> int:
     msa_run = phase_msa_transformer(torch, dev, card, fa, check_close)
     tr_run = phase_tranception(torch, dev, card, fa, check_close)
     indel_run = phase_indels(torch, dev, card, fa, check_close)
+    trainers = phase_trainers(torch, dev, card, fa)
 
     if "jax" in sys.modules:
         fail("the port imported jax")
-    # the guard below covers the modules of every phase, phase 15's too
+    # the guard below covers the modules of every phase, phases 15-16's too
     missing = [m for m in ("proteingym_tpu_torch.native", "proteingym_tpu_torch.models.hmm",
-                           "proteingym_tpu_torch.models.potts") if m not in sys.modules]
+                           "proteingym_tpu_torch.models.potts",
+                           "proteingym_tpu_torch.models.wavenet") if m not in sys.modules]
     if missing:
         fail(f"modules the phases drive were not loaded: {missing}")
     jax_package = sorted(m for m in sys.modules
@@ -2720,7 +3175,8 @@ def main() -> int:
                "esm_pppl": wt["pppl_launches"], "msa_transformer": msa_run["launches"],
                "trancepteve": tr_run["launches"], "tranception_windows": tr_run["long_launches"],
                "eve": tr_run["eve_launches"], "trancepteve_indel": indel_run["a"]["launches"],
-               "tranception_indel": indel_run["a_tranception"]["launches"]}
+               "tranception_indel": indel_run["a_tranception"]["launches"],
+               **trainers["launches"]}
     records = [{
         "name": name,
         "route": "cuda",

@@ -1,5 +1,5 @@
-"""EVE, the Bayesian VAE over MSA one-hots, for scoring (counterpart of the
-inference half of proteingym_tpu/models/eve.py; training is not ported).
+"""EVE, the Bayesian VAE over MSA one-hots (counterpart of
+proteingym_tpu/models/eve.py): the model, its training and its scoring.
 
 Semantics match the reference EVE (ref proteingym/baselines/EVE/EVE/
 VAE_model.py, VAE_encoder.py, VAE_decoder.py) as the JAX package has them:
@@ -12,19 +12,25 @@ VAE_model.py, VAE_encoder.py, VAE_decoder.py) as the JAX package has them:
   ``.view(channel, alphabet)`` of the (alphabet, channel) weight (a memory
   reinterpretation, not a transpose), optional sparsity tiles, a softplus
   temperature; the output is a log-softmax over (L, q);
+- loss: the mean negative ELBO of a batch, whose "BCE" is sigmoid BCE on
+  the log-softmax output (the reference's quirk), plus the latent KL and
+  the decoder parameters' KL over Neff, both scaled by the warm-up;
+- training: Adam steps on batches of 256 rows drawn with replacement in
+  proportion to the sequence weights;
 - scoring: evol_index = -(mean ELBO(mutant) - mean ELBO(WT)) over
-  ``num_samples`` draws, where the "BCE" is sigmoid BCE on the
-  log-softmax output (the reference's quirk).
+  ``num_samples`` draws.
 
 Parameter names follow the reference's ``model_state_dict``, so a
 reference checkpoint file loads by name. Everything is float32. Draws come
-from an explicit ``torch.Generator``; ``decode`` also takes them as
-tensors (``draw_noise``'s layout), so a test can hand it any noise.
+from an explicit ``torch.Generator``; ``decode``, ``loss_fn`` and
+``train_step`` also take them as tensors (``draw_noise``'s layout), so a
+test can hand them any noise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from pathlib import Path
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -34,7 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from proteingym_tpu_torch.data.mutants import parse_mutant
-from proteingym_tpu_torch.devices import resolve_device
+from proteingym_tpu_torch.devices import adam, no_tf32, resolve_device, seeded_generator
 from proteingym_tpu_torch.models.esm2 import copy_state_dict
 
 ALPHABET = "ACDEFGHIKLMNPQRSTVWY"
@@ -259,6 +265,110 @@ def onehot_mutants(focus_codes: np.ndarray, mutants, alphabet: str,
 
 
 # ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+BATCH_SIZE = 256  # rows per step, drawn with replacement by sequence weight
+
+
+def _kld_diag_gaussians(mu, logvar, p_mu=0.0, p_logvar=0.0):
+    """KL(q || p) of diagonal Gaussians, summed (ref VAE_model.py:74-81)."""
+    return torch.sum(0.5 * (p_logvar - logvar)
+                     + 0.5 * (torch.exp(logvar) + (mu - p_mu) ** 2) / (math.exp(p_logvar) + 1e-20)
+                     - 0.5)
+
+
+def kld_decoder_params(model: EveModel) -> torch.Tensor:
+    """KL of every decoder (mean, log variance) pair against its prior
+    (ref VAE_model.py:92-147): N(0, 1), except the sparsity tiles', whose
+    logits have the prior N(sqrt(2) * 4 * erfinv(2 * 0.01 - 1), 4^2)."""
+    sparsity = getattr(model.decoder, "sparsity_weight_mean", None)
+    sigma = 4.0
+    sparsity_mu = math.sqrt(2.0) * sigma * float(
+        torch.special.erfinv(torch.tensor(2.0 * 0.01 - 1.0, dtype=torch.float64)))
+    total = 0.0
+    for mean, log_var in model.variational():
+        if mean is sparsity:
+            total = total + _kld_diag_gaussians(mean, log_var, sparsity_mu, math.log(sigma ** 2))
+        else:
+            total = total + _kld_diag_gaussians(mean, log_var)
+    return total
+
+
+def elbo_components(model: EveModel, x: torch.Tensor, z_noise=None, decoder_noise=None,
+                    generator: Optional[torch.Generator] = None):
+    """Per-sequence (ELBO, BCE, latent KL) of a (B, L, q) batch at one
+    draw (ref all_likelihood_components, VAE_model.py:466-481): the latent
+    noise ``z_noise`` (B, z_dim) and the decoder's ``decoder_noise``
+    (``draw_noise(1, ...)``'s layout), each drawn from ``generator`` when
+    not given."""
+    mu, logvar = model.encode(x)
+    if z_noise is None:
+        z_noise = torch.randn(mu.shape, generator=generator, device=mu.device)
+    z = mu + torch.exp(0.5 * logvar) * z_noise
+    recon = model.decode(z[None], generator=generator, noise=decoder_noise)[0]
+    flat = x.reshape(x.shape[0], -1)
+    bce = _bce_with_logits(recon.reshape(flat.shape), flat).sum(dim=1)
+    kld = kld_latent(mu, logvar)
+    return -(bce + kld), bce, kld
+
+
+def loss_fn(model: EveModel, x: torch.Tensor, neff: float, warm_up_scale: float = 1.0,
+            z_noise=None, decoder_noise=None, generator: Optional[torch.Generator] = None):
+    """The mean negative ELBO plus the warm-up-scaled KL terms (ref
+    VAE_model.py:149-163): returns ``neg_elbo`` and ``(bce_mean, kld_mean,
+    kld_params_norm)``, the decoder parameters' KL over ``neff``."""
+    _, bce, kld = elbo_components(model, x, z_noise, decoder_noise, generator)
+    bce_mean, kld_mean = bce.mean(), kld.mean()
+    kld_params_norm = kld_decoder_params(model) / neff
+    neg_elbo = bce_mean + warm_up_scale * (kld_mean + kld_params_norm)
+    return neg_elbo, (bce_mean, kld_mean, kld_params_norm)
+
+
+def train_step(model: EveModel, optimizer: torch.optim.Optimizer, x: torch.Tensor, neff: float,
+               z_noise=None, decoder_noise=None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One Adam step on the batch ``x`` (B, L, q) at warm-up scale 1, as
+    the JAX ``train`` runs its step, the products in float32 without TF32;
+    returns the loss before the update, on the device."""
+    optimizer.zero_grad(set_to_none=True)
+    with no_tf32():
+        loss, _ = loss_fn(model, x, neff, 1.0, z_noise, decoder_noise, generator)
+        loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+def train(onehot: np.ndarray, weights: np.ndarray, config: EveConfig, steps: int = 400_000,
+          learning_rate: float = 1e-4, seed: int = 0, device="cuda") -> EveModel:
+    """Train EVE on (N, L, q) one-hots with their sequence weights:
+    ``steps`` Adam steps from a random init, each on ``BATCH_SIZE`` rows
+    drawn with replacement in proportion to the weights, Neff their sum,
+    no warm-up (ref train_VAE.py, as the JAX ``train`` runs it). The
+    initial weights and every draw of the training come from one
+    generator, stream 1 of ``seed`` on ``device`` (``seeded_generator``),
+    so they replay neither ``init_random(seed=seed)`` nor the draws of a
+    scoring seeded ``seed``. The losses stay on the device until the end,
+    where they become ``model.losses`` (the loss before each update). The
+    model comes back in inference mode, without gradients."""
+    dev = resolve_device(device)
+    gen = seeded_generator(seed, dev, stream=1)
+    model = init_random(config, device=dev, generator=gen).requires_grad_(True)
+    rows = torch.as_tensor(np.asarray(onehot, dtype=np.float32), device=dev)
+    w = np.asarray(weights, dtype=np.float64)
+    probs = torch.as_tensor(w / w.sum(), dtype=torch.float32, device=dev)
+    neff = float(w.sum())
+    optimizer = adam(model, learning_rate)
+    losses = torch.empty(steps, device=dev)
+    for step in range(steps):
+        idx = torch.multinomial(probs, BATCH_SIZE, replacement=True, generator=gen)
+        losses[step] = train_step(model, optimizer, rows[idx], neff, generator=gen)
+    del optimizer, rows
+    model.losses = losses.cpu().numpy().astype(np.float64)
+    return model.requires_grad_(False)
+
+
+# ---------------------------------------------------------------------------
 # Weights
 # ---------------------------------------------------------------------------
 
@@ -269,16 +379,18 @@ def _empty_model(config: EveConfig, device) -> EveModel:
 
 
 @torch.no_grad()
-def init_random(config: EveConfig, seed: int = 0, device="cuda") -> EveModel:
+def init_random(config: EveConfig, seed: int = 0, device="cuda",
+                generator: Optional[torch.Generator] = None) -> EveModel:
     """Seeded random init with the JAX ``init_params`` distribution (the
     draws differ): dense and convolution means U(-1/sqrt(fan_in), +), the
     output weight mean Xavier-normal, mean biases 0.1 (the latent log
     variance's -10), every decoder log variance -10, the temperature mean
-    1, the sparsity means 0."""
+    1, the sparsity means 0. The draws come from ``generator`` when it is
+    given (a generator on ``device``), else from one seeded ``seed``."""
     c = config
     model = _empty_model(config, device)
     dev = model.decoder.last_hidden_layer_bias_mean.device
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(seed)
 
     def uniform(p, fan_in):
         bound = 1.0 / float(np.sqrt(fan_in))

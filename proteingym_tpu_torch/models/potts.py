@@ -21,7 +21,6 @@ Adam on the device in float32 (without TF32), whose hot operation is the
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from pathlib import Path
 from typing import Optional, Sequence
@@ -30,7 +29,7 @@ import numpy as np
 import torch
 
 from proteingym_tpu_torch.data.mutants import parse_mutant
-from proteingym_tpu_torch.devices import resolve_device
+from proteingym_tpu_torch.devices import no_tf32, resolve_device
 
 
 @dataclasses.dataclass
@@ -265,18 +264,6 @@ def _plm_loss(h, P, onehot, codes, weights, lambda_h, lambda_j, off_diagonal):
     return nll + lambda_h * (h ** 2).sum() + lambda_j * 0.5 * (S ** 2).sum()
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    """float32 matmuls in full float32 (the reference is float32 without
-    TF32): a different result otherwise, not a faster one."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
-
-
 def train_potts_plm(
     matrix: np.ndarray,
     weights: np.ndarray,
@@ -310,7 +297,7 @@ def train_potts_plm(
     P = torch.zeros(length * q, length * q, device=dev, requires_grad=True)
     opt = torch.optim.Adam([h, P], lr=learning_rate)
     losses = torch.empty(steps, device=dev)
-    with _no_tf32():
+    with no_tf32():
         for step in range(steps):
             opt.zero_grad(set_to_none=True)
             loss = _plm_loss(h, P, onehot, codes, w, lambda_h, lambda_j, off_diagonal)

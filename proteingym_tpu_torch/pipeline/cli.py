@@ -1,7 +1,8 @@
 """Command line of the PyTorch port (counterpart of
 proteingym_tpu/pipeline/cli.py for ``score --model esm|poet|msa_transformer|
 tranception|trancepteve|eve|deepsequence|site_independent|potts|evmutation|
-hmm``, ``weights``, ``merge``, ``evaluate`` and ``evaluate-clinical``).
+hmm|wavenet``, ``train --model eve|potts``, ``weights``, ``merge``,
+``evaluate`` and ``evaluate-clinical``).
 
     python -m proteingym_tpu_torch.pipeline.cli score --model esm \\
         --checkpoint esm2_t33_650M --dms-reference ref.csv --dms-dir dms/ \\
@@ -24,9 +25,16 @@ hmm``, ``weights``, ``merge``, ``evaluate`` and ``evaluate-clinical``).
     python -m proteingym_tpu_torch.pipeline.cli score --model hmm|potts|site_independent \\
         --msa-dir msa/ --weights-dir weights/ --dms-reference ref.csv \\
         --dms-dir dms/ --output-dir out/ [--indel-mode] [--checkpoint X.model]
-    python -m proteingym_tpu_torch.pipeline.cli score --model eve \\
-        --checkpoint eve.pt --msa-dir msa/ --weights-dir weights/ \\
-        --dms-reference ref.csv --dms-dir dms/ --output-dir out/
+    python -m proteingym_tpu_torch.pipeline.cli score --model eve|deepsequence \\
+        [--checkpoint eve.pt] --msa-dir msa/ --weights-dir weights/ \\
+        --dms-reference ref.csv --dms-dir dms/ --output-dir out/ \\
+        [--extra train_steps=10000 seeds=1,2,3]
+    python -m proteingym_tpu_torch.pipeline.cli score --model wavenet \\
+        --msa-dir msa/ --weights-dir weights/ --dms-reference ref.csv \\
+        --dms-dir dms/ --output-dir out/ [--extra steps=400]
+    python -m proteingym_tpu_torch.pipeline.cli train --model eve|potts \\
+        --msa-dir msa/ --weights-dir weights/ --dms-reference ref.csv \\
+        --dms-id X --output-dir models/ [--steps 400000] [--seed 0]
     python -m proteingym_tpu_torch.pipeline.cli weights --msa X.a2m \\
         --theta 0.2 --output weights/X.npy [--device cuda|cpu]
     python -m proteingym_tpu_torch.pipeline.cli merge --dms-reference ref.csv \\
@@ -46,6 +54,13 @@ throughput) beside it. With
 share forward batches; the batch is one ``score_packed`` phase and fails
 or succeeds as a whole. ``--extra scoring_strategy=wt-marginals|pseudo-ppl``
 selects the other ESM strategies (per assay only).
+
+``train`` trains one assay's alignment model and writes it to
+``<output-dir>/<model>_<DMS_id>_seed<seed>``: for ``eve`` a reference EVE
+checkpoint file (``torch.save`` of ``eve.checkpoint_dict``, which
+``score --checkpoint`` and ``eve_checkpoints=`` read; the JAX CLI writes
+an orbax directory there instead), for ``potts`` a plmc ``.model`` file
+beside that stem.
 
 ``merge`` joins each model's score files onto the assays and runs on the
 host; ``evaluate`` and ``evaluate-clinical`` write the JAX package's metric
@@ -270,6 +285,37 @@ def cmd_weights(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    """Train an alignment model (EVE's VAE, or the Potts model by
+    pseudolikelihood) on one assay's MSA and write it (the reference's
+    training_EVE_models.sh role, ref train_VAE.py)."""
+    import torch
+
+    from proteingym_tpu_torch.models import eve, potts
+    from proteingym_tpu_torch.pipeline.scorers import POTTS_ALPHABET
+
+    device = resolve_device(args.device)
+    reference = load_reference(args.dms_reference)
+    rec = reference[args.dms_id] if args.dms_id else reference[args.dms_index or 0]
+    ctx = ScoreContext(record=rec, mutants=[], device=device, msa_dir=Path(args.msa_dir),
+                       weights_dir=Path(args.weights_dir) if args.weights_dir else None)
+    msa = ctx.load_msa()
+    stem = Path(args.output_dir) / f"{args.model}_{rec.DMS_id}_seed{args.seed}"
+    stem.parent.mkdir(parents=True, exist_ok=True)
+    if args.model == "eve":
+        model = eve.train(msa.one_hot(), msa.weights, eve.EveConfig(seq_len=msa.seq_len),
+                          steps=args.steps, seed=args.seed, device=device)
+        torch.save(eve.checkpoint_dict(model), stem)
+        print(f"EVE checkpoint -> {stem}")
+    else:
+        model = potts.train_potts_plm(msa.matrix, msa.weights, POTTS_ALPHABET,
+                                      np.asarray(msa.focus_cols) + (rec.MSA_start or 1),
+                                      msa.focus_seq_trimmed, steps=args.steps, device=device)
+        potts.write_plmc_model(model, f"{stem}.model")
+        print(f"Potts model -> {stem}.model")
+    return 0
+
+
 def cmd_merge(args) -> int:
     from proteingym_tpu_torch.merge.merge import filesystem_loaders, merge_all
 
@@ -355,6 +401,20 @@ def build_parser() -> argparse.ArgumentParser:
     w.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda runs the cluster-count kernel, cpu its plain version")
     w.set_defaults(fn=cmd_weights)
+
+    tr = sub.add_parser("train", help="train an alignment model (eve/potts)")
+    tr.add_argument("--model", required=True, choices=["eve", "potts"])
+    tr.add_argument("--dms-reference", required=True)
+    tr.add_argument("--dms-id", default=None)
+    tr.add_argument("--dms-index", type=int, default=None)
+    tr.add_argument("--msa-dir", required=True)
+    tr.add_argument("--weights-dir", default=None)
+    tr.add_argument("--output-dir", required=True)
+    tr.add_argument("--steps", type=int, default=400_000)
+    tr.add_argument("--seed", type=int, default=0)
+    tr.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the model trains")
+    tr.set_defaults(fn=cmd_train)
 
     mutation_types = ["substitutions", "indels"]
     m = sub.add_parser("merge", help="merge per-model scores per assay (host only)")

@@ -3,8 +3,10 @@
 ``msa_transformer`` (MSA masked marginals in focus-column coordinates),
 ``tranception`` / ``trancepteve`` (autoregressive, with MSA and EVE
 retrieval, and whole indel sequences with ``indel_mode``), ``eve`` /
-``deepsequence`` (evol indices from checkpoints), the alignment baselines
-``site_independent``, ``potts`` / ``evmutation`` and ``hmm``, plus
+``deepsequence`` (evol indices of VAEs trained from the MSA or read from
+checkpoints), the alignment baselines ``site_independent``, ``potts`` /
+``evmutation``, ``hmm`` and ``wavenet`` (a causal CNN trained on the
+MSA's rows; whole sequences, so indels too), plus
 ``score_esm_packed_batch``, the cross-assay packed ESM path.
 
 A scorer is ``scorer(ctx: ScoreContext)`` and returns either ``{column:
@@ -144,6 +146,26 @@ def score_hmm(ctx: ScoreContext) -> Dict[str, np.ndarray]:
         seqs, wt = [s[s0:s1] for s in seqs], wt[s0:s1]
     lls = score_sequences(model, seqs + [wt], device=ctx.device)
     return {"HMM_score": lls[:-1] - lls[-1]}
+
+
+@register_scorer("wavenet")
+def score_wavenet(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """WaveNet / SeqDesign (models/wavenet.py): the causal CNN from
+    ``init_random(seed=0)``, trained on the MSA's rows by weight (``--extra
+    steps=`` 400, ``num_layers=`` 12, ``seed=`` 0), then each
+    ``mutated_sequence`` scored whole by its log-likelihood, so indel
+    assays too. The column is ``Wavenet_score``, as the JAX scorer names
+    it."""
+    from proteingym_tpu_torch.models import wavenet
+
+    msa = ctx.load_msa()
+    config = wavenet.WavenetConfig(steps=int(ctx.extra.get("steps", 400)),
+                                   num_layers=int(ctx.extra.get("num_layers", 12)))
+    model = wavenet.init_random(config, seed=0, device=ctx.device)
+    model, _ = wavenet.train(model, config, msa.sequences(), weights=msa.weights,
+                             seed=int(ctx.extra.get("seed", 0)))
+    scores = wavenet.score_sequences(model, ctx.mutated_sequences, batch=ctx.batch_size)
+    return {"Wavenet_score": scores}
 
 
 @register_scorer("esm")
@@ -352,24 +374,45 @@ def score_tranception(ctx: ScoreContext):
     )
 
 
+# the architectures the eve / deepsequence scorers train without a
+# checkpoint: (encoder_hidden, decoder_hidden, z_dim), each overridden by
+# --extra of that name
+EVE_ARCHITECTURES = {
+    "evol_indices": ("2000,1000,300", "300,1000,2000", 50),
+    "DeepSequence_evol_indices": ("1500,1500", "100,500", 30),
+}
+
+
 def _score_eve(ctx: ScoreContext, column: str) -> Dict[str, np.ndarray]:
-    """Evol indices of the EVE models in ``--checkpoint`` (comma-separated
-    reference EVE files; several average into ``{column}_ensemble``) over
-    ``--extra num_samples=`` draws (2,000) from seed ``seed=`` (42), in
-    the alignment's focus coordinates (ref EVE/compute_evol_indices_DMS.py).
-    Mutants off the focus columns or with a letter outside the 20 amino
-    acids are NaN, a literal WT row 0. Training is not ported: without
-    --checkpoint the scorer raises."""
+    """Evol indices (ref EVE/compute_evol_indices_DMS.py) over ``--extra
+    num_samples=`` draws (2,000) from seed ``seed=`` (42), in the
+    alignment's focus coordinates, of the EVE models in ``--checkpoint``
+    (comma-separated reference EVE files) or else of models trained from
+    the MSA: one per ``--extra seeds=`` (default: ``seed``) for
+    ``train_steps=`` steps (10,000), at the scorer's architecture
+    (``EVE_ARCHITECTURES``). Several members average into
+    ``{column}_ensemble``. Mutants off the focus columns or with a letter
+    outside the 20 amino acids are NaN, a literal WT row 0."""
     from proteingym_tpu_torch.models import eve
     from proteingym_tpu_torch.pipeline.checkpoints import load_eve_checkpoint
 
-    if not ctx.checkpoint:
-        raise NotImplementedError(
-            "EVE training is not ported yet: pass --checkpoint with reference EVE "
-            "checkpoint files (comma-separated for an ensemble)")
     msa = ctx.load_msa()
-    members = [load_eve_checkpoint(p, device=ctx.device)[0]
-               for p in str(ctx.checkpoint).split(",")]
+    if ctx.checkpoint:
+        members = [load_eve_checkpoint(p, device=ctx.device)[0]
+                   for p in str(ctx.checkpoint).split(",")]
+    else:
+        enc, dec, z_dim = EVE_ARCHITECTURES[column]
+        ints = lambda key, default: tuple(int(v) for v in str(ctx.extra.get(key, default)).split(","))
+        config = eve.EveConfig(seq_len=msa.seq_len, encoder_hidden=ints("encoder_hidden", enc),
+                               decoder_hidden=ints("decoder_hidden", dec),
+                               z_dim=int(ctx.extra.get("z_dim", z_dim)))
+        seeds = (ints("seeds", None) if ctx.extra.get("seeds")
+                 else [int(ctx.extra.get("seed", 42))])
+        onehot = msa.one_hot()
+        members = [eve.train(onehot, msa.weights, config,
+                             steps=int(ctx.extra.get("train_steps", 10_000)), seed=seed,
+                             device=ctx.device)
+                   for seed in seeds]
     alphabet = eve.ALPHABET
     aa_idx = {a: i for i, a in enumerate(alphabet)}
     # an indeterminate focus letter is an all-zero one-hot row (code -1)
@@ -394,6 +437,6 @@ def score_eve(ctx: ScoreContext) -> Dict[str, np.ndarray]:
 
 @register_scorer("deepsequence")
 def score_deepsequence(ctx: ScoreContext) -> Dict[str, np.ndarray]:
-    """DeepSequence, EVE's ancestor architecture, scored by the same
-    recipe from its checkpoint."""
+    """DeepSequence, EVE's ancestor architecture (a 1500-1500 encoder, z=30,
+    a 100-500 decoder), trained and scored by the same recipe."""
     return _score_eve(ctx, "DeepSequence_evol_indices")

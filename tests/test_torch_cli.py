@@ -16,6 +16,7 @@ from proteingym_tpu_torch.models import esm2 as tesm
 from proteingym_tpu_torch.pipeline import checkpoints as tckpt
 from proteingym_tpu_torch.pipeline import cli as tcli
 from tests.test_torch_esm2 import fair_esm_state
+from tests.test_torch_eve_train import one_thread  # noqa: F401
 
 ATOL = 1e-4
 AA = "ACDEFGHIKLMNPQRSTVWY"
@@ -166,3 +167,133 @@ def test_checkpoint_specs(tmp_path):
         tckpt.load_esm_checkpoint(str(orbax), device="cpu")
     with pytest.raises(ValueError, match="needs --checkpoint"):
         tckpt.load_esm_checkpoint(None, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# The alignment trainers: train --model eve|potts, and the eve /
+# deepsequence scorers without a checkpoint
+# ---------------------------------------------------------------------------
+
+def _train_args(tmp_path, model, steps, out):
+    return ["train", "--model", model, "--dms-reference", str(tmp_path / "ref.csv"),
+            "--dms-id", "FAM_T", "--msa-dir", str(tmp_path / "msa"), "--weights-dir",
+            str(tmp_path / "w"), "--output-dir", str(tmp_path / out), "--steps", str(steps),
+            "--seed", "3"]
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_train_eve_writes_a_file_the_jax_package_reads(tmp_path):
+    import jax.numpy as jnp
+
+    from proteingym_tpu.models import eve as jeve
+    from proteingym_tpu_torch.models import eve as teve
+    from tests.test_torch_eve import ATOL, _eve_world, _onehots
+
+    _eve_world(tmp_path)
+    assert tcli.main(_train_args(tmp_path, "eve", 5, "models") + ["--device", "cpu"]) == 0
+    path = tmp_path / "models" / "eve_FAM_T_seed3"
+    assert path.is_file()  # a reference EVE file (the JAX CLI writes an orbax directory)
+    model, config = tckpt.load_eve_checkpoint(path, device="cpu")
+    assert config == teve.EveConfig(seq_len=9)  # the default architecture
+    start = teve.init_random(config, seed=3, device="cpu")
+    assert any(not torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                     start.state_dict().values()))
+    params, jcfg = jeve.load_torch_checkpoint(path)
+    x = _onehots(np.random.RandomState(3), 4, 9)
+    with torch.no_grad():
+        mu, logvar = model.encode(torch.from_numpy(x))
+    jmu, jlogvar = jeve.encode(params, jcfg, jnp.asarray(x))
+    np.testing.assert_allclose(mu.numpy(), jmu, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(logvar.numpy(), jlogvar, atol=ATOL, rtol=0)
+    # the decoder with the JAX decode's own draws, one key each in its order
+    key = jax.random.PRNGKey(4)
+    keys = jax.random.split(key, 4 + 2 * len(jcfg.decoder_hidden))
+    noise = [torch.from_numpy(np.array(jax.random.normal(k, mean.shape), np.float32))[None]
+             for k, (mean, _) in zip(keys, model.variational())]
+    z = np.random.RandomState(4).randn(4, jcfg.z_dim).astype(np.float32)
+    with torch.no_grad():
+        got = model.decode(torch.from_numpy(z)[None], noise=noise)[0].numpy()
+    np.testing.assert_allclose(got, jeve.decode(params, jcfg, jnp.asarray(z), key),
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_train_potts_writes_the_jax_cli_file(tmp_path):
+    from proteingym_tpu.models import potts as jpotts
+    from proteingym_tpu_torch.models import potts as tpotts
+    from tests.test_torch_eve import _eve_world
+    from tests.test_torch_potts import PLM_ATOL
+
+    _eve_world(tmp_path)
+    assert tcli.main(_train_args(tmp_path, "potts", 20, "port") + ["--device", "cpu"]) == 0
+    assert jcli.main(["--platform", "cpu"] + _train_args(tmp_path, "potts", 20, "jax")) == 0
+    got = tpotts.read_plmc_model(tmp_path / "port" / "potts_FAM_T_seed3.model")
+    want = jpotts.read_plmc_model(str(tmp_path / "jax" / "potts_FAM_T_seed3.model"))
+    np.testing.assert_array_equal(got.index_list, want.index_list)
+    assert got.target_seq == want.target_seq
+    np.testing.assert_allclose(got.h, want.h, atol=PLM_ATOL, rtol=0)
+    np.testing.assert_allclose(got.J, want.J, atol=PLM_ATOL, rtol=0)
+    assert np.abs(got.J).max() > 1e-3  # the couplings moved
+
+
+SMALL_VAE = ["encoder_hidden=24,16", "decoder_hidden=16,24", "z_dim=4"]
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("model,extra,column", [
+    ("eve", SMALL_VAE, "evol_indices"),
+    ("eve", SMALL_VAE + ["seeds=1,2"], "evol_indices_ensemble"),
+    ("deepsequence", SMALL_VAE, "DeepSequence_evol_indices"),
+], ids=["eve", "eve_ensemble", "deepsequence"])
+def test_eve_scorers_train_without_a_checkpoint(tmp_path, model, extra, column):
+    from tests.test_torch_eve import _eve_world
+
+    _eve_world(tmp_path)
+    common = ["--model", model, "--msa-dir", str(tmp_path / "msa"), "--weights-dir",
+              str(tmp_path / "w"), "--dms-reference", str(tmp_path / "ref.csv"), "--dms-dir",
+              str(tmp_path / "dms"), "--quiet", "--extra", "train_steps=20", "num_samples=6",
+              *extra]
+    assert tcli.main(["score", "--device", "cpu", "--output-dir", str(tmp_path / "port")]
+                     + common) == 0
+    assert jcli.main(["--platform", "cpu", "score", "--output-dir", str(tmp_path / "jax")]
+                     + common) == 0
+    with open(tmp_path / "port" / "FAM_T.csv", newline="") as f:
+        port = list(csv.reader(f))
+    with open(tmp_path / "jax" / "FAM_T.csv", newline="") as f:
+        want = list(csv.reader(f))
+    assert port[0] == want[0] == ["mutant", "mutated_sequence", column]
+    assert [r[:2] for r in port] == [r[:2] for r in want]
+    # off the focus, a wrong letter, a letter outside the alphabet: empty
+    # on both sides; the rest finite, the literal WT row 0 in the port
+    assert [r[2] == "" for r in port[1:]] == [r[2] == "" for r in want[1:]] == \
+        [False, False, False, True, True, True, False]
+    got = np.asarray([float(r[2]) for r in port[1:] if r[2]])
+    assert np.isfinite(got).all() and got[-1] == 0.0 and len(set(got[:3])) == 3
+
+
+@pytest.mark.parametrize("model,architecture", [
+    ("eve", ((2000, 1000, 300), (300, 1000, 2000), 50)),
+    ("deepsequence", ((1500, 1500), (100, 500), 30)),
+])
+def test_eve_scorers_train_their_architectures(tmp_path, monkeypatch, model, architecture):
+    # without --extra the scorers train the JAX scorer's architectures for
+    # 10,000 steps from seed 42; the training itself is replaced here by
+    # the untrained model (the tests above train)
+    from proteingym_tpu_torch.models import eve as teve
+    from tests.test_torch_eve import _eve_world
+
+    _eve_world(tmp_path)
+    calls = []
+
+    def untrained(onehot, weights, config, steps, seed, device):
+        calls.append((config, steps, seed, onehot.shape, len(weights)))
+        return teve.init_random(config, seed=seed, device=device)
+
+    monkeypatch.setattr(teve, "train", untrained)
+    assert tcli.main(["score", "--model", model, "--device", "cpu", "--msa-dir",
+                      str(tmp_path / "msa"), "--dms-reference", str(tmp_path / "ref.csv"),
+                      "--dms-dir", str(tmp_path / "dms"), "--output-dir", str(tmp_path / "out"),
+                      "--quiet", "--fail-fast", "--extra", "num_samples=2"]) == 0
+    (config, steps, seed, shape, n_weights), = calls
+    assert (config.encoder_hidden, config.decoder_hidden, config.z_dim) == architecture
+    assert (config.seq_len, steps, seed, shape, n_weights) == (9, 10_000, 42, (31, 9, 20), 31)

@@ -3,8 +3,8 @@ long-context and extent-sparse segmented, on the Hopper loop with its
 pre-pass in bf16 and on the scalar kernel in float32; cluster counts)
 against their plain PyTorch versions on the card, and the model forwards
 that launch them (ESM, PoET, the MSA Transformer's column attention,
-Tranception's ALiBi causal attention), and the HMM forward and the Potts
-trainer on the card against the CPU.
+Tranception's ALiBi causal attention), and the HMM forward and the Potts,
+EVE and WaveNet trainers on the card against the CPU.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one; the kernels have no CPU mode. The file imports neither jax nor the
@@ -17,7 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from proteingym_tpu_torch.models import esm2, hmm, msa_transformer, poet, potts, tranception
+from proteingym_tpu_torch.devices import adam
+from proteingym_tpu_torch.models import (
+    esm2, eve, hmm, msa_transformer, poet, potts, tranception, wavenet,
+)
 from proteingym_tpu_torch.msa import weights as msa_weights
 from proteingym_tpu_torch.ops import flash_attention as fa
 
@@ -851,3 +854,61 @@ def test_potts_training_on_the_card_equals_cpu(dev):
     muts = ["A1C", "C2W:D3E", "WT"]
     np.testing.assert_allclose(got.delta_hamiltonians(muts, device=dev),
                                got.delta_hamiltonians(muts, device="cpu"), atol=1e-10, rtol=0)
+
+
+def _params_close(card_model, cpu_model, atol, max_abs):
+    """Adam steps: entries agree within ``atol`` except the few whose
+    gradient is within float32 noise of 0, which may step the other way."""
+    for name, value in card_model.state_dict().items():
+        diff = (value.cpu() - cpu_model.state_dict()[name]).abs()
+        assert float((diff > atol).float().mean()) <= 1e-3, name
+        assert float(diff.max()) <= max_abs, name
+
+
+def test_eve_training_steps_on_the_card_equal_cpu(dev):
+    # every draw made once on the CPU and handed to both sides
+    config = eve.EveConfig(seq_len=30, encoder_hidden=(64, 32), decoder_hidden=(32, 64), z_dim=8)
+    rs = np.random.RandomState(2)
+    rows = torch.zeros(200, 30, 20)
+    rows[torch.arange(200)[:, None], torch.arange(30)[None], torch.from_numpy(
+        rs.randint(0, 20, (200, 30)))] = 1.0
+    probs = torch.from_numpy(rs.rand(200) + 0.1).float()
+    gen = torch.Generator().manual_seed(2)
+    on_cpu = eve.init_random(config, seed=2, device="cpu")
+    on_card = eve.load_state_dict(on_cpu.state_dict(), config, device=dev)
+    draws = [(torch.multinomial(probs, eve.BATCH_SIZE, replacement=True, generator=gen),
+              torch.randn(eve.BATCH_SIZE, 8, generator=gen), on_cpu.draw_noise(1, gen))
+             for _ in range(3)]
+    losses = {}
+    for side, model, where in (("card", on_card, dev), ("cpu", on_cpu, torch.device("cpu"))):
+        optimizer = adam(model.requires_grad_(True), 1e-4)
+        losses[side] = [float(eve.train_step(model, optimizer, rows[idx].to(where), 150.0,
+                                             z_noise=z.to(where),
+                                             decoder_noise=[n.to(where) for n in noise]))
+                        for idx, z, noise in draws]
+    np.testing.assert_allclose(losses["card"], losses["cpu"], rtol=1e-5)
+    _params_close(on_card, on_cpu, 1e-6, 6e-4)
+    trained = eve.train(rows.numpy(), probs.numpy(), config, steps=5, device=dev)
+    assert trained.losses.shape == (5,) and np.isfinite(trained.losses).all()
+
+
+def test_wavenet_steps_and_scores_on_the_card_equal_cpu(dev):
+    config = wavenet.WavenetConfig(num_layers=6, max_dilation=8)
+    rs = np.random.RandomState(3)
+    aa = "ACDEFGHIKLMNPQRSTVWY"
+    seqs = ["".join(aa[i] for i in rs.randint(0, 20, n)) for n in rs.randint(20, 60, 100)]
+    tokens, mask, probs = (torch.from_numpy(a) for a in wavenet.training_rows(seqs))
+    gen = torch.Generator().manual_seed(3)
+    picks = [torch.multinomial(probs.float(), config.batch, replacement=True, generator=gen)
+             for _ in range(3)]
+    on_cpu = wavenet.init_random(config, seed=3, device="cpu")
+    on_card = wavenet.load_state_dict(on_cpu.state_dict(), config, device=dev)
+    np.testing.assert_allclose(wavenet.score_sequences(on_card, seqs),
+                               wavenet.score_sequences(on_cpu, seqs), atol=1e-3, rtol=0)
+    losses = {}
+    for side, model, where in (("card", on_card, dev), ("cpu", on_cpu, torch.device("cpu"))):
+        optimizer = adam(model.requires_grad_(True), config.learning_rate)
+        losses[side] = [float(wavenet.train_step(model, optimizer, tokens[idx].to(where),
+                                                 mask[idx].to(where))) for idx in picks]
+    np.testing.assert_allclose(losses["card"], losses["cpu"], rtol=1e-5)
+    _params_close(on_card, on_cpu, 1e-5, 6e-3)

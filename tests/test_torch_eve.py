@@ -5,7 +5,8 @@ JAX ``decode``), the loss pieces, the one-hots, the evol indices and the
 EVE prior on a checkpoint whose every log variance is -60 (each draw then
 equals its mean, so the two generators' draws do not matter), the
 reference-layout checkpoint file read on both sides, and the ``eve`` /
-``deepsequence`` scorers through both CLIs.
+``deepsequence`` scorers from checkpoints through both CLIs (training is
+held by test_torch_eve_train.py and test_torch_cli.py).
 """
 
 import csv
@@ -292,12 +293,3 @@ def test_focus_model_scores_literal_wt_rows_zero():
                              ["A3C", "WT", "D5E", "", "A1C"])
     np.testing.assert_array_equal(got, [7.0, 0.0, 7.0, 0.0, np.nan])
 
-
-def test_eve_without_a_checkpoint_raises(tmp_path):
-    _eve_world(tmp_path)
-    out = tmp_path / "out"
-    rc = tcli.main(["score", "--model", "eve", "--device", "cpu", "--msa-dir",
-                    str(tmp_path / "msa"), "--dms-reference", str(tmp_path / "ref.csv"),
-                    "--dms-dir", str(tmp_path / "dms"), "--output-dir", str(out), "--quiet"])
-    assert rc == 1
-    assert "EVE training is not ported" in (out / "manifest.jsonl").read_text()

@@ -34,6 +34,7 @@ def test_port_imports_without_jax_or_pandas():
                              if m == "proteingym_tpu" or m.startswith("proteingym_tpu."))
         assert not jax_package, jax_package
         assert "proteingym_tpu_torch.pipeline.cli" in names and len(names) > 30, names
+        assert "proteingym_tpu_torch.models.wavenet" in names, names
         print("ok")
     """)
     assert proc.returncode == 0, proc.stderr
@@ -49,10 +50,11 @@ def test_native_imports_without_a_compiler(tmp_path):
         import sys
         sys.modules["jax"] = None
         from proteingym_tpu_torch import native
-        from proteingym_tpu_torch.models import hmm, potts, retrieval, trancepteve
+        from proteingym_tpu_torch.models import hmm, potts, retrieval, trancepteve, wavenet
         from proteingym_tpu_torch.pipeline import scorers
         assert native._lib is None
-        assert {"hmm", "potts", "evmutation", "site_independent"} <= set(scorers.SCORERS)
+        assert {"hmm", "potts", "evmutation", "site_independent", "wavenet"} <= set(
+            scorers.SCORERS)
         print("ok")
     """)], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
