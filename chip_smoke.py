@@ -153,6 +153,23 @@ Phases (any failure raises, and the script exits non-zero):
    WaveNet's first 3 Adam steps on the card against the same steps on the
    CPU, every draw made once on the CPU: the losses, and each parameter
    tensor, within the stated tolerances.
+17. the rest of the alignment baselines through the port's CLI, each at
+   its defaults, on phase 14's L=250 target, 16,384-row alignment and
+   4,750 singles (with a synonymous WT row) and on phase 15's indel
+   assay, with no weights file, so K5 runs once per CLI run and nothing
+   else of the port's kernels: (a) ``gemme`` (3 NJ trees of 512 rows);
+   (b) ``escott --structure-dir`` with a synthetic helix of the target,
+   and with one of the wrong length, which prints the fallback message;
+   (c) ``siterm`` (GTR: 1,024 rows, 100 Adam epochs): the NJ seconds, ms
+   an epoch, launches an epoch and idle share of the epochs under
+   torch.profiler; (d) ``siterm --extra method=f81``; (e) ``rsalor`` with
+   and without the structure; (f) ``provean`` on the singles and on the
+   indel assay: the supporting set, pairs, DP cells and cells/s,
+   launches per query row, idle share. Each part: the column, the finite
+   count, WT 0, the CLI wall split into fit and scoring seconds, peak
+   memory. The card is held against the CPU at these sizes: PROVEAN's
+   scores equal, GEMME's tables within 1e-9, SiteRM's GTR rate matrices
+   and scores and F81 rates within stated bounds.
 
 Every phase holds the port to its rule: no module of the JAX package
 (``proteingym_tpu``) may be loaded. It prints one JSON line describing the
@@ -321,6 +338,25 @@ TRAINER_SLICE = dict(checkpoint="Large", batch=32, eve_steps=10_000, profiled_st
 TRAINER_CPU_STEPS, TRAINER_CPU_SHARE, TRAINER_CPU_REL_UPDATE = 3, 1e-3, 1e-2
 EVE_CPU_LOSS_RTOL, EVE_CPU_ATOL, EVE_CPU_MAX = 1e-5, 1e-6, 6e-4
 WAVENET_CPU_LOSS_RTOL, WAVENET_CPU_ATOL, WAVENET_CPU_MAX = 1e-5, 1e-5, 6e-3
+# the shapes of phase 17: phase 14's L=250 target, alignment and 4,750
+# singles with a synonymous WT row, and phase 15's indel assay; every
+# scorer at its defaults (GEMME 3 NJ trees of 512 rows; SiteRM GTR on
+# 1,024 rows, 100 epochs, 20 rate categories, 129 taus; F81 on 2,048 rows,
+# 200 steps; PROVEAN 200 candidates, up to 30 clusters of 5); ESCOTT also
+# with a structure of the wrong length; PROVEAN's card against CPU on a
+# spread of variants (the CPU's DP at full size takes minutes)
+BASELINE_SLICE = dict(short_structure=240, provean_cpu_variants=24)
+# Card against CPU at phase 17's own sizes. PROVEAN: every DP cell holds a
+# small integer, so the scores are equal. GEMME: float64 tables whose
+# weighted column sums and carrier minima run in another order. SiteRM
+# GTR: float32 eigenvectors from cuSOLVER and LAPACK differ by rounding,
+# and 100 Adam epochs carry that forward, as they carry float64 against
+# float32 in the JAX package's own fit (tests/test_torch_siterm.py). F81:
+# 200 float32 Adam steps on each side
+PROVEAN_CPU_ATOL = 0.0
+GEMME_CPU_ATOL = 1e-9
+SITERM_Q_REL, SITERM_SCORE_ATOL, SITERM_SPEARMAN = 2e-2, 0.1, 0.999
+F81_MU_RTOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -2083,6 +2119,24 @@ def spans_of(torch, spans, name, fn):
     return wrapper
 
 
+def capturing(torch, module, name, store):
+    """``module.name`` patched to keep its last arguments and result in
+    ``store`` and to add its host seconds (device synchronised at both
+    ends) to ``store["seconds"]``."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        store.update(args=args, kwargs=kwargs, out=out,
+                     seconds=store.get("seconds", 0.0) + time.perf_counter() - t0,
+                     calls=store.get("calls", 0) + 1)
+        return out
+    return mock.patch.object(module, name, wrapper)
+
+
 def kernel_kind(name: str) -> str:
     """The kind of a device kernel, from its name: dense products, the
     normal draws, Adam, the batch draw, or elementwise and reductions."""
@@ -2609,21 +2663,6 @@ def phase_trainers(torch, dev, card, fa):
     def launched():
         return {**fa.LAUNCHES, **W.LAUNCHES}
 
-    def captured(module, name, store):
-        """``module.name`` wrapped to keep its arguments, result and host
-        seconds (device synchronised at both ends) in ``store``."""
-        fn = getattr(module, name)
-
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            store.update(args=args, kwargs=kwargs, out=out,
-                         seconds=store.get("seconds", 0.0) + time.perf_counter() - t0)
-            return out
-        return mock.patch.object(module, name, wrapper)
-
     out = {"launches": {}}
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
@@ -2671,7 +2710,7 @@ def phase_trainers(torch, dev, card, fa):
         reset()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with captured(eve, "train", trained):
+        with capturing(torch, eve, "train", trained):
             train("eve", s["eve_steps"])
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2792,7 +2831,7 @@ def phase_trainers(torch, dev, card, fa):
         # (d) train --model potts, and its file read back
         trained = {}
         reset()
-        with captured(potts, "train_potts_plm", trained):
+        with capturing(torch, potts, "train_potts_plm", trained):
             train("potts", s["potts_steps"])
         out["launches"]["potts_train"] = launched()
         check_launches("train --model potts", launched(), {"cluster_counts": 1})
@@ -2818,8 +2857,8 @@ def phase_trainers(torch, dev, card, fa):
             trained, scored = {}, {}
             reset()
             t0 = time.perf_counter()
-            with captured(wavenet, "train", trained), \
-                    captured(wavenet, "score_sequences", scored):
+            with capturing(torch, wavenet, "train", trained), \
+                    capturing(torch, wavenet, "score_sequences", scored):
                 table = score("wavenet", dms_id)
             wall_e = time.perf_counter() - t0
             out["launches"][path] = launched()
@@ -2918,6 +2957,294 @@ def phase_trainers(torch, dev, card, fa):
         fail(f"WaveNet: the card's first {TRAINER_CPU_STEPS} steps disagree with the CPU's")
     out["wavenet_cpu"] = dict(loss_rel=loss_rel, **{k: v for k, (v, _) in worst.items()})
     print(f"  [trainers] {time.perf_counter() - phase_t0:.1f} s in all")
+    return out
+
+
+def phase_baselines(torch, dev, card, fa):
+    """17. The rest of the alignment baselines through the port's CLI, each
+    at its defaults, on phase 14's L=250 target, 16,384-row alignment over
+    residues 1-240 and 4,750 singles (with a synonymous WT row) and on
+    phase 15's indel assay, with no weights file (K5 once per CLI run):
+    (a) ``gemme``; (b) ``escott`` with --structure-dir (a synthetic helix
+    of the target, and one of the wrong length); (c) ``siterm``; (d)
+    ``siterm --extra method=f81``; (e) ``rsalor`` with and without a
+    structure; (f) ``provean`` on the singles and on the indel assay. The
+    card is held against the CPU at these sizes: GEMME's tables, the GTR
+    rate matrices and scores, the F81 rates, PROVEAN's scores."""
+    import contextlib
+    import io
+
+    from scipy.stats import spearmanr
+
+    from proteingym_tpu_torch import native
+    from proteingym_tpu_torch.data.structures import synthetic_helix_backbone, write_pdb_backbone
+    from proteingym_tpu_torch.models import gemme, provean, rsalor, siterm
+    from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.pipeline import cli
+
+    t, ind, b = TRANCEPTION_SLICE, INDEL_SLICE, BASELINE_SLICE
+    length, covered = t["length"], t["covered"]
+    codes = np.random.RandomState(13).randint(1, 21, length)  # phase 13/14's target
+    seq = "".join(GAP_AA[c] for c in codes)
+    singles = [f"{seq[p]}{p + 1}{a}" for p in range(length) for a in AA if a != seq[p]]
+    mutants = singles + [f"{seq[0]}1{seq[0]}"]  # the WT row, as a synonymous mutant
+    past = [i for i, m in enumerate(mutants) if int(m[1:-1]) > covered]
+    codes400 = np.random.RandomState(15).randint(1, 21, ind["length"])  # phase 15's target
+    seq400 = "".join(GAP_AA[c] for c in codes400)
+    assay = indel_variants(seq400, ind["variants"], 15) + [seq400]
+    phase_t0 = time.perf_counter()
+    print(f"[baselines] gemme, escott, siterm (GTR and F81), rsalor and provean through the CLI "
+          f"at their defaults ({card}): L={length} target with {len(singles)} singles + a WT row, "
+          f"MSA N={t['n_seqs']} over residues 1-{covered}; L={ind['length']} with "
+          f"{len(assay) - 1} indel variants + WT, MSA N={ind['n_seqs']}; no weights file")
+
+    def reset():
+        for counts in (fa.LAUNCHES, W.LAUNCHES):
+            for name in counts:
+                counts[name] = 0
+
+    def launched():
+        return {**fa.LAUNCHES, **W.LAUNCHES}
+
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        for d in ("msa", "dms", "pdb"):
+            (root / d).mkdir()
+        write_a2m(root / "msa" / "SYNTH.a2m", "SYNTH", synth_family(codes[:covered], t["n_seqs"], 13))
+        write_a2m(root / "msa" / "SYNTH_INDEL.a2m", "SYNTH_INDEL",
+                  synth_family(codes400[:ind["covered"]], ind["n_seqs"], 15))
+        write_csv_rows(root / "dms" / "SYNTH_L250.csv", ["mutant", "DMS_score"],
+                       [[m, "0.5"] for m in mutants])
+        write_csv_rows(root / "dms" / "SYNTH_INDEL.csv", ["mutant", "mutated_sequence", "DMS_score"],
+                       [[v, v, "0.5"] for v in assay])
+        write_pdb_backbone(root / "pdb" / "SYNTH.pdb", synthetic_helix_backbone(length), seq)
+        write_pdb_backbone(root / "pdb" / "SYNTH_SHORT.pdb",
+                           synthetic_helix_backbone(b["short_structure"]), seq)
+        cells = ["SYNTH.a2m", 1, covered, 0.2, "SYNTH.npy"]
+        write_csv_rows(root / "reference.csv",
+                       ["DMS_id", "DMS_filename", "UniProt_ID", "target_seq", "seq_len",
+                        "MSA_filename", "MSA_start", "MSA_end", "MSA_theta", "weight_file_name"],
+                       [["SYNTH_L250", "SYNTH_L250.csv", "SYNTH", seq, length, *cells],
+                        ["SYNTH_L250_SHORT", "SYNTH_L250.csv", "SYNTH_SHORT", seq, length, *cells],
+                        ["SYNTH_INDEL", "SYNTH_INDEL.csv", "SYNTH_INDEL", seq400, ind["length"],
+                         "SYNTH_INDEL.a2m", 1, ind["covered"], 0.2, "SYNTH_INDEL.npy"]])
+
+        def score(model, dms_id, extra=(), structure=False, tag=None):
+            """One CLI run: its rows, wall, peak device memory and stdout;
+            K5 once and no other kernel of the port."""
+            tag = tag or model
+            reset()
+            torch.cuda.reset_peak_memory_stats()
+            text = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                rc = cli.main(["score", "--model", model, "--dms-id", dms_id, "--dms-reference",
+                               str(root / "reference.csv"), "--dms-dir", str(root / "dms"),
+                               "--msa-dir", str(root / "msa"), "--output-dir",
+                               str(root / "out" / tag), "--device", dev.type, "--quiet",
+                               "--fail-fast", *(["--structure-dir", str(root / "pdb")]
+                                                if structure else []),
+                               *(["--extra", *extra] if extra else [])])
+            wall = time.perf_counter() - t0
+            if rc != 0:
+                fail(f"score --model {model} exited {rc} on {dms_id}")
+            out["launches"][tag] = launched()
+            check_launches(f"{tag} on {dms_id}", launched(), {"cluster_counts": 1})
+            return (read_table(root / "out" / tag / f"{dms_id}.csv"), wall,
+                    torch.cuda.max_memory_allocated() / 2**30, text.getvalue())
+
+        def check_column(tag, rows, column, want_empty=past):
+            """The scores: the JAX CLI's column, finite where the JAX scorer
+            scores (``want_empty``: the mutants past the alignment), the WT
+            row (the last) 0."""
+            cells = [r[-1] for r in rows[1:]]
+            empty = [i for i, c in enumerate(cells) if c == ""]
+            if rows[0][-1] != column or empty != want_empty or float(cells[-1]) != 0.0:
+                fail(f"{tag}: column {rows[0][-1]} (expected {column}), {len(empty)} empty fields "
+                     f"(expected {len(want_empty)}), WT row {cells[-1]!r}")
+            scores = np.asarray([float(c) if c else np.nan for c in cells])
+            live = np.isfinite(scores)
+            if live.sum() != len(cells) - len(want_empty) or np.ptp(scores[live]) <= 0:
+                fail(f"{tag}: {int(live.sum())} finite scores, or all equal")
+            return scores
+
+        def report(tag, scores, wall, peak, spans, extra=""):
+            print(f"  {tag}: {int(np.isfinite(scores).sum())} finite scores, WT 0; CLI wall "
+                  f"{wall:.2f} s (" + ", ".join(f"{k} {v:.3f} s" for k, v in spans.items())
+                  + f"); peak device memory {peak:.3f} GiB; K5 launches 1{extra} ({card})")
+            out[tag] = dict(wall_s=wall, peak_gib=peak, finite=int(np.isfinite(scores).sum()),
+                            **{f"{k}_s": v for k, v in spans.items()})
+
+        # (a) gemme: 3 NJ trees of 512 sampled rows
+        fit, nj, sc = {}, {}, {}
+        with capturing(torch, gemme, "fit_gemme", fit), capturing(torch, native, "nj_tree", nj), \
+                capturing(torch, gemme, "score_mutants", sc):
+            rows, wall, peak, _ = score("gemme", "SYNTH_L250")
+        scores = check_column("(a) gemme", rows, "GEMME_score")
+        model = fit["out"]
+        n_rows = fit["args"][0].shape[0]
+        n_trees = 3 if n_rows > 512 else 1  # a sample of every row is drawn once
+        if model.method != "tree" or nj["calls"] != n_trees:
+            fail(f"gemme: method {model.method}, {nj['calls']} NJ trees over {n_rows} rows "
+                 f"(expected tree, {n_trees})")
+        on_cpu = gemme.fit_gemme(*fit["args"], **{**fit["kwargs"], "device": "cpu"})
+        gemme_err = max(float(np.abs(model.pred_epi - on_cpu.pred_epi).max()),
+                        float(np.abs(model.pred_ind - on_cpu.pred_ind).max()))
+        report("(a) gemme", scores, wall, peak, {"fit": fit["seconds"], "NJ": nj["seconds"],
+                                                 "scoring": sc["seconds"]},
+               f"; pred_epi and pred_ind against the CPU: max |diff| {gemme_err:.3g} "
+               f"(atol {GEMME_CPU_ATOL:g})")
+        if not gemme_err <= GEMME_CPU_ATOL:
+            fail(f"gemme: card against CPU max |diff| {gemme_err:.3g} > {GEMME_CPU_ATOL:g}")
+        out["(a) gemme"]["cpu_err"] = gemme_err
+
+        # (b) escott: with the target's structure, and with one of the wrong length
+        fit = {}
+        with capturing(torch, gemme, "fit_gemme", fit):
+            rows, wall, peak, text = score("escott", "SYNTH_L250", structure=True)
+        scores = check_column("(b) escott", rows, "ESCOTT_score")
+        report("(b) escott --structure-dir", scores, wall, peak, {"fit": fit["seconds"]})
+        rows_short, wall, peak, text = score("escott", "SYNTH_L250_SHORT", structure=True,
+                                             tag="escott_short")
+        short = check_column("(b) escott, short structure", rows_short, "ESCOTT_score")
+        message = (f"escott/SYNTH_L250_SHORT: structure length {b['short_structure']} != target "
+                   f"{length}; skipping RSA modulation")
+        live = np.isfinite(scores) & (short != 0)
+        if message not in text or np.allclose(scores[live], short[live]):
+            fail(f"escott: the wrong-length structure printed {text.strip()!r}, or the RSA "
+                 "weights changed nothing")
+        print(f"  (b) escott with a {b['short_structure']}-residue structure: {message!r}; "
+              f"CLI wall {wall:.2f} s")
+
+        # (c) siterm, GTR: 1,024 rows, 100 epochs, 20 rate categories, 129 taus.
+        # The process's first batched eigh pays a one-time load (~9.5 s of
+        # the first epoch when this phase ran alone): timed on its own first,
+        # so the epochs below are the fit's (a fresh CLI process pays it once)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.linalg.eigh(torch.eye(21, device=dev).expand(240, 21, 21))
+        torch.cuda.synchronize()
+        first_eigh = time.perf_counter() - t0
+        fit, nj, adam_fit, sc = {}, {}, {}, {}
+        with capturing(torch, siterm, "fit_site_rate_matrices", fit), \
+                capturing(torch, native, "nj_tree", nj), \
+                capturing(torch, siterm, "fit_gtr_params", adam_fit), \
+                capturing(torch, siterm, "score_mutants_gtr", sc):
+            rows, wall, peak, _ = score("siterm", "SYNTH_L250")
+        scores = check_column("(c) siterm", rows, "SiteRM_score")
+        gtr = fit["out"]
+        counts, taus = adam_fit["args"][:2]
+        epochs = adam_fit["args"][4]
+        _, prof_wall, busy, n_kernels, _ = device_seconds(torch, lambda: siterm.fit_gtr_params(
+            *adam_fit["args"]))
+        idle = None if busy is None else 1.0 - busy / prof_wall
+        t_cpu = time.perf_counter()
+        gtr_cpu = siterm.fit_site_rate_matrices(*fit["args"], **{**fit["kwargs"], "device": "cpu"})
+        t_cpu = time.perf_counter() - t_cpu
+        q_rel = float(np.linalg.norm(gtr.rate_matrices - gtr_cpu.rate_matrices)
+                      / np.linalg.norm(gtr_cpu.rate_matrices))
+        wt_focus, remapped = sc["args"][1], sc["args"][2]
+        on_cpu = siterm.score_mutants_gtr(gtr_cpu, wt_focus, remapped, device="cpu")
+        s_err = float(np.abs(sc["out"] - on_cpu).max())
+        rho = float(spearmanr(sc["out"], on_cpu)[0])
+        report("(c) siterm (GTR)", scores, wall, peak,
+               {"fit": fit["seconds"], "NJ": nj["seconds"], "Adam": adam_fit["seconds"],
+                "scoring": sc["seconds"]},
+               f"; the process's first eigh, before the run: {first_eigh:.3f} s; "
+               f"{counts.shape[0]} sites x {counts.shape[1]} time buckets, "
+               f"{epochs} epochs: {adam_fit['seconds'] / epochs * 1e3:.2f} ms an epoch; profiled: "
+               f"{n_kernels / epochs:.1f} launches an epoch, "
+               + ("device busy not read" if busy is None else
+                  f"device busy {busy:.3f} s of {prof_wall:.3f} s, idle share {idle:.3f}")
+               + f"; against the CPU ({t_cpu:.2f} s there): rate matrices rel. Frobenius "
+               f"{q_rel:.3g} (bound {SITERM_Q_REL:g}), site rates "
+               f"{'equal' if np.array_equal(gtr.site_rates, gtr_cpu.site_rates) else 'DIFFER'}, "
+               f"scores max |diff| {s_err:.3g} (bound {SITERM_SCORE_ATOL:g}), Spearman {rho:.6f} "
+               f"(bound {SITERM_SPEARMAN:g})")
+        if not (q_rel <= SITERM_Q_REL and s_err <= SITERM_SCORE_ATOL and rho >= SITERM_SPEARMAN):
+            fail("siterm: the card's GTR fit disagrees with the CPU's")
+        out["(c) siterm (GTR)"].update(
+            first_eigh_s=first_eigh, sites=counts.shape[0], buckets=counts.shape[1], epochs=epochs,
+            ms_per_epoch=adam_fit["seconds"] / epochs * 1e3, launches_per_epoch=n_kernels / epochs,
+            busy_s=busy, idle_share=idle, q_rel=q_rel, score_err=s_err, spearman=rho)
+
+        # (d) siterm --extra method=f81: 2,048 rows, 200 Adam steps
+        fit, nj, rates = {}, {}, {}
+        with capturing(torch, siterm, "fit_siterm", fit), capturing(torch, native, "nj_tree", nj), \
+                capturing(torch, siterm, "fit_site_rates", rates):
+            rows, wall, peak, _ = score("siterm", "SYNTH_L250", extra=["method=f81"],
+                                        tag="siterm_f81")
+        scores = check_column("(d) siterm f81", rows, "SiteRM_score")
+        mu_cpu = siterm.fit_site_rates(*rates["args"], **{**rates["kwargs"], "device": "cpu"})
+        mu_rel = float(np.max(np.abs(rates["out"] - mu_cpu) / np.abs(mu_cpu)))
+        report("(d) siterm --extra method=f81", scores, wall, peak,
+               {"fit": fit["seconds"], "NJ": nj["seconds"], "Adam": rates["seconds"]},
+               f"; {len(rates['args'][2])} cherries of {rates['args'][0].shape[0]} rows; rates "
+               f"against the CPU: max rel. diff {mu_rel:.3g} (bound {F81_MU_RTOL:g})")
+        if not mu_rel <= F81_MU_RTOL:
+            fail(f"siterm f81: card against CPU rates differ by {mu_rel:.3g}")
+
+        # (e) rsalor, with the structure and without
+        fit = {}
+        with capturing(torch, rsalor, "fit_rsalor", fit):
+            rows, wall, peak, _ = score("rsalor", "SYNTH_L250", structure=True)
+        with_rsa = check_column("(e) rsalor", rows, "RSALOR_score")
+        report("(e) rsalor --structure-dir", with_rsa, wall, peak, {"fit": fit["seconds"]})
+        fit = {}
+        with capturing(torch, rsalor, "fit_rsalor", fit):
+            rows, wall, peak, _ = score("rsalor", "SYNTH_L250", tag="rsalor_plain")
+        plain = check_column("(e) rsalor, no structure", rows, "RSALOR_score")
+        report("(e) rsalor, no structure", plain, wall, peak, {"fit": fit["seconds"]})
+        if np.allclose(with_rsa[np.isfinite(plain)], plain[np.isfinite(plain)]):
+            fail("rsalor: the structure changed no score")
+
+        # (f) provean: 200 candidates, up to 30 clusters of 5
+        for tag, path, dms_id in (("(f) provean, singles", "provean_singles", "SYNTH_L250"),
+                                  ("(f) provean, indels", "provean_indels", "SYNTH_INDEL")):
+            clus, ps, dp = {}, {}, {}
+            with capturing(torch, provean, "cluster_supporting_set", clus), \
+                    capturing(torch, provean, "provean_scores", ps), \
+                    capturing(torch, provean, "_gotoh_scores", dp):
+                rows, wall, peak, _ = score("provean", dms_id, tag=path)
+            scores = check_column(tag, rows, "Provean_score", want_empty=[])  # whole sequences
+            wt, seqs, clusters = ps["args"][:3]
+            supporting, _ = provean.supporting_sequences(clusters)
+            l2 = -(-max(map(len, supporting)) // 32) * 32
+            n_pairs = len(seqs) * len(supporting)
+            n_cells = sum(len(s) for s in seqs + [wt]) * len(supporting) * (l2 + 1)
+            # the DP again under the profiler: launches per query row, idle share
+            _, prof_wall, busy, n_kernels, _ = device_seconds(
+                torch, lambda: provean.provean_scores(wt, seqs, clusters, device=dev))
+            idle = None if busy is None else 1.0 - busy / prof_wall
+            _, _, _, row_kernels, _ = device_seconds(
+                torch, lambda: provean.align_scores([wt] * 8, supporting[:8], device=dev))
+            per_row = row_kernels / len(wt)
+            # card against CPU: the whole PROVEAN score of a spread of variants
+            pick = np.unique(np.linspace(0, len(seqs) - 1, b["provean_cpu_variants"]).astype(int))
+            sub = [seqs[k] for k in pick]
+            cpu = provean.provean_scores(wt, sub, clusters, device="cpu")
+            card_sub = provean.provean_scores(wt, sub, clusters, device=dev)
+            p_err = max(float(np.abs(cpu - card_sub).max()),
+                        float(np.abs(cpu - ps["out"][pick]).max()))
+            report(tag, scores, wall, peak,
+                   {"supporting set": clus["seconds"], "scoring": ps["seconds"],
+                    "DP": dp["seconds"]},
+                   f"; supporting set {len(supporting)} sequences in {len(clusters)} clusters; "
+                   f"{n_pairs} (variant, subject) pairs, {n_cells:.4g} DP cells in "
+                   f"{dp['calls']} calls -> {n_cells / dp['seconds']:.4g} cells/s; "
+                   f"{per_row:.1f} launches per query row; profiled: "
+                   + ("device busy not read" if busy is None else
+                      f"device busy {busy:.3f} s of {prof_wall:.3f} s, idle share {idle:.3f}")
+                   + f"; {len(pick)} variants' scores against the CPU: max |diff| {p_err:g} "
+                   f"(atol {PROVEAN_CPU_ATOL:g})")
+            if not p_err <= PROVEAN_CPU_ATOL:
+                fail(f"provean {dms_id}: card against CPU max |diff| {p_err:g}")
+            out[tag].update(supporting=len(supporting), clusters=len(clusters), pairs=n_pairs,
+                            cells=n_cells, cells_per_s=n_cells / dp["seconds"],
+                            launches_per_row=per_row, busy_s=busy, idle_share=idle,
+                            cpu_err=p_err)
+    print(f"  [baselines] {time.perf_counter() - phase_t0:.1f} s in all")
     return out
 
 
@@ -3139,13 +3466,18 @@ def main() -> int:
     tr_run = phase_tranception(torch, dev, card, fa, check_close)
     indel_run = phase_indels(torch, dev, card, fa, check_close)
     trainers = phase_trainers(torch, dev, card, fa)
+    baselines = phase_baselines(torch, dev, card, fa)
 
     if "jax" in sys.modules:
         fail("the port imported jax")
-    # the guard below covers the modules of every phase, phases 15-16's too
+    # the guard below covers the modules of every phase, phases 15-17's too
     missing = [m for m in ("proteingym_tpu_torch.native", "proteingym_tpu_torch.models.hmm",
                            "proteingym_tpu_torch.models.potts",
-                           "proteingym_tpu_torch.models.wavenet") if m not in sys.modules]
+                           "proteingym_tpu_torch.models.wavenet",
+                           "proteingym_tpu_torch.models.gemme", "proteingym_tpu_torch.models.siterm",
+                           "proteingym_tpu_torch.models.rsalor",
+                           "proteingym_tpu_torch.models.provean",
+                           "proteingym_tpu_torch.data.structures") if m not in sys.modules]
     if missing:
         fail(f"modules the phases drive were not loaded: {missing}")
     jax_package = sorted(m for m in sys.modules
@@ -3176,7 +3508,7 @@ def main() -> int:
                "trancepteve": tr_run["launches"], "tranception_windows": tr_run["long_launches"],
                "eve": tr_run["eve_launches"], "trancepteve_indel": indel_run["a"]["launches"],
                "tranception_indel": indel_run["a_tranception"]["launches"],
-               **trainers["launches"]}
+               **trainers["launches"], **baselines["launches"]}
     records = [{
         "name": name,
         "route": "cuda",

@@ -1,13 +1,16 @@
 """The port's host library: the affine-gap global aligner (Gotoh) that
 realigns Tranception's and TranceptEVE's retrieval priors to every indel
-sequence (counterpart of ``affine_align`` in proteingym_tpu/native).
+sequence, and the neighbour-joining tree that GEMME and SiteRM build from
+the alignment (counterparts of ``affine_align`` and ``nj_tree`` in
+proteingym_tpu/native).
 
-``pgym_align.cpp`` is compiled by ``g++ -O3 -shared -fPIC`` at first use
-into ``proteingym_tpu_torch/_build/`` (listed in .gitignore), under a name
-that carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. Importing this module builds
+Each source (``pgym_align.cpp``, ``pgym_nj.cpp``) is compiled by ``g++ -O3
+-shared -fPIC -ffp-contract=off`` at first use into
+``proteingym_tpu_torch/_build/`` (listed in .gitignore), under a name that
+carries a hash of the source and the flags, so an edited source is rebuilt
+and a stale library is never loaded. Importing this module builds
 nothing. A failed build raises with the compiler's output: there is no
-fallback aligner.
+fallback aligner and no fallback tree.
 """
 
 from __future__ import annotations
@@ -24,34 +27,47 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "pgym_align.cpp"
+NJ_SOURCE = Path(__file__).resolve().parent / "pgym_nj.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 CXX = "g++"
-CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
+# -ffp-contract=off: no product is fused into an add unless the source
+# says so (pgym_nj.cpp writes the JAX library's two fused multiply-adds
+# as std::fma), whatever the host's instruction set
+CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread", "-ffp-contract=off"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_nj_lib: Optional[ctypes.CDLL] = None
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + b"\0" + SOURCE.read_bytes())
-    return BUILD_DIR / f"libpgym_align_{h.hexdigest()[:16]}.so"
+def library_path(source: Path = SOURCE) -> Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + b"\0" + source.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
 
 
-def _build(out: Path) -> None:
+def _build(source: Path, out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([CXX, *CXX_FLAGS, str(SOURCE), "-o", tmp],
+        proc = subprocess.run([CXX, *CXX_FLAGS, str(source), "-o", tmp],
                               capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.SubprocessError) as e:
         os.unlink(tmp)
-        raise RuntimeError(f"could not run {CXX!r} to build {SOURCE.name}: {e}") from e
+        raise RuntimeError(f"could not run {CXX!r} to build {source.name}: {e}") from e
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"{CXX} failed to build {SOURCE.name} (exit {proc.returncode}):\n"
+        raise RuntimeError(f"{CXX} failed to build {source.name} (exit {proc.returncode}):\n"
                            f"{proc.stderr[-4000:]}")
     os.replace(tmp, out)  # atomic: a concurrent build loses nothing
+
+
+def _load(source: Path) -> ctypes.CDLL:
+    """Build ``source`` (if its library is not there yet) and load it."""
+    path = library_path(source)
+    if not path.exists():
+        _build(source, path)
+    return ctypes.CDLL(str(path))
 
 
 def get_lib() -> ctypes.CDLL:
@@ -59,10 +75,7 @@ def get_lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            path = library_path()
-            if not path.exists():
-                _build(path)
-            lib = ctypes.CDLL(str(path))
+            lib = _load(SOURCE)
             i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
             i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
             i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
@@ -118,3 +131,41 @@ def affine_align_many(a: np.ndarray, queries: Sequence[np.ndarray]
     """``affine_align(a, q)`` at the default scores for every query, in
     one foreign call."""
     return _align(a, queries)
+
+
+def get_nj_lib() -> ctypes.CDLL:
+    """Build (if needed) and load the neighbour-joining library; cached per
+    process. A library without the symbol raises (AttributeError)."""
+    global _nj_lib
+    with _lock:
+        if _nj_lib is None:
+            lib = _load(NJ_SOURCE)
+            i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+            i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+            f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+            lib.pgym_nj_tree.argtypes = [i8p, ctypes.c_int64, ctypes.c_int64, i32p, i32p,
+                                         f64p, f64p]
+            lib.pgym_nj_tree.restype = ctypes.c_int64
+            _nj_lib = lib
+        return _nj_lib
+
+
+def nj_tree(matrix: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Neighbour-joining merge tree over the rows of an (n, L) int8 code
+    matrix (0 = gap), n >= 2. Returns ``(left, right, left_len,
+    right_len)``, arrays of length n - 1: internal node ``n + k`` has
+    children ``left[k]`` and ``right[k]`` with those branch lengths. The
+    JAX wrapper returns None without its library; this one raises."""
+    matrix = np.ascontiguousarray(matrix, dtype=np.int8)
+    n = matrix.shape[0]
+    if n < 2:
+        raise ValueError(f"a neighbour-joining tree needs >= 2 rows, got {n}")
+    lib = get_nj_lib()
+    left = np.zeros(n - 1, np.int32)
+    right = np.zeros(n - 1, np.int32)
+    left_len = np.zeros(n - 1, np.float64)
+    right_len = np.zeros(n - 1, np.float64)
+    k = lib.pgym_nj_tree(matrix, n, matrix.shape[1], left, right, left_len, right_len)
+    if k != n - 1:
+        raise RuntimeError(f"pgym_nj_tree returned {k} merges for {n} rows")
+    return left, right, left_len, right_len

@@ -1,8 +1,8 @@
 """Command line of the PyTorch port (counterpart of
 proteingym_tpu/pipeline/cli.py for ``score --model esm|poet|msa_transformer|
 tranception|trancepteve|eve|deepsequence|site_independent|potts|evmutation|
-hmm|wavenet``, ``train --model eve|potts``, ``weights``, ``merge``,
-``evaluate`` and ``evaluate-clinical``).
+hmm|wavenet|gemme|escott|siterm|rsalor|provean``, ``train --model eve|potts``,
+``weights``, ``merge``, ``evaluate``, ``evaluate-clinical`` and ``models``).
 
     python -m proteingym_tpu_torch.pipeline.cli score --model esm \\
         --checkpoint esm2_t33_650M --dms-reference ref.csv --dms-dir dms/ \\
@@ -32,6 +32,10 @@ hmm|wavenet``, ``train --model eve|potts``, ``weights``, ``merge``,
     python -m proteingym_tpu_torch.pipeline.cli score --model wavenet \\
         --msa-dir msa/ --weights-dir weights/ --dms-reference ref.csv \\
         --dms-dir dms/ --output-dir out/ [--extra steps=400]
+    python -m proteingym_tpu_torch.pipeline.cli score --model gemme|escott|siterm|rsalor|provean \\
+        --msa-dir msa/ --weights-dir weights/ --dms-reference ref.csv \\
+        --dms-dir dms/ --output-dir out/ [--structure-dir pdbs/] \\
+        [--extra method=f81]
     python -m proteingym_tpu_torch.pipeline.cli train --model eve|potts \\
         --msa-dir msa/ --weights-dir weights/ --dms-reference ref.csv \\
         --dms-id X --output-dir models/ [--steps 400000] [--seed 0]
@@ -43,6 +47,7 @@ hmm|wavenet``, ``train --model eve|potts``, ``weights``, ``merge``,
         --merged-dir merged/ --config config.json --output-dir bench/ [--device cuda|cpu]
     python -m proteingym_tpu_torch.pipeline.cli evaluate-clinical \\
         --clinical-reference clinical.csv --merged-dir merged/ --output-dir bench/
+    python -m proteingym_tpu_torch.pipeline.cli models
 
 Per assay it writes ``<DMS_id>.csv`` (the input columns, plus
 ``mutated_sequence`` when absent, plus the score column; for Tranception
@@ -61,6 +66,10 @@ checkpoint file (``torch.save`` of ``eve.checkpoint_dict``, which
 ``score --checkpoint`` and ``eve_checkpoints=`` read; the JAX CLI writes
 an orbax directory there instead), for ``potts`` a plmc ``.model`` file
 beside that stem.
+
+``--structure-dir`` holds ``<UniProt_ID>.pdb`` or ``<DMS_id>.pdb`` per
+assay, which ``escott`` and ``rsalor`` read when it is there. ``models``
+prints the scorer names, sorted, one per line.
 
 ``merge`` joins each model's score files onto the assays and runs on the
 host; ``evaluate`` and ``evaluate-clinical`` write the JAX package's metric
@@ -196,6 +205,7 @@ def cmd_score(args) -> int:
                 msa_dir=Path(args.msa_dir) if args.msa_dir else None,
                 weights_dir=Path(args.weights_dir) if args.weights_dir else None,
                 checkpoint=args.checkpoint,
+                structure_dir=Path(args.structure_dir) if args.structure_dir else None,
                 indel_mode=args.indel_mode,
                 batch_size=args.batch_size,
                 extra=extra,
@@ -364,6 +374,12 @@ def cmd_evaluate_clinical(args) -> int:
     return 0
 
 
+def cmd_models(args) -> int:
+    for name in sorted(SCORERS):
+        print(name)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pgym-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -377,6 +393,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--dms-index", type=int, default=None)
     s.add_argument("--msa-dir", default=None)
     s.add_argument("--weights-dir", default=None)
+    s.add_argument("--structure-dir", default=None,
+                   help="PDB files named <UniProt_ID>.pdb or <DMS_id>.pdb (escott, rsalor)")
     s.add_argument("--output-dir", required=True)
     s.add_argument("--batch-size", type=int, default=32)
     s.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -453,6 +471,9 @@ def build_parser() -> argparse.ArgumentParser:
     ec.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the per-protein AUCs run")
     ec.set_defaults(fn=cmd_evaluate_clinical)
+
+    lm = sub.add_parser("models", help="list the scorers")
+    lm.set_defaults(fn=cmd_models)
     return p
 
 

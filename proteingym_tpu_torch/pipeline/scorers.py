@@ -5,8 +5,9 @@
 retrieval, and whole indel sequences with ``indel_mode``), ``eve`` /
 ``deepsequence`` (evol indices of VAEs trained from the MSA or read from
 checkpoints), the alignment baselines ``site_independent``, ``potts`` /
-``evmutation``, ``hmm`` and ``wavenet`` (a causal CNN trained on the
-MSA's rows; whole sequences, so indels too), plus
+``evmutation``, ``hmm``, ``wavenet`` (a causal CNN trained on the MSA's
+rows; whole sequences, so indels too), ``gemme`` / ``escott``,
+``siterm``, ``rsalor`` and ``provean`` (whole sequences too), plus
 ``score_esm_packed_batch``, the cross-assay packed ESM path.
 
 A scorer is ``scorer(ctx: ScoreContext)`` and returns either ``{column:
@@ -48,6 +49,7 @@ class ScoreContext:
     msa_dir: Optional[Path] = None
     weights_dir: Optional[Path] = None
     checkpoint: Optional[str] = None  # checkpoint path or preset name
+    structure_dir: Optional[Path] = None  # <UniProt_ID>.pdb or <DMS_id>.pdb
     indel_mode: bool = False
     batch_size: int = 32
     extra: dict = dataclasses.field(default_factory=dict)
@@ -86,6 +88,29 @@ class ScoreContext:
     def msa_start0(self) -> int:
         """The alignment's 0-indexed start in full-sequence coordinates."""
         return (self.record.MSA_start or 1) - 1
+
+    def structure_path(self) -> Optional[Path]:
+        """``structure_dir/<UniProt_ID>.pdb``, else ``<DMS_id>.pdb``, if
+        either exists."""
+        if self.structure_dir is not None:
+            for stem in (self.record.UniProt_ID, self.record.DMS_id):
+                pdb = Path(self.structure_dir) / f"{stem}.pdb"
+                if pdb.exists():
+                    return pdb
+        return None
+
+
+def _load_structure(ctx: ScoreContext) -> np.ndarray:
+    """The assay's (L, 4, 3) backbone from --structure-dir; raises
+    FileNotFoundError without one."""
+    from proteingym_tpu_torch.data.structures import parse_pdb_backbone
+
+    if ctx.structure_dir is None:
+        raise FileNotFoundError(f"{ctx.record.DMS_id}: needs --structure-dir")
+    pdb = ctx.structure_path()
+    if pdb is None:
+        raise FileNotFoundError(f"No PDB for {ctx.record.DMS_id}")
+    return parse_pdb_backbone(pdb)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +191,129 @@ def score_wavenet(ctx: ScoreContext) -> Dict[str, np.ndarray]:
                              seed=int(ctx.extra.get("seed", 0)))
     scores = wavenet.score_sequences(model, ctx.mutated_sequences, batch=ctx.batch_size)
     return {"Wavenet_score": scores}
+
+
+def _score_gemme(ctx: ScoreContext, name: str) -> Dict[str, np.ndarray]:
+    """GEMME (models/gemme.py) at its defaults, in focus-column
+    coordinates; ``--extra mode=combined|epistatic|independent``. As
+    ``escott``, the table goes through the reference's landscape
+    extraction (WT cells 0), and a structure in --structure-dir scales each
+    mutant by its positions' mean burial weight 2 - RSA (ref
+    escott/compute_fitness.py); a structure whose length differs from the
+    target's is skipped with a message, as the JAX scorer does. A literal
+    WT row fails ``escott``, as it does the JAX scorer."""
+    from proteingym_tpu_torch.models import gemme
+
+    msa = ctx.load_msa()
+    model = gemme.fit_gemme(msa.matrix, msa.weights, device=ctx.device)
+    mode = ctx.extra.get("mode", "combined")
+    table = {"combined": model.combined(), "epistatic": model.pred_epi,
+             "independent": model.pred_ind}[mode]
+    if name == "escott":
+        def score_fn(wt, remapped):
+            aa_cols = [model.alphabet.index(a) for a in gemme.ESCOTT_AA_VOCAB]
+            wt_rows = np.asarray([model.alphabet.index(a) for a in wt])
+            land = table[:, aa_cols] - table[np.arange(len(wt)), wt_rows][:, None]
+            return np.asarray(gemme.escott_extract_scores(land, remapped, offset=1))
+    else:
+        def score_fn(wt, remapped):
+            return gemme.score_mutants(model, wt, remapped, mode=mode)
+    scores = _score_focus_model(ctx, msa, score_fn, ctx.mutants)
+    pdb = ctx.structure_path() if name == "escott" else None
+    if pdb is not None and ctx.mutants:
+        from proteingym_tpu_torch.data.structures import parse_pdb_backbone
+        from proteingym_tpu_torch.models.rsalor import rsa_from_structure
+
+        coords, _ = parse_pdb_backbone(pdb)
+        if coords.shape[0] != len(ctx.record.target_seq):
+            # the parser drops incomplete residues and keeps no numbering, so
+            # DMS positions cannot index the RSA array: unmodulated scores
+            print(f"escott/{ctx.record.DMS_id}: structure length {coords.shape[0]} != "
+                  f"target {len(ctx.record.target_seq)}; skipping RSA modulation")
+        else:
+            weight = 1.0 + (1.0 - rsa_from_structure(coords))
+            scores = scores * np.asarray([
+                float(weight[np.clip([int(t[1:-1]) - 1 for t in m.split(":")], 0,
+                                     len(weight) - 1)].mean()) for m in ctx.mutants])
+    return {"ESCOTT_score" if name == "escott" else "GEMME_score": scores}
+
+
+@register_scorer("gemme")
+def score_gemme(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    return _score_gemme(ctx, "gemme")
+
+
+@register_scorer("escott")
+def score_escott(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    return _score_gemme(ctx, "escott")
+
+
+@register_scorer("siterm")
+def score_siterm(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """SiteRM (models/siterm.py): per-site 21-state rate matrices from
+    cherry transitions with the prior's pseudocounts (``--extra epochs=``
+    100, ``max_pairs=``, ``prior_matrix=`` a cherryml-format file such as
+    the reference's lg_with_gaps.txt; the uniform prior without it), or
+    with ``--extra method=f81`` the closed-form F81 model."""
+    from proteingym_tpu_torch.models import siterm
+
+    msa = ctx.load_msa()
+    mp = ctx.extra.get("max_pairs")
+    if ctx.extra.get("method") == "f81":
+        model = siterm.fit_siterm(msa.matrix, msa.weights, max_pairs=mp, device=ctx.device)
+        score_fn = lambda wt, remapped: siterm.score_mutants(model, wt, remapped)
+    else:
+        prior_Q = None
+        if ctx.extra.get("prior_matrix"):
+            prior_Q, states = siterm.read_rate_matrix(ctx.extra["prior_matrix"])
+            prior_Q = siterm.reorder_rate_matrix(prior_Q, states)
+        gtr = siterm.fit_site_rate_matrices(
+            msa.matrix, msa.weights, prior_Q=prior_Q, epochs=int(ctx.extra.get("epochs", 100)),
+            max_pairs=int(mp) if mp else None, device=ctx.device)
+        score_fn = lambda wt, remapped: siterm.score_mutants_gtr(gtr, wt, remapped,
+                                                                 device=ctx.device)
+    return {"SiteRM_score": _score_focus_model(ctx, msa, score_fn, ctx.mutants)}
+
+
+@register_scorer("rsalor")
+def score_rsalor(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """RSALOR (models/rsalor.py): RSA x MSA log-odds, the RSA from the
+    structure in --structure-dir when there is one, else 0.5. The column
+    is ``RSALOR_score``, as the JAX scorer names it (the registry merges
+    ``RSALOR``)."""
+    from proteingym_tpu_torch.models import rsalor
+
+    msa = ctx.load_msa()
+    try:
+        coords = _load_structure(ctx)
+    except FileNotFoundError:
+        coords = None
+    model = rsalor.fit_rsalor(msa.matrix, msa.weights, coords=coords, device=ctx.device)
+    scores = _score_focus_model(
+        ctx, msa, lambda wt, remapped: rsalor.score_mutants(model, wt, remapped), ctx.mutants)
+    return {"RSALOR_score": scores}
+
+
+@register_scorer("provean")
+def score_provean(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """PROVEAN (models/provean.py): delta BLOSUM62 alignment scores of each
+    ``mutated_sequence`` (indels too) against a supporting set clustered
+    from the alignment's rows (``--extra max_clusters=`` 30,
+    ``max_candidates=`` 200, ``max_per_cluster=`` 5). The column is
+    ``Provean_score``, as the JAX scorer names it and the registry's DMS
+    indel list merges it (its clinical lists merge ``PROVEAN_score`` and
+    ``provean_score``)."""
+    from proteingym_tpu_torch.models import provean
+
+    msa = ctx.load_msa()
+    wt = ctx.record.target_seq
+    clusters = provean.cluster_supporting_set(
+        wt, msa.sequences(), max_clusters=int(ctx.extra.get("max_clusters", 30)),
+        max_candidates=int(ctx.extra.get("max_candidates", 200)))
+    scores = provean.provean_scores(wt, ctx.mutated_sequences, clusters,
+                                    max_per_cluster=int(ctx.extra.get("max_per_cluster", 5)),
+                                    device=ctx.device)
+    return {"Provean_score": scores}
 
 
 @register_scorer("esm")

@@ -297,3 +297,51 @@ def test_eve_scorers_train_their_architectures(tmp_path, monkeypatch, model, arc
     (config, steps, seed, shape, n_weights), = calls
     assert (config.encoder_hidden, config.decoder_hidden, config.z_dim) == architecture
     assert (config.seq_len, steps, seed, shape, n_weights) == (9, 10_000, 42, (31, 9, 20), 31)
+
+
+def test_models_lists_the_registry(capsys):
+    from proteingym_tpu_torch.pipeline.scorers import SCORERS
+
+    assert tcli.main(["models"]) == 0
+    names = capsys.readouterr().out.split("\n")
+    assert names[-1] == "" and names[:-1] == sorted(SCORERS)
+    assert {"gemme", "escott", "siterm", "rsalor", "provean"} <= set(names)
+    assert len(SCORERS) == 17
+
+
+@pytest.mark.parametrize("model", ["gemme", "escott", "siterm", "rsalor", "provean"])
+def test_alignment_baselines_on_cuda_without_gpu_raise(tmp_path, monkeypatch, model):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ref, dms_dir, _ = _write_assays(tmp_path, n_assays=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcli.main(["score", "--model", model, "--dms-reference", str(ref), "--dms-dir",
+                   str(dms_dir), "--msa-dir", str(tmp_path), "--output-dir",
+                   str(tmp_path / "out")])
+
+
+def test_structure_dir_finds_the_jax_scorers_file(tmp_path):
+    from proteingym_tpu.pipeline import scorers_extra as jextra
+    from proteingym_tpu.pipeline.scorers import ScoreContext as JContext
+    from proteingym_tpu_torch.data.reference import load_reference
+    from proteingym_tpu_torch.data.structures import synthetic_helix_backbone, write_pdb_backbone
+    from proteingym_tpu_torch.pipeline import scorers as tscorers
+
+    ref, _, ids = _write_assays(tmp_path, n_assays=1)
+    rec = load_reference(ref)[ids[0]]
+    ctx = tscorers.ScoreContext(record=rec, mutants=[], device=torch.device("cpu"))
+    jctx = JContext(record=rec, dms_frame=None)
+    with pytest.raises(FileNotFoundError, match="needs --structure-dir"):
+        tscorers._load_structure(ctx)
+    with pytest.raises(FileNotFoundError, match="needs --structure-dir"):
+        jextra._load_structure(jctx)
+    pdbs = tmp_path / "pdb"
+    pdbs.mkdir()
+    ctx.structure_dir = jctx.structure_dir = pdbs
+    with pytest.raises(FileNotFoundError, match="No PDB"):
+        tscorers._load_structure(ctx)
+    write_pdb_backbone(pdbs / f"{rec.DMS_id}.pdb", synthetic_helix_backbone(7), "ACDEFGH")
+    assert ctx.structure_path() == pdbs / f"{rec.DMS_id}.pdb"
+    write_pdb_backbone(pdbs / f"{rec.UniProt_ID}.pdb", synthetic_helix_backbone(9), "ACDEFGHIK")
+    assert ctx.structure_path() == pdbs / f"{rec.UniProt_ID}.pdb"  # the UniProt file first
+    np.testing.assert_array_equal(tscorers._load_structure(ctx), jextra._load_structure(jctx))
+    assert tscorers._load_structure(ctx).shape == (9, 4, 3)

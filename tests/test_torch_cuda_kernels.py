@@ -3,8 +3,9 @@ long-context and extent-sparse segmented, on the Hopper loop with its
 pre-pass in bf16 and on the scalar kernel in float32; cluster counts)
 against their plain PyTorch versions on the card, and the model forwards
 that launch them (ESM, PoET, the MSA Transformer's column attention,
-Tranception's ALiBi causal attention), and the HMM forward and the Potts,
-EVE and WaveNet trainers on the card against the CPU.
+Tranception's ALiBi causal attention), and the HMM forward, the Potts,
+EVE and WaveNet trainers, PROVEAN's alignment recursion, GEMME and SiteRM
+on the card against the CPU.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one; the kernels have no CPU mode. The file imports neither jax nor the
@@ -19,7 +20,7 @@ import torch
 
 from proteingym_tpu_torch.devices import adam
 from proteingym_tpu_torch.models import (
-    esm2, eve, hmm, msa_transformer, poet, potts, tranception, wavenet,
+    esm2, eve, gemme, hmm, msa_transformer, poet, potts, provean, siterm, tranception, wavenet,
 )
 from proteingym_tpu_torch.msa import weights as msa_weights
 from proteingym_tpu_torch.ops import flash_attention as fa
@@ -912,3 +913,67 @@ def test_wavenet_steps_and_scores_on_the_card_equal_cpu(dev):
                                                  mask[idx].to(where))) for idx in picks]
     np.testing.assert_allclose(losses["card"], losses["cpu"], rtol=1e-5)
     _params_close(on_card, on_cpu, 1e-5, 6e-3)
+
+
+def _baseline_alignment(rs, n, length):
+    focus = rs.randint(1, 21, length)
+    rows = np.tile(focus, (n, 1))
+    sub = rs.rand(n, length) < rs.uniform(0.05, 0.7, n)[:, None]
+    rows[sub] = rs.randint(1, 21, sub.sum())
+    rows[rs.rand(n, length) < 0.1] = 0
+    rows[0] = focus
+    return rows.astype(np.int8)
+
+
+def test_provean_dp_on_the_card_equals_cpu(dev):
+    rs = np.random.RandomState(0)
+    aa = "ACDEFGHIKLMNPQRSTVWY"
+    wt = "".join(aa[i] for i in rs.randint(0, 20, 50))
+    homologs = ["".join(aa[rs.randint(20)] if rs.rand() < 0.3 else c for c in wt)
+                for _ in range(60)]
+    subjects = homologs + ["".join(aa[i] for i in rs.randint(0, 20, n)) for n in (1, 33, 90)]
+    np.testing.assert_array_equal(  # every cell a small integer: equal exactly
+        provean.align_scores([wt] * len(subjects), subjects, device=dev),
+        provean.align_scores([wt] * len(subjects), subjects, device="cpu"))
+    clusters = provean.cluster_supporting_set(wt, homologs, max_candidates=40)
+    variants = [wt[:i] + wt[i + 2:] for i in range(0, 48, 5)] + [
+        wt[:i] + "W" + wt[i + 1:] for i in range(50)]
+    np.testing.assert_array_equal(provean.provean_scores(wt, variants, clusters, device=dev),
+                                  provean.provean_scores(wt, variants, clusters, device="cpu"))
+
+
+@pytest.mark.parametrize("use_tree", [None, False])
+def test_gemme_on_the_card_equals_cpu(use_tree, dev):
+    rs = np.random.RandomState(1)
+    matrix = _baseline_alignment(rs, 700, 50)
+    weights = rs.rand(700)
+    got = gemme.fit_gemme(matrix, weights, use_tree=use_tree, device=dev)
+    want = gemme.fit_gemme(matrix, weights, use_tree=use_tree, device="cpu")
+    assert got.method == want.method and got.alpha == want.alpha
+    for name in ("pred_epi", "pred_ind", "conservation"):  # float64, sums in another order
+        np.testing.assert_allclose(getattr(got, name), getattr(want, name), atol=1e-9, rtol=0)
+
+
+def test_siterm_on_the_card_equals_cpu(dev):
+    from scipy.stats import spearmanr
+
+    rs = np.random.RandomState(2)
+    matrix = _baseline_alignment(rs, 500, 40)
+    weights = rs.rand(500)
+    f81 = [siterm.fit_siterm(matrix, weights, max_sequences=256, device=d) for d in (dev, "cpu")]
+    np.testing.assert_allclose(f81[0].pi, f81[1].pi, atol=1e-12, rtol=0)
+    np.testing.assert_allclose(f81[0].mu, f81[1].mu, rtol=1e-5, atol=0)
+    gtr = [siterm.fit_site_rate_matrices(matrix, weights, max_sequences=256, device=d)
+           for d in (dev, "cpu")]
+    np.testing.assert_array_equal(gtr[0].site_rates, gtr[1].site_rates)
+    q = [g.rate_matrices for g in gtr]
+    # 100 float32 Adam epochs carry cuSOLVER's and LAPACK's eigenvector
+    # rounding forward, as they carry float64 against float32 in the JAX
+    # package's own fit (tests/test_torch_siterm.py)
+    assert np.linalg.norm(q[0] - q[1]) / np.linalg.norm(q[1]) < 2e-2
+    focus = "".join("ACDEFGHIKLMNPQRSTVWY"[c - 1] for c in matrix[0])
+    mutants = [f"{focus[p]}{p + 1}{a}" for p in range(40) for a in "ACDW-" if a != focus[p]]
+    scores = [siterm.score_mutants_gtr(g, focus, mutants, device=d)
+              for g, d in zip(gtr, (dev, "cpu"))]
+    np.testing.assert_allclose(scores[0], scores[1], atol=0.1, rtol=0)
+    assert spearmanr(scores[0], scores[1])[0] >= 0.999

@@ -1,9 +1,12 @@
-"""The port's aligner (proteingym_tpu_torch.native, its own copy of the
-Gotoh recursion built with g++ at first use) against the JAX package's
-native library: equal alignments, column for column, on seeded random
-pairs and the edge cases of indel realignment, pair by pair and in one
-batch on native threads; the library's hashed name
-under _build/; and a failed build raises (no fallback aligner)."""
+"""The port's host library (proteingym_tpu_torch.native, its own copies of
+the Gotoh recursion and of the neighbour-joining tree, built with g++ at
+first use) against the JAX package's native library: equal alignments,
+column for column, on seeded random pairs and the edge cases of indel
+realignment, pair by pair and in one batch on native threads; equal NJ
+trees (children and both branch lengths, exactly) on alignments with
+duplicated and all-gap rows from 2 to 1,024 rows; the libraries' hashed
+names under _build/; and a failed build raises (no fallback aligner and
+no fallback tree)."""
 
 from pathlib import Path
 
@@ -111,6 +114,75 @@ def test_library_lands_in_build_under_a_hashed_name():
     assert path.parent == REPO / "proteingym_tpu_torch" / "_build"
     assert path.name.startswith("libpgym_align_") and path.suffix == ".so"
     assert len(path.stem.split("_")[-1]) == 16 and path.exists()
+
+
+def _nj_alignment(rs, n, length):
+    focus = rs.randint(1, 21, length)
+    m = np.tile(focus, (n, 1))
+    sub = rs.rand(n, length) < rs.uniform(0.05, 0.6, n)[:, None]
+    m[sub] = rs.randint(1, 21, sub.sum())
+    m[rs.rand(n, length) < 0.15] = 0
+    if n > 3:
+        m[1] = 0                   # an all-gap row: distance 1 to every row
+        m[2] = m[3]                # a duplicate: distance 0, ties in Q
+        m[rs.randint(n, size=n // 4)] = m[rs.randint(n, size=n // 4)]
+    return m.astype(np.int8)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 64, 512, 1024])
+def test_nj_tree_equals_jax(n):
+    for seed in range(3 if n < 1024 else 1):
+        rs = np.random.RandomState(100 * seed + n)
+        m = _nj_alignment(rs, n, 240 if n == 1024 else 60)
+        got = tnative.nj_tree(m)
+        want = jnative.nj_tree(m)
+        assert [a.dtype for a in got] == [np.int32, np.int32, np.float64, np.float64]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)  # the branch lengths too, bit for bit
+        # a tree: every node but the root is a child exactly once
+        children = np.sort(np.concatenate([got[0], got[1]]))
+        np.testing.assert_array_equal(children, np.arange(2 * n - 2))
+
+
+def test_nj_tree_of_identical_rows_breaks_ties_as_jax():
+    m = np.tile(np.arange(1, 21, dtype=np.int8), (40, 1))
+    m[::7] = 0
+    for g, w in zip(tnative.nj_tree(m), jnative.nj_tree(m)):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_nj_tree_of_fewer_than_two_rows_raises():
+    with pytest.raises(ValueError, match=">= 2 rows"):
+        tnative.nj_tree(np.ones((1, 5), np.int8))
+
+
+def test_nj_library_lands_in_build_under_a_hashed_name():
+    tnative.nj_tree(np.ones((3, 4), np.int8))
+    path = tnative.library_path(tnative.NJ_SOURCE)
+    assert path.parent == REPO / "proteingym_tpu_torch" / "_build"
+    assert path.name.startswith("libpgym_nj_") and path.exists()
+    assert path != tnative.library_path()
+    assert "-ffp-contract=off" in tnative.CXX_FLAGS and "-march=native" not in tnative.CXX_FLAGS
+
+
+def test_a_failed_nj_build_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(tnative, "_nj_lib", None)
+    monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(tnative, "CXX", str(tmp_path / "no-such-compiler"))
+    with pytest.raises(RuntimeError, match="no-such-compiler"):
+        tnative.nj_tree(np.ones((3, 4), np.int8))
+    assert tnative._nj_lib is None
+
+
+def test_a_library_without_the_symbol_raises(tmp_path, monkeypatch):
+    # a library built from another source (here the aligner's) under the
+    # tree's name: loading it raises, it is never used in its place
+    monkeypatch.setattr(tnative, "_nj_lib", None)
+    monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path / "build")
+    tnative._build(tnative.SOURCE, tnative.library_path(tnative.NJ_SOURCE))
+    with pytest.raises(AttributeError, match="pgym_nj_tree"):
+        tnative.nj_tree(np.ones((3, 4), np.int8))
+    assert tnative._nj_lib is None
 
 
 def test_a_failed_build_raises(tmp_path, monkeypatch):

@@ -35,6 +35,10 @@ def test_port_imports_without_jax_or_pandas():
         assert not jax_package, jax_package
         assert "proteingym_tpu_torch.pipeline.cli" in names and len(names) > 30, names
         assert "proteingym_tpu_torch.models.wavenet" in names, names
+        new = {"proteingym_tpu_torch.models." + m for m in ("gemme", "siterm", "rsalor",
+                                                             "provean")}
+        new |= {"proteingym_tpu_torch.data.structures", "proteingym_tpu_torch.msa.columns"}
+        assert new <= set(names), sorted(new - set(names))
         print("ok")
     """)
     assert proc.returncode == 0, proc.stderr
@@ -42,8 +46,9 @@ def test_port_imports_without_jax_or_pandas():
 
 
 def test_native_imports_without_a_compiler(tmp_path):
-    # the aligner's module (and every module that imports it) loads with no
-    # g++ on PATH and builds nothing: the library is built at first use
+    # the host library's module (and every module that imports it) loads
+    # with no g++ on PATH and builds nothing: each library is built at
+    # first use
     env = {**os.environ, "PYTHONPATH": str(REPO), "CUDA_VISIBLE_DEVICES": "",
            "PATH": str(tmp_path)}
     proc = subprocess.run([sys.executable, "-c", textwrap.dedent("""
@@ -51,10 +56,11 @@ def test_native_imports_without_a_compiler(tmp_path):
         sys.modules["jax"] = None
         from proteingym_tpu_torch import native
         from proteingym_tpu_torch.models import hmm, potts, retrieval, trancepteve, wavenet
+        from proteingym_tpu_torch.models import gemme, provean, rsalor, siterm
         from proteingym_tpu_torch.pipeline import scorers
-        assert native._lib is None
-        assert {"hmm", "potts", "evmutation", "site_independent", "wavenet"} <= set(
-            scorers.SCORERS)
+        assert native._lib is None and native._nj_lib is None
+        assert {"hmm", "potts", "evmutation", "site_independent", "wavenet", "gemme", "escott",
+                "siterm", "rsalor", "provean"} <= set(scorers.SCORERS)
         print("ok")
     """)], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
