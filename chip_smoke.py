@@ -170,19 +170,35 @@ Phases (any failure raises, and the script exits non-zero):
    memory. The card is held against the CPU at these sizes: PROVEAN's
    scores equal, GEMME's tables within 1e-9, SiteRM's GTR rate matrices
    and scores and F81 rates within stated bounds.
+18. the AR zoo through the port's CLI, each family at its preset's full
+   width and depth with seeded random weights, on phase 14's L=250 target
+   and singles: (a) ``progen2 --checkpoint progen2-xlarge`` (32 x 4096, 16
+   heads of 256) on the first 1,024 singles, (b) ``rita --checkpoint
+   RITA_xl`` on all 4,750 and on phase 15's 2,001-row indel assay (T=416),
+   (c) ``protgpt2`` at its defaults (36 x 1280, 20 heads of 64, byte-level
+   tokens), (d) ``progen3 --checkpoint progen3-3b`` (28 x 2304, 24 heads of
+   96, 8 experts, top-2, float32 products) on the first 256, (e) ``unirep``
+   (hidden 1,900) on all singles and again with ``--extra
+   evotune_steps=100`` on phase 14's alignment (K5 once): each run's
+   column, forwards, K1 launches a forward, mutants/s, peak memory and the
+   idle share of two forwards of its first scoring pass; (f) each transformer family's
+   mean log-likelihoods of 8 rows against the plain attention; (g) the
+   float32 K1 (the lane-group kernel) at the zoo's five shapes against
+   its plain version, timed beside SDPA ``is_causal`` and its bound.
 
 Every phase holds the port to its rule: no module of the JAX package
 (``proteingym_tpu``) may be loaded. It prints one JSON line describing the
 kernels (time, plain version, the PyTorch call for the same function where
 there is one, the bound: the larger of bytes over 3.35 TB/s and operations
-over 989 TFLOP/s in bf16 or 1,979 TOP/s in int8 for K5, the H100 SXM's
-peaks), then, as its last line,
+over 989 TFLOP/s in bf16, 67 TFLOP/s in float32 for the float32 K1 or
+1,979 TOP/s in int8 for K5, the H100 SXM's peaks), then, as its last line,
 ``{"ok": true, "device": {...}}``. With no CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
 import json
@@ -357,6 +373,30 @@ PROVEAN_CPU_ATOL = 0.0
 GEMME_CPU_ATOL = 1e-9
 SITERM_Q_REL, SITERM_SCORE_ATOL, SITERM_SPEARMAN = 2e-2, 0.1, 0.999
 F81_MU_RTOL = 1e-4
+
+
+# the shapes of phase 18: phase 14's L=250 target, alignment and 4,750
+# singles and phase 15's 2,001-row indel assay; each AR family at its
+# preset's full width and depth with seeded random weights; ProGen2-xlarge
+# on the first 1,024 singles and ProGen3-3b on the first 256 (cut: time);
+# UniRep evotuned for 100 steps; 8 rows (4 sequences, both directions)
+# held against the plain attention per transformer family
+ZOO_SLICE = dict(batch=32, progen2_singles=1024, progen3_singles=256, evotune_steps=100,
+                 logp_rows=4)
+# (label, B, H, T, D) of the float32 K1 on the zoo's paths: the L=250 rows
+# of ProGen2-xlarge, RITA_xl, ProtGPT2 and ProGen3-3b, and RITA_xl's indel
+# bucket (rows of 394-406 residues)
+K1_ZOO = (("progen2_xlarge", 32, 16, 256, 256), ("rita_xl", 32, 16, 256, 128),
+          ("protgpt2", 32, 20, 256, 64), ("progen3_3b", 32, 24, 256, 96),
+          ("rita_xl_indel", 32, 16, 416, 128))
+# per-row mean log-likelihoods (the scores' scale), float32 K1 against the
+# plain attention inside bf16 models: the two differ by float32 summation
+# order (~1e-6 relative), which flips the bf16 rounding of a few attention
+# outputs by one ulp (2^-8 relative); the residual stream carries that
+# through up to 36 layers to ~1e-2 per token, as TABLE_ATOL allows for
+# ESM's 33. A wrong mask, causal extent, head layout or rotation shifts
+# them by O(1)
+ZOO_LL_ATOL = 1e-1
 
 
 def fail(msg: str) -> None:
@@ -3248,6 +3288,295 @@ def phase_baselines(torch, dev, card, fa):
     return out
 
 
+def phase_zoo(torch, dev, card, fa, check_close):
+    """18. The AR zoo through the port's CLI at each preset's full width and
+    depth (seeded random weights) on phase 14's L=250 target: (a)
+    ``progen2 --checkpoint progen2-xlarge`` on the first 1,024 singles, (b)
+    ``rita --checkpoint RITA_xl`` on all 4,750 and on phase 15's indel
+    assay, (c) ``protgpt2`` at its defaults on all singles, (d) ``progen3
+    --checkpoint progen3-3b`` on the first 256, (e) ``unirep`` on all
+    singles, then with ``--extra evotune_steps=100`` on phase 14's
+    alignment; for each run its column, forwards, K1 launches per forward,
+    mutants/s, peak memory and the idle share of two forwards of its first
+    scoring pass (torch.profiler); (f) per-row log-likelihoods of 8 rows per
+    transformer family against the plain attention; (g) the float32 K1 at
+    the zoo's shapes beside its plain version, SDPA and its bound."""
+    from proteingym_tpu_torch.models import ar_scoring, ar_zoo, progen3, unirep
+    from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.pipeline import cli
+
+    z, t, ind = ZOO_SLICE, TRANCEPTION_SLICE, INDEL_SLICE
+    length, covered, batch = t["length"], t["covered"], z["batch"]
+    codes = np.random.RandomState(13).randint(1, 21, length)  # phase 14's target
+    seq = "".join(GAP_AA[c] for c in codes)
+    singles = [f"{seq[p]}{p + 1}{a}" for p in range(length) for a in AA if a != seq[p]]
+    single_seqs = [seq[:int(m[1:-1]) - 1] + m[-1] + seq[int(m[1:-1]):] for m in singles]
+    seq400 = "".join(GAP_AA[c] for c in np.random.RandomState(15).randint(1, 21, ind["length"]))
+    indels = indel_variants(seq400, ind["variants"], 15) + [seq400]  # phase 15's assay
+    phase_t0 = time.perf_counter()
+    print(f"[zoo] ProGen2, RITA, ProtGPT2, ProGen3, UniRep (seeded random, full width and "
+          f"depth) on phase 14's L={length} target ({len(singles)} singles, MSA N="
+          f"{t['n_seqs']} over residues 1-{covered}) and phase 15's {len(indels)}-row indel "
+          f"assay; batch {batch}; {card}")
+
+    def reset():
+        for counts in (fa.LAUNCHES, W.LAUNCHES):
+            for name in counts:
+                counts[name] = 0
+
+    def launched():
+        return {**fa.LAUNCHES, **W.LAUNCHES}
+
+    # every scoring pass (one direction of batched_ar_loglik): its forwards
+    # and seconds; after a run's first pass, its first two forwards again
+    # under torch.profiler, alone, for the idle share (profiling a whole
+    # pass costs more in the profiler's own bookkeeping than the pass)
+    passes = []
+    real_loglik = ar_scoring.batched_ar_loglik
+
+    def traced(logits_fn, token_rows, pad_id, **kwargs):
+        n = [0]
+
+        def counted(tokens):
+            n[0] += 1
+            return logits_fn(tokens)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_loglik(counted, token_rows, pad_id, **kwargs)
+        torch.cuda.synchronize()
+        entry = dict(forwards=n[0], wall=time.perf_counter() - t0)
+        if not passes:  # its launches are the measurement's, not the path's
+            bs, counts = kwargs["batch_size"], dict(fa.LAUNCHES)
+            _, wall, busy, _, _ = device_seconds(torch, lambda: real_loglik(
+                logits_fn, token_rows[:2 * bs], pad_id, batch_size=bs, device=kwargs["device"]))
+            fa.LAUNCHES.update(counts)
+            entry["idle"] = None if busy is None else 1.0 - busy / wall
+        passes.append(entry)
+        return out
+
+    kept = {}  # the model a run built, for (f)
+
+    def keeping(fn):
+        def wrapper(*args, **kwargs):
+            kept["model"] = fn(*args, **kwargs)
+            return kept["model"]
+        return wrapper
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        (root / "msa").mkdir()
+        write_a2m(root / "msa" / "SYNTH.a2m", "SYNTH", synth_family(codes[:covered], t["n_seqs"], 13))
+        (root / "dms").mkdir()
+        assays = {"ZOO_L250": (singles, single_seqs),
+                  "ZOO_L250_P2": (singles[:z["progen2_singles"]],
+                                  single_seqs[:z["progen2_singles"]]),
+                  "ZOO_L250_P3": (singles[:z["progen3_singles"]],
+                                  single_seqs[:z["progen3_singles"]]),
+                  "ZOO_INDEL": (indels, indels)}
+        ref_rows = []
+        for dms_id, (muts, seqs) in assays.items():
+            y = np.random.RandomState(18).randn(len(muts))
+            write_csv_rows(root / "dms" / f"{dms_id}.csv", ["mutant", "mutated_sequence", "DMS_score"],
+                           [[m, ms, repr(float(v))] for m, ms, v in zip(muts, seqs, y)])
+            target = seq400 if dms_id == "ZOO_INDEL" else seq
+            ref_rows.append([dms_id, f"{dms_id}.csv", "SYNTH", target, len(target), "SYNTH.a2m",
+                             1, covered, 0.2, "SYNTH.npy"])
+        write_csv_rows(root / "reference.csv",
+                       ["DMS_id", "DMS_filename", "UniProt_ID", "target_seq", "seq_len",
+                        "MSA_filename", "MSA_start", "MSA_end", "MSA_theta", "weight_file_name"],
+                       ref_rows)
+
+        def run(model, dms_id, column, checkpoint=None, extra=(), patches=()):
+            reset()
+            passes.clear()
+            kept.clear()
+            torch.cuda.reset_peak_memory_stats()
+            out_dir = root / "_".join([model, dms_id, *extra])
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(mock.patch.object(ar_scoring, "batched_ar_loglik", traced))
+                for patch in patches:
+                    stack.enter_context(patch)
+                rc = cli.main([
+                    "score", "--model", model, *(["--checkpoint", checkpoint] if checkpoint else []),
+                    "--dms-id", dms_id, "--msa-dir", str(root / "msa"), "--weights-dir",
+                    str(root / "weights"), "--dms-reference", str(root / "reference.csv"),
+                    "--dms-dir", str(root / "dms"), "--output-dir", str(out_dir),
+                    "--batch-size", str(batch), "--device", dev.type, "--quiet", "--fail-fast",
+                    *(["--extra", *extra] if extra else [])])
+            wall = time.perf_counter() - t0
+            if rc != 0:
+                fail(f"{model} score CLI exited {rc} on {dms_id}")
+            n = len(assays[dms_id][0])
+            scores = read_scores(out_dir / f"{dms_id}.csv", column, n)
+            idle = passes[0]["idle"]
+            return dict(wall=wall, launches=launched(), n=n, scores=scores,
+                        forwards=sum(p["forwards"] for p in passes), passes=list(passes),
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30, idle=idle,
+                        mutants_per_s=n / wall)
+
+        def expected_forwards(seqs, directions=2):
+            lengths = np.asarray([len(x) for x in seqs])
+            _, counts = np.unique(-(-lengths // 32), return_counts=True)
+            return directions * int(sum(-(-c // batch) for c in counts))
+
+        def report(tag, what, r, layers, column, directions=2, extra_launches=None):
+            want_fwd = expected_forwards(assays_of[tag], directions)
+            if r["forwards"] != want_fwd:
+                fail(f"{what}: {r['forwards']} forwards, expected {want_fwd}")
+            want = dict(extra_launches or {})
+            if layers:
+                want["grouped_attention"] = layers * r["forwards"]
+            check_launches(what, r["launches"], want)
+            idle = "not read" if r["idle"] is None else f"{r['idle']:.3f}"
+            print(f"  ({tag}) {what}: {column} {int(np.isfinite(r['scores']).sum())}/{r['n']} "
+                  f"finite; CLI wall {r['wall']:.2f} s -> {r['mutants_per_s']:.1f} mutants/s; "
+                  f"{r['forwards']} forwards, {layers} K1 launches a forward "
+                  f"({r['launches'].get('grouped_attention', 0)} in all); scoring passes "
+                  + ", ".join(f"{p['wall']:.2f} s" for p in r["passes"])
+                  + f"; peak {r['peak_gib']:.2f} GiB; idle share of 2 forwards of the first pass "
+                  f"{idle} ({card})")
+
+        def rows_ll(model_fn, tokenize, pad, seqs, module):
+            """Per-row mean log-likelihoods of ``seqs`` and their reverses,
+            with the kernel and with the plain attention in ``module``."""
+            texts = list(seqs) + [x[::-1] for x in seqs]
+            rows = [tokenize(x) for x in texts]
+            lens = np.asarray([len(x) for x in texts], dtype=np.float64)
+            got = real_loglik(model_fn, rows, pad, batch_size=len(rows), device=dev) / lens
+            with mock.patch.object(module, "mha", fa.plain_mha):
+                want = real_loglik(model_fn, rows, pad, batch_size=len(rows), device=dev) / lens
+            return torch.from_numpy(got), torch.from_numpy(want)
+
+        assays_of = {}
+        runs, ll_errs = {}, {}
+        four = single_seqs[::len(single_seqs) // z["logp_rows"]][:z["logp_rows"]]
+        aa25 = {c: i for i, c in enumerate("ABCDEFGHIKLMNOPQRSTUVWXYZ")}
+        aa26 = {c: i for i, c in enumerate("ABCDEFGHIJKLMNOPQRSTUVWXYZ")}
+
+        # (a) ProGen2-xlarge
+        assays_of["a"] = assays["ZOO_L250_P2"][1]
+        cfg = ar_zoo.PROGEN2_PRESETS["progen2-xlarge"]
+        r = run("progen2", "ZOO_L250_P2", "progen2-xlarge_score", "progen2-xlarge",
+                patches=[mock.patch.object(ar_zoo, "progen2_init", keeping(ar_zoo.progen2_init))])
+        report("a", "progen2 --checkpoint progen2-xlarge", r, cfg.num_layers, "progen2-xlarge_score")
+        runs["progen2_xlarge"] = r
+        got, want = rows_ll(kept["model"].restricted_logits,
+                            lambda x: np.asarray([aa25[c] for c in x], np.int64), aa25["X"],
+                            four, ar_zoo)
+        ll_errs["progen2"] = check_close("(f) ProGen2-xlarge: 8 rows' mean log-likelihoods, "
+                                         "kernel vs plain", got, want, ZOO_LL_ATOL, 0.0)
+        kept.clear()
+        torch.cuda.empty_cache()
+
+        # (b) RITA_xl on the singles and on the indel assay
+        assays_of["b"] = single_seqs
+        cfg = ar_zoo.RITA_PRESETS["RITA_xl"]
+        r = run("rita", "ZOO_L250", "RITA_xl_score", "RITA_xl",
+                patches=[mock.patch.object(ar_zoo, "rita_init", keeping(ar_zoo.rita_init))])
+        report("b", "rita --checkpoint RITA_xl, singles", r, cfg.num_layers, "RITA_xl_score")
+        runs["rita_xl"] = r
+        tok = ar_zoo.RitaTokenizer()
+        got, want = rows_ll(kept["model"], tok.encode, tok.PAD, four, ar_zoo)
+        ll_errs["rita"] = check_close("(f) RITA_xl: 8 rows' mean log-likelihoods, kernel vs "
+                                      "plain", got, want, ZOO_LL_ATOL, 0.0)
+        kept.clear()
+        torch.cuda.empty_cache()
+        assays_of["b'"] = indels
+        r = run("rita", "ZOO_INDEL", "RITA_xl_score", "RITA_xl")
+        report("b'", "rita --checkpoint RITA_xl, indel rows", r, cfg.num_layers, "RITA_xl_score")
+        runs["rita_xl_indel"] = r
+
+        # (c) ProtGPT2 at its defaults (byte-level tokens)
+        assays_of["c"] = single_seqs
+        cfg = ar_zoo.Gpt2Config()
+        r = run("protgpt2", "ZOO_L250", "ProtGPT2_score",
+                patches=[mock.patch.object(ar_zoo, "gpt2_init", keeping(ar_zoo.gpt2_init))])
+        report("c", "protgpt2 (36 x 1280, 20 heads, 50,257 tokens)", r, cfg.num_layers,
+               "ProtGPT2_score")
+        print(f"      logits of one forward: {batch} x 256 x {cfg.vocab_size} float32 = "
+              f"{batch * 256 * cfg.vocab_size * 4 / 1e9:.2f} GB")
+        runs["protgpt2"] = r
+        got, want = rows_ll(kept["model"],
+                            lambda x: np.asarray([ord(c) % cfg.vocab_size for c in x], np.int64),
+                            0, four, ar_zoo)
+        ll_errs["protgpt2"] = check_close("(f) ProtGPT2: 8 rows' mean log-likelihoods, kernel "
+                                          "vs plain", got, want, ZOO_LL_ATOL, 0.0)
+        kept.clear()
+        torch.cuda.empty_cache()
+
+        # (d) ProGen3-3b: the routed float32 experts
+        assays_of["d"] = assays["ZOO_L250_P3"][1]
+        cfg = progen3.PRESETS["progen3-3b"]
+        r = run("progen3", "ZOO_L250_P3", "progen3-3b_score", "progen3-3b",
+                patches=[mock.patch.object(progen3, "init_random",
+                                           keeping(progen3.init_random))])
+        report("d", "progen3 --checkpoint progen3-3b", r, cfg.num_layers, "progen3-3b_score")
+        runs["progen3_3b"] = r
+        got, want = rows_ll(kept["model"].restricted_logits,
+                            lambda x: np.asarray([aa26[c] for c in x], np.int64), aa26["X"],
+                            four, progen3)
+        ll_errs["progen3"] = check_close("(f) ProGen3-3b: 8 rows' mean log-likelihoods, kernel "
+                                         "vs plain", got, want, ZOO_LL_ATOL, 0.0)
+        kept.clear()
+        torch.cuda.empty_cache()
+
+        # (e) UniRep, then evotuned on the alignment (K5 once: no weights file)
+        assays_of["e"] = [unirep.UniRepTokenizer().encode(x) for x in single_seqs]
+        r = run("unirep", "ZOO_L250", "unirep_score")
+        report("e", "unirep (hidden 1,900)", r, 0, "unirep_score", directions=1)
+        runs["unirep"] = r
+        spans = {}
+        assays_of["e'"] = assays_of["e"]
+        r = run("unirep", "ZOO_L250", "unirep_score", extra=[f"evotune_steps={z['evotune_steps']}"],
+                patches=[mock.patch.object(unirep, "evotune",
+                                           spans_of(torch, spans, "evotune", unirep.evotune))])
+        report("e'", f"unirep --extra evotune_steps={z['evotune_steps']}", r, 0, "unirep_score",
+               directions=1, extra_launches={"cluster_counts": 1})
+        print(f"      evotune: {z['evotune_steps']} Adam steps of {batch} rows in "
+              f"{spans['evotune']:.2f} s ({spans['evotune'] / z['evotune_steps'] * 1e3:.1f} ms a "
+              f"step); scores moved by up to {np.abs(r['scores'] - runs['unirep']['scores']).max():.3g}")
+        if not np.abs(r["scores"] - runs["unirep"]["scores"]).max() > 0:
+            fail("unirep: evotuning left the scores unchanged")
+        runs["unirep_evotune"] = r
+
+    # (g) the float32 K1 alone at the zoo's shapes, as the models hand it in:
+    # (B, T, H, D) memory seen as (B, H, T, D), causal, no mask
+    records = []
+    for label, b, h, tt, d in K1_ZOO:
+        gen = torch.Generator(device=dev).manual_seed(tt + d)
+        q, k, v = (torch.randn(b, tt, h, d, generator=gen, device=dev).transpose(1, 2)
+                   for _ in range(3))
+        got = fa.grouped_mha(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        want = fa.plain_mha(q, k, v, causal=True)
+        err = check_close(f"(g) float32 K1 B{b} H{h} T{tt} D{d} causal ({label})", got, want,
+                          F32_ATOL, F32_RTOL)
+        del want
+        times = median_pair(torch, {
+            "kernel": lambda: fa.grouped_mha(q, k, v, causal=True),
+            "plain": lambda: fa.plain_mha(q, k, v, causal=True),
+            "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                                             is_causal=True),
+        }, reps=3, inner=5, rounds=1)
+        bnd = bound(4.0 * b * h * d * tt * (tt + 1) / 2, nbytes(q, k, v, got),
+                    peak=PEAK_F32_FLOPS)
+        print(f"  (g) float32 K1 B{b} H{h} T{tt} D{d} causal: kernel {times['kernel']:.4f} ms, "
+              f"plain {times['plain']:.4f} ms, SDPA is_causal {times['sdpa']:.4f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, float32 at 67 TFLOP/s; {card})")
+        records.append(dict(label=label, shape=f"B{b} H{h} T{tt} D{d} float32, causal",
+                            ms=times["kernel"], plain_ms=times["plain"],
+                            library_ms=times["sdpa"], max_abs_err=err, **bnd))
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    print(f"  [zoo] {time.perf_counter() - phase_t0:.1f} s in all; (f) max |diff| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in ll_errs.items())
+          + f" (atol {ZOO_LL_ATOL:g})")
+    return {"launches": {name: r["launches"] for name, r in runs.items()}, "k1": records,
+            "k1_err": max(rec["max_abs_err"] for rec in records)}
+
+
 def main() -> int:
     try:
         import torch
@@ -3467,17 +3796,21 @@ def main() -> int:
     indel_run = phase_indels(torch, dev, card, fa, check_close)
     trainers = phase_trainers(torch, dev, card, fa)
     baselines = phase_baselines(torch, dev, card, fa)
+    zoo = phase_zoo(torch, dev, card, fa, check_close)
 
     if "jax" in sys.modules:
         fail("the port imported jax")
-    # the guard below covers the modules of every phase, phases 15-17's too
+    # the guard below covers the modules of every phase, phases 15-18's too
     missing = [m for m in ("proteingym_tpu_torch.native", "proteingym_tpu_torch.models.hmm",
                            "proteingym_tpu_torch.models.potts",
                            "proteingym_tpu_torch.models.wavenet",
                            "proteingym_tpu_torch.models.gemme", "proteingym_tpu_torch.models.siterm",
                            "proteingym_tpu_torch.models.rsalor",
                            "proteingym_tpu_torch.models.provean",
-                           "proteingym_tpu_torch.data.structures") if m not in sys.modules]
+                           "proteingym_tpu_torch.data.structures",
+                           "proteingym_tpu_torch.models.ar_zoo",
+                           "proteingym_tpu_torch.models.progen3",
+                           "proteingym_tpu_torch.models.unirep") if m not in sys.modules]
     if missing:
         fail(f"modules the phases drive were not loaded: {missing}")
     jax_package = sorted(m for m in sys.modules
@@ -3489,7 +3822,7 @@ def main() -> int:
         # K1's main path is PoET's self tier; the ESM headline shape beside it
         "grouped_attention": dict(
             max_abs_err=max(max_abs_err, k2["k1_self_err"], msa_run["k1_err"],
-                            tr_run["k1_err"], indel_run["k1"]["max_abs_err"]),
+                            tr_run["k1_err"], indel_run["k1"]["max_abs_err"], zoo["k1_err"]),
             shape="B8 H16 T4352 D64, 16 segments + causal",
             **{key: k2["k1"][key] for key in k1_keys},
             other_shapes=[{"shape": "B16 H20 T256 D64 mask+rope, pre-pass + loop",
@@ -3508,7 +3841,7 @@ def main() -> int:
                "trancepteve": tr_run["launches"], "tranception_windows": tr_run["long_launches"],
                "eve": tr_run["eve_launches"], "trancepteve_indel": indel_run["a"]["launches"],
                "tranception_indel": indel_run["a_tranception"]["launches"],
-               **trainers["launches"], **baselines["launches"]}
+               **trainers["launches"], **baselines["launches"], **zoo["launches"]}
     records = [{
         "name": name,
         "route": "cuda",
@@ -3531,6 +3864,13 @@ def main() -> int:
                     "launches": by_path["trancepteve_indel"]["grouped_attention"],
                     "counter": "grouped_attention", "path": "trancepteve_indel",
                     **indel_run["k1"]})
+    # the float32 K1 at the AR zoo's shapes, each with the launches of its path
+    for rec in zoo["k1"]:
+        path = rec["label"]
+        records.append({"name": f"grouped_attention:f32_{path}", "route": "cuda",
+                        "source": source, "replaces": replaces,
+                        "launches": by_path[path]["grouped_attention"],
+                        "counter": "grouped_attention", "path": path, **rec})
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

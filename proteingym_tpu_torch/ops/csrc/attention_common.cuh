@@ -15,7 +15,7 @@
 
 namespace {
 
-constexpr int kTile = 64;  // keys per shared-memory tile (and float32 queries per block)
+constexpr int kTile = 64;  // keys per shared-memory tile of the Hopper loop
 constexpr float kNegInf = -1e30f;  // finite mask fill (NEG_INF in Python)
 
 // the state of one key of a staged tile: live, masked (the finite fill) or

@@ -25,8 +25,10 @@ and scales q and k once (``rope_qk`` launches it alone) and the Hopper loop
 those once per forward through a ``KeyTiles`` it passes to every layer.
 Padding rows (segment 0) of a segmented call are finite but are not the
 plain version's; callers never consume them. For float32 each launches
-the scalar kernel of ``csrc/grouped_attention.cuh``, which visits every
-key tile (the small float32 presets).
+the kernel of ``csrc/grouped_attention.cuh``: float32 products (no TF32),
+a group of lanes per query row, head dims ``F32_HEAD_DIMS`` (the AR zoo's
+96, 160 and 256 among them), causal calls stopped at each query tile's
+diagonal.
 
 ``mha`` and ``mha_natural`` dispatch as the JAX functions do on a TPU. On
 a CPU tensor each wrapper runs its plain PyTorch version (``reference_mha``,
@@ -47,7 +49,8 @@ import torch.nn.functional as F
 from proteingym_tpu_torch.ops.rotary import _cos_sin_cache, apply_rotary_bhtd
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 24, 32, 64, 128)
+HEAD_DIMS = (16, 24, 32, 64, 128)  # bfloat16: the Hopper loop
+F32_HEAD_DIMS = (16, 24, 32, 64, 96, 128, 160, 256)  # float32: the lane-group kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of each CUDA kernel entry in this process, counted by its wrapper
@@ -170,14 +173,16 @@ def _rope_tables(t: int, d: int, base: float, device: torch.device):
 
 
 def _aligned_rows(x: torch.Tensor) -> bool:
-    """Every (b, h, t) row of a bf16 tensor starts on a 16-byte boundary,
-    with strides a TMA tensor map takes (positive multiples of 16 bytes)."""
-    return x.data_ptr() % 16 == 0 and all(s % 8 == 0 and s > 0 for s in x.stride()[:3])
+    """Every (b, h, t) row starts on a 16-byte boundary, with strides that
+    are positive multiples of 16 bytes (what a TMA tensor map and the
+    float32 kernel's float4 loads take)."""
+    per16 = 16 // x.element_size()
+    return x.data_ptr() % 16 == 0 and all(s % per16 == 0 and s > 0 for s in x.stride()[:3])
 
 
 def _checked_qkv(q, k, v):
     """Raise for what the attention kernels do not take; return q/k/v with
-    bf16 views that are not aligned for 16-byte loads copied."""
+    views that are not aligned for 16-byte loads copied."""
     b, h, t, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
@@ -186,19 +191,18 @@ def _checked_qkv(q, k, v):
             f"the attention kernel takes float32 or bfloat16 q/k/v of one "
             f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}"
         )
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported by the attention kernel "
-                         f"(supported: {HEAD_DIMS})")
+    dims = HEAD_DIMS if q.dtype == torch.bfloat16 else F32_HEAD_DIMS
+    if d not in dims:
+        raise ValueError(f"head dim {d} not supported by the {q.dtype} attention kernel "
+                         f"(supported: {dims})")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q/k/v must lie on one device")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the attention kernel needs a unit head-dim stride")
-    if q.dtype == torch.bfloat16:
-        # the bf16 kernel stages rows with 16-byte loads; a view that is not
-        # aligned for them is copied to a fresh contiguous tensor first
-        q, k, v = (x if _aligned_rows(x) else x.clone(memory_format=torch.contiguous_format)
-                   for x in (q, k, v))
-    return q, k, v
+    # both kernels read rows with 16-byte loads; a view that is not aligned
+    # for them is copied to a fresh contiguous tensor first
+    return tuple(x if _aligned_rows(x) else x.clone(memory_format=torch.contiguous_format)
+                 for x in (q, k, v))
 
 
 def _strides(q, k, v, out):
@@ -325,8 +329,8 @@ def _launch_grouped_attention(q, k, v, key_mask, bias, causal, sm_scale,
     its (B, T, H, D) entry (no bias) on (B, T, H, D) tensors; the result
     comes in the same layout. bfloat16 runs the pre-pass (when there is
     RoPE or a scale) and the Hopper loop with key-tile extents, in one
-    foreign call; float32 the scalar kernel, which rotates and scales on
-    load. The launch is counted under ``counter`` (the wrapper's TPU
+    foreign call; float32 the lane-group kernel, which rotates and scales
+    on load. The launch is counted under ``counter`` (the wrapper's TPU
     kernel), plus ``rope_qk`` when the pre-pass ran."""
     q, k, v = _checked_qkv(q, k, v)
     if bthd:
@@ -405,7 +409,8 @@ def grouped_mha(
     key_tiles: Optional[KeyTiles] = None,
 ) -> torch.Tensor:
     """Fused attention, (B, H, T, D) -> (B, H, T, D). CUDA tensors launch the
-    Hopper kernel (any T, head dims in HEAD_DIMS, float32 or bfloat16); CPU
+    Hopper kernel (any T; head dims in HEAD_DIMS for bfloat16, in
+    F32_HEAD_DIMS for float32, which runs in full float32); CPU
     tensors take the plain version. With ``rope_base`` q/k arrive unrotated.
     ``sm_scale`` None means 1/sqrt(D); 1.0 when the caller pre-scaled q.
 
@@ -442,8 +447,8 @@ def grouped_mha_bthd(
     """Heads-mid attention: q/k/v and the result are (B, T, H, D), the
     layout of the q/k/v projections, so nothing is transposed. No bias (as
     the TPU kernel takes none). CUDA tensors launch the grouped kernel's
-    (B, T, H, D) entry (any T, head dims in HEAD_DIMS, float32 or
-    bfloat16); CPU tensors take ``plain_mha_bthd``.
+    (B, T, H, D) entry (any T, head dims in HEAD_DIMS for bfloat16 or
+    F32_HEAD_DIMS for float32); CPU tensors take ``plain_mha_bthd``.
 
     ``key_mask``, ``segment_ids`` and ``key_tiles`` as in ``grouped_mha``:
     both masks are honoured (the TPU kernel drops the key mask when
@@ -482,7 +487,7 @@ def flash_mha(
     loop stops causal calls at the diagonal, except that a query tile
     holding a row with no live key at or before it visits every tile, so
     that row averages v over all T keys as the plain version does. Any T,
-    head dims in HEAD_DIMS, float32 or bfloat16; counted under
+    head dims in HEAD_DIMS (bfloat16) or F32_HEAD_DIMS (float32); counted under
     ``flash_attention``. CPU tensors take ``reference_mha``. ``key_tiles``
     as in ``grouped_mha``."""
     if key_tiles is not None:
@@ -544,8 +549,8 @@ def seg_block_mha(
     under ``seg_block_attention``: for bfloat16 the pre-pass rotates and
     scales q/k and the Hopper loop visits only the key tiles that share a
     segment with each query tile (a warpgroup of 64 rows skips those that
-    share none with its own rows); float32 takes the scalar kernel (any T,
-    head dims in HEAD_DIMS). CPU tensors take ``plain_seg_block_mha``. The
+    share none with its own rows); float32 takes the lane-group kernel (any
+    T, head dims in F32_HEAD_DIMS). CPU tensors take ``plain_seg_block_mha``. The
     JAX kernel needs T to be a multiple of its 128-row block; neither
     version here does.
 

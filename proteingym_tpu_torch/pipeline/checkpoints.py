@@ -1,5 +1,5 @@
-"""ESM, PoET, MSA Transformer, Tranception and EVE checkpoint specs
-(counterpart of the ESM, Tranception and EVE parts of
+"""ESM, PoET, MSA Transformer, Tranception, EVE and ProtGPT2 checkpoint
+specs (counterpart of the ESM, Tranception, EVE and GPT-2 parts of
 proteingym_tpu/pipeline/checkpoints.py, of the PoET branch of
 ``resolve_zoo_checkpoint`` and of the weight handling of the
 ``msa_transformer`` scorer in proteingym_tpu/pipeline/scorers.py). Orbax
@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from proteingym_tpu_torch.models import esm2, eve, msa_transformer, poet, tranception
+from proteingym_tpu_torch.models import ar_zoo, esm2, eve, msa_transformer, poet, tranception
 
 
 def _load_torch_state_dict(path: Path):
@@ -179,3 +179,32 @@ def load_eve_checkpoint(spec, device="cuda") -> Tuple[eve.EveModel, eve.EveConfi
         raise ValueError(f"{spec!r} is not an EVE checkpoint file; orbax checkpoint "
                          "directories are JAX-only")
     return eve.load_torch_checkpoint(path, device=device)
+
+
+def load_gpt2_checkpoint(spec, default_config: Optional[ar_zoo.Gpt2Config] = None,
+                         device="cuda") -> Tuple[ar_zoo.Gpt2, ar_zoo.Gpt2Config]:
+    """Resolve a ProtGPT2 / GPT-2 checkpoint spec to (model on ``device``,
+    config):
+      - an HF directory: config.json (n_layer, n_embd, n_head, vocab_size,
+        n_positions) and pytorch_model.bin, named after the directory;
+      - a bare torch state dict file, read with ``default_config`` (the
+        scorer's ProtGPT2 shape without one).
+    GPT-2's Conv1D weights are (in, out) and stay so. An orbax directory
+    written by the JAX package, or an HF directory holding only
+    model.safetensors (no safetensors here), is refused."""
+    path = Path(spec)
+    config = default_config or ar_zoo.Gpt2Config()
+    if path.is_dir():
+        if (path / "params").exists():
+            raise ValueError(f"{spec!r} is an orbax checkpoint directory; those are JAX-only")
+        if not (path / "pytorch_model.bin").exists():
+            raise ValueError(f"{spec!r} holds no pytorch_model.bin")
+        hf = json.loads((path / "config.json").read_text())
+        config = ar_zoo.Gpt2Config(
+            name=path.name, num_layers=int(hf["n_layer"]), embed_dim=int(hf["n_embd"]),
+            num_heads=int(hf["n_head"]), vocab_size=int(hf["vocab_size"]),
+            n_ctx=int(hf.get("n_positions", hf.get("n_ctx", 1024))), dtype=config.dtype,
+        )
+        path = path / "pytorch_model.bin"
+    state, _ = _load_torch_state_dict(path)
+    return ar_zoo.gpt2_load_state_dict(state, config, device=device), config

@@ -1,7 +1,8 @@
 """Command line of the PyTorch port (counterpart of
 proteingym_tpu/pipeline/cli.py for ``score --model esm|poet|msa_transformer|
 tranception|trancepteve|eve|deepsequence|site_independent|potts|evmutation|
-hmm|wavenet|gemme|escott|siterm|rsalor|provean``, ``train --model eve|potts``,
+hmm|wavenet|gemme|escott|siterm|rsalor|provean|progen2|rita|protgpt2|
+progen3|unirep``, ``train --model eve|potts``,
 ``weights``, ``merge``, ``evaluate``, ``evaluate-clinical`` and ``models``).
 
     python -m proteingym_tpu_torch.pipeline.cli score --model esm \\
@@ -36,6 +37,12 @@ hmm|wavenet|gemme|escott|siterm|rsalor|provean``, ``train --model eve|potts``,
         --msa-dir msa/ --weights-dir weights/ --dms-reference ref.csv \\
         --dms-dir dms/ --output-dir out/ [--structure-dir pdbs/] \\
         [--extra method=f81]
+    python -m proteingym_tpu_torch.pipeline.cli score --model progen2|rita|progen3 \\
+        --checkpoint progen2-xlarge --dms-reference ref.csv --dms-dir dms/ \\
+        --output-dir out/ [--extra tiny=1]
+    python -m proteingym_tpu_torch.pipeline.cli score --model protgpt2|unirep \\
+        [--checkpoint DIR] --dms-reference ref.csv --dms-dir dms/ --output-dir out/ \\
+        [--msa-dir msa/ --weights-dir weights/ --extra evotune_steps=100]
     python -m proteingym_tpu_torch.pipeline.cli train --model eve|potts \\
         --msa-dir msa/ --weights-dir weights/ --dms-reference ref.csv \\
         --dms-id X --output-dir models/ [--steps 400000] [--seed 0]

@@ -7,7 +7,9 @@ retrieval, and whole indel sequences with ``indel_mode``), ``eve`` /
 checkpoints), the alignment baselines ``site_independent``, ``potts`` /
 ``evmutation``, ``hmm``, ``wavenet`` (a causal CNN trained on the MSA's
 rows; whole sequences, so indels too), ``gemme`` / ``escott``,
-``siterm``, ``rsalor`` and ``provean`` (whole sequences too), plus
+``siterm``, ``rsalor`` and ``provean`` (whole sequences too), the
+autoregressive zoo ``progen2``, ``rita``, ``protgpt2``, ``progen3`` and
+``unirep`` (whole sequences, so indels too), plus
 ``score_esm_packed_batch``, the cross-assay packed ESM path.
 
 A scorer is ``scorer(ctx: ScoreContext)`` and returns either ``{column:
@@ -27,6 +29,7 @@ import torch
 
 from proteingym_tpu_torch.data.mutants import is_wt_row, parse_mutant
 from proteingym_tpu_torch.data.reference import AssayRecord
+from proteingym_tpu_torch.devices import no_tf32
 
 SCORERS: Dict[str, Callable] = {}
 
@@ -588,3 +591,183 @@ def score_deepsequence(ctx: ScoreContext) -> Dict[str, np.ndarray]:
     """DeepSequence, EVE's ancestor architecture (a 1500-1500 encoder, z=30,
     a 100-500 decoder), trained and scored by the same recipe."""
     return _score_eve(ctx, "DeepSequence_evol_indices")
+
+
+# ---------------------------------------------------------------------------
+# The autoregressive zoo: absolute mirrored log-likelihoods of whole rows
+# ---------------------------------------------------------------------------
+
+# --extra tiny=1: the JAX tests' tiny shapes (head dims 8 and 16), in
+# float32; they run on the CPU's plain attention (the card's float32
+# kernel takes head dims of 16 and up)
+ZOO_TINY = {
+    "ProGen2": dict(num_layers=2, embed_dim=64, num_heads=8, rotary_dim=4),
+    "RITA": dict(num_layers=2, embed_dim=32, num_heads=4, ffn_dim=64),
+    "ProGen3": dict(num_layers=2, hidden_dim=64, num_heads=4, ffn_dim=96, num_experts=4),
+}
+
+
+def _zoo_config(ctx: ScoreContext, presets, default: str, family: str):
+    """The preset --checkpoint names (``default`` without one), at
+    ``ZOO_TINY[family]``'s shape in float32 with ``--extra tiny=1``."""
+    preset = ctx.checkpoint or default
+    if preset not in presets:
+        raise ValueError(f"Unknown {family} preset {preset}")
+    if ctx.extra.get("tiny"):
+        return dataclasses.replace(presets[preset], **ZOO_TINY[family], dtype=torch.float32)
+    return presets[preset]
+
+
+def _zoo_columns(ctx: ScoreContext, frame, column: str) -> Dict[str, np.ndarray]:
+    """The AR frame left-joined onto the assay's rows on
+    ``mutated_sequence`` (the JAX scorers' ``merge(..., how="left")``): the
+    L->R and R->L scores, and their mean as ``column``; NaN for a sequence
+    the frame lacks."""
+    row_of = {s: i for i, s in enumerate(frame["mutated_sequence"])}
+    at = np.asarray([row_of.get(s, -1) for s in ctx.mutated_sequences], dtype=np.int64)
+
+    def take(name):  # index -1 reads the NaN appended after the frame's rows
+        return np.append(np.asarray(frame[name], dtype=np.float64), np.nan)[at]
+
+    return {"avg_score_L_to_R": take("avg_score_L_to_R"),
+            "avg_score_R_to_L": take("avg_score_R_to_L"), column: take("avg_score")}
+
+
+def _score_zoo(ctx: ScoreContext, logits_fn, tokenize, pad_id: int, n_ctx: int, column: str):
+    """``score_mutants_ar`` in its absolute mode (``target_seq=None``: every
+    row's summed log-likelihood over sliding windows of ``n_ctx``, mirrored,
+    divided by the row's length), as the JAX zoo scorers run it."""
+    from proteingym_tpu_torch.models.ar_scoring import score_mutants_ar
+
+    with no_tf32():
+        frame = score_mutants_ar(
+            logits_fn, tokenize, pad_id=pad_id, mutants=ctx.mutants,
+            mutated_sequences=ctx.mutated_sequences, target_seq=None,
+            model_context_len=n_ctx, batch_size=ctx.batch_size, device=ctx.device,
+        )
+    return _zoo_columns(ctx, frame, column)
+
+
+def _letters(alphabet: str):
+    """A tokenizer onto ``alphabet``'s indices, unknown letters as X."""
+    index = {c: i for i, c in enumerate(alphabet)}
+    return (lambda s: np.asarray([index.get(c, index["X"]) for c in s], np.int64)), index["X"]
+
+
+@register_scorer("progen2")
+def score_progen2(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """ProGen2 (ref progen2/compute_fitness.py:34-87): the absolute mirrored
+    log-likelihood over the amino-acid-restricted logits, in
+    ``{config.name}_score`` (the registry merges ``Progen2_score``). The
+    preset (--checkpoint, default ``progen2-small``) gets seeded random
+    weights; an unknown one raises. ``--extra tiny=1`` runs the preset at
+    the tiny float32 shape; a library call may pass a published state dict
+    as ``extra["params"]``."""
+    from proteingym_tpu_torch.models import ar_zoo
+
+    config = _zoo_config(ctx, ar_zoo.PROGEN2_PRESETS, "progen2-small", "ProGen2")
+    state = ctx.extra.get("params")
+    model = (ar_zoo.progen2_load_state_dict(state, config, device=ctx.device) if state
+             else ar_zoo.progen2_init(config, seed=0, device=ctx.device))
+    tokenize, pad = _letters("ABCDEFGHIKLMNOPQRSTUVWXYZ")
+    return _score_zoo(ctx, model.restricted_logits, tokenize, pad, config.n_ctx,
+                      f"{config.name}_score")
+
+
+@register_scorer("rita")
+def score_rita(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """RITA (ref rita/compute_fitness.py calc_fitness): the absolute mirrored
+    log-likelihood in ``{config.name}_score`` (the registry merges
+    ``RITA_score``). Presets, ``tiny`` and ``params`` as for ``progen2``
+    (default ``RITA_s``)."""
+    from proteingym_tpu_torch.models import ar_zoo
+
+    config = _zoo_config(ctx, ar_zoo.RITA_PRESETS, "RITA_s", "RITA")
+    state = ctx.extra.get("params")
+    model = (ar_zoo.rita_load_state_dict(state, config, device=ctx.device) if state
+             else ar_zoo.rita_init(config, seed=0, device=ctx.device))
+    tok = ar_zoo.RitaTokenizer()
+    return _score_zoo(ctx, model, tok.encode, tok.PAD, config.n_ctx, f"{config.name}_score")
+
+
+@register_scorer("protgpt2")
+def score_protgpt2(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """ProtGPT2 (ref protgpt2/compute_fitness.py): the absolute mirrored
+    log-likelihood in ``ProtGPT2_score``. The shape comes from ``--extra
+    num_layers= embed_dim= num_heads=`` (36, 1280, 20) with seeded random
+    weights, or from --checkpoint (``load_gpt2_checkpoint``). Tokens are
+    the JAX scorer's byte-level fallback, ``ord(c) % vocab_size`` with pad
+    0; ``--extra tokenizer=<HF dir>`` reads the real BPE vocabulary
+    through ``transformers`` instead, where that is installed."""
+    from proteingym_tpu_torch.models import ar_zoo
+    from proteingym_tpu_torch.pipeline.checkpoints import load_gpt2_checkpoint
+
+    config = ar_zoo.Gpt2Config(num_layers=int(ctx.extra.get("num_layers", 36)),
+                               embed_dim=int(ctx.extra.get("embed_dim", 1280)),
+                               num_heads=int(ctx.extra.get("num_heads", 20)))
+    state = ctx.extra.get("params")
+    if state:
+        model = ar_zoo.gpt2_load_state_dict(state, config, device=ctx.device)
+    elif ctx.checkpoint:
+        model, config = load_gpt2_checkpoint(ctx.checkpoint, config, device=ctx.device)
+    else:
+        model = ar_zoo.gpt2_init(config, seed=0, device=ctx.device)
+    if ctx.extra.get("tokenizer"):
+        try:
+            from transformers import AutoTokenizer
+        except ImportError as e:
+            raise RuntimeError("--extra tokenizer= reads a BPE vocabulary through the "
+                               "transformers package, which is not installed") from e
+        hf_tok = AutoTokenizer.from_pretrained(ctx.extra["tokenizer"])
+        tokenize = lambda s: np.asarray(hf_tok.encode(s), np.int64)
+        pad_id = hf_tok.eos_token_id or 0
+    else:
+        tokenize = lambda s: np.asarray([ord(c) % config.vocab_size for c in s], np.int64)
+        pad_id = 0
+    return _score_zoo(ctx, model, tokenize, pad_id, config.n_ctx, "ProtGPT2_score")
+
+
+@register_scorer("progen3")
+def score_progen3(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """ProGen3 (ref progen3/compute_fitness.py): the absolute mirrored
+    log-likelihood over the 26 letters' logits, in ``{config.name}_score``
+    (the registry merges ``log_likelihood``). Presets (default
+    ``progen3-112m``), ``tiny`` (2 x 64, 4 heads, 4 experts, float32) and
+    ``params`` as for ``progen2``; 1,024-token windows."""
+    from proteingym_tpu_torch.models import progen3
+
+    config = _zoo_config(ctx, progen3.PRESETS, "progen3-112m", "ProGen3")
+    state = ctx.extra.get("params")
+    model = (progen3.convert_torch_state_dict(state, config, device=ctx.device) if state
+             else progen3.init_random(config, seed=0, device=ctx.device))
+    tokenize, pad = _letters("ABCDEFGHIJKLMNOPQRSTUVWXYZ")
+    return _score_zoo(ctx, model.restricted_logits, tokenize, pad, 1024,
+                      f"{config.name}_score")
+
+
+@register_scorer("unirep")
+def score_unirep(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """UniRep (ref unirep/unirep_inference.py, unirep_evotune.py): each
+    ``mutated_sequence``'s log-likelihood over its length, in
+    ``unirep_score`` (the registry merges ``Unirep_score``). --checkpoint
+    is a directory of the published numpy weights; without it, seeded
+    random weights at ``--extra hidden_dim=`` (1,900) and ``embed_dim=``
+    (10). ``--extra evotune_steps=N`` first finetunes on the assay's
+    alignment, rows drawn by sequence weight (K5 or the ``.npy`` cache)."""
+    from proteingym_tpu_torch.models import unirep
+    from proteingym_tpu_torch.models.ar_scoring import batched_ar_loglik
+
+    config = unirep.UniRepConfig(hidden_dim=int(ctx.extra.get("hidden_dim", 1900)),
+                                 embed_dim=int(ctx.extra.get("embed_dim", 10)))
+    model = (unirep.convert_tf_weights(ctx.checkpoint, config, device=ctx.device)
+             if ctx.checkpoint else unirep.init_params(config, seed=0, device=ctx.device))
+    tok = unirep.UniRepTokenizer()
+    seqs = ctx.mutated_sequences
+    with no_tf32():
+        if ctx.extra.get("evotune_steps"):
+            msa = ctx.load_msa()
+            unirep.evotune(model, msa.sequences(), steps=int(ctx.extra["evotune_steps"]),
+                           weights=msa.weights)
+        lls = batched_ar_loglik(model, [tok.encode(s) for s in seqs], tok.PAD,
+                                batch_size=ctx.batch_size, device=ctx.device)
+    return {"unirep_score": lls / np.asarray([len(s) for s in seqs], dtype=np.float64)}

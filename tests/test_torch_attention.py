@@ -108,6 +108,26 @@ def test_dispatcher_matches_jax_mha_and_launches_nothing_on_cpu(case):
     assert all(n == 0 for n in tfa.LAUNCHES.values())
 
 
+# the AR zoo's float32 head dims beyond the bf16 loop's (96: ProGen2-medium
+# and -base, RITA_l, ProGen3-1b and -3b; 160: ProGen2-large; 256:
+# ProGen2-xlarge), causal, without and with a key mask that leaves a row
+# no live key at or before it
+@pytest.mark.parametrize("d", [96, 160, 256])
+@pytest.mark.parametrize("masked", [False, True], ids=["causal", "causal_mask"])
+def test_float32_plain_matches_jax_reference_at_the_zoo_head_dims(d, masked):
+    assert d in tfa.F32_HEAD_DIMS and d not in tfa.HEAD_DIMS
+    t = 70
+    q, k, v = _qkv(d, t, d=d)
+    kw = {"causal": True}
+    if masked:
+        mask = _lengths_mask(t, [t, 50])
+        mask[1, :5] = False
+        kw["key_mask"] = mask
+    got, want = _run_both(q, k, v, kw, jfa.reference_mha, tfa.grouped_mha)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
 def test_reference_mha_matches_jax_reference():
     q, k, v = _qkv(3, 50)
     kw = {"key_mask": _lengths_mask(50, [50, 31]), "bias": _alibi(H, 50), "causal": True,

@@ -306,10 +306,48 @@ def test_models_lists_the_registry(capsys):
     names = capsys.readouterr().out.split("\n")
     assert names[-1] == "" and names[:-1] == sorted(SCORERS)
     assert {"gemme", "escott", "siterm", "rsalor", "provean"} <= set(names)
-    assert len(SCORERS) == 17
+    assert {"progen2", "rita", "protgpt2", "progen3", "unirep"} <= set(names)
+    assert len(SCORERS) == 22
 
 
-@pytest.mark.parametrize("model", ["gemme", "escott", "siterm", "rsalor", "provean"])
+# the AR zoo on the CPU: the tiny float32 shapes (head dims 8 and 16), a
+# 1 x 16 ProtGPT2 with the byte-level tokens, UniRep at hidden 32 evotuned
+# for 3 steps on the assay's alignment (its weights computed and cached)
+ZOO_RUNS = {
+    "progen2": (["tiny=1"], "progen2-small_score"),
+    "rita": (["tiny=1"], "RITA_s_score"),
+    "protgpt2": (["num_layers=1", "embed_dim=16", "num_heads=2"], "ProtGPT2_score"),
+    "progen3": (["tiny=1"], "progen3-112m_score"),
+    "unirep": (["hidden_dim=32", "embed_dim=8", "evotune_steps=3"], "unirep_score"),
+}
+
+
+@pytest.mark.parametrize("model", sorted(ZOO_RUNS))
+def test_ar_zoo_scorers_through_the_cli(tmp_path, model):
+    from tests.test_torch_gemme import write_baseline_world
+
+    _, mutants = write_baseline_world(tmp_path, n_rows=60, indel=True)
+    extra, column = ZOO_RUNS[model]
+    out = tmp_path / "out"
+    assert tcli.main(["score", "--model", model, "--device", "cpu", "--msa-dir",
+                      str(tmp_path / "msa"), "--weights-dir", str(tmp_path / "w"),
+                      "--dms-reference", str(tmp_path / "ref.csv"), "--dms-dir",
+                      str(tmp_path / "dms"), "--output-dir", str(out), "--batch-size", "8",
+                      "--quiet", "--fail-fast", "--extra", *extra]) == 0
+    rows = _read(out / "FAM_B.csv")
+    # the JAX scorers' frames: the assay's columns, then (AR harness) both
+    # directions' scores and their mean under the model's column
+    both = [] if model == "unirep" else ["avg_score_L_to_R", "avg_score_R_to_L"]
+    assert list(rows[0]) == ["mutant", "mutated_sequence", "DMS_score", "DMS_score_bin",
+                             *both, column]
+    assert [r["mutated_sequence"] for r in rows] == mutants
+    values = np.asarray([float(r[column]) for r in rows])
+    assert np.isfinite(values).all() and (values < 0).all()
+    assert (tmp_path / "w" / "FAM.npy").exists() == (model == "unirep")
+
+
+@pytest.mark.parametrize("model", ["gemme", "escott", "siterm", "rsalor", "provean",
+                                   "progen2", "rita", "protgpt2", "progen3", "unirep"])
 def test_alignment_baselines_on_cuda_without_gpu_raise(tmp_path, monkeypatch, model):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ref, dms_dir, _ = _write_assays(tmp_path, n_assays=1)

@@ -3,7 +3,8 @@ long-context and extent-sparse segmented, on the Hopper loop with its
 pre-pass in bf16 and on the scalar kernel in float32; cluster counts)
 against their plain PyTorch versions on the card, and the model forwards
 that launch them (ESM, PoET, the MSA Transformer's column attention,
-Tranception's ALiBi causal attention), and the HMM forward, the Potts,
+Tranception's ALiBi causal attention, the AR zoo's float32 causal
+attention), and the HMM forward, the Potts,
 EVE and WaveNet trainers, PROVEAN's alignment recursion, GEMME and SiteRM
 on the card against the CPU.
 
@@ -20,7 +21,8 @@ import torch
 
 from proteingym_tpu_torch.devices import adam
 from proteingym_tpu_torch.models import (
-    esm2, eve, gemme, hmm, msa_transformer, poet, potts, provean, siterm, tranception, wavenet,
+    ar_zoo, esm2, eve, gemme, hmm, msa_transformer, poet, potts, progen3, provean, siterm,
+    tranception, wavenet,
 )
 from proteingym_tpu_torch.msa import weights as msa_weights
 from proteingym_tpu_torch.ops import flash_attention as fa
@@ -761,6 +763,120 @@ def test_msa_transformer_forward_goes_through_the_kernel(dev):
         want = model(tokens)
     assert got.dtype == torch.float32 and bool(got.isfinite().all())
     torch.testing.assert_close(got, want, atol=5e-2, rtol=0)
+
+
+def _f32_kwargs(mode, t):
+    """The float32 kernel's modes on a (2, t) batch: causal or not, a key
+    mask with an (H, T) bias, segments with their mask, and a batch row
+    whose first 40 keys are masked (its first rows see no live key at or
+    before them, so they average v over all T keys)."""
+    mask = _lengths_mask(t, [t, t - 7])
+    dead = torch.ones(2, t, dtype=torch.bool)
+    dead[1, :40] = False
+    seg = torch.zeros(2, t, dtype=torch.int32)
+    seg[0, :t // 3], seg[0, t // 3:t - 5], seg[1, :t - 9] = 1, 2, 1
+    return {"causal": {"causal": True}, "full": {},
+            "mask_bias_causal": {"key_mask": mask, "bias": _alibi(3, t), "causal": True},
+            "segments": {"segment_ids": seg, "key_mask": seg > 0},
+            "segments_causal_rope": {"segment_ids": seg, "key_mask": seg > 0, "causal": True,
+                                     "rope_base": 10000.0},
+            "no_live_key_causal": {"key_mask": dead, "causal": True}}[mode]
+
+
+F32_MODES = ("causal", "full", "mask_bias_causal", "segments", "segments_causal_rope",
+             "no_live_key_causal")
+
+
+@pytest.mark.parametrize("mode", F32_MODES)
+@pytest.mark.parametrize("t", [45, 300])  # T not a multiple of the key tile (64, 32)
+@pytest.mark.parametrize("d", fa.F32_HEAD_DIMS)
+def test_float32_kernel_matches_plain(d, t, mode, dev):
+    """The float32 kernel (a group of lanes per query row) at every head dim
+    it takes, in every mode; one launch each."""
+    gen = torch.Generator().manual_seed(d * 1000 + t)
+    q, k, v = (torch.randn(2, t, 3, d, generator=gen).to(dev).transpose(1, 2)
+               for _ in range(3))
+    kw = {n: x.to(dev) if torch.is_tensor(x) else x for n, x in _f32_kwargs(mode, t).items()}
+    before = fa.LAUNCHES["grouped_attention"]
+    got = fa.grouped_mha(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["grouped_attention"] == before + 1
+    want = fa.plain_mha(q, k, v, **kw)
+    if "segment_ids" in kw:  # padding rows are never consumed
+        live = (kw["segment_ids"] > 0).cpu()
+        got, want = (x.transpose(1, 2).cpu()[live] for x in (got, want))
+    torch.testing.assert_close(got, want, atol=TOL[torch.float32], rtol=TOL[torch.float32])
+
+
+def test_float32_kernel_rejects_other_head_dims(dev):
+    q = torch.zeros(1, 2, 16, 48, device=dev)
+    with pytest.raises(ValueError, match="head dim 48"):
+        fa.grouped_mha(q, q, q, causal=True)
+    q = torch.zeros(1, 2, 16, 96, device=dev, dtype=torch.bfloat16)  # the bf16 loop: no 96
+    with pytest.raises(ValueError, match="head dim 96"):
+        fa.grouped_mha(q, q, q, causal=True)
+
+
+def test_float32_kernel_beyond_65535_batch_head_pairs(dev):
+    """More (b, h) pairs than a grid's y dimension holds: the float32
+    kernel spreads them along z."""
+    b, h, t, d = 5462, 12, 70, 16  # 65,544 pairs
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev).transpose(1, 2)
+               for _ in range(3))
+    mask = torch.ones(b, t, dtype=torch.bool, device=dev)
+    mask[-3:, 50:] = False  # rows in the last z slice
+    got = fa.grouped_mha(q, k, v, key_mask=mask, causal=True)
+    want = fa.plain_mha(q, k, v, key_mask=mask, causal=True)
+    torch.testing.assert_close(got, want, atol=TOL[torch.float32], rtol=TOL[torch.float32])
+
+
+def test_float32_kernel_on_unaligned_views(dev):
+    # views one element into a buffer: the wrapper copies them before the
+    # kernel's float4 loads
+    gen = torch.Generator().manual_seed(6)
+    buf = torch.randn(3, 2 * 4 * 50 * 97 + 1, generator=gen).to(dev)
+    q, k, v = (x[1:].view(2, 4, 50, 97)[..., :96] for x in buf)
+    got = fa.grouped_mha(q, k, v, causal=True)
+    want = fa.plain_mha(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, atol=TOL[torch.float32], rtol=TOL[torch.float32])
+
+
+# the AR zoo at small widths but head dims the card takes (32, 96, 64, 160)
+ZOO_FORWARDS = {
+    "progen2": (ar_zoo, lambda dt: ar_zoo.progen2_init(
+        ar_zoo.ProGen2Config("p2", 2, 256, 8, rotary_dim=16, dtype=dt), device="cuda")),
+    "rita": (ar_zoo, lambda dt: ar_zoo.rita_init(
+        ar_zoo.RitaConfig("rita", 2, 192, 2, 256, dtype=dt), device="cuda")),
+    "protgpt2": (ar_zoo, lambda dt: ar_zoo.gpt2_init(
+        ar_zoo.Gpt2Config("g", 2, 128, 2, vocab_size=64, n_ctx=64, dtype=dt), device="cuda")),
+    "progen3": (progen3, lambda dt: progen3.init_random(
+        progen3.ProGen3Config("p3", 2, 320, 2, num_kv_heads=1, ffn_dim=96, num_experts=4,
+                              dtype=dt), device="cuda")),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("family", sorted(ZOO_FORWARDS))
+def test_ar_zoo_forward_goes_through_the_float32_kernel(family, dtype, dev):
+    """One float32 K1 launch per layer and nothing else; the logits equal
+    the same forward with the plain attention (float32 models: summation
+    order; bf16 models: a flipped bf16 rounding of an attention output,
+    2^-8 relative, moves a logit by far less than 5e-2 over two layers)."""
+    module, make = ZOO_FORWARDS[family]
+    model = make(dtype)
+    toks = torch.randint(0, 25, (3, 37), generator=torch.Generator().manual_seed(2)).to(dev)
+    before = dict(fa.LAUNCHES)
+    with torch.no_grad():
+        got = model(toks)
+    launched = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
+    assert launched == {**{n: 0 for n in fa.LAUNCHES}, "grouped_attention": 2}
+    with pytest.MonkeyPatch.context() as mp, torch.no_grad():
+        mp.setattr(module, "mha", fa.plain_mha)
+        want = model(toks)
+    assert got.dtype == torch.float32 and bool(got.isfinite().all())
+    atol = TOL[torch.float32] if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got, want, atol=atol, rtol=0)
 
 
 @pytest.mark.parametrize("t", [256, 416, 1024])
