@@ -183,15 +183,17 @@ Phases (any failure raises, and the script exits non-zero):
    column, forwards, K1 launches a forward, mutants/s, peak memory and the
    idle share of two forwards of its first scoring pass; (f) each transformer family's
    mean log-likelihoods of 8 rows against the plain attention; (g) the
-   float32 K1 (the lane-group kernel) at the zoo's five shapes against
-   its plain version, timed beside SDPA ``is_causal`` and its bound.
+   float32 K1 (the 3xTF32 tensor-core kernel) at the zoo's five shapes
+   against its plain version, timed beside SDPA ``is_causal`` and its
+   bound.
 
 Every phase holds the port to its rule: no module of the JAX package
 (``proteingym_tpu``) may be loaded. It prints one JSON line describing the
 kernels (time, plain version, the PyTorch call for the same function where
 there is one, the bound: the larger of bytes over 3.35 TB/s and operations
-over 989 TFLOP/s in bf16, 67 TFLOP/s in float32 for the float32 K1 or
-1,979 TOP/s in int8 for K5, the H100 SXM's peaks), then, as its last line,
+over 989 TFLOP/s in bf16, 495 TFLOP/s in TF32 three times over for the
+float32 K1's 3xTF32 products, or 1,979 TOP/s in int8 for K5, the H100
+SXM's peaks), then, as its last line,
 ``{"ok": true, "device": {...}}``. With no CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 """
@@ -329,8 +331,9 @@ POTTS_FILE_ATOL = 0.0
 # would flip far more entries
 HMM_CPU_ROWS, HMM_CPU_ATOL = 64, 1e-4
 POTTS_CPU_STEPS, POTTS_LOSS_RTOL, POTTS_HJ_RTOL = 3, 1e-4, 2e-3
-# float32 H100 SXM peak without TF32 (the Potts trainer's product)
-PEAK_F32_FLOPS = 67e12
+# float32 H100 SXM peak without TF32 (the Potts trainer's product), and
+# TF32's on the tensor cores: a 3xTF32 product takes three TF32 passes
+PEAK_F32_FLOPS, PEAK_TF32_FLOPS = 67e12, 495e12
 # the shapes of phase 16: phase 14's L=250 target and alignment and phase
 # 15's indel assay; EVE at its default architecture for 10,000 steps (cut
 # from train's default of 400,000 for time; the scorer's own default),
@@ -680,7 +683,7 @@ def phase_cluster_counts(torch, dev, card):
 def phase_long_attention(torch, dev, card, fa, qkv, lengths_mask, check_close):
     """7. K2 against the plain version; K1 at PoET's self-tier shape; both
     checked and timed at PoET's row shape."""
-    print("[flash_attention] K2 (Hopper loop in bf16, scalar kernel in float32) vs plain "
+    print("[flash_attention] K2 (Hopper loop in bf16, 3xTF32 kernel in float32) vs plain "
           "reference_mha on the card")
 
     def compare(name, q, k, v, atol, rtol, **kw):
@@ -943,7 +946,7 @@ def segment_runs(torch, dev, b, t, bounds):
 def phase_k3_k4(torch, dev, card, fa, qkv, lengths_mask, check_close):
     """9. K3 and K4 against their plain versions (live query rows) in bf16
     and float32; K3 timed at the packed-row shape, K4 at the headline."""
-    print("[seg_block_attention] K3 (Hopper loop in bf16, scalar kernel in float32) vs plain "
+    print("[seg_block_attention] K3 (Hopper loop in bf16, 3xTF32 kernel in float32) vs plain "
           "seg_block_mha on the card (live rows)")
     k3_errs = []
     for dtype, atol, rtol, tag in ((torch.bfloat16, BF16_ATOL, BF16_RTOL, "bf16"),
@@ -3560,11 +3563,15 @@ def phase_zoo(torch, dev, card, fa, check_close):
             "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v,
                                                                              is_causal=True),
         }, reps=3, inner=5, rounds=1)
-        bnd = bound(4.0 * b * h * d * tt * (tt + 1) / 2, nbytes(q, k, v, got),
-                    peak=PEAK_F32_FLOPS)
+        # the least time on the tensor cores: three TF32 passes per product
+        flops = 4.0 * b * h * d * tt * (tt + 1) / 2
+        bnd = bound(flops, nbytes(q, k, v, got), peak=PEAK_TF32_FLOPS / 3)
+        simt = bound(flops, nbytes(q, k, v, got), peak=PEAK_F32_FLOPS)
         print(f"  (g) float32 K1 B{b} H{h} T{tt} D{d} causal: kernel {times['kernel']:.4f} ms, "
               f"plain {times['plain']:.4f} ms, SDPA is_causal {times['sdpa']:.4f} ms, bound "
-              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, float32 at 67 TFLOP/s; {card})")
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, 3xTF32 at 495/3 TFLOP/s; "
+              f"{simt['bound_ms']:.4f} ms float32 at 67 TFLOP/s outside the tensor cores; "
+              f"{card})")
         records.append(dict(label=label, shape=f"B{b} H{h} T{tt} D{d} float32, causal",
                             ms=times["kernel"], plain_ms=times["plain"],
                             library_ms=times["sdpa"], max_abs_err=err, **bnd))

@@ -30,9 +30,10 @@
 // caller passes) and then the Hopper loop of hopper_attention.cuh (TMA
 // rings, wgmma, key-tile extents) on the rotated and scaled q and k. One
 // entry for all keeps the host's work per call to one foreign call. For
-// float32 both launch the lane-group kernel of grouped_attention.cuh (the AR
-// zoo's float32 attention and the small float32 presets; tensor cores would
-// round the operands), which rotates and scales on load.
+// float32 both launch the 3xTF32 tensor-core kernel of grouped_attention.cuh
+// (the AR zoo's float32 attention and the small float32 presets), which
+// rotates and scales on load and splits every operand into two TF32 halves,
+// so its products keep float32's accuracy.
 //
 // pgym_rope_qk launches the pre-pass alone: q' = rope(bf16(q * scale)) and
 // k' = rope(k), written as (B, T, H, D) bf16. Its rounding steps are the
@@ -144,7 +145,7 @@ cudaError_t rope_qk(const void* q, const void* k, const long long* sq, const lon
 }
 
 // bf16: the pre-pass (when there is RoPE or a scale other than 1, into
-// `scratch`) and the Hopper loop; float32: the lane-group kernel. strides: 12
+// `scratch`) and the Hopper loop; float32: the 3xTF32 kernel. strides: 12
 // (b, h, t) values
 cudaError_t launch_entry(const void* q, const void* k, const void* v, void* out,
                          const long long* strides, int B, int H, int T, int D, int dtype,

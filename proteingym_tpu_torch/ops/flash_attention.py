@@ -25,10 +25,11 @@ and scales q and k once (``rope_qk`` launches it alone) and the Hopper loop
 those once per forward through a ``KeyTiles`` it passes to every layer.
 Padding rows (segment 0) of a segmented call are finite but are not the
 plain version's; callers never consume them. For float32 each launches
-the kernel of ``csrc/grouped_attention.cuh``: float32 products (no TF32),
-a group of lanes per query row, head dims ``F32_HEAD_DIMS`` (the AR zoo's
-96, 160 and 256 among them), causal calls stopped at each query tile's
-diagonal.
+the kernel of ``csrc/grouped_attention.cuh``: both products on the tensor
+cores in 3xTF32 (every operand split into two TF32 halves, float32 sums,
+so the result keeps float32's accuracy), head dims ``F32_HEAD_DIMS`` (the
+AR zoo's 96, 160 and 256 among them), causal calls stopped at each query
+tile's diagonal.
 
 ``mha`` and ``mha_natural`` dispatch as the JAX functions do on a TPU. On
 a CPU tensor each wrapper runs its plain PyTorch version (``reference_mha``,
@@ -50,7 +51,7 @@ from proteingym_tpu_torch.ops.rotary import _cos_sin_cache, apply_rotary_bhtd
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 24, 32, 64, 128)  # bfloat16: the Hopper loop
-F32_HEAD_DIMS = (16, 24, 32, 64, 96, 128, 160, 256)  # float32: the lane-group kernel
+F32_HEAD_DIMS = (16, 24, 32, 64, 96, 128, 160, 256)  # float32: the 3xTF32 kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of each CUDA kernel entry in this process, counted by its wrapper
@@ -175,7 +176,7 @@ def _rope_tables(t: int, d: int, base: float, device: torch.device):
 def _aligned_rows(x: torch.Tensor) -> bool:
     """Every (b, h, t) row starts on a 16-byte boundary, with strides that
     are positive multiples of 16 bytes (what a TMA tensor map and the
-    float32 kernel's float4 loads take)."""
+    float32 kernel's 16-byte cp.async copies of K and V take)."""
     per16 = 16 // x.element_size()
     return x.data_ptr() % 16 == 0 and all(s % per16 == 0 and s > 0 for s in x.stride()[:3])
 
@@ -329,8 +330,8 @@ def _launch_grouped_attention(q, k, v, key_mask, bias, causal, sm_scale,
     its (B, T, H, D) entry (no bias) on (B, T, H, D) tensors; the result
     comes in the same layout. bfloat16 runs the pre-pass (when there is
     RoPE or a scale) and the Hopper loop with key-tile extents, in one
-    foreign call; float32 the lane-group kernel, which rotates and scales
-    on load. The launch is counted under ``counter`` (the wrapper's TPU
+    foreign call; float32 the 3xTF32 kernel, which rotates and scales on
+    load. The launch is counted under ``counter`` (the wrapper's TPU
     kernel), plus ``rope_qk`` when the pre-pass ran."""
     q, k, v = _checked_qkv(q, k, v)
     if bthd:
@@ -410,8 +411,9 @@ def grouped_mha(
 ) -> torch.Tensor:
     """Fused attention, (B, H, T, D) -> (B, H, T, D). CUDA tensors launch the
     Hopper kernel (any T; head dims in HEAD_DIMS for bfloat16, in
-    F32_HEAD_DIMS for float32, which runs in full float32); CPU
-    tensors take the plain version. With ``rope_base`` q/k arrive unrotated.
+    F32_HEAD_DIMS for float32, whose 3xTF32 products keep float32's
+    accuracy); CPU tensors take the plain version. With ``rope_base`` q/k
+    arrive unrotated.
     ``sm_scale`` None means 1/sqrt(D); 1.0 when the caller pre-scaled q.
 
     ``segment_ids`` (B, T) int >= 0, 0 = padding. Rows of live ids (> 0)
@@ -549,7 +551,7 @@ def seg_block_mha(
     under ``seg_block_attention``: for bfloat16 the pre-pass rotates and
     scales q/k and the Hopper loop visits only the key tiles that share a
     segment with each query tile (a warpgroup of 64 rows skips those that
-    share none with its own rows); float32 takes the lane-group kernel (any
+    share none with its own rows); float32 takes the 3xTF32 kernel (any
     T, head dims in F32_HEAD_DIMS). CPU tensors take ``plain_seg_block_mha``. The
     JAX kernel needs T to be a multiple of its 128-row block; neither
     version here does.

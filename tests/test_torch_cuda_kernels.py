@@ -1,6 +1,6 @@
 """The port's CUDA kernels (the four attention wrappers, grouped, heads-mid,
 long-context and extent-sparse segmented, on the Hopper loop with its
-pre-pass in bf16 and on the scalar kernel in float32; cluster counts)
+pre-pass in bf16 and on the 3xTF32 kernel in float32; cluster counts)
 against their plain PyTorch versions on the card, and the model forwards
 that launch them (ESM, PoET, the MSA Transformer's column attention,
 Tranception's ALiBi causal attention, the AR zoo's float32 causal
@@ -29,8 +29,9 @@ from proteingym_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
 
-# float32: only the summation order differs. bf16: the kernel rounds the
-# scaled and rotated q/k, the probabilities and the output to bf16.
+# float32: the kernel's 3xTF32 products (~2^-21 relative each) and the
+# summation order differ. bf16: the kernel rounds the scaled and rotated
+# q/k, the probabilities and the output to bf16.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -142,7 +143,7 @@ def test_model_forward_goes_through_the_kernel(dtype, dev):
 
 # the long-context kernel (K2): name -> (T, head dim, keyword arguments). In
 # bf16 it runs the Hopper loop after the pre-pass (q scaled, no rotation),
-# in float32 the scalar kernel
+# in float32 the 3xTF32 kernel
 FLASH_CASES = {
     "plain": (1100, 64, {}),
     "causal_mask": (2048, 64, {"causal": True, "key_mask": _lengths_mask(2048, [2048, 1500])}),
@@ -290,7 +291,7 @@ def _holes(seg, *spans):
 
 # the extent-sparse kernel (K3): name -> (T, head dim, segment ids, keyword
 # arguments); segments cross the 64-token tiles. In bf16 it runs the Hopper
-# loop after the pre-pass, in float32 the scalar kernel
+# loop after the pre-pass, in float32 the 3xTF32 kernel
 SEG_CASES = {
     "tail_and_crossings": (512, 64, _runs(2, 512, [0, 200, 310, 470]), {}),
     "one_segment": (512, 64, _runs(2, 512, [0, 512]), {"rope_base": 10000.0}),
@@ -788,10 +789,10 @@ F32_MODES = ("causal", "full", "mask_bias_causal", "segments", "segments_causal_
 
 
 @pytest.mark.parametrize("mode", F32_MODES)
-@pytest.mark.parametrize("t", [45, 300])  # T not a multiple of the key tile (64, 32)
+@pytest.mark.parametrize("t", [45, 300])  # T not a multiple of the key tile (16-64)
 @pytest.mark.parametrize("d", fa.F32_HEAD_DIMS)
 def test_float32_kernel_matches_plain(d, t, mode, dev):
-    """The float32 kernel (a group of lanes per query row) at every head dim
+    """The float32 kernel (3xTF32 on the tensor cores) at every head dim
     it takes, in every mode; one launch each."""
     gen = torch.Generator().manual_seed(d * 1000 + t)
     q, k, v = (torch.randn(2, t, 3, d, generator=gen).to(dev).transpose(1, 2)
@@ -806,6 +807,39 @@ def test_float32_kernel_matches_plain(d, t, mode, dev):
         live = (kw["segment_ids"] > 0).cpu()
         got, want = (x.transpose(1, 2).cpu()[live] for x in (got, want))
     torch.testing.assert_close(got, want, atol=TOL[torch.float32], rtol=TOL[torch.float32])
+
+
+# The float32 kernel's 3xTF32 products against float64: its largest error
+# stays within this factor of the plain float32 version's own (the CPU
+# emulation in test_torch_tf32_split.py puts the split at 0.3-1.2x it, one
+# TF32 pass at 300-2300x)
+F32_SPLIT_FACTOR = 4.0
+
+
+def _attention64(q, k, v, causal):
+    q, k, v = (x.double() for x in (q, k, v))
+    s = q @ k.transpose(-1, -2) / q.shape[-1] ** 0.5
+    if causal:
+        t = s.shape[-1]
+        s = s.masked_fill(torch.ones(t, t, dtype=torch.bool, device=s.device).triu(1),
+                          float("-inf"))
+    return torch.softmax(s, dim=-1) @ v
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", fa.F32_HEAD_DIMS)
+def test_float32_kernel_keeps_float32_accuracy(d, causal, dev):
+    """A float64 referee: a split that went missing (one TF32 pass on either
+    product) puts the kernel ~100x beyond the plain float32 version."""
+    gen = torch.Generator().manual_seed(d + causal)
+    q, k, v = (torch.randn(2, 256, 4, d, generator=gen).to(dev).transpose(1, 2)
+               for _ in range(3))
+    want = _attention64(q, k, v, causal)
+    got = fa.grouped_mha(q, k, v, causal=causal)
+    plain = fa.plain_mha(q, k, v, causal=causal)
+    err_kernel = float((got.double() - want).abs().max())
+    err_plain = float((plain.double() - want).abs().max())
+    assert err_kernel <= F32_SPLIT_FACTOR * err_plain, (err_kernel, err_plain)
 
 
 def test_float32_kernel_rejects_other_head_dims(dev):

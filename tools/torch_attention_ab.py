@@ -24,7 +24,12 @@ forward's shared ``KeyTiles`` where the tree has them):
   ~250 per row, each row its own cuts, the key mask, RoPE, sm_scale 1) at
   B8 H20 T4096 D64;
 - K5 through ``num_cluster_members_cuda`` (the sequence-weight neighbour
-  counts, identity 0.8) on a seeded synthetic MSA of N=16,384, L=300.
+  counts, identity 0.8) on a seeded synthetic MSA of N=16,384, L=300;
+- the float32 K1 through ``grouped_mha`` with the AR zoo's arguments
+  (causal, default scale, float32 (B, T, H, D) memory seen as (B, H, T, D))
+  at its five shapes: B32 T256 with H16 D256 (ProGen2-xlarge), H16 D128
+  (RITA_xl), H20 D64 (ProtGPT2), H24 D96 (ProGen3-3b), and B32 H16 T416
+  D128 (RITA_xl's indel bucket).
 
 With ``--e2e``, the paths that run them, with seeded random weights at full
 width and depth (host clock, ended by ``torch.cuda.synchronize()``; the
@@ -37,7 +42,10 @@ tokens packing 16 sequences of 250 tokens each,
 ``score_assays_packed`` on the six-assay production mix (L = 72 .. 1500,
 all single mutants, chunk 32), and, in trees that have it, one
 ESM-MSA-1b forward (``esm_msa1b_t12_100M``) of 4 grids of 384 sampled
-rows x 241 columns, as the masked-marginal table runs it (path ``MSA``).
+rows x 241 columns, as the masked-marginal table runs it (path ``MSA``),
+and, in trees that have the AR zoo, one forward each of ProtGPT2 and
+RITA_xl at their full width and depth on 32 seeded random rows of 256
+tokens (paths ``ProtGPT2`` and ``RITA``; float32 K1 in every layer).
 
 Prints one JSON line per tree and round: the card's name and power limit,
 the median milliseconds per call (CUDA events around 10 queued calls,
@@ -72,8 +80,9 @@ def load_port(tree: Path):
         del sys.modules[name]
     names = ["ops.flash_attention", "models.esm2", "models.esm_scoring",
              "models.packed_scoring", "models.poet", "msa.weights"]
-    if (tree / "proteingym_tpu_torch" / "models" / "msa_transformer.py").exists():
-        names.append("models.msa_transformer")
+    for name in ("msa_transformer", "ar_zoo"):
+        if (tree / "proteingym_tpu_torch" / "models" / f"{name}.py").exists():
+            names.append(f"models.{name}")
     sys.path.insert(0, str(tree))
     try:
         mods = {name.rsplit(".", 1)[-1]: importlib.import_module(f"proteingym_tpu_torch.{name}")
@@ -150,7 +159,18 @@ def calls(torch, mods, dev):
     msa[rs.rand(n, length) < 0.05] = 0
     msa = torch.from_numpy(msa.astype(np.int8)).to(dev)
     out[f"K5 N{n} L{length}"] = lambda: weights.num_cluster_members_cuda(msa, 0.8)
+
+    for b, h, t, d in ZOO_K1:
+        qf, kf, vf = (torch.randn(b, t, h, d, generator=gen, device=dev).transpose(1, 2)
+                      for _ in range(3))
+        out[f"K1 f32 B{b} H{h} T{t} D{d} causal"] = (
+            lambda q=qf, k=kf, v=vf: fa.grouped_mha(q, k, v, causal=True))
     return out
+
+
+# (B, H, T, D) of the float32 K1 on the AR zoo's paths (chip_smoke.K1_ZOO)
+ZOO_K1 = ((32, 16, 256, 256), (32, 16, 256, 128), (32, 20, 256, 64), (32, 24, 256, 96),
+          (32, 16, 416, 128))
 
 
 AA = "ACDEFGHIKLMNPQRSTVWY"
@@ -202,6 +222,14 @@ def paths(torch, mods, dev):
         grids[torch.arange(4), 0, torch.arange(1, 5)] = mt.ALPHABET.mask_idx
         out[f"MSA forward 4 x 384 x {grids.shape[2]}"] = lambda: mmodel(
             grids, query_row_only=True)
+    if "ar_zoo" in mods:
+        zoo = mods["ar_zoo"]
+        gpt2 = zoo.gpt2_init(zoo.Gpt2Config(), seed=0, device=dev)
+        rita = zoo.rita_init(zoo.RITA_PRESETS["RITA_xl"], seed=0, device=dev)
+        gpt2_tok = torch.from_numpy(rs.randint(0, gpt2.config.vocab_size, (32, 256))).to(dev)
+        rita_tok = torch.from_numpy(rs.randint(0, rita.config.vocab_size, (32, 256))).to(dev)
+        out["ProtGPT2 forward 32 x 256"] = lambda: gpt2(gpt2_tok)
+        out["RITA_xl forward 32 x 256"] = lambda: rita(rita_tok)
     return {
         "ESM2-650M masked table L=250": lambda: esm_scoring.masked_marginal_table(
             model, tokens, chunk=16, window=config.max_positions, pad_to_multiple=64),
