@@ -186,6 +186,32 @@ Phases (any failure raises, and the script exits non-zero):
    float32 K1 (the 3xTF32 tensor-core kernel) at the zoo's five shapes
    against its plain version, timed beside SDPA ``is_causal`` and its
    bound.
+19. the masked LMs through the port's CLI, each at its preset's full
+   width and depth with seeded random weights, on phase 14's L=250 target
+   (4,750 singles and a synonymous WT row, which must score 0): (a)
+   ``esmc --checkpoint esmc_600m`` (36 x 1152, bf16), masked then WT
+   marginals, 36 K1 and 36 rope_qk launches a forward; (b) ``esm3
+   --checkpoint esm3_open_small`` (48 x 1536, float32) with
+   ``--structure-dir`` (a helix of the target with seeded noise on every
+   CA) and ``--extra structure_checkpoint=esm3_structure_encoder`` (the
+   full encoder), 48 float32 K1 launches a forward, the structure tokens'
+   and the scoring pass's seconds, then sequence-only (scores must move);
+   (c) ``esm3`` sequence-only on phase 5's L=1,100 target, 16 singles at
+   --batch-size 4 (T=1,102: 48 K2 launches a forward, float32); (d)
+   ``xtrimopglm --checkpoint xtrimopglm_1b`` (MLM) and ``xtrimopglm_3b
+   --extra mode=ar`` on all singles (149 forwards of 32 x 251, bf16 causal
+   K1 at head dim 128); (e) ``carp --checkpoint carp_640M``, both
+   strategies, no kernel of the port. Each run: the column, the finite
+   count, the CLI wall, forwards, launches a forward, mutants/s, peak
+   memory and the idle share of two forwards. (f) 8 masked rows per
+   transformer (for the AR one, 8 rows' mean log-likelihoods, as phase
+   18 holds them) against the plain attention; ESM3's structure codes on the card against the CPU (tokens
+   equal where the best code beats the second by more than TOKEN_MARGIN,
+   the flips counted); one CARP-640M forward in float32 against the CPU.
+   (g) K1 at the four new shapes (ESM-C B32 H18 T256 D64 bf16 pad mask,
+   xTrimoPGLM-1B B32 H16 T252 D128, 3B AR T251 causal, ESM3 B32 H24 T252
+   D64 float32) against its plain version, timed beside SDPA and its
+   bound.
 
 Every phase holds the port to its rule: no module of the JAX package
 (``proteingym_tpu``) may be loaded. It prints one JSON line describing the
@@ -335,12 +361,12 @@ POTTS_CPU_STEPS, POTTS_LOSS_RTOL, POTTS_HJ_RTOL = 3, 1e-4, 2e-3
 # TF32's on the tensor cores: a 3xTF32 product takes three TF32 passes
 PEAK_F32_FLOPS, PEAK_TF32_FLOPS = 67e12, 495e12
 # the shapes of phase 16: phase 14's L=250 target and alignment and phase
-# 15's indel assay; EVE at its default architecture for 10,000 steps (cut
-# from train's default of 400,000 for time; the scorer's own default),
+# 15's indel assay; EVE at its default architecture for 5,000 steps (cut
+# for time from train's default of 400,000 and the scorer's 10,000),
 # DeepSequence for 2,000 (cut: time), TranceptEVE on the first 512 of the
 # 4,750 singles (cut: time), Potts at the scorer's 300 steps, WaveNet at
 # its defaults (400 steps)
-TRAINER_SLICE = dict(checkpoint="Large", batch=32, eve_steps=10_000, profiled_steps=200,
+TRAINER_SLICE = dict(checkpoint="Large", batch=32, eve_steps=5_000, profiled_steps=200,
                      deepsequence_steps=2000, deepsequence_samples=2000, trancepteve_mutants=512,
                      eve_num_samples=20_000, potts_steps=300, wavenet_profiled_steps=50)
 # Card against CPU at phase 16's own sizes: the first TRAINER_CPU_STEPS
@@ -400,6 +426,43 @@ K1_ZOO = (("progen2_xlarge", 32, 16, 256, 256), ("rita_xl", 32, 16, 256, 128),
 # ESM's 33. A wrong mask, causal extent, head layout or rotation shifts
 # them by O(1)
 ZOO_LL_ATOL = 1e-1
+# the shapes of phase 19: phase 14's L=250 target and 4,750 singles plus a
+# synonymous WT row, and phase 5's L=1,100 target (16 singles); each model
+# at its preset's full width and depth with seeded random weights; the
+# helix of the target with seeded noise on every CA (an ideal helix ties
+# the CA-CA distances of i - d and i + d, and the kNN cut falls inside a
+# tied pair); 8 rows per transformer held against the plain attention
+MLM_SLICE = dict(batch=32, long_length=1100, long_singles=16, long_batch=4, logp_rows=8,
+                 ca_noise=0.01)
+# (label, B, H, T, D, dtype, mode) of K1 on phase 19's paths: ESM-C-600M's
+# rows bucketed to 256 tokens (252 live), xTrimoPGLM-1B's masked rows (252
+# tokens, the window, no padding), xTrimoPGLM-3B's AR rows (251 tokens:
+# [CLS] + 250 residues, the EOS dropped) and ESM3's (252, float32)
+K1_MLM = (("esmc_600m", 32, 18, 256, 64, "bf16", "mask"),
+          ("xtrimopglm_1b", 32, 16, 252, 128, "bf16", "mask"),
+          ("xtrimopglm_3b_ar", 32, 20, 251, 128, "bf16", "causal"),
+          ("esm3", 32, 24, 252, 64, "f32", "none"))
+# masked log-prob rows, kernel vs plain attention: bf16 models as
+# ZOO_LL_ATOL; ESM3 is float32 end to end, where the 3xTF32 kernel and the
+# plain version differ by summation order (~1e-6 relative) through 48
+# layers. A wrong mask or rotation shifts them by O(0.1-1)
+MLM_BF16_ATOL, ESM3_LOGP_ATOL = 1e-1, 2e-3
+# xTrimoPGLM-3B's AR rows, per-token target log-probs: the kernel and the
+# plain attention round attention outputs to bf16 in different places, and
+# 30 layers carry that to 0.137 per token at most over 8 x 250 tokens (a
+# chip run of this script); each sits as far from a float32 copy of the
+# model. So each token is held to XTRIMO_AR_TOKEN_ATOL, and the kernel's
+# RMS error against float32 to XTRIMO_AR_F32_FACTOR times the plain
+# version's. Averaged over a row, a leaked future key cancels to a few
+# hundredths; per token it moves them by O(1)
+XTRIMO_AR_TOKEN_ATOL, XTRIMO_AR_F32_FACTOR = 0.5, 2.0
+# the structure codes' squared distances, card against CPU (both float32
+# without TF32; |d2| ~ 1e2): summation order only. A token may flip only
+# where its best code beats the second by less than TOKEN_MARGIN
+TOKEN_D2_RTOL, TOKEN_MARGIN = 1e-4, 1e-2
+# one CARP-640M forward in float32, card against CPU: summation order
+# through 56 blocks (the convolution in cuDNN without TF32)
+CARP_CPU_ATOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -469,22 +532,27 @@ def sdpa(torch, q, k, v, mask):
 
 def sdpa_backend(torch, fn):
     """The backend SDPA's default dispatch took, read from the names of the
-    kernels one call launches (torch.profiler)."""
+    kernels one call launches (torch.profiler): math when they are products
+    and a softmax, else the name of the costliest."""
     try:
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages()]
+        kernels = sorted((e for e in prof.key_averages() if e.device_time_total > 0),
+                         key=lambda e: -e.device_time_total)
     except Exception as e:  # the profiler is a reading aid here, not a check
         return f"not read ({type(e).__name__})"
-    text = " ".join(names).lower()
+    if not kernels:
+        return "not read (no kernel events)"
+    text = " ".join(e.key for e in kernels).lower()
     for key, label in (("cudnn", "cudnn"), ("flash", "flash"), ("fmha", "efficient"),
-                       ("efficient", "efficient"), ("cutlass", "efficient")):
+                       ("efficient", "efficient"), ("softmax", "math"),
+                       ("cutlass", "efficient")):
         if key in text:
             return label
-    return "math" if names else "not read (no kernel events)"
+    return f"kernel {kernels[0].key[:48]}"
 
 
 def synth_assay(seq_len: int, seed: int):
@@ -2184,7 +2252,7 @@ def kernel_kind(name: str) -> str:
     """The kind of a device kernel, from its name: dense products, the
     normal draws, Adam, the batch draw, or elementwise and reductions."""
     low = name.lower()
-    if any(key in low for key in ("gemm", "cutlass", "xmma", "splitk")):
+    if any(key in low for key in ("gemm", "cutlass", "xmma", "splitk", "nvjet")):
         return "GEMM"
     if "adam" in low:
         return "Adam"
@@ -2195,10 +2263,11 @@ def kernel_kind(name: str) -> str:
     return "elementwise and reductions"
 
 
-def device_seconds(torch, fn):
+def device_seconds(torch, fn, by_kernel=None):
     """``fn()``, its wall, the summed device time of what it ran on the
     card (torch.profiler; None when the profiler reads none), the number
-    of those launches and their device seconds by ``kernel_kind``."""
+    of those launches and their device seconds by ``kernel_kind``; a dict
+    ``by_kernel`` also gets each kernel's device seconds by name."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2212,7 +2281,92 @@ def device_seconds(torch, fn):
     kinds = {}
     for e in kernels:
         kinds[kernel_kind(e.key)] = kinds.get(kernel_kind(e.key), 0.0) + e.device_time_total / 1e6
+        if by_kernel is not None:
+            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + e.device_time_total / 1e6
     return out, wall, busy, sum(e.count for e in kernels), kinds
+
+
+def profile_forwards(torch, fa, fn):
+    """``fn()``, which returns the number of forwards it ran, under
+    torch.profiler, its launches taken back out of ``fa.LAUNCHES`` (they
+    are the measurement's, not the path's): the idle share, device ms a
+    forward, the GEMMs' share of the device time and the four kernels that
+    took most of it; None when the profiler reads no device time."""
+    counts, per = dict(fa.LAUNCHES), {}
+    forwards, wall, busy, _, kinds = device_seconds(torch, fn, by_kernel=per)
+    fa.LAUNCHES.update(counts)
+    if busy is None:
+        return None
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:4]
+    return dict(idle=1.0 - busy / wall, ms=busy / forwards * 1e3,
+                gemm=kinds.get("GEMM", 0.0) / busy,
+                top="; ".join(f"{name[:60]} {s / busy:.1%}" for name, s in top))
+
+
+def keeping(module, name, kept):
+    """``module.name`` patched to keep its last result in ``kept[name]``:
+    the model a CLI run built."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        kept[name] = fn(*args, **kwargs)
+        return kept[name]
+    return mock.patch.object(module, name, wrapper)
+
+
+def cli_score(torch, cli, root, n, model, dms_id, column, counters, batch_size,
+              checkpoint=None, flags=(), extra=(), patches=()):
+    """One ``score`` run of the port's CLI on the card, on
+    ``root/reference.csv`` and ``root/dms``, every launch counter of
+    ``counters`` set to 0 just before it and ``patches`` in force during
+    it. Fails unless it exits 0 and writes ``column`` for ``n`` rows;
+    returns its wall, launches, scores, peak memory and mutants/s."""
+    for counts in counters:
+        for name in counts:
+            counts[name] = 0
+    torch.cuda.reset_peak_memory_stats()
+    out_dir = Path(tempfile.mkdtemp(prefix=f"{model}_", dir=root))
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        rc = cli.main([
+            "score", "--model", model, *(["--checkpoint", checkpoint] if checkpoint else []),
+            "--dms-id", dms_id, "--dms-reference", str(root / "reference.csv"),
+            "--dms-dir", str(root / "dms"), "--output-dir", str(out_dir),
+            "--batch-size", str(batch_size), "--device", "cuda", "--quiet", "--fail-fast",
+            *flags, *(["--extra", *extra] if extra else [])])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"{model} score CLI exited {rc} on {dms_id}")
+    return dict(wall=wall, launches={k: v for c in counters for k, v in c.items()}, n=n,
+                scores=read_scores(out_dir / f"{dms_id}.csv", column, n),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, mutants_per_s=n / wall)
+
+
+def report_run(tag, what, r, card, column, want_forwards, per_forward, extra_launches=None,
+               detail=""):
+    """Fail unless run ``r`` made ``want_forwards`` forwards, launched the
+    kernels of ``per_forward`` ({counter: n}) that often in each, plus
+    ``extra_launches``, and no other kernel; print its line: the column's
+    finite count, the CLI wall, mutants/s, ``detail``, peak memory and the
+    profiled forwards of ``r["profile"]``."""
+    if r["forwards"] != want_forwards:
+        fail(f"{what}: {r['forwards']} forwards, expected {want_forwards}")
+    want = {k: v * r["forwards"] for k, v in per_forward.items()}
+    for k, v in (extra_launches or {}).items():
+        want[k] = want.get(k, 0) + v
+    check_launches(what, r["launches"], want)
+    prof = r.get("profile")
+    prof_s = "not read" if prof is None else (
+        f"{prof['idle']:.3f} (device {prof['ms']:.2f} ms a forward, GEMMs {prof['gemm']:.1%}; "
+        f"most time: {prof['top']})")
+    print(f"  ({tag}) {what}: {column} {int(np.isfinite(r['scores']).sum())}/{r['n']} finite; "
+          f"CLI wall {r['wall']:.2f} s -> {r['mutants_per_s']:.1f} mutants/s; {r['forwards']} "
+          "forwards, per forward "
+          + (", ".join(f"{v} {k}" for k, v in per_forward.items()) or "no kernel of the port")
+          + f"{detail}; peak {r['peak_gib']:.2f} GiB; idle share of the profiled forwards "
+          f"{prof_s} ({card})")
 
 
 INDEL_REFERENCE = ["DMS_id", "DMS_filename", "UniProt_ID", "target_seq", "seq_len",
@@ -3322,19 +3476,11 @@ def phase_zoo(torch, dev, card, fa, check_close):
           f"{t['n_seqs']} over residues 1-{covered}) and phase 15's {len(indels)}-row indel "
           f"assay; batch {batch}; {card}")
 
-    def reset():
-        for counts in (fa.LAUNCHES, W.LAUNCHES):
-            for name in counts:
-                counts[name] = 0
-
-    def launched():
-        return {**fa.LAUNCHES, **W.LAUNCHES}
-
     # every scoring pass (one direction of batched_ar_loglik): its forwards
-    # and seconds; after a run's first pass, its first two forwards again
+    # and seconds; after a run's first pass, its first 2 x batch rows again
     # under torch.profiler, alone, for the idle share (profiling a whole
     # pass costs more in the profiler's own bookkeeping than the pass)
-    passes = []
+    passes, profiled = [], {}
     real_loglik = ar_scoring.batched_ar_loglik
 
     def traced(logits_fn, token_rows, pad_id, **kwargs):
@@ -3344,27 +3490,21 @@ def phase_zoo(torch, dev, card, fa, check_close):
             n[0] += 1
             return logits_fn(tokens)
 
+        def first_rows():
+            n[0] = 0
+            real_loglik(counted, token_rows[:2 * kwargs["batch_size"]], pad_id, **kwargs)
+            return n[0]
+
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = real_loglik(counted, token_rows, pad_id, **kwargs)
         torch.cuda.synchronize()
-        entry = dict(forwards=n[0], wall=time.perf_counter() - t0)
-        if not passes:  # its launches are the measurement's, not the path's
-            bs, counts = kwargs["batch_size"], dict(fa.LAUNCHES)
-            _, wall, busy, _, _ = device_seconds(torch, lambda: real_loglik(
-                logits_fn, token_rows[:2 * bs], pad_id, batch_size=bs, device=kwargs["device"]))
-            fa.LAUNCHES.update(counts)
-            entry["idle"] = None if busy is None else 1.0 - busy / wall
-        passes.append(entry)
+        passes.append(dict(forwards=n[0], wall=time.perf_counter() - t0))
+        if len(passes) == 1:
+            profiled["profile"] = profile_forwards(torch, fa, first_rows)
         return out
 
     kept = {}  # the model a run built, for (f)
-
-    def keeping(fn):
-        def wrapper(*args, **kwargs):
-            kept["model"] = fn(*args, **kwargs)
-            return kept["model"]
-        return wrapper
 
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
@@ -3391,33 +3531,17 @@ def phase_zoo(torch, dev, card, fa, check_close):
                        ref_rows)
 
         def run(model, dms_id, column, checkpoint=None, extra=(), patches=()):
-            reset()
             passes.clear()
+            profiled.clear()
             kept.clear()
-            torch.cuda.reset_peak_memory_stats()
-            out_dir = root / "_".join([model, dms_id, *extra])
-            t0 = time.perf_counter()
-            with contextlib.ExitStack() as stack:
-                stack.enter_context(mock.patch.object(ar_scoring, "batched_ar_loglik", traced))
-                for patch in patches:
-                    stack.enter_context(patch)
-                rc = cli.main([
-                    "score", "--model", model, *(["--checkpoint", checkpoint] if checkpoint else []),
-                    "--dms-id", dms_id, "--msa-dir", str(root / "msa"), "--weights-dir",
-                    str(root / "weights"), "--dms-reference", str(root / "reference.csv"),
-                    "--dms-dir", str(root / "dms"), "--output-dir", str(out_dir),
-                    "--batch-size", str(batch), "--device", dev.type, "--quiet", "--fail-fast",
-                    *(["--extra", *extra] if extra else [])])
-            wall = time.perf_counter() - t0
-            if rc != 0:
-                fail(f"{model} score CLI exited {rc} on {dms_id}")
-            n = len(assays[dms_id][0])
-            scores = read_scores(out_dir / f"{dms_id}.csv", column, n)
-            idle = passes[0]["idle"]
-            return dict(wall=wall, launches=launched(), n=n, scores=scores,
-                        forwards=sum(p["forwards"] for p in passes), passes=list(passes),
-                        peak_gib=torch.cuda.max_memory_allocated() / 2**30, idle=idle,
-                        mutants_per_s=n / wall)
+            r = cli_score(torch, cli, root, len(assays[dms_id][0]), model, dms_id, column,
+                          (fa.LAUNCHES, W.LAUNCHES), batch, checkpoint,
+                          flags=["--msa-dir", str(root / "msa"), "--weights-dir",
+                                 str(root / "weights")], extra=extra,
+                          patches=[mock.patch.object(ar_scoring, "batched_ar_loglik", traced),
+                                   *patches])
+            return dict(r, forwards=sum(p["forwards"] for p in passes), passes=list(passes),
+                        profile=profiled.get("profile"))
 
         def expected_forwards(seqs, directions=2):
             lengths = np.asarray([len(x) for x in seqs])
@@ -3425,21 +3549,9 @@ def phase_zoo(torch, dev, card, fa, check_close):
             return directions * int(sum(-(-c // batch) for c in counts))
 
         def report(tag, what, r, layers, column, directions=2, extra_launches=None):
-            want_fwd = expected_forwards(assays_of[tag], directions)
-            if r["forwards"] != want_fwd:
-                fail(f"{what}: {r['forwards']} forwards, expected {want_fwd}")
-            want = dict(extra_launches or {})
-            if layers:
-                want["grouped_attention"] = layers * r["forwards"]
-            check_launches(what, r["launches"], want)
-            idle = "not read" if r["idle"] is None else f"{r['idle']:.3f}"
-            print(f"  ({tag}) {what}: {column} {int(np.isfinite(r['scores']).sum())}/{r['n']} "
-                  f"finite; CLI wall {r['wall']:.2f} s -> {r['mutants_per_s']:.1f} mutants/s; "
-                  f"{r['forwards']} forwards, {layers} K1 launches a forward "
-                  f"({r['launches'].get('grouped_attention', 0)} in all); scoring passes "
-                  + ", ".join(f"{p['wall']:.2f} s" for p in r["passes"])
-                  + f"; peak {r['peak_gib']:.2f} GiB; idle share of 2 forwards of the first pass "
-                  f"{idle} ({card})")
+            report_run(tag, what, r, card, column, expected_forwards(assays_of[tag], directions),
+                       {"grouped_attention": layers} if layers else {}, extra_launches,
+                       "; scoring passes " + ", ".join(f"{p['wall']:.2f} s" for p in r["passes"]))
 
         def rows_ll(model_fn, tokenize, pad, seqs, module):
             """Per-row mean log-likelihoods of ``seqs`` and their reverses,
@@ -3462,29 +3574,27 @@ def phase_zoo(torch, dev, card, fa, check_close):
         assays_of["a"] = assays["ZOO_L250_P2"][1]
         cfg = ar_zoo.PROGEN2_PRESETS["progen2-xlarge"]
         r = run("progen2", "ZOO_L250_P2", "progen2-xlarge_score", "progen2-xlarge",
-                patches=[mock.patch.object(ar_zoo, "progen2_init", keeping(ar_zoo.progen2_init))])
+                patches=[keeping(ar_zoo, "progen2_init", kept)])
         report("a", "progen2 --checkpoint progen2-xlarge", r, cfg.num_layers, "progen2-xlarge_score")
         runs["progen2_xlarge"] = r
-        got, want = rows_ll(kept["model"].restricted_logits,
+        got, want = rows_ll(kept.pop("progen2_init").restricted_logits,
                             lambda x: np.asarray([aa25[c] for c in x], np.int64), aa25["X"],
                             four, ar_zoo)
         ll_errs["progen2"] = check_close("(f) ProGen2-xlarge: 8 rows' mean log-likelihoods, "
                                          "kernel vs plain", got, want, ZOO_LL_ATOL, 0.0)
-        kept.clear()
         torch.cuda.empty_cache()
 
         # (b) RITA_xl on the singles and on the indel assay
         assays_of["b"] = single_seqs
         cfg = ar_zoo.RITA_PRESETS["RITA_xl"]
         r = run("rita", "ZOO_L250", "RITA_xl_score", "RITA_xl",
-                patches=[mock.patch.object(ar_zoo, "rita_init", keeping(ar_zoo.rita_init))])
+                patches=[keeping(ar_zoo, "rita_init", kept)])
         report("b", "rita --checkpoint RITA_xl, singles", r, cfg.num_layers, "RITA_xl_score")
         runs["rita_xl"] = r
         tok = ar_zoo.RitaTokenizer()
-        got, want = rows_ll(kept["model"], tok.encode, tok.PAD, four, ar_zoo)
+        got, want = rows_ll(kept.pop("rita_init"), tok.encode, tok.PAD, four, ar_zoo)
         ll_errs["rita"] = check_close("(f) RITA_xl: 8 rows' mean log-likelihoods, kernel vs "
                                       "plain", got, want, ZOO_LL_ATOL, 0.0)
-        kept.clear()
         torch.cuda.empty_cache()
         assays_of["b'"] = indels
         r = run("rita", "ZOO_INDEL", "RITA_xl_score", "RITA_xl")
@@ -3495,34 +3605,31 @@ def phase_zoo(torch, dev, card, fa, check_close):
         assays_of["c"] = single_seqs
         cfg = ar_zoo.Gpt2Config()
         r = run("protgpt2", "ZOO_L250", "ProtGPT2_score",
-                patches=[mock.patch.object(ar_zoo, "gpt2_init", keeping(ar_zoo.gpt2_init))])
+                patches=[keeping(ar_zoo, "gpt2_init", kept)])
         report("c", "protgpt2 (36 x 1280, 20 heads, 50,257 tokens)", r, cfg.num_layers,
                "ProtGPT2_score")
         print(f"      logits of one forward: {batch} x 256 x {cfg.vocab_size} float32 = "
               f"{batch * 256 * cfg.vocab_size * 4 / 1e9:.2f} GB")
         runs["protgpt2"] = r
-        got, want = rows_ll(kept["model"],
+        got, want = rows_ll(kept.pop("gpt2_init"),
                             lambda x: np.asarray([ord(c) % cfg.vocab_size for c in x], np.int64),
                             0, four, ar_zoo)
         ll_errs["protgpt2"] = check_close("(f) ProtGPT2: 8 rows' mean log-likelihoods, kernel "
                                           "vs plain", got, want, ZOO_LL_ATOL, 0.0)
-        kept.clear()
         torch.cuda.empty_cache()
 
         # (d) ProGen3-3b: the routed float32 experts
         assays_of["d"] = assays["ZOO_L250_P3"][1]
         cfg = progen3.PRESETS["progen3-3b"]
         r = run("progen3", "ZOO_L250_P3", "progen3-3b_score", "progen3-3b",
-                patches=[mock.patch.object(progen3, "init_random",
-                                           keeping(progen3.init_random))])
+                patches=[keeping(progen3, "init_random", kept)])
         report("d", "progen3 --checkpoint progen3-3b", r, cfg.num_layers, "progen3-3b_score")
         runs["progen3_3b"] = r
-        got, want = rows_ll(kept["model"].restricted_logits,
+        got, want = rows_ll(kept.pop("init_random").restricted_logits,
                             lambda x: np.asarray([aa26[c] for c in x], np.int64), aa26["X"],
                             four, progen3)
         ll_errs["progen3"] = check_close("(f) ProGen3-3b: 8 rows' mean log-likelihoods, kernel "
                                          "vs plain", got, want, ZOO_LL_ATOL, 0.0)
-        kept.clear()
         torch.cuda.empty_cache()
 
         # (e) UniRep, then evotuned on the alignment (K5 once: no weights file)
@@ -3582,6 +3689,455 @@ def phase_zoo(torch, dev, card, fa, check_close):
           + f" (atol {ZOO_LL_ATOL:g})")
     return {"launches": {name: r["launches"] for name, r in runs.items()}, "k1": records,
             "k1_err": max(rec["max_abs_err"] for rec in records)}
+
+
+def k2_esm3_long(torch, dev, card, fa, check_close, b, h, t, d):
+    """K2 in float32 at ESM3's long rows (no mask, not causal), as the
+    model hands it q/k/v: (B, T, H, D) memory seen as (B, H, T, D), the
+    softmax scale left to the kernel. Held against its plain version and
+    timed beside SDPA on the same inputs and its 3xTF32 bound."""
+    gen = torch.Generator(device=dev).manual_seed(t + d)
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev).transpose(1, 2)
+               for _ in range(3))
+    what = f"B{b} H{h} T{t} D{d} float32, no mask"
+    got = fa.flash_mha(q, k, v)
+    torch.cuda.synchronize()
+    err = check_close(f"(c) K2 {what} (esm3_long)", got, fa.plain_mha(q, k, v),
+                      F32_ATOL, F32_RTOL)
+    sdpa_fn = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)  # noqa: E731
+    times = median_pair(torch, {"kernel": lambda: fa.flash_mha(q, k, v),
+                                "plain": lambda: fa.plain_mha(q, k, v),
+                                "sdpa": sdpa_fn}, reps=3, inner=5, rounds=1)
+    bnd = bound(4.0 * b * h * d * t * t, nbytes(q, k, v, got), peak=PEAK_TF32_FLOPS / 3)
+    print(f"  (c) K2 {what}: kernel {times['kernel']:.4f} ms, plain {times['plain']:.4f} ms, "
+          f"SDPA {times['sdpa']:.4f} ms ({sdpa_backend(torch, sdpa_fn)}), bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, 3xTF32 at 495/3 TFLOP/s; {card})")
+    return dict(label="esm3_long", shape=what, ms=times["kernel"], plain_ms=times["plain"],
+                library_ms=times["sdpa"], max_abs_err=err, **bnd)
+
+
+def xtrimo_ar_held(torch, dev, fa, check_close, model, config, rows):
+    """xTrimoPGLM's AR rows held against the plain attention: per-token
+    target log-probs of ``rows`` (B, T) with the kernel and with the plain
+    attention, both within XTRIMO_AR_TOKEN_ATOL, and both held against a
+    float32 copy of ``model`` (plain attention) by their RMS error, the
+    kernel's within XTRIMO_AR_F32_FACTOR of the plain version's. Two
+    planted faults must fail the check: the plain attention with each
+    row's next key visible, and the kernel with every key-tile extent one
+    tile short. Returns the per-token max |kernel - plain|."""
+    from proteingym_tpu_torch.models import esmc, xtrimo
+
+    class ShortTiles(fa.KeyTiles):
+        def extents(self, b, t, device):
+            lo, hi = super().extents(b, t, device)
+            return lo, torch.maximum(lo, hi - 1)
+
+    def leaked_mha(q, k, v, key_mask=None, causal=False, **_):
+        t = q.shape[2]
+        visible = torch.ones(t, t, dtype=torch.bool, device=q.device).tril(1)
+        visible = visible & key_mask[:, None, None, :]
+        scores = q.float() @ k.float().transpose(-1, -2) / q.shape[-1] ** 0.5
+        probs = torch.softmax(scores.masked_fill(~visible, float("-inf")), -1)
+        return (probs.to(q.dtype).float() @ v.float()).to(q.dtype)
+
+    def token_logp(net, patches=()):
+        with torch.no_grad(), contextlib.ExitStack() as stack:
+            for patch in patches:
+                stack.enter_context(patch)
+            logp = torch.log_softmax(xtrimo.apply(net, rows[:, :-1], "ar"), -1)
+        return logp.gather(-1, rows[:, 1:, None])[..., 0]
+
+    plain = mock.patch.object(esmc, "mha", fa.plain_mha)
+    got, want = token_logp(model), token_logp(model, [plain])
+    faults = {"each row's next key visible (plain attention)":
+              token_logp(model, [mock.patch.object(esmc, "mha", leaked_mha)]),
+              "every key-tile extent one tile short (kernel)":
+              token_logp(model, [mock.patch.object(esmc, "KeyTiles", ShortTiles)])}
+    f32 = esmc.load_state_dict({k: v.float() for k, v in model.state_dict().items()},
+                               dataclasses.replace(config, dtype=torch.float32), device=dev)
+    truth = token_logp(f32, [plain])
+    del f32
+    torch.cuda.empty_cache()
+    rms = lambda x: float(x.pow(2).mean().sqrt())  # noqa: E731
+    err = check_close(f"(f) xTrimoPGLM-3B AR: {rows.shape[0]} rows' per-token target "
+                      "log-probs, kernel vs plain", got, want, XTRIMO_AR_TOKEN_ATOL, 0.0)
+    ref = rms(want - truth)
+    ratio = rms(got - truth) / ref
+    print(f"      against the float32 model: RMS kernel {rms(got - truth):.4g}, plain "
+          f"{ref:.4g} (ratio {ratio:.3g}, limit {XTRIMO_AR_F32_FACTOR:g}); max "
+          f"{float((got - truth).abs().max()):.4g}, {float((want - truth).abs().max()):.4g}")
+    if not ratio <= XTRIMO_AR_F32_FACTOR:
+        fail(f"xTrimoPGLM-3B AR: the kernel's error against float32 is {ratio:.3g}x the "
+             "plain attention's")
+    for name, bad in faults.items():
+        diff, bad_ratio = float((bad - want).abs().max()), rms(bad - truth) / ref
+        print(f"      planted fault, {name}: max |diff| {diff:.4g} (limit "
+              f"{XTRIMO_AR_TOKEN_ATOL:g}; of the row means "
+              f"{float((bad - want).mean(-1).abs().max()):.3g}), RMS against float32 "
+              f"{bad_ratio:.3g}x the plain version's (limit {XTRIMO_AR_F32_FACTOR:g})")
+        if diff <= XTRIMO_AR_TOKEN_ATOL and bad_ratio <= XTRIMO_AR_F32_FACTOR:  # NaN fails
+            fail(f"xTrimoPGLM-3B AR: a planted fault passes the check ({name})")
+    return err
+
+
+def phase_mlm(torch, dev, card, fa, check_close):
+    """19. ESM-C, ESM3 with its structure track, xTrimoPGLM and CARP through
+    the port's CLI, each at its preset's full width and depth with seeded
+    random weights, on phase 14's L=250 target (4,750 singles and a
+    synonymous WT row): (a) ``esmc --checkpoint esmc_600m``, masked then WT
+    marginals; (b) ``esm3 --checkpoint esm3_open_small --structure-dir``
+    (a helix of the target with CA noise) ``--extra
+    structure_checkpoint=esm3_structure_encoder`` (the full encoder), then
+    without --structure-dir; (c) ``esm3`` sequence-only on phase 5's
+    L=1,100 target, 16 singles at --batch-size 4 (T=1,102: K2's float32
+    mode), 4 of its rows against the plain attention and K2 alone at that
+    shape beside its plain version, SDPA and its bound; (d) ``xtrimopglm
+    --checkpoint xtrimopglm_1b`` (MLM) and ``xtrimopglm_3b --extra
+    mode=ar`` on all singles; (e) ``carp --checkpoint carp_640M``, both
+    strategies. Each run: its column and finite count, the CLI wall,
+    forwards and launches a forward, mutants/s, peak memory, and the idle
+    share of two forwards (torch.profiler). (f) 8 rows per transformer
+    against the plain attention (xTrimoPGLM-3B AR per token, against a
+    float32 copy too, with two planted faults), ESM3's structure codes on
+    the card against the CPU (tokens equal above TOKEN_MARGIN, flips
+    counted) and one CARP forward against the CPU; (g) K1 at the four new
+    shapes beside its plain version, SDPA and its bound."""
+    from proteingym_tpu_torch.data.structures import synthetic_helix_backbone, write_pdb_backbone
+    from proteingym_tpu_torch.models import carp, esm3, esmc, xtrimo
+    from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.pipeline import cli
+
+    m = MLM_SLICE
+    batch, length = m["batch"], TRANCEPTION_SLICE["length"]
+    codes = np.random.RandomState(13).randint(1, 21, length)  # phase 14's target
+    seq = "".join(GAP_AA[c] for c in codes)
+    singles = [f"{seq[p]}{p + 1}{a}" for p in range(length) for a in AA if a != seq[p]]
+    muts = singles + [f"{seq[0]}1{seq[0]}"]
+    seq_long, long_all = synth_assay(m["long_length"], 1)  # phase 5's target
+    long_muts = long_all[::len(long_all) // m["long_singles"]][:m["long_singles"]]
+    phase_t0 = time.perf_counter()
+    print(f"[mlm] ESM-C, ESM3 (+ structure track), xTrimoPGLM, CARP (seeded random, full width "
+          f"and depth) on phase 14's L={length} target ({len(muts)} rows) and phase 5's "
+          f"L={m['long_length']} target ({len(long_muts)} singles); batch {batch}; {card}")
+
+    forwards = [0]
+
+    def counting(cls, name):
+        fn = getattr(cls, name)
+
+        def wrapper(self, *args, **kwargs):
+            forwards[0] += 1
+            return fn(self, *args, **kwargs)
+        return mock.patch.object(cls, name, wrapper)
+
+    kept = {}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        (root / "dms").mkdir()
+        (root / "pdb").mkdir()
+        assays = {"MLM_L250": (seq, muts), "MLM_L1100": (seq_long, long_muts)}
+        for dms_id, (target, rows) in assays.items():
+            y = np.random.RandomState(19).randn(len(rows))
+            write_csv_rows(root / "dms" / f"{dms_id}.csv", ["mutant", "DMS_score"],
+                           [[x, repr(float(v))] for x, v in zip(rows, y)])
+        write_csv_rows(root / "reference.csv",
+                       ["DMS_id", "DMS_filename", "UniProt_ID", "target_seq", "seq_len"],
+                       [[dms_id, f"{dms_id}.csv", "SYNTH", target, len(target)]
+                        for dms_id, (target, _) in assays.items()])
+        helix = synthetic_helix_backbone(length, seed=19)
+        helix[:, 1] += m["ca_noise"] * np.random.RandomState(19).randn(length, 3)
+        write_pdb_backbone(root / "pdb" / "MLM_L250.pdb", helix, seq)
+
+        def run(model, dms_id, column, counted, scoring, checkpoint=None, extra=(),
+                structure=False, batch_size=batch, patches=()):
+            """One CLI run with its forwards counted (``counted``: the model
+            class and method) and the seconds of ``scoring`` (a module and
+            the name of its scoring function) timed."""
+            spans = {}
+            forwards[0] = 0
+            timed = mock.patch.object(scoring[0], scoring[1],
+                                      spans_of(torch, spans, "scoring", getattr(*scoring)))
+            r = cli_score(torch, cli, root, len(assays[dms_id][1]), model, dms_id, column,
+                          (fa.LAUNCHES, W.LAUNCHES), batch_size, checkpoint,
+                          flags=["--structure-dir", str(root / "pdb")] if structure else [],
+                          extra=extra, patches=[counting(*counted), timed, *patches])
+            return dict(r, forwards=forwards[0], scoring=spans["scoring"])
+
+        def report(tag, what, r, want_forwards, per_forward, column, forward=None):
+            """``report_run`` with two calls of ``forward`` profiled first."""
+            if forward is not None:
+                def two():
+                    with torch.no_grad():
+                        forward()
+                        forward()
+                    return 2
+                r["profile"] = profile_forwards(torch, fa, two)
+            synonymous = r["scores"][-1] if r["n"] == len(muts) else None
+            if synonymous is not None and synonymous != 0.0:
+                fail(f"{what}: the synonymous WT row scores {synonymous}, not 0")
+            report_run(tag, what, r, card, column, want_forwards, per_forward,
+                       detail=f"; scoring {r['scoring']:.2f} s "
+                              f"({r['scoring'] / r['forwards'] * 1e3:.1f} ms a forward)")
+
+        runs, errs = {}, {}
+        rng = np.random.RandomState(19)
+        rows_at = np.sort(rng.choice(length, m["logp_rows"], replace=False)) + 1  # token grid
+
+        def masked_rows(tokens, positions, mask_idx):
+            rows = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=dev)
+            rows = rows.expand(len(positions), -1).clone()
+            at = torch.as_tensor(positions, device=dev)
+            rows[torch.arange(len(positions), device=dev), at] = mask_idx
+            return rows, at
+
+        def held(name, fn, atol):
+            """``fn()`` with the kernel and with the plain attention in
+            ``esmc``, where every model of this phase calls ``mha``."""
+            with torch.no_grad():
+                got = fn()
+                with mock.patch.object(esmc, "mha", fa.plain_mha):
+                    want = fn()
+            errs[name] = check_close(f"(f) {name}: {len(got)} rows, kernel vs plain",
+                                     got, want, atol, 0.0)
+
+        # (a) ESM-C-600M, masked then WT marginals
+        cfg = esmc.PRESETS["esmc_600m"]
+        per = {"grouped_attention": cfg.num_layers, "rope_qk": cfg.num_layers}
+        r = run("esmc", "MLM_L250", "esmc_600m_score", (esmc.EsmcModel, "forward"),
+                (esmc, "score_assay"), "esmc_600m", patches=[keeping(esmc, "init_random", kept)])
+        model = kept.pop("init_random")
+        toks = esmc.ALPHABET.tokenize(seq, pad_to=256)
+        rows, at = masked_rows(toks, rows_at, esmc.ALPHABET.mask_idx)
+        full = masked_rows(toks, np.arange(batch) + 1, esmc.ALPHABET.mask_idx)[0]
+        report("a", "esmc --checkpoint esmc_600m, masked", r, n_chunk_forwards(length, batch),
+               per, "esmc_600m_score", lambda: model(full))
+        runs["esmc"] = r
+        held("ESM-C-600M masked log-probs", lambda: torch.log_softmax(
+            model(rows)[torch.arange(len(at), device=dev), at], -1), MLM_BF16_ATOL)
+        r = run("esmc", "MLM_L250", "esmc_600m_score", (esmc.EsmcModel, "forward"),
+                (esmc, "score_assay"), "esmc_600m", extra=["scoring_strategy=wt-marginals"])
+        report("a'", "esmc --checkpoint esmc_600m, WT marginals", r, 1, per, "esmc_600m_score")
+        runs["esmc_wt"] = r
+        del model, rows, full
+        torch.cuda.empty_cache()
+
+        # (b) ESM3-open-small with the full structure encoder, then sequence-only
+        c3 = esm3.PRESETS["esm3_open_small"]
+        spans = {}
+        r = run("esm3", "MLM_L250", "ESM3_score", (esm3.Esm3Model, "forward"),
+                (esm3, "masked_logprob_table"), "esm3_open_small",
+                extra=["structure_checkpoint=esm3_structure_encoder"], structure=True,
+                patches=[keeping(esm3, "init_random", kept),
+                         keeping(esm3, "structure_encoder_init", kept),
+                         mock.patch.object(esm3, "structure_tokens_from_coords", spans_of(
+                             torch, spans, "tokens", esm3.structure_tokens_from_coords))])
+        model, encoder = kept.pop("init_random"), kept.pop("structure_encoder_init")
+        tokens3, struct3, pc3 = esm3.prepare_tracks(encoder, seq, helix[:, :3])
+        kw = dict(structure_tokens=torch.as_tensor(struct3, dtype=torch.long, device=dev)[None],
+                  coords=torch.as_tensor(pc3, device=dev)[None],
+                  per_res_plddt=torch.as_tensor(np.isfinite(pc3).all(-1).any(-1).astype(
+                      np.float32), device=dev)[None])
+        ex = lambda n: {k: v.expand(n, *v.shape[1:]) for k, v in kw.items()}  # noqa: E731
+        full = masked_rows(tokens3, np.arange(batch) + 1, esm3.SEQ_MASK)[0]
+        report("b", "esm3 --checkpoint esm3_open_small --structure-dir, full encoder", r,
+               -(-length // batch), {"grouped_attention": c3.n_layers}, "ESM3_score",
+               lambda: model(full, **ex(batch)))
+        print(f"      structure tokens {spans['tokens']:.2f} s (L={length}, kNN {encoder.config.knn}, "
+              f"{encoder.config.n_codes} codes), scoring pass {r['scoring']:.2f} s; peak at "
+              f"--batch-size {batch} {r['peak_gib']:.2f} GiB")
+        runs["esm3"] = r
+        rows, at = masked_rows(tokens3, rows_at, esm3.SEQ_MASK)
+        held("ESM3 structure-conditioned masked log-probs", lambda: torch.log_softmax(
+            model(rows, **ex(len(at)))[0][torch.arange(len(at), device=dev), at], -1),
+            ESM3_LOGP_ATOL)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            model(full, **ex(batch))
+        fwd_peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"      one forward of {batch} x {len(tokens3)} with coordinates: peak {fwd_peak:.2f} "
+              f"GiB (weights {sum(p.numel() for p in model.parameters()) * 4 / 2**30:.2f} GiB)")
+        # the codes on the card against the CPU
+        d2_card = esm3.structure_code_distances(encoder, helix[:, :3])
+        cpu_encoder = esm3.load_structure_encoder_state_dict(
+            {k: v.cpu() for k, v in encoder.state_dict().items()}, encoder.config, device="cpu")
+        d2_cpu = esm3.structure_code_distances(cpu_encoder, helix[:, :3])
+        two = d2_cpu.topk(2, dim=-1, largest=False).values
+        margin = two[:, 1] - two[:, 0]
+        tok_card, tok_cpu = d2_card.argmin(-1).cpu(), d2_cpu.argmin(-1)
+        clear = margin > TOKEN_MARGIN
+        flips = int((tok_card != tok_cpu).sum())
+        rel = float(((d2_card.cpu() - d2_cpu).abs() / d2_cpu.abs().clamp(min=1.0)).max())
+        print(f"  (f) ESM3 structure codes, card vs CPU: {flips} of {length} tokens differ, "
+              f"{int((~clear).sum())} within the margin {TOKEN_MARGIN:g} (smallest margin "
+              f"{float(margin.min()):.3g}); {len(torch.unique(tok_cpu))} distinct codes; d2 max "
+              f"relative diff {rel:.3g} (rtol {TOKEN_D2_RTOL:g})")
+        if bool((tok_card != tok_cpu)[clear].any()):
+            fail("ESM3 structure tokens differ between the card and the CPU above the margin")
+        if rel > TOKEN_D2_RTOL:
+            fail(f"ESM3 structure code distances differ between the card and the CPU: {rel:.3g}")
+        errs["esm3_tokens_d2_rel"] = rel
+        del cpu_encoder, encoder, rows, full, model
+        torch.cuda.empty_cache()
+        r = run("esm3", "MLM_L250", "ESM3_score", (esm3.Esm3Model, "forward"),
+                (esm3, "masked_logprob_table"), "esm3_open_small")
+        report("b'", "esm3 --checkpoint esm3_open_small, sequence-only", r, -(-length // batch),
+               {"grouped_attention": c3.n_layers}, "ESM3_score")
+        if not np.abs(r["scores"] - runs["esm3"]["scores"]).max() > 1e-3:
+            fail("esm3: the structure track left the scores unchanged")
+        runs["esm3_seq"] = r
+
+        # (c) ESM3 on the L=1,100 target: T=1,102, K2's float32 mode
+        n_pos = len({int(x[1:-1]) for x in long_muts})
+        r = run("esm3", "MLM_L1100", "ESM3_score", (esm3.Esm3Model, "forward"),
+                (esm3, "masked_logprob_table"), "esm3_open_small", batch_size=m["long_batch"],
+                patches=[keeping(esm3, "init_random", kept)])
+        report("c", f"esm3 sequence-only, L={m['long_length']} (T={m['long_length'] + 2}), "
+               f"--batch-size {m['long_batch']}", r, -(-n_pos // m["long_batch"]),
+               {"flash_attention": c3.n_layers}, "ESM3_score")
+        runs["esm3_long"] = r
+        model = kept.pop("init_random")
+        tokens_long = esm3.tokenize_sequence(seq_long)
+        long_at = sorted({int(x[1:-1]) for x in long_muts})[:m["long_batch"]]  # token grid
+        held(f"ESM3 L={m['long_length']} sequence-only masked log-probs (K2)",
+             lambda: torch.from_numpy(esm3.masked_logprob_table(
+                 model, tokens_long, None, None, long_at, batch=m["long_batch"])),
+             ESM3_LOGP_ATOL)
+        del model
+        torch.cuda.empty_cache()
+        k2 = k2_esm3_long(torch, dev, card, fa, check_close, m["long_batch"], c3.n_heads,
+                          len(tokens_long), c3.d_model // c3.n_heads)
+
+        # (d) xTrimoPGLM-1B MLM, then xTrimoPGLM-3B AR
+        cx = xtrimo.PRESETS["xtrimopglm_1b"]
+        r = run("xtrimopglm", "MLM_L250", "xtrimopglm_score", (esmc.EsmcModel, "forward"),
+                (xtrimo, "score_assay"), "xtrimopglm_1b", patches=[keeping(esmc, "init_random", kept)])
+        model = kept.pop("init_random")
+        toks = esmc.ALPHABET.tokenize(seq)
+        rows, at = masked_rows(toks, rows_at, esmc.ALPHABET.mask_idx)
+        full = masked_rows(toks, np.arange(batch) + 1, esmc.ALPHABET.mask_idx)[0]
+        report("d", "xtrimopglm --checkpoint xtrimopglm_1b (MLM)", r, -(-length // batch),
+               {"grouped_attention": cx.num_layers, "rope_qk": cx.num_layers}, "xtrimopglm_score",
+               lambda: model(full))
+        runs["xtrimopglm"] = r
+        held("xTrimoPGLM-1B masked log-probs", lambda: torch.log_softmax(
+            model(rows)[torch.arange(len(at), device=dev), at], -1), MLM_BF16_ATOL)
+        del model, rows, full
+        torch.cuda.empty_cache()
+        cx = xtrimo.PRESETS["xtrimopglm_3b"]
+        r = run("xtrimopglm", "MLM_L250", "xtrimopglm_score", (esmc.EsmcModel, "trunk"),
+                (xtrimo, "score_assay"), "xtrimopglm_3b", extra=["mode=ar"],
+                patches=[keeping(esmc, "init_random", kept)])
+        model = kept.pop("init_random")
+        ar_rows = torch.as_tensor(np.stack([esmc.ALPHABET.tokenize(
+            seq[:p] + AA[(AA.index(seq[p]) + 1) % 20] + seq[p + 1:])
+            for p in rows_at - 1]), dtype=torch.long, device=dev)
+        full = ar_rows[:1, :-1].expand(batch, -1)
+        # one row per unique chunk: the WT's (the synonymous row's too) and each single's
+        report("d'", "xtrimopglm --checkpoint xtrimopglm_3b --extra mode=ar", r,
+               -(-(len(singles) + 1) // batch),
+               {"grouped_attention": cx.num_layers, "rope_qk": cx.num_layers}, "xtrimopglm_score",
+               lambda: xtrimo.apply(model, full, "ar"))
+        runs["xtrimopglm_ar"] = r
+        errs["xTrimoPGLM-3B AR"] = xtrimo_ar_held(torch, dev, fa, check_close, model, cx,
+                                                  ar_rows)
+        del model, ar_rows, full
+        torch.cuda.empty_cache()
+
+        # (e) CARP-640M, masked then WT marginals: no kernel of the port
+        cc = carp.CARP_PRESETS["carp_640M"]
+        r = run("carp", "MLM_L250", "carp_640M_score", (carp.Carp, "forward"),
+                (carp, "score_assay"), "carp_640M", patches=[keeping(carp, "init_random", kept)])
+        model = kept.pop("init_random")
+        ctoks = carp.CarpTokenizer().encode(seq)
+        full = torch.as_tensor(ctoks, dtype=torch.long, device=dev).expand(batch, -1)
+        report("e", "carp --checkpoint carp_640M, masked", r, -(-length // batch), {},
+               "carp_640M_score", lambda: model(full))
+        runs["carp"] = r
+        r = run("carp", "MLM_L250", "carp_640M_score", (carp.Carp, "forward"),
+                (carp, "score_assay"), "carp_640M", extra=["scoring_strategy=wt-marginals"])
+        report("e'", "carp --checkpoint carp_640M, WT marginals", r, 1, {}, "carp_640M_score")
+        runs["carp_wt"] = r
+        # one forward on the card against the CPU, both in float32
+        state = {k: v.float().cpu() for k, v in model.state_dict().items()}
+        f32 = dataclasses.replace(cc, dtype=torch.float32)
+        del model, full
+        torch.cuda.empty_cache()
+        one = torch.as_tensor(ctoks, dtype=torch.long)[None]
+        with torch.no_grad():
+            got = carp.convert_torch_state_dict(state, f32, device=dev)(one.to(dev))
+            t0 = time.perf_counter()
+            want = carp.convert_torch_state_dict(state, f32, device="cpu")(one)
+            cpu_s = time.perf_counter() - t0
+        errs["carp_cpu"] = check_close(f"(f) CARP-640M one forward (float32), card vs CPU "
+                                       f"({cpu_s:.1f} s on the CPU)", got.cpu(), want,
+                                       CARP_CPU_ATOL, 0.0)
+        del got, want, state
+        torch.cuda.empty_cache()
+
+    # (g) K1 at the new shapes, as the models hand it q/k/v: (B, T, H, D)
+    # memory seen as (B, H, T, D), the softmax scale left to the kernel
+    records = []
+    for label, b, h, tt, d, dt, mode in K1_MLM:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        gen = torch.Generator(device=dev).manual_seed(tt + d + h)
+        q, k, v = (torch.randn(b, tt, h, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
+                   for _ in range(3))
+        live = 252 if label.startswith("esmc") else tt
+        key_mask = (torch.arange(tt, device=dev) < live)[None].expand(b, tt) if mode != "none" \
+            else None
+        causal = mode == "causal"
+        kw = dict(key_mask=key_mask, causal=causal)
+        # a causal forward makes the key-tile extents once for its layers
+        tiles = dict(key_tiles=fa.KeyTiles(None, key_mask, True)) if causal else {}
+        got = fa.grouped_mha(q, k, v, **kw, **tiles)
+        torch.cuda.synchronize()
+        want = fa.plain_mha(q.float(), k.float(), v.float(), **kw)
+        tol = (BF16_ATOL, BF16_RTOL) if dtype == torch.bfloat16 else (F32_ATOL, F32_RTOL)
+        what = f"B{b} H{h} T{tt} D{d} {dt}, " + {"mask": f"pad mask ({live} live)",
+                                                  "causal": "causal + key mask",
+                                                  "none": "no mask"}[mode]
+        err = check_close(f"(g) K1 {what} ({label})", got, want, *tol)
+        del want
+        dense = None
+        if key_mask is not None:
+            dense = key_mask[:, None, None, :]
+            if causal:
+                dense = dense & torch.ones(tt, tt, dtype=torch.bool, device=dev).tril()
+        fns = {"kernel": lambda: fa.grouped_mha(q, k, v, **kw, **tiles),
+               "plain": lambda: fa.plain_mha(q, k, v, **kw),
+               "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q, k, v, attn_mask=dense)}
+        if causal:
+            fns["sdpa_causal"] = lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True)
+            fns["per_call"] = lambda: fa.grouped_mha(q, k, v, **kw)
+        times = median_pair(torch, fns, reps=3, inner=5, rounds=1)
+        # with every key live, SDPA is_causal computes the causal call's function
+        all_live = key_mask is None or bool(key_mask.all())
+        library = times["sdpa_causal"] if causal and all_live else times["sdpa"]
+        pairs = tt * (tt + 1) / 2 if causal else tt * live
+        flops = 4.0 * b * h * d * pairs
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_TF32_FLOPS / 3
+        bnd = bound(flops, nbytes(q, k, v, got), peak=peak)
+        print(f"  (g) K1 {what}: kernel {times['kernel']:.4f} ms, plain {times['plain']:.4f} ms, "
+              f"SDPA{' with the dense mask' if causal else ''} {times['sdpa']:.4f} ms "
+              f"({sdpa_backend(torch, fns['sdpa'])}"
+              + (f"; is_causal {times['sdpa_causal']:.4f} ms" if causal else "")
+              + f"; library_ms {library:.4f}"
+              + f"), bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; {card})"
+              + (f"; {times['per_call']:.4f} ms with the extents made per call" if causal
+                 else ""))
+        records.append(dict(label=label, shape=what, ms=times["kernel"], plain_ms=times["plain"],
+                            library_ms=library, max_abs_err=err, **bnd,
+                            **({"sdpa_mask_ms": times["sdpa"],
+                                "per_call_ms": times["per_call"]} if causal else {})))
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    print(f"  [mlm] {time.perf_counter() - phase_t0:.1f} s in all; (f) "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    return {"launches": {name: r["launches"] for name, r in runs.items()}, "k1": records,
+            "k1_err": max(rec["max_abs_err"] for rec in records), "k2": k2}
 
 
 def main() -> int:
@@ -3804,10 +4360,11 @@ def main() -> int:
     trainers = phase_trainers(torch, dev, card, fa)
     baselines = phase_baselines(torch, dev, card, fa)
     zoo = phase_zoo(torch, dev, card, fa, check_close)
+    mlm = phase_mlm(torch, dev, card, fa, check_close)
 
     if "jax" in sys.modules:
         fail("the port imported jax")
-    # the guard below covers the modules of every phase, phases 15-18's too
+    # the guard below covers the modules of every phase, phases 15-19's too
     missing = [m for m in ("proteingym_tpu_torch.native", "proteingym_tpu_torch.models.hmm",
                            "proteingym_tpu_torch.models.potts",
                            "proteingym_tpu_torch.models.wavenet",
@@ -3817,7 +4374,10 @@ def main() -> int:
                            "proteingym_tpu_torch.data.structures",
                            "proteingym_tpu_torch.models.ar_zoo",
                            "proteingym_tpu_torch.models.progen3",
-                           "proteingym_tpu_torch.models.unirep") if m not in sys.modules]
+                           "proteingym_tpu_torch.models.unirep",
+                           "proteingym_tpu_torch.models.esmc", "proteingym_tpu_torch.models.esm3",
+                           "proteingym_tpu_torch.models.xtrimo",
+                           "proteingym_tpu_torch.models.carp") if m not in sys.modules]
     if missing:
         fail(f"modules the phases drive were not loaded: {missing}")
     jax_package = sorted(m for m in sys.modules
@@ -3829,12 +4389,14 @@ def main() -> int:
         # K1's main path is PoET's self tier; the ESM headline shape beside it
         "grouped_attention": dict(
             max_abs_err=max(max_abs_err, k2["k1_self_err"], msa_run["k1_err"],
-                            tr_run["k1_err"], indel_run["k1"]["max_abs_err"], zoo["k1_err"]),
+                            tr_run["k1_err"], indel_run["k1"]["max_abs_err"], zoo["k1_err"],
+                            mlm["k1_err"]),
             shape="B8 H16 T4352 D64, 16 segments + causal",
             **{key: k2["k1"][key] for key in k1_keys},
             other_shapes=[{"shape": "B16 H20 T256 D64 mask+rope, pre-pass + loop",
                            "ms": ms, "plain_ms": plain_ms}, msa_run["k1"]]),
-        "flash_attention": dict(max_abs_err=k2["max_abs_err"], ms=k2["ms"],
+        "flash_attention": dict(max_abs_err=max(k2["max_abs_err"], mlm["k2"]["max_abs_err"]),
+                                ms=k2["ms"],
                                 plain_ms=k2["plain_ms"], library_ms=k2["library_ms"],
                                 bound_ms=k2["bound_ms"], bound_by=k2["bound_by"],
                                 call_ms=k2["call_ms"], sdpa_causal_ms=k2["sdpa_causal_ms"]),
@@ -3848,7 +4410,8 @@ def main() -> int:
                "trancepteve": tr_run["launches"], "tranception_windows": tr_run["long_launches"],
                "eve": tr_run["eve_launches"], "trancepteve_indel": indel_run["a"]["launches"],
                "tranception_indel": indel_run["a_tranception"]["launches"],
-               **trainers["launches"], **baselines["launches"], **zoo["launches"]}
+               **trainers["launches"], **baselines["launches"], **zoo["launches"],
+               **mlm["launches"]}
     records = [{
         "name": name,
         "route": "cuda",
@@ -3878,6 +4441,17 @@ def main() -> int:
                         "source": source, "replaces": replaces,
                         "launches": by_path[path]["grouped_attention"],
                         "counter": "grouped_attention", "path": path, **rec})
+    # K1 at phase 19's four shapes, each with the launches of its path
+    for rec, path in zip(mlm["k1"], ("esmc", "xtrimopglm", "xtrimopglm_ar", "esm3")):
+        records.append({"name": f"grouped_attention:{rec['label']}", "route": "cuda",
+                        "source": source, "replaces": replaces,
+                        "launches": by_path[path]["grouped_attention"],
+                        "counter": "grouped_attention", "path": path, **rec})
+    # K2 in float32 at ESM3's rows past 1,024 tokens, with the launches of that path
+    source, replaces = KERNELS["flash_attention"]
+    records.append({"name": "flash_attention:esm3_long", "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": by_path["esm3_long"]["flash_attention"],
+                    "counter": "flash_attention", "path": "esm3_long", **mlm["k2"]})
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

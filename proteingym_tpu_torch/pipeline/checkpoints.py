@@ -208,3 +208,42 @@ def load_gpt2_checkpoint(spec, default_config: Optional[ar_zoo.Gpt2Config] = Non
         path = path / "pytorch_model.bin"
     state, _ = _load_torch_state_dict(path)
     return ar_zoo.gpt2_load_state_dict(state, config, device=device), config
+
+
+def _block_count(state, prefix: str) -> int:
+    """1 + the largest N of the ``{prefix}N.`` keys of a state dict (0 if none)."""
+    found = [int(k[len(prefix):].split(".", 1)[0]) for k in state
+             if k.startswith(prefix) and k[len(prefix):].split(".", 1)[0].isdigit()]
+    return 1 + max(found) if found else 0
+
+
+def resolve_preset_state(spec: Optional[str], presets: dict, default: str, family: str,
+                         shape_of=None, dims=None, params=None):
+    """A --checkpoint spec of a preset family -> (config, state dict or None).
+
+    - ``params`` (a library call's ``extra["params"]``): that state dict,
+      with the preset ``spec`` names (``default`` without one);
+    - None or a preset name: that preset and None (seeded random weights);
+    - a published torch state dict file, whose preset is the one with
+      ``dims(config) == shape_of(state)``, its (layers, width) (``shape_of``
+      None: the family takes presets only);
+    - an orbax directory (JAX-only) or anything else raises."""
+    name = spec or default
+    if params is not None or spec is None or spec in presets:
+        if name not in presets:
+            raise ValueError(f"Unknown {family} preset {name!r} (presets: {sorted(presets)})")
+        return presets[name], params
+    path = Path(spec)
+    if path.is_dir():
+        raise ValueError(f"{spec!r} is a directory: orbax checkpoints written by 'pgym convert' "
+                         "are JAX-only; pass the published torch state dict file")
+    if shape_of is None or not path.is_file():
+        raise ValueError(f"Unknown {family} checkpoint {spec!r}: not a preset "
+                         f"({sorted(presets)})" + ("" if shape_of is None else " and not a file"))
+    state, _ = _load_torch_state_dict(path)
+    shape = shape_of(state)
+    for config in presets.values():
+        if dims(config) == shape:
+            return config, state
+    raise ValueError(f"{spec}: {family} state dict of (layers, width) {shape} matches no preset "
+                     f"({sorted(presets)})")

@@ -75,7 +75,7 @@ an orbax directory there instead), for ``potts`` a plmc ``.model`` file
 beside that stem.
 
 ``--structure-dir`` holds ``<UniProt_ID>.pdb`` or ``<DMS_id>.pdb`` per
-assay, which ``escott`` and ``rsalor`` read when it is there. ``models``
+assay, which ``escott``, ``rsalor`` and ``esm3`` read when it is there. ``models``
 prints the scorer names, sorted, one per line.
 
 ``merge`` joins each model's score files onto the assays and runs on the

@@ -9,7 +9,9 @@ checkpoints), the alignment baselines ``site_independent``, ``potts`` /
 rows; whole sequences, so indels too), ``gemme`` / ``escott``,
 ``siterm``, ``rsalor`` and ``provean`` (whole sequences too), the
 autoregressive zoo ``progen2``, ``rita``, ``protgpt2``, ``progen3`` and
-``unirep`` (whole sequences, so indels too), plus
+``unirep`` (whole sequences, so indels too), the masked LMs ``esmc``,
+``esm3`` (structure-conditioned with --structure-dir), ``xtrimopglm``
+(MLM or AR) and ``carp``, plus
 ``score_esm_packed_batch``, the cross-assay packed ESM path.
 
 A scorer is ``scorer(ctx: ScoreContext)`` and returns either ``{column:
@@ -771,3 +773,153 @@ def score_unirep(ctx: ScoreContext) -> Dict[str, np.ndarray]:
         lls = batched_ar_loglik(model, [tok.encode(s) for s in seqs], tok.PAD,
                                 batch_size=ctx.batch_size, device=ctx.device)
     return {"unirep_score": lls / np.asarray([len(s) for s in seqs], dtype=np.float64)}
+
+
+# ---------------------------------------------------------------------------
+# The EvolutionaryScale family, xTrimoPGLM and CARP: masked-LM marginals
+# ---------------------------------------------------------------------------
+
+
+def _sdk_shape(state):
+    from proteingym_tpu_torch.pipeline.checkpoints import _block_count
+
+    return _block_count(state, "transformer.blocks."), int(np.asarray(state["embed.weight"]).shape[1])
+
+
+@register_scorer("esmc")
+def score_esmc(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """ESM-C masked marginals (ref evoscale/compute_fitness.py), or WT
+    marginals with ``--extra scoring_strategy=wt-marginals``, in
+    ``{config.name}_score`` (the registry merges ``esmc_300M_score`` /
+    ``esmc_600M_score``). --checkpoint is a preset (``esmc_tiny``,
+    ``esmc_300m`` the default, ``esmc_600m``, ``esm3_open_1.4b_seq``) with
+    seeded random weights, or an SDK state dict file, whose preset is found
+    by its layers and width; a library call may pass an SDK state dict as
+    ``extra["params"]``. A literal WT row scores 0."""
+    from proteingym_tpu_torch.models import esmc
+    from proteingym_tpu_torch.pipeline.checkpoints import resolve_preset_state
+
+    config, state = resolve_preset_state(
+        ctx.checkpoint, esmc.PRESETS, "esmc_300m", "ESM-C", _sdk_shape,
+        lambda c: (c.num_layers, c.embed_dim), ctx.extra.get("params"))
+    model = (esmc.load_state_dict(state, config, device=ctx.device) if state is not None
+             else esmc.init_random(config, seed=0, device=ctx.device))
+    with no_tf32():
+        scores = esmc.score_assay(model, ctx.record.target_seq, ctx.mutants,
+                                  strategy=ctx.extra.get("scoring_strategy", "masked-marginals"),
+                                  chunk=ctx.batch_size)
+    return {f"{config.name}_score": scores}
+
+
+@register_scorer("esm3")
+def score_esm3(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """ESM3 masked marginals, structure-conditioned when the assay has a PDB
+    in --structure-dir (ref evoscale/compute_fitness.py:144-470), in
+    ``ESM3_score`` (the registry merges ``ESM3_open_score``). --checkpoint:
+    ``esm3_tiny`` (the default) or ``esm3_open_small`` with seeded random
+    weights, or an esm3-open state dict file; ``extra["params"]`` as for
+    ``esmc``. The structure branches follow the JAX scorer: no PDB,
+    sequence-only; a PDB and ``--extra structure_checkpoint=`` (a preset,
+    seeded random, or a structure-encoder state dict file), that encoder's
+    tokens; a PDB with a trunk from a state dict and no
+    ``structure_checkpoint=``, a warning and sequence-only (random codes
+    would feed noise to real weights); a PDB with a preset trunk, the tiny
+    encoder with seeded random weights. A literal WT row scores 0."""
+    import warnings
+
+    from proteingym_tpu_torch.models import esm3
+    from proteingym_tpu_torch.pipeline.checkpoints import _block_count, resolve_preset_state
+
+    presets = {**esm3.PRESETS, "esm3_tiny": esm3.TINY}
+    config, state = resolve_preset_state(
+        ctx.checkpoint, presets, "esm3_tiny", "ESM3",
+        lambda sd: (_block_count(sd, "transformer.blocks."),
+                    int(np.asarray(sd["encoder.sequence_embed.weight"]).shape[1])),
+        lambda c: (c.n_layers, c.d_model), ctx.extra.get("params"))
+    model = (esm3.load_state_dict(state, config, device=ctx.device) if state is not None
+             else esm3.init_random(config, seed=0, device=ctx.device))
+    coords, encoder = None, None
+    if ctx.structure_path() is not None:
+        coords = _load_structure(ctx)[:, :3]
+        sc_spec = ctx.extra.get("structure_checkpoint")
+        if sc_spec:
+            sc, sc_state = resolve_preset_state(
+                sc_spec, esm3.STRUCTURE_ENCODER_PRESETS, "esm3_structure_encoder",
+                "ESM3 structure encoder",
+                lambda sd: (_block_count(sd, "transformer.blocks."), int(np.asarray(
+                    sd["relative_positional_embedding.embedding.weight"]).shape[1])),
+                lambda c: (c.n_layers, c.d_model))
+            encoder = (esm3.load_structure_encoder_state_dict(sc_state, sc, device=ctx.device)
+                       if sc_state is not None
+                       else esm3.structure_encoder_init(sc, seed=0, device=ctx.device))
+        elif state is not None:
+            warnings.warn("esm3: --structure-dir given without --extra structure_checkpoint=; "
+                          "scoring sequence-only (random structure-VQ codes would degrade a "
+                          "trunk read from a state dict)")
+            coords = None
+        else:
+            encoder = esm3.structure_encoder_init(
+                esm3.STRUCTURE_ENCODER_PRESETS["esm3_structure_encoder_tiny"], seed=0,
+                device=ctx.device)
+    with no_tf32():
+        scores = esm3.score_assay_esm3(model, encoder, ctx.record.target_seq, ctx.mutants,
+                                       coords=coords, batch=ctx.batch_size)
+    return {"ESM3_score": scores}
+
+
+@register_scorer("xtrimopglm")
+def score_xtrimopglm(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """xTrimoPGLM (ref xtrimopglm/compute_fitness.py) over ESM-C's trunk:
+    ``--extra mode=mlm`` (the default), the reference's unique-position
+    masked marginals, or ``mode=ar``, its chunked CLM delta
+    log-likelihood, rows batched ``--batch-size`` a forward; in
+    ``xtrimopglm_score`` (the registry merges ``proteinglm-*_{mlm,clm}_score``).
+    --checkpoint is a preset (``xtrimopglm_tiny``, ``xtrimopglm_1b`` the
+    default, ``xtrimopglm_3b``) with seeded random weights;
+    ``extra["params"]`` an SDK-layout (ESM-C) state dict. A mutant the
+    recipe cannot parse, a literal WT row among them, is NaN."""
+    from proteingym_tpu_torch.models import esmc, xtrimo
+    from proteingym_tpu_torch.pipeline.checkpoints import resolve_preset_state
+
+    config, state = resolve_preset_state(ctx.checkpoint, xtrimo.PRESETS, "xtrimopglm_1b",
+                                         "xTrimoPGLM", params=ctx.extra.get("params"))
+    model = (esmc.load_state_dict(state, config, device=ctx.device) if state is not None
+             else esmc.init_random(config, seed=0, device=ctx.device))
+    with no_tf32():
+        scores = xtrimo.score_assay(model, ctx.record.target_seq, ctx.mutants,
+                                    mode=ctx.extra.get("mode", "mlm"), batch_size=ctx.batch_size)
+    return {"xtrimopglm_score": scores}
+
+
+@register_scorer("carp")
+def score_carp(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """CARP ByteNet marginals (ref carp_mif/compute_fitness.py), masked or
+    with ``--extra scoring_strategy=wt-marginals``, each mutant's sum
+    divided by its number of positions, in ``{config.name}_score``.
+    --checkpoint is a preset (``carp_600k`` the default, ``carp_38M``,
+    ``carp_76M``, ``carp_640M``) with seeded random weights, or a zenodo
+    ``carp_*.pt`` file, read natively and run in float32, its preset found
+    by its blocks and width; ``extra["params"]`` a state dict in the zenodo
+    names, run in the preset's dtype. A literal WT row fails, as in the JAX
+    scorer."""
+    from proteingym_tpu_torch.models import carp
+    from proteingym_tpu_torch.pipeline.checkpoints import _block_count, resolve_preset_state
+
+    def shape_of(sd):
+        sd = {k.removeprefix("module."): v for k, v in sd.items()}
+        head = sd.get("decoder.conv.weight", sd.get("decoder.weight"))
+        return _block_count(sd, "embedder.layers."), int(np.asarray(head).shape[1])
+
+    config, state = resolve_preset_state(
+        ctx.checkpoint, carp.CARP_PRESETS, "carp_600k", "CARP", shape_of,
+        lambda c: (c.num_layers, c.embed_dim), ctx.extra.get("params"))
+    if state is None:
+        model = carp.init_random(config, seed=0, device=ctx.device)
+    else:
+        run_as = config if "params" in ctx.extra else dataclasses.replace(config, dtype=torch.float32)
+        model = carp.convert_torch_state_dict(state, run_as, device=ctx.device)
+    with no_tf32():
+        scores = carp.score_assay(model, ctx.record.target_seq, ctx.mutants,
+                                  strategy=ctx.extra.get("scoring_strategy", "masked-marginals"),
+                                  chunk=ctx.batch_size)
+    return {f"{config.name}_score": scores}

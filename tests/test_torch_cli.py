@@ -307,7 +307,8 @@ def test_models_lists_the_registry(capsys):
     assert names[-1] == "" and names[:-1] == sorted(SCORERS)
     assert {"gemme", "escott", "siterm", "rsalor", "provean"} <= set(names)
     assert {"progen2", "rita", "protgpt2", "progen3", "unirep"} <= set(names)
-    assert len(SCORERS) == 22
+    assert {"esmc", "esm3", "xtrimopglm", "carp"} <= set(names)
+    assert len(SCORERS) == 26
 
 
 # the AR zoo on the CPU: the tiny float32 shapes (head dims 8 and 16), a
@@ -347,7 +348,8 @@ def test_ar_zoo_scorers_through_the_cli(tmp_path, model):
 
 
 @pytest.mark.parametrize("model", ["gemme", "escott", "siterm", "rsalor", "provean",
-                                   "progen2", "rita", "protgpt2", "progen3", "unirep"])
+                                   "progen2", "rita", "protgpt2", "progen3", "unirep",
+                                   "esmc", "esm3", "xtrimopglm", "carp"])
 def test_alignment_baselines_on_cuda_without_gpu_raise(tmp_path, monkeypatch, model):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ref, dms_dir, _ = _write_assays(tmp_path, n_assays=1)
@@ -383,3 +385,60 @@ def test_structure_dir_finds_the_jax_scorers_file(tmp_path):
     assert ctx.structure_path() == pdbs / f"{rec.UniProt_ID}.pdb"  # the UniProt file first
     np.testing.assert_array_equal(tscorers._load_structure(ctx), jextra._load_structure(jctx))
     assert tscorers._load_structure(ctx).shape == (9, 4, 3)
+
+
+# the masked LMs on the CPU at their tiny presets (bf16 ESM-C and
+# xTrimoPGLM, float32 ESM3, CARP-600k), each on one assay with a literal WT
+# row and a synonymous one: (extra arguments, column, what the WT row gives)
+MLM_RUNS = {
+    "esmc": (["--checkpoint", "esmc_tiny"], "esmc_tiny_score", 0.0),
+    "esmc_wt": (["--checkpoint", "esmc_tiny", "--extra", "scoring_strategy=wt-marginals"],
+                "esmc_tiny_score", 0.0),
+    "esm3": ([], "ESM3_score", 0.0),
+    "esm3_structure": (["--structure-dir", "pdb"], "ESM3_score", 0.0),
+    "xtrimopglm": (["--checkpoint", "xtrimopglm_tiny"], "xtrimopglm_score", None),
+    "xtrimopglm_ar": (["--checkpoint", "xtrimopglm_tiny", "--extra", "mode=ar"],
+                      "xtrimopglm_score", None),
+    "carp": ([], "carp_600k_score", "fails"),
+}
+
+
+@pytest.mark.parametrize("run", sorted(MLM_RUNS))
+def test_masked_lm_scorers_through_the_cli(tmp_path, run):
+    from proteingym_tpu_torch.data.structures import synthetic_helix_backbone, write_pdb_backbone
+
+    ref, dms_dir, (dms_id,) = _write_assays(tmp_path, n_assays=1)
+    rows = _read(dms_dir / f"{dms_id}.csv")
+    seq = next(r for r in csv.DictReader(open(ref)))["target_seq"]
+    with open(dms_dir / f"{dms_id}.csv", "a", newline="") as f:
+        csv.writer(f).writerows([["WT", "0.5"], [f"{seq[2]}3{seq[2]}", "0.1"]])
+    (tmp_path / "pdb").mkdir()
+    write_pdb_backbone(tmp_path / "pdb" / "P0.pdb", synthetic_helix_backbone(len(seq)), seq)
+    extra, column, wt = MLM_RUNS[run]
+    extra = [str(tmp_path / a) if a == "pdb" else a for a in extra]
+    out = tmp_path / "out"
+    rc = tcli.main(["score", "--model", run.split("_")[0], "--device", "cpu", "--dms-reference",
+                    str(ref), "--dms-dir", str(dms_dir), "--output-dir", str(out),
+                    "--batch-size", "8", "--quiet", *extra])
+    if wt == "fails":  # a literal WT row fails CARP's scorer, as it does the JAX one
+        assert rc == 1 and not (out / f"{dms_id}.csv").exists()
+        (entry,) = [json.loads(x) for x in (out / "manifest.jsonl").read_text().splitlines()]
+        assert entry["status"] == "failed" and "ValueError" in entry["error"]
+        lines = (dms_dir / f"{dms_id}.csv").read_text().splitlines(keepends=True)
+        (dms_dir / f"{dms_id}.csv").write_text("".join(x for x in lines if not x.startswith("WT,")))
+        rc = tcli.main(["score", "--model", "carp", "--device", "cpu", "--dms-reference",
+                        str(ref), "--dms-dir", str(dms_dir), "--output-dir", str(out),
+                        "--batch-size", "8", "--quiet"])
+    assert rc == 0
+    got = _read(out / f"{dms_id}.csv")
+    assert list(got[0]) == ["mutant", "DMS_score", "mutated_sequence", column]
+    values = {r["mutant"]: (float(r[column]) if r[column] else np.nan) for r in got}
+    assert len(got) == len(rows) + (1 if wt == "fails" else 2)
+    assert values[f"{seq[2]}3{seq[2]}"] == 0.0
+    if wt is None:
+        assert np.isnan(values["WT"])  # dropped by the recipe, as in the JAX scorer
+    elif wt != "fails":
+        assert values["WT"] == wt
+    muts = [r["mutant"] for r in rows]
+    assert np.isfinite([values[m] for m in muts]).all()
+    assert len({values[m] for m in muts}) > len(muts) // 2

@@ -39,6 +39,7 @@ def test_port_imports_without_jax_or_pandas():
                                                              "provean")}
         new |= {"proteingym_tpu_torch.data.structures", "proteingym_tpu_torch.msa.columns"}
         new |= {"proteingym_tpu_torch.models." + m for m in ("ar_zoo", "progen3", "unirep")}
+        new |= {"proteingym_tpu_torch.models." + m for m in ("esmc", "esm3", "xtrimo", "carp")}
         assert new <= set(names), sorted(new - set(names))
         print("ok")
     """)
@@ -59,11 +60,12 @@ def test_native_imports_without_a_compiler(tmp_path):
         from proteingym_tpu_torch.models import hmm, potts, retrieval, trancepteve, wavenet
         from proteingym_tpu_torch.models import gemme, provean, rsalor, siterm
         from proteingym_tpu_torch.models import ar_zoo, progen3, unirep
+        from proteingym_tpu_torch.models import carp, esm3, esmc, xtrimo
         from proteingym_tpu_torch.pipeline import scorers
         assert native._lib is None and native._nj_lib is None
         assert {"hmm", "potts", "evmutation", "site_independent", "wavenet", "gemme", "escott",
                 "siterm", "rsalor", "provean", "progen2", "rita", "protgpt2", "progen3",
-                "unirep"} <= set(scorers.SCORERS)
+                "unirep", "esmc", "esm3", "xtrimopglm", "carp"} <= set(scorers.SCORERS)
         print("ok")
     """)], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
