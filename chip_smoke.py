@@ -212,6 +212,32 @@ Phases (any failure raises, and the script exits non-zero):
    xTrimoPGLM-1B B32 H16 T252 D128, 3B AR T251 causal, ESM3 B32 H24 T252
    D64 float32) against its plain version, timed beside SDPA and its
    bound.
+20. the backbone-conditioned scorers through the port's CLI at full
+   width with seeded random weights, on phase 14's L=250 target and its
+   helix with seeded noise on every CA (``--structure-dir``): (a)
+   ``esm_if1 --checkpoint esm_if1`` (8 + 8 layers, width 512, float32) on
+   all 4,750 singles: one encoder pass (8 float32 K1 launches) and 149
+   decoder forwards of 32 x 250 (8 causal float32 K1 launches each, cross
+   attention in plain products); (b) ``esm_if1 --extra
+   complex_chains=A,B`` on a two-helix complex (encoder T=382, 10 NaN
+   spacers as padding) on the first 1,024 singles; (c) ``protein_mpnn
+   --checkpoint v_48_020`` with 10 decoding orders on the first 2,048
+   singles (pairs in memory-budget chunks, no kernel of the port); (d)
+   ``saprot --checkpoint saprot_650M`` on all singles (3Di letters from
+   the helix; 33 K4 and 33 rope_qk launches a forward). Each run: the
+   CLI wall and mutants/s, forwards and launches, peak memory, two
+   forwards under the profiler. (e) 8 ESM-IF1 rows' per-token log-probs
+   against the plain attention, two planted faults (the causal mask off,
+   each row's next key visible) that must fail that check; K1 at the
+   encoder's two shapes; the card against the CPU at full size: ESM-IF1's
+   per-token log-probs, ProteinMPNN's per-position log-probs of 4
+   (sequence, order) pairs (neighbours equal), SaProt-650M's of 2 masked
+   rows in float32. (f) the float32 K1 at the decoder shape (B32 H8 T250
+   D64, causal + PAD mask) beside its plain version, SDPA and its 3xTF32
+   bound, as ``grouped_attention:f32_esm_if1`` on the ``kernels`` line;
+   (g) K4 at SaProt-650M's rows (B32 H20 T252 D64 bf16, mask + RoPE): the
+   call, the loop alone, plain, SDPA and bound, as
+   ``grouped_attention_bthd:saprot_650m``.
 
 Every phase holds the port to its rule: no module of the JAX package
 (``proteingym_tpu``) may be loaded. It prints one JSON line describing the
@@ -463,6 +489,34 @@ TOKEN_D2_RTOL, TOKEN_MARGIN = 1e-4, 1e-2
 # one CARP-640M forward in float32, card against CPU: summation order
 # through 56 blocks (the convolution in cuDNN without TF32)
 CARP_CPU_ATOL = 1e-3
+
+# the shapes of phase 20: phase 14's L=250 target and 4,750 singles on its
+# helix with seeded CA noise (as phase 19's); ESM-IF1 (8 + 8 layers, width
+# 512, float32) on all singles and, on a two-helix complex (the target and
+# a 120-residue helix 12 A off, 10 NaN spacers between them in the
+# encoder), on the first 1,024 (cut: time); ProteinMPNN v_48_020 with 10
+# orders on the first 2,048 singles (cut: time); SaProt-650M on all
+# singles; 8 ESM-IF1 rows per token against the plain attention; the card
+# against the CPU at full size on 4 ESM-IF1 rows, 4 ProteinMPNN (sequence,
+# order) pairs and 2 masked SaProt-650M rows in float32
+STRUCTURE_SLICE = dict(batch=32, ca_noise=0.01, partner_length=120, complex_singles=1024,
+                       mpnn_singles=2048, mpnn_orders=10, logp_rows=8, cpu_rows=4,
+                       saprot_cpu_rows=2)
+# (label, B, H, T, D) of the float32 K1 on ESM-IF1's decoder rows: 250
+# residues + <cath>, the last token dropped; causal with the PAD mask
+K1_IF1 = ("esm_if1", 32, 8, 250, 64)
+# (label, B, H, T, D) of K4 on SaProt-650M's rows: [CLS] + 250 + [EOS]
+K4_SAPROT = ("saprot_650m", 32, 20, 252, 64)
+# ESM-IF1's per-token log-probs, float32 K1 against the plain attention
+# through 8 encoder and 8 decoder layers: summation order only, 2.4e-6 at
+# most over 8 x 250 tokens on an H100 at 700 W (a chip run of this
+# phase); a leaked next key or the causal mask left off moves them by 1.28
+IF1_LOGP_ATOL = 1e-4
+# card against CPU at full size, per element (float32 without TF32 on
+# both; index_add_'s sums in another order on the card): ESM-IF1's and
+# ProteinMPNN's log-probs, SaProt-650M's in a float32 copy; the same run
+# read 3.3e-6, 3.8e-6 and 5.7e-6
+IF1_CPU_ATOL, MPNN_CPU_ATOL, SAPROT_CPU_ATOL = 1e-4, 1e-4, 1e-4
 
 
 def fail(msg: str) -> None:
@@ -4140,6 +4194,356 @@ def phase_mlm(torch, dev, card, fa, check_close):
             "k1_err": max(rec["max_abs_err"] for rec in records), "k2": k2}
 
 
+def if1_logp_held(torch, fa, gt, model, enc, enc_pad, rows):
+    """ESM-IF1's per-token target log-probs of ``rows`` (B, T) with the
+    kernel and with the plain attention, held per token within
+    IF1_LOGP_ATOL; two planted faults, the decoder's causal mask off and
+    each row's next key visible, must fail that check. Returns the max
+    |kernel - plain|."""
+    def leaked(q, k, v, key_mask=None, causal=False, sm_scale=None):
+        if not causal:
+            return fa.plain_mha(q, k, v, key_mask=key_mask, sm_scale=sm_scale)
+        t = q.shape[2]
+        visible = torch.ones(t, t, dtype=torch.bool, device=q.device).tril(1)
+        if key_mask is not None:
+            visible = visible & key_mask[:, None, None, :]
+        probs = torch.softmax((q @ k.transpose(-1, -2) * sm_scale).masked_fill(
+            ~visible, float("-inf")), -1)
+        return probs @ v
+
+    def token_logp(attention=None):
+        with torch.no_grad(), (mock.patch.object(gt, "mha", attention) if attention
+                               else contextlib.nullcontext()):
+            logp = torch.log_softmax(model.decoder(rows[:, :-1], enc, enc_pad), -1)
+        return logp.gather(-1, rows[:, 1:, None])[..., 0]
+
+    counts = dict(fa.LAUNCHES)
+    got = token_logp()
+    fa.LAUNCHES.update(counts)  # the check's launches are not the path's
+    want = token_logp(fa.plain_mha)
+    err = check_close(f"(e) ESM-IF1: {rows.shape[0]} rows' per-token target log-probs, "
+                      "kernel vs plain", got, want, IF1_LOGP_ATOL, 0.0)
+    faults = {"causal mask off": lambda q, k, v, key_mask=None, causal=False, sm_scale=None:
+              fa.plain_mha(q, k, v, key_mask=key_mask, sm_scale=sm_scale),
+              "each row's next key visible": leaked}
+    for name, attention in faults.items():
+        diff = float((token_logp(attention) - want).abs().max())
+        print(f"      planted fault, {name}: max |diff| {diff:.4g} a token (limit "
+              f"{IF1_LOGP_ATOL:g})")
+        if not diff > IF1_LOGP_ATOL:  # NaN fails
+            fail(f"ESM-IF1: a planted fault passes the per-token check ({name})")
+    return err
+
+
+def phase_structure(torch, dev, card, fa, check_close):
+    """20. The backbone-conditioned scorers through the port's CLI at full
+    width with seeded random weights, on phase 14's L=250 target and its
+    helix with seeded CA noise (``--structure-dir``): (a) ``esm_if1
+    --checkpoint esm_if1`` on all 4,750 singles (one encoder pass, 149
+    decoder forwards of 32 x 250: 8 float32 K1 launches each, 8 for the
+    encoder); (b) ``esm_if1 --extra complex_chains=A,B`` on a two-helix
+    complex, the first 1,024 singles; (c) ``protein_mpnn`` with 10 orders
+    on the first 2,048 singles (no kernel of the port); (d) ``saprot
+    --checkpoint saprot_650M`` on all singles (33 K4 and 33 rope_qk a
+    forward). Each run: the CLI wall and mutants/s, forwards and launches,
+    peak memory, and two forwards under the profiler (idle share, device
+    ms, the four costliest kernels). (e) 8 ESM-IF1 rows per token against
+    the plain attention, with two planted faults; K1 at the encoder's
+    shapes; the card against the CPU at full size: ESM-IF1's per-token
+    log-probs, ProteinMPNN's per-position log-probs of 4 (sequence,
+    order) pairs, SaProt-650M's masked log-probs of 2 rows in float32.
+    (f) the float32 K1 at the decoder shape beside its plain version, SDPA
+    and its 3xTF32 bound; (g) K4 at SaProt-650M's rows likewise."""
+    from proteingym_tpu_torch.data.structures import synthetic_helix_backbone, write_pdb_backbone
+    from proteingym_tpu_torch.models import esm2, gvp_transformer as gt, protein_mpnn as mpnn
+    from proteingym_tpu_torch.models import saprot
+    from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.pipeline import cli
+
+    s = STRUCTURE_SLICE
+    batch, length = s["batch"], TRANCEPTION_SLICE["length"]
+    codes = np.random.RandomState(13).randint(1, 21, length)  # phase 14's target
+    seq = "".join(GAP_AA[c] for c in codes)
+    singles = [f"{seq[p]}{p + 1}{a}" for p in range(length) for a in AA if a != seq[p]]
+    helix = synthetic_helix_backbone(length, seed=20)
+    helix[:, 1] += s["ca_noise"] * np.random.RandomState(20).randn(length, 3)
+    partner = synthetic_helix_backbone(s["partner_length"], seed=21) + np.array([12.0, 0, 0])
+    partner_seq = "".join(np.random.RandomState(21).choice(list(AA), s["partner_length"]))
+    phase_t0 = time.perf_counter()
+    print(f"[structure] ESM-IF1, ProteinMPNN, SaProt (seeded random, full width) on phase 14's "
+          f"L={length} target and its helix (CA noise {s['ca_noise']} A); batch {batch}; {card}")
+
+    forwards = [0]
+
+    def counting(cls, name):
+        fn = getattr(cls, name)
+
+        def wrapper(*args, **kwargs):
+            forwards[0] += 1
+            return fn(*args, **kwargs)
+        return mock.patch.object(cls, name, wrapper)
+
+    kept, runs, errs = {}, {}, {}
+    assays = {"STR_L250": singles, "STR_CPLX": singles[:s["complex_singles"]],
+              "STR_MPNN": singles[:s["mpnn_singles"]]}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        (root / "dms").mkdir()
+        (root / "pdb").mkdir()
+        for dms_id, rows in assays.items():
+            y = np.random.RandomState(22).randn(len(rows))
+            write_csv_rows(root / "dms" / f"{dms_id}.csv", ["mutant", "DMS_score"],
+                           [[x, repr(float(v))] for x, v in zip(rows, y)])
+            write_pdb_backbone(root / "pdb" / f"{dms_id}.pdb", helix, seq)
+        text = (root / "pdb" / "STR_CPLX.pdb").read_text().replace("END\n", "")
+        write_pdb_backbone(root / "pdb" / "STR_CPLX.pdb", partner, partner_seq, chain="B")
+        (root / "pdb" / "STR_CPLX.pdb").write_text(text + (root / "pdb" / "STR_CPLX.pdb")
+                                                   .read_text())
+        write_csv_rows(root / "reference.csv",
+                       ["DMS_id", "DMS_filename", "UniProt_ID", "target_seq", "seq_len"],
+                       [[dms_id, f"{dms_id}.csv", "SYNTH_STRUCTURE", seq, length]
+                        for dms_id in assays])
+
+        def run(model, dms_id, column, counted, checkpoint=None, extra=(), patches=()):
+            forwards[0] = 0
+            r = cli_score(torch, cli, root, len(assays[dms_id]), model, dms_id, column,
+                          (fa.LAUNCHES, W.LAUNCHES), batch, checkpoint,
+                          flags=["--structure-dir", str(root / "pdb")], extra=extra,
+                          patches=[counting(*counted), *patches])
+            return dict(r, forwards=forwards[0])
+
+        def two(forward):
+            def fn():
+                with torch.no_grad():
+                    forward()
+                    forward()
+                return 2
+            return profile_forwards(torch, fa, fn)
+
+        # (a) ESM-IF1 on all singles
+        c = gt.PRESETS["esm_if1"]
+        spans = {}
+        r = run("esm_if1", "STR_L250", "esm_if1_score", (gt.TransformerDecoder, "forward"),
+                "esm_if1", patches=[keeping(gt, "init_random", kept), mock.patch.object(
+                    gt, "encode_structure", spans_of(torch, spans, "encoder",
+                                                     gt.encode_structure))])
+        model = kept.pop("init_random")
+        enc, enc_pad = gt.encode_structure(model, helix)
+        toks = torch.as_tensor(np.stack([gt.tokenize(seq)] * batch), device=dev)
+        r["profile"] = two(lambda: model.decoder(toks[:, :-1], enc, enc_pad))
+        report_run("a", "esm_if1 --checkpoint esm_if1", r, card, "esm_if1_score",
+                   -(-len(singles) // batch), {"grouped_attention": c.decoder_layers},
+                   extra_launches={"grouped_attention": c.encoder_layers},
+                   detail=f"; encoder pass {spans['encoder']:.3f} s (L={length}, k="
+                          f"{c.gvp_top_k_neighbors})")
+        runs["esm_if1"] = r
+        rng = np.random.RandomState(20)
+        rows_at = np.sort(rng.choice(length, s["logp_rows"], replace=False))
+        rows = torch.as_tensor(np.stack([gt.tokenize(
+            seq[:p] + AA[(AA.index(seq[p]) + 1) % 20] + seq[p + 1:]) for p in rows_at]),
+            device=dev)
+        errs["ESM-IF1 per token"] = if1_logp_held(torch, fa, gt, model, enc, enc_pad, rows)
+        # the card against the CPU at full size: encoder and decoder, per token
+        cpu = gt.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, c,
+                                 device="cpu")
+        few = rows[:s["cpu_rows"]]
+        with torch.no_grad():
+            got = torch.log_softmax(model.decoder(few[:, :-1], enc, enc_pad), -1)
+            t0 = time.perf_counter()
+            enc_cpu, pad_cpu = gt.encode_structure(cpu, helix)
+            want = torch.log_softmax(cpu.decoder(few[:, :-1].cpu(), enc_cpu, pad_cpu), -1)
+            cpu_s = time.perf_counter() - t0
+        errs["ESM-IF1 card vs CPU"] = check_close(
+            f"(e) ESM-IF1 {len(few)} rows' log-probs, card vs CPU ({cpu_s:.1f} s on the CPU; "
+            f"encoder out max |diff| {float((enc.cpu() - enc_cpu).abs().max()):.3g})",
+            got.cpu(), want, IF1_CPU_ATOL, 0.0)
+        del cpu, model, enc, toks, got, want
+        torch.cuda.empty_cache()
+
+        # (b) ESM-IF1 on the two-helix complex
+        n_enc = length + 10 + s["partner_length"] + 2
+        r = run("esm_if1", "STR_CPLX", "esm_if1_score", (gt.TransformerDecoder, "forward"),
+                "esm_if1", extra=["complex_chains=A,B", "target_chain=A"],
+                patches=[keeping(gt, "init_random", kept)])
+        model = kept.pop("init_random")
+        enc, enc_pad = gt.encode_structure(model, gt.concatenate_complex_coords(
+            {"A": helix, "B": partner}, "A"))
+        toks = torch.as_tensor(np.stack([gt.tokenize(seq)] * batch), device=dev)
+        r["profile"] = two(lambda: model.decoder(toks[:, :-1], enc, enc_pad))
+        del model, enc, toks
+        report_run("b", f"esm_if1 complex_chains=A,B (encoder T={n_enc}, 10 spacers)", r, card,
+                   "esm_if1_score", -(-len(assays["STR_CPLX"]) // batch),
+                   {"grouped_attention": c.decoder_layers},
+                   extra_launches={"grouped_attention": c.encoder_layers})
+        moved = float(np.abs(r["scores"] - runs["esm_if1"]["scores"][:len(r["scores"])]).max())
+        print(f"      the partner chain moves the scores by up to {moved:.4g}")
+        if not moved > 1e-4:
+            fail("esm_if1: the complex's second chain left the scores unchanged")
+        runs["esm_if1_complex"] = r
+
+        # (c) ProteinMPNN, 10 orders
+        mc = mpnn.PRESETS["v_48_020"]
+        n_pairs = len(assays["STR_MPNN"]) * s["mpnn_orders"]
+        spans = {}
+        r = run("protein_mpnn", "STR_MPNN", "pmpnn_ll", (mpnn, "decode"), "v_48_020",
+                extra=[f"num_seq_per_target={s['mpnn_orders']}"],
+                patches=[keeping(mpnn, "init_random", kept), mock.patch.object(
+                    mpnn, "encode", spans_of(torch, spans, "encoder", mpnn.encode))])
+        model = kept.pop("init_random")
+        per_chunk = mpnn.pairs_per_chunk(model, length, mc.k_neighbors)
+        enc_m = mpnn.encode(model, torch.as_tensor(helix, dtype=torch.float32, device=dev))
+        orders = torch.as_tensor(mpnn.decoding_orders(length, s["mpnn_orders"]), device=dev)
+        tok = torch.as_tensor(mpnn.tokenize_sequence(seq), device=dev)
+        pairs_tok = tok.expand(per_chunk, -1)
+        pairs_ord = orders[torch.arange(per_chunk, device=dev) % s["mpnn_orders"]]
+        r["profile"] = two(lambda: mpnn.decode(model, enc_m, pairs_tok, pairs_ord))
+        report_run("c", f"protein_mpnn --checkpoint v_48_020, {s['mpnn_orders']} orders", r,
+                   card, "pmpnn_ll", -(-n_pairs // per_chunk), {},
+                   detail=f"; {n_pairs} pairs in chunks of {per_chunk} -> "
+                          f"{n_pairs / r['wall']:.0f} pairs/s; encoder {spans['encoder']:.3f} s")
+        runs["protein_mpnn"] = r
+        cpu = mpnn.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, mc,
+                                   device="cpu")
+        few_tok = tok.expand(s["cpu_rows"], -1)
+        few_ord = orders[torch.arange(s["cpu_rows"], device=dev) % s["mpnn_orders"]]
+        got = mpnn.decode(model, enc_m, few_tok, few_ord)
+        t0 = time.perf_counter()
+        enc_cpu = mpnn.encode(cpu, torch.as_tensor(helix, dtype=torch.float32))
+        want = mpnn.decode(cpu, enc_cpu, few_tok.cpu(), few_ord.cpu())
+        cpu_s = time.perf_counter() - t0
+        if not torch.equal(enc_cpu[2], enc_m[2].cpu()):
+            fail("protein_mpnn: the kNN graph differs between the card and the CPU")
+        errs["ProteinMPNN card vs CPU"] = check_close(
+            f"(e) ProteinMPNN {len(few_ord)} pairs' log-probs, card vs CPU ({cpu_s:.1f} s on the "
+            "CPU; neighbours equal)", got.cpu(), want, MPNN_CPU_ATOL, 0.0)
+        del cpu, model, enc_m, got, want
+        torch.cuda.empty_cache()
+
+        # (d) SaProt-650M on all singles
+        sc = saprot.PRESETS["saprot_650M"]
+        r = run("saprot", "STR_L250", "SaProt_score", (esm2.EsmModel, "forward"), "saprot_650M",
+                patches=[keeping(esm2, "init_random", kept)])
+        model = kept.pop("init_random")
+        struc = saprot.structure_letters(helix)
+        stoks = saprot.VOCAB.tokenize(seq, struc)
+        full = torch.as_tensor(stoks, device=dev).expand(batch, -1).clone()
+        full[torch.arange(batch), torch.arange(batch) + 1] = saprot.VOCAB.pair_base["#"]
+        r["profile"] = two(lambda: model(full))
+        report_run("d", "saprot --checkpoint saprot_650M", r, card, "SaProt_score",
+                   -(-len(singles) // batch),
+                   {"grouped_attention_bthd": sc.num_layers, "rope_qk": sc.num_layers},
+                   detail=f"; 3Di letters: {len(set(struc))} distinct")
+        runs["saprot"] = r
+        # float32 copies on the card and the CPU, 2 masked rows
+        state = {k: v.float().cpu() for k, v in model.state_dict().items()}
+        f32 = dataclasses.replace(sc, dtype=torch.float32)
+        del model, full
+        torch.cuda.empty_cache()
+        two_rows = torch.as_tensor(stoks).expand(s["saprot_cpu_rows"], -1).clone()
+        two_rows[0, 5] = two_rows[1, 100] = saprot.VOCAB.pair_base["#"]
+        with torch.no_grad():
+            counts = dict(fa.LAUNCHES)
+            got = torch.log_softmax(esm2.load_fair_esm_state_dict(state, f32, device=dev)(
+                two_rows.to(dev)), -1)
+            fa.LAUNCHES.update(counts)
+            t0 = time.perf_counter()
+            want = torch.log_softmax(esm2.load_fair_esm_state_dict(state, f32, device="cpu")(
+                two_rows), -1)
+            cpu_s = time.perf_counter() - t0
+        errs["SaProt card vs CPU"] = check_close(
+            f"(e) SaProt-650M float32, {len(two_rows)} rows' log-probs, card vs CPU "
+            f"({cpu_s:.1f} s on the CPU)", got.cpu(), want, SAPROT_CPU_ATOL, 0.0)
+        del got, want, state
+        torch.cuda.empty_cache()
+
+    # (e) K1 at the encoder's two shapes: one chain (every key live) and the
+    # complex (the 10 spacers masked)
+    for t_enc, spacer in ((length + 2, None), (n_enc, (length + 1, length + 11))):
+        gen = torch.Generator(device=dev).manual_seed(t_enc)
+        q, k, v = (torch.randn(1, t_enc, 8, 64, generator=gen, device=dev).transpose(1, 2)
+                   for _ in range(3))
+        mask = torch.ones(1, t_enc, dtype=torch.bool, device=dev)
+        if spacer:
+            mask[:, spacer[0]:spacer[1]] = False
+        errs[f"K1 encoder T{t_enc}"] = check_close(
+            f"(e) K1 B1 H8 T{t_enc} D64 float32, {'spacer ' if spacer else ''}mask",
+            fa.grouped_mha(q, k, v, key_mask=mask, sm_scale=1.0),
+            fa.plain_mha(q, k, v, key_mask=mask, sm_scale=1.0), F32_ATOL, F32_RTOL)
+
+    # (f) the float32 K1 at the decoder rows' shape, as the model hands it
+    # q/k/v: (B, T, H, D) memory seen as (B, H, T, D), q pre-scaled; every
+    # key is live on the singles' path, so SDPA is_causal computes the call
+    label, b, h, tt, d = K1_IF1
+    gen = torch.Generator(device=dev).manual_seed(tt)
+    q, k, v = (torch.randn(b, tt, h, d, generator=gen, device=dev).transpose(1, 2)
+               for _ in range(3))
+    q = q * d ** -0.5
+    key_mask = torch.ones(b, tt, dtype=torch.bool, device=dev)
+    kw = dict(key_mask=key_mask, causal=True, sm_scale=1.0)
+    got = fa.grouped_mha(q, k, v, **kw)
+    torch.cuda.synchronize()
+    what = f"B{b} H{h} T{tt} D{d} float32, causal + PAD mask (every key live)"
+    err = check_close(f"(f) K1 {what} ({label})", got, fa.plain_mha(q, k, v, **kw),
+                      F32_ATOL, F32_RTOL)
+    dense = key_mask[:, None, None, :] & torch.ones(tt, tt, dtype=torch.bool, device=dev).tril()
+    fns = {"kernel": lambda: fa.grouped_mha(q, k, v, **kw),
+           "plain": lambda: fa.plain_mha(q, k, v, **kw),
+           "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+               q, k, v, attn_mask=dense, scale=1.0),
+           "sdpa_causal": lambda: torch.nn.functional.scaled_dot_product_attention(
+               q, k, v, is_causal=True, scale=1.0)}
+    times = median_pair(torch, fns, reps=3, inner=5, rounds=1)
+    bnd = bound(4.0 * b * h * d * tt * (tt + 1) / 2, nbytes(q, k, v, got),
+                peak=PEAK_TF32_FLOPS / 3)
+    print(f"  (f) K1 {what}: kernel {times['kernel']:.4f} ms, plain {times['plain']:.4f} ms, "
+          f"SDPA with the dense mask {times['sdpa']:.4f} ms ({sdpa_backend(torch, fns['sdpa'])}), "
+          f"is_causal {times['sdpa_causal']:.4f} ms ({sdpa_backend(torch, fns['sdpa_causal'])}), "
+          f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, 3xTF32 at 495/3 TFLOP/s; {card})")
+    record = dict(label=label, shape=what, ms=times["kernel"], plain_ms=times["plain"],
+                  library_ms=times["sdpa_causal"], sdpa_mask_ms=times["sdpa"], max_abs_err=err,
+                  **bnd)
+    del q, k, v, got, dense
+    torch.cuda.empty_cache()
+
+    # (g) K4 at SaProt-650M's rows, as ESM2's layers call it: (B, T, H, D)
+    # bf16 q/k/v, q pre-scaled, RoPE in the pre-pass, every key live
+    label4, b, h, tt, d = K4_SAPROT
+    gen = torch.Generator(device=dev).manual_seed(tt + 1)
+    q, k, v = (torch.randn(b, tt, h, d, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    q = (q.float() * d ** -0.5).to(torch.bfloat16)
+    mask = torch.ones(b, tt, dtype=torch.bool, device=dev)
+    call = dict(key_mask=mask, sm_scale=1.0, rope_base=10000.0)
+    got = fa.grouped_mha_bthd(q, k, v, **call)
+    torch.cuda.synchronize()
+    what4 = f"B{b} H{h} T{tt} D{d} bf16, mask + RoPE (every key live)"
+    err4 = check_close(f"(g) K4 {what4} ({label4})", got,
+                       fa.plain_mha_bthd(q.float(), k.float(), v.float(), **call),
+                       BF16_ATOL, BF16_RTOL)
+    tr = lambda x: x.transpose(1, 2)  # noqa: E731
+    qr, kr = fa.rope_qk(tr(q), tr(k), 1.0, 10000.0)  # the loop's and SDPA's operands
+    times = median_pair(torch, {
+        "plain": lambda: fa.plain_mha_bthd(q, k, v, **call),
+        "kernel": lambda: fa.grouped_mha_bthd(tr(qr), tr(kr), v, key_mask=mask, sm_scale=1.0),
+        "sdpa": sdpa(torch, qr, kr, tr(v), mask[:, None, None, :]),
+        "call": lambda: fa.grouped_mha_bthd(q, k, v, **call),
+    }, reps=3, inner=5, rounds=1)
+    bnd4 = bound(4.0 * d * h * tt * float(mask.sum()), nbytes(q, k, v, got, mask))
+    print(f"  (g) K4 {what4}: the call (pre-pass + loop) {times['call']:.4f} ms, the loop alone "
+          f"{times['kernel']:.4f} ms, plain {times['plain']:.4f} ms, SDPA on the rotated q/k "
+          f"{times['sdpa']:.4f} ms "
+          f"({sdpa_backend(torch, sdpa(torch, qr, kr, tr(v), mask[:, None, None, :]))}), bound "
+          f"{bnd4['bound_ms']:.4f} ms ({bnd4['bound_by']}; {card})")
+    record4 = dict(label=label4, shape=what4, ms=times["call"], loop_ms=times["kernel"],
+                   plain_ms=times["plain"], library_ms=times["sdpa"], max_abs_err=err4, **bnd4)
+    del q, k, v, qr, kr, got
+    torch.cuda.empty_cache()
+    print(f"  [structure] {time.perf_counter() - phase_t0:.1f} s in all; (e) "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    return {"launches": {name: r["launches"] for name, r in runs.items()}, "k1": record,
+            "k4": record4}
+
+
 def main() -> int:
     try:
         import torch
@@ -4361,10 +4765,11 @@ def main() -> int:
     baselines = phase_baselines(torch, dev, card, fa)
     zoo = phase_zoo(torch, dev, card, fa, check_close)
     mlm = phase_mlm(torch, dev, card, fa, check_close)
+    structure = phase_structure(torch, dev, card, fa, check_close)
 
     if "jax" in sys.modules:
         fail("the port imported jax")
-    # the guard below covers the modules of every phase, phases 15-19's too
+    # the guard below covers the modules of every phase, phases 15-20's too
     missing = [m for m in ("proteingym_tpu_torch.native", "proteingym_tpu_torch.models.hmm",
                            "proteingym_tpu_torch.models.potts",
                            "proteingym_tpu_torch.models.wavenet",
@@ -4377,7 +4782,11 @@ def main() -> int:
                            "proteingym_tpu_torch.models.unirep",
                            "proteingym_tpu_torch.models.esmc", "proteingym_tpu_torch.models.esm3",
                            "proteingym_tpu_torch.models.xtrimo",
-                           "proteingym_tpu_torch.models.carp") if m not in sys.modules]
+                           "proteingym_tpu_torch.models.carp",
+                           "proteingym_tpu_torch.models.gvp_transformer",
+                           "proteingym_tpu_torch.models.protein_mpnn",
+                           "proteingym_tpu_torch.models.saprot",
+                           "proteingym_tpu_torch.ops.tridi") if m not in sys.modules]
     if missing:
         fail(f"modules the phases drive were not loaded: {missing}")
     jax_package = sorted(m for m in sys.modules
@@ -4411,7 +4820,7 @@ def main() -> int:
                "eve": tr_run["eve_launches"], "trancepteve_indel": indel_run["a"]["launches"],
                "tranception_indel": indel_run["a_tranception"]["launches"],
                **trainers["launches"], **baselines["launches"], **zoo["launches"],
-               **mlm["launches"]}
+               **mlm["launches"], **structure["launches"]}
     records = [{
         "name": name,
         "route": "cuda",
@@ -4447,6 +4856,16 @@ def main() -> int:
                         "source": source, "replaces": replaces,
                         "launches": by_path[path]["grouped_attention"],
                         "counter": "grouped_attention", "path": path, **rec})
+    # the float32 K1 at ESM-IF1's decoder rows, with the launches of the esm_if1 path
+    records.append({"name": "grouped_attention:f32_esm_if1", "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": by_path["esm_if1"]["grouped_attention"],
+                    "counter": "grouped_attention", "path": "esm_if1", **structure["k1"]})
+    # K4 at SaProt-650M's rows, with the launches of the saprot path
+    source4, replaces4 = KERNELS["grouped_attention_bthd"]
+    records.append({"name": "grouped_attention_bthd:saprot_650m", "route": "cuda",
+                    "source": source4, "replaces": replaces4,
+                    "launches": by_path["saprot"]["grouped_attention_bthd"],
+                    "counter": "grouped_attention_bthd", "path": "saprot", **structure["k4"]})
     # K2 in float32 at ESM3's rows past 1,024 tokens, with the launches of that path
     source, replaces = KERNELS["flash_attention"]
     records.append({"name": "flash_attention:esm3_long", "route": "cuda", "source": source,

@@ -11,7 +11,8 @@ rows; whole sequences, so indels too), ``gemme`` / ``escott``,
 autoregressive zoo ``progen2``, ``rita``, ``protgpt2``, ``progen3`` and
 ``unirep`` (whole sequences, so indels too), the masked LMs ``esmc``,
 ``esm3`` (structure-conditioned with --structure-dir), ``xtrimopglm``
-(MLM or AR) and ``carp``, plus
+(MLM or AR) and ``carp``, the backbone-conditioned ``esm_if1`` (one chain
+or a complex), ``protein_mpnn`` and ``saprot`` (--structure-dir), plus
 ``score_esm_packed_batch``, the cross-assay packed ESM path.
 
 A scorer is ``scorer(ctx: ScoreContext)`` and returns either ``{column:
@@ -923,3 +924,117 @@ def score_carp(ctx: ScoreContext) -> Dict[str, np.ndarray]:
                                   strategy=ctx.extra.get("scoring_strategy", "masked-marginals"),
                                   chunk=ctx.batch_size)
     return {f"{config.name}_score": scores}
+
+
+# ---------------------------------------------------------------------------
+# The backbone-conditioned scorers: ESM-IF1, ProteinMPNN and SaProt
+# ---------------------------------------------------------------------------
+
+
+@register_scorer("esm_if1")
+def score_esm_if1(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """ESM-IF1 inverse folding (ref esm/compute_fitness_esm_if1.py:33-39):
+    each ``mutated_sequence``'s mean per-token log-likelihood given the
+    assay's backbone in --structure-dir, in ``esm_if1_score`` (the JAX
+    scorer's column; the registry merges ``esmif1_ll``). ``--extra
+    complex_chains=A,B`` conditions on every named chain of the PDB and
+    decodes ``target_chain=`` (A) (the reference's --multichain-backbone).
+    --checkpoint is a preset (``esm_if1_tiny`` the default, ``esm_if1``)
+    with seeded random weights, or fair-esm's ``esm_if1_gvp4_t16_142M_UR50.pt``,
+    its preset found by its encoder layers and width; ``extra["params"]``
+    a state dict in fair-esm's names."""
+    from proteingym_tpu_torch.data.structures import parse_pdb_backbone
+    from proteingym_tpu_torch.models import gvp_transformer as gt
+    from proteingym_tpu_torch.pipeline.checkpoints import _block_count, resolve_preset_state
+
+    config, state = resolve_preset_state(
+        ctx.checkpoint, gt.PRESETS, "esm_if1_tiny", "ESM-IF1",
+        lambda sd: (_block_count(sd, "encoder.layers."),
+                    int(np.asarray(sd["encoder.embed_tokens.weight"]).shape[1])),
+        lambda c: (c.encoder_layers, c.encoder_embed_dim), ctx.extra.get("params"))
+    model = (gt.load_state_dict(state, config, device=ctx.device) if state is not None
+             else gt.init_random(config, seed=0, device=ctx.device))
+    chains = ctx.extra.get("complex_chains")
+    with no_tf32():
+        if chains:
+            pdb = ctx.structure_path()
+            if pdb is None:
+                raise FileNotFoundError(f"No PDB for {ctx.record.DMS_id}")
+            coords = {ch: parse_pdb_backbone(pdb, chain=ch)[0][:, :3]
+                      for ch in str(chains).split(",")}
+            scores = gt.score_sequences_in_complex(
+                model, coords, ctx.extra.get("target_chain", "A"), ctx.mutated_sequences,
+                batch_size=ctx.batch_size)
+        else:
+            scores = gt.score_sequences(model, _load_structure(ctx)[:, :3],
+                                        ctx.mutated_sequences, batch_size=ctx.batch_size)
+    return {"esm_if1_score": scores}
+
+
+@register_scorer("protein_mpnn")
+def score_protein_mpnn(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """ProteinMPNN (ref protein_mpnn/compute_fitness.py:180-230): each
+    ``mutated_sequence``'s -NLL given the backbone in --structure-dir
+    (required), averaged over ``--extra num_seq_per_target=`` (10) random
+    decoding orders drawn from seed 37, in ``pmpnn_ll``. --checkpoint is
+    the preset ``v_48_020`` (the default) with seeded random weights or the
+    reference's ``v_48_020.pt``; ``extra["params"]`` a state dict in its
+    names."""
+    from proteingym_tpu_torch.models import protein_mpnn as mpnn
+    from proteingym_tpu_torch.pipeline.checkpoints import _block_count, resolve_preset_state
+
+    if ctx.structure_dir is None:
+        raise FileNotFoundError("protein_mpnn needs --structure-dir")
+    config, state = resolve_preset_state(
+        ctx.checkpoint, mpnn.PRESETS, "v_48_020", "ProteinMPNN",
+        lambda sd: (_block_count(sd, "encoder_layers."),
+                    int(np.asarray(sd["W_e.weight"]).shape[0])),
+        lambda c: (c.num_encoder_layers, c.hidden_dim), ctx.extra.get("params"))
+    model = (mpnn.load_state_dict(state, config, device=ctx.device) if state is not None
+             else mpnn.init_random(config, seed=0, device=ctx.device))
+    with no_tf32():
+        scores = mpnn.score_sequences(model, _load_structure(ctx), ctx.mutated_sequences,
+                                      n_orders=int(ctx.extra.get("num_seq_per_target", 10)))
+    return {"pmpnn_ll": scores}
+
+
+@register_scorer("saprot")
+def score_saprot(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """SaProt structure-aware masked scoring (ref saprot/compute_fitness.py),
+    in ``SaProt_score``: the 3Di letters of the backbone in --structure-dir
+    (the port's quantizer, ``ops/tridi.py``), or of ``<DMS_id or
+    UniProt_ID>.fasta`` in ``--extra tridi_dir=``; ``vocab_file=`` a
+    published vocab.txt. --checkpoint is a preset (``saprot_35M`` the
+    default, ``saprot_650M``) with seeded random bf16 weights, or a
+    fair-esm-format state dict file, its preset found by its layers and
+    width; ``extra["params"]`` a state dict in those names."""
+    from proteingym_tpu_torch.models import esm2, saprot
+    from proteingym_tpu_torch.pipeline.checkpoints import _block_count, resolve_preset_state
+
+    config, state = resolve_preset_state(
+        ctx.checkpoint, saprot.PRESETS, "saprot_35M", "SaProt",
+        lambda sd: (_block_count(sd, "layers."),
+                    int(np.asarray(sd["embed_tokens.weight"]).shape[1])),
+        lambda c: (c.num_layers, c.embed_dim), ctx.extra.get("params"))
+    vocab = None
+    if ctx.extra.get("vocab_file"):
+        vocab = saprot.SaProtFileVocab(ctx.extra["vocab_file"])
+        if vocab.size != config.alphabet_size:
+            raise ValueError(f"vocab file has {vocab.size} tokens but the checkpoint's "
+                             f"alphabet_size is {config.alphabet_size}")
+    model = (esm2.load_fair_esm_state_dict(state, config, device=ctx.device)
+             if state is not None else esm2.init_random(config, seed=0, device=ctx.device))
+    struc_seq = None
+    if ctx.extra.get("tridi_dir"):
+        for stem in (ctx.record.DMS_id, ctx.record.UniProt_ID):
+            fasta = Path(ctx.extra["tridi_dir"]) / f"{stem}.fasta"
+            if fasta.exists():
+                with open(fasta) as f:
+                    struc_seq = "".join(x.strip() for x in f if not x.startswith(">")).lower()
+                break
+    coords = None if struc_seq is not None else _load_structure(ctx)
+    with no_tf32():
+        scores = saprot.score_assay_saprot(model, ctx.record.target_seq, coords, ctx.mutants,
+                                           struc_seq=struc_seq, batch_size=ctx.batch_size,
+                                           vocab=vocab)
+    return {"SaProt_score": scores}

@@ -308,7 +308,8 @@ def test_models_lists_the_registry(capsys):
     assert {"gemme", "escott", "siterm", "rsalor", "provean"} <= set(names)
     assert {"progen2", "rita", "protgpt2", "progen3", "unirep"} <= set(names)
     assert {"esmc", "esm3", "xtrimopglm", "carp"} <= set(names)
-    assert len(SCORERS) == 26
+    assert {"esm_if1", "protein_mpnn", "saprot"} <= set(names)
+    assert len(SCORERS) == 29
 
 
 # the AR zoo on the CPU: the tiny float32 shapes (head dims 8 and 16), a
@@ -349,7 +350,8 @@ def test_ar_zoo_scorers_through_the_cli(tmp_path, model):
 
 @pytest.mark.parametrize("model", ["gemme", "escott", "siterm", "rsalor", "provean",
                                    "progen2", "rita", "protgpt2", "progen3", "unirep",
-                                   "esmc", "esm3", "xtrimopglm", "carp"])
+                                   "esmc", "esm3", "xtrimopglm", "carp", "esm_if1",
+                                   "protein_mpnn", "saprot"])
 def test_alignment_baselines_on_cuda_without_gpu_raise(tmp_path, monkeypatch, model):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ref, dms_dir, _ = _write_assays(tmp_path, n_assays=1)
@@ -442,3 +444,82 @@ def test_masked_lm_scorers_through_the_cli(tmp_path, run):
     muts = [r["mutant"] for r in rows]
     assert np.isfinite([values[m] for m in muts]).all()
     assert len({values[m] for m in muts}) > len(muts) // 2
+
+
+# the backbone-conditioned scorers, each on one weight set through both CLIs
+# (--device cpu): the port reads a state dict file in the published layout
+# through --checkpoint; the JAX CLI reads ProteinMPNN's the same way, and
+# gets ESM-IF1's and SaProt's through its patched init (it reads only
+# presets and orbax directories for them). (port arguments, JAX arguments,
+# column)
+STRUCTURE_RUNS = {
+    "esm_if1": ([], [], "esm_if1_score"),
+    "esm_if1_complex": (["--extra", "complex_chains=A,B", "target_chain=A"],
+                        ["--extra", "complex_chains=A,B", "target_chain=A"], "esm_if1_score"),
+    "protein_mpnn": (["--extra", "num_seq_per_target=3"], ["--extra", "num_seq_per_target=3"],
+                     "pmpnn_ll"),
+    "saprot": ([], [], "SaProt_score"),
+}
+
+
+@pytest.mark.parametrize("run", sorted(STRUCTURE_RUNS))
+def test_structure_scorers_match_the_jax_cli(tmp_path, monkeypatch, run):
+    import dataclasses
+
+    from proteingym_tpu.models import esm2 as jesm
+    from proteingym_tpu.models import gvp_transformer as jg
+    from proteingym_tpu.models import saprot as js
+    from proteingym_tpu_torch.data.structures import synthetic_helix_backbone, write_pdb_backbone
+    from proteingym_tpu_torch.models import gvp_transformer as tg
+    from proteingym_tpu_torch.models import saprot as ts
+    from tests import test_torch_esm_if1, test_torch_protein_mpnn, test_torch_saprot
+
+    ref, dms_dir, (dms_id,) = _write_assays(tmp_path, n_assays=1)
+    seq = next(r for r in csv.DictReader(open(ref)))["target_seq"]
+    backbone = synthetic_helix_backbone(len(seq), seed=2)
+    backbone[:, 1] += 0.05 * np.random.RandomState(2).randn(len(seq), 3)
+    (tmp_path / "pdb").mkdir()
+    pdb = tmp_path / "pdb" / "P0.pdb"
+    if run == "esm_if1_complex":
+        test_torch_esm_if1.write_complex_pdb(pdb, {
+            "A": (backbone, seq), "B": (synthetic_helix_backbone(12, seed=3) + 11.0, "G" * 12)})
+    else:
+        write_pdb_backbone(pdb, backbone, seq)
+    port_args, jax_args, column = STRUCTURE_RUNS[run]
+    model = "esm_if1" if run.startswith("esm_if1") else run
+    ckpt = tmp_path / "weights.pt"
+    if model == "esm_if1":
+        sd = test_torch_esm_if1.fair_esm_state(tg.PRESETS["esm_if1_tiny"], seed=5)
+        with jax.enable_x64(False):
+            params = jg.convert_torch_state_dict(sd, jg.PRESETS["esm_if1_tiny"])
+        monkeypatch.setattr(jg, "init_params", lambda rng, c: params)
+        jax_args = ["--checkpoint", "esm_if1_tiny", *jax_args]
+        blob = {"model": sd, "args": None}
+    elif model == "protein_mpnn":
+        blob = {"model_state_dict": test_torch_protein_mpnn.reference_state(seed=5)}
+        jax_args = ["--checkpoint", str(ckpt), *jax_args]
+    else:
+        tiny = dataclasses.replace(test_torch_saprot.TTINY, name="saprot_tiny")
+        monkeypatch.setitem(ts.PRESETS, "saprot_tiny", tiny)
+        sd = fair_esm_state(tiny, seed=5)
+        with jax.enable_x64(False):
+            params = jesm.convert_torch_state_dict(sd, test_torch_saprot.JTINY)
+        monkeypatch.setattr(js, "saprot_config", lambda preset="": test_torch_saprot.JTINY)
+        monkeypatch.setattr(jesm, "init_params", lambda rng, c: params)
+        blob = {"model": sd}
+    torch.save({k: ({n: torch.from_numpy(v) for n, v in x.items()} if isinstance(x, dict) else x)
+                for k, x in blob.items()}, ckpt)
+    common = ["--model", model, "--dms-reference", str(ref), "--dms-dir", str(dms_dir),
+              "--structure-dir", str(tmp_path / "pdb"), "--batch-size", "8", "--quiet"]
+    with jax.enable_x64(False):
+        assert jcli.main(["--platform", "cpu", "score", *common, "--output-dir",
+                          str(tmp_path / "jax"), *jax_args]) == 0
+    assert tcli.main(["score", *common, "--device", "cpu", "--output-dir", str(tmp_path / "port"),
+                      "--checkpoint", str(ckpt), *port_args]) == 0
+    want = {r["mutant"]: float(r[column]) for r in _read(tmp_path / "jax" / f"{dms_id}.csv")}
+    got = _read(tmp_path / "port" / f"{dms_id}.csv")
+    assert list(got[0]) == ["mutant", "DMS_score", "mutated_sequence", column]
+    assert [r["mutant"] for r in got] == list(want)
+    values = np.asarray([float(r[column]) for r in got])
+    assert np.isfinite(values).all() and len(set(values)) > len(values) // 2
+    np.testing.assert_allclose(values, [want[r["mutant"]] for r in got], atol=1e-5, rtol=0)

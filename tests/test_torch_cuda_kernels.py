@@ -768,7 +768,7 @@ def test_msa_transformer_forward_goes_through_the_kernel(dev):
 
 def _f32_kwargs(mode, t):
     """The float32 kernel's modes on a (2, t) batch: causal or not, a key
-    mask with an (H, T) bias, segments with their mask, and a batch row
+    mask alone (ESM-IF1's encoder), a key mask with an (H, T) bias, segments with their mask, and a batch row
     whose first 40 keys are masked (its first rows see no live key at or
     before them, so they average v over all T keys)."""
     mask = _lengths_mask(t, [t, t - 7])
@@ -776,7 +776,7 @@ def _f32_kwargs(mode, t):
     dead[1, :40] = False
     seg = torch.zeros(2, t, dtype=torch.int32)
     seg[0, :t // 3], seg[0, t // 3:t - 5], seg[1, :t - 9] = 1, 2, 1
-    return {"causal": {"causal": True}, "full": {},
+    return {"causal": {"causal": True}, "full": {}, "mask": {"key_mask": mask},
             "mask_bias_causal": {"key_mask": mask, "bias": _alibi(3, t), "causal": True},
             "segments": {"segment_ids": seg, "key_mask": seg > 0},
             "segments_causal_rope": {"segment_ids": seg, "key_mask": seg > 0, "causal": True,
@@ -784,7 +784,7 @@ def _f32_kwargs(mode, t):
             "no_live_key_causal": {"key_mask": dead, "causal": True}}[mode]
 
 
-F32_MODES = ("causal", "full", "mask_bias_causal", "segments", "segments_causal_rope",
+F32_MODES = ("causal", "full", "mask", "mask_bias_causal", "segments", "segments_causal_rope",
              "no_live_key_causal")
 
 

@@ -40,6 +40,9 @@ def test_port_imports_without_jax_or_pandas():
         new |= {"proteingym_tpu_torch.data.structures", "proteingym_tpu_torch.msa.columns"}
         new |= {"proteingym_tpu_torch.models." + m for m in ("ar_zoo", "progen3", "unirep")}
         new |= {"proteingym_tpu_torch.models." + m for m in ("esmc", "esm3", "xtrimo", "carp")}
+        new |= {"proteingym_tpu_torch.models." + m for m in ("gvp_transformer", "protein_mpnn",
+                                                             "saprot")}
+        new |= {"proteingym_tpu_torch.ops.tridi"}
         assert new <= set(names), sorted(new - set(names))
         print("ok")
     """)
@@ -61,11 +64,13 @@ def test_native_imports_without_a_compiler(tmp_path):
         from proteingym_tpu_torch.models import gemme, provean, rsalor, siterm
         from proteingym_tpu_torch.models import ar_zoo, progen3, unirep
         from proteingym_tpu_torch.models import carp, esm3, esmc, xtrimo
+        from proteingym_tpu_torch.models import gvp_transformer, protein_mpnn, saprot
         from proteingym_tpu_torch.pipeline import scorers
         assert native._lib is None and native._nj_lib is None
         assert {"hmm", "potts", "evmutation", "site_independent", "wavenet", "gemme", "escott",
                 "siterm", "rsalor", "provean", "progen2", "rita", "protgpt2", "progen3",
-                "unirep", "esmc", "esm3", "xtrimopglm", "carp"} <= set(scorers.SCORERS)
+                "unirep", "esmc", "esm3", "xtrimopglm", "carp", "esm_if1", "protein_mpnn",
+                "saprot"} <= set(scorers.SCORERS)
         print("ok")
     """)], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

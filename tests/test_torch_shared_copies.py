@@ -72,3 +72,23 @@ def test_event_log_writes_the_jax_packages_records(tmp_path):
     assert lines["torch"] == lines["jax"]
     assert [r["event"] for r in lines["torch"]] == [
         "throughput", "phase_start", "phase_end", "phase_start", "phase_error"]
+
+
+def test_structure_vocabularies_equal_the_jax_packages():
+    # the token tables the structure scorers copied: ESM-IF1's alphabet,
+    # ProteinMPNN's, the 3Di letters and SaProt's residue letters
+    from proteingym_tpu.models import gvp_transformer as jg
+    from proteingym_tpu.models import protein_mpnn as jm
+    from proteingym_tpu.models import saprot as js
+    from proteingym_tpu.ops import tridi as jt
+    from proteingym_tpu_torch.models import gvp_transformer as tg
+    from proteingym_tpu_torch.models import protein_mpnn as tm
+    from proteingym_tpu_torch.models import saprot as ts
+    from proteingym_tpu_torch.ops import tridi as tt
+
+    assert tg.IF1_TOKENS == jg.IF1_TOKENS
+    assert (tg.PAD_IDX, tg.MASK_IDX, tg.CATH_IDX, tg.VOCAB) == (jg.PAD_IDX, jg.MASK_IDX,
+                                                              jg.CATH_IDX, jg.VOCAB)
+    assert tm.MPNN_ALPHABET == jm.MPNN_ALPHABET
+    assert tt.TRIDI_VOCAB == jt.TRIDI_VOCAB
+    assert (ts.SEQ_CHARS, ts.STRUC_CHARS, ts.BLOCK) == (js.SEQ_CHARS, js.STRUC_CHARS, js.BLOCK)

@@ -1,0 +1,161 @@
+"""ESM-IF1, ProteinMPNN and SaProt on the card: K1's float32 kernel at
+ESM-IF1's two shapes (the decoder's causal self attention with the PAD
+mask, the encoder's with its padding mask) against its plain version,
+ESM-IF1's log-probs with the kernel against the plain attention per token
+(a causal mask left off must fail that check), its scores, the multichain
+path and ProteinMPNN's scores on the card against the CPU, and SaProt's
+trunk through K4.
+
+Every test needs an NVIDIA GPU (marker ``cuda``) and skips without one.
+The file imports neither jax nor the JAX package:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_structure_cuda.py
+"""
+
+import contextlib
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+from proteingym_tpu_torch.data.structures import synthetic_helix_backbone
+from proteingym_tpu_torch.models import esm2, gvp_transformer as tg, protein_mpnn as tm, saprot
+from proteingym_tpu_torch.ops import flash_attention as fa
+
+pytestmark = pytest.mark.cuda
+
+# float32 without TF32 on both devices: summation order (index_add_'s
+# among it) through a few layers
+F32_ATOL = 1e-4
+# bf16 SaProt trunk, kernel vs plain attention, scores through 2 layers
+BF16_SCORE_ATOL = 5e-2
+AA = "ACDEFGHIKLMNPQRSTVWY"
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _backbone(n, seed):
+    coords = synthetic_helix_backbone(n, seed=seed).astype(np.float32)
+    coords[:, 1] += 0.05 * np.random.RandomState(seed).randn(n, 3).astype(np.float32)
+    return coords
+
+
+def _seqs(n, length, seed):
+    rng = np.random.RandomState(seed)
+    return ["".join(rng.choice(list(AA), length)) for _ in range(n)]
+
+
+# (B, H, T, D, causal): ESM-IF1's decoder rows (250 residues + <cath>, the
+# last token dropped) and its encoder (L + 2 = 252)
+K1_SHAPES = {"decoder": (32, 8, 250, 64, True), "encoder": (1, 8, 252, 64, False)}
+
+
+@pytest.mark.parametrize("shape", sorted(K1_SHAPES))
+def test_k1_at_esm_if1_shapes_matches_plain(shape, dev):
+    b, h, t, d, causal = K1_SHAPES[shape]
+    gen = torch.Generator(device=dev).manual_seed(t)
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev).transpose(1, 2)
+               for _ in range(3))
+    lengths = torch.randint(t - 20, t + 1, (b,), generator=gen, device=dev)
+    mask = torch.arange(t, device=dev)[None] < lengths[:, None]
+    mask[:, 0] = True
+    got = fa.grouped_mha(q, k, v, key_mask=mask, causal=causal, sm_scale=1.0)
+    want = fa.plain_mha(q, k, v, key_mask=mask, causal=causal, sm_scale=1.0)
+    torch.testing.assert_close(got, want, atol=F32_ATOL, rtol=F32_ATOL)
+
+
+# ESM-IF1 at head dim 64 (the published heads), two layers each side
+MID = tg.GVPTransformerConfig(name="mid", encoder_embed_dim=128, decoder_embed_dim=128,
+                              encoder_layers=2, decoder_layers=2, encoder_attention_heads=2,
+                              decoder_attention_heads=2, encoder_ffn_embed_dim=256,
+                              decoder_ffn_embed_dim=256, gvp_node_hidden_dim_scalar=64,
+                              gvp_node_hidden_dim_vector=16, gvp_num_encoder_layers=2)
+
+
+def _tokens(seqs):
+    rows = [tg.tokenize(s) for s in seqs]
+    tok = np.full((len(rows), max(map(len, rows))), tg.PAD_IDX, np.int64)
+    for i, r in enumerate(rows):
+        tok[i, :len(r)] = r
+    return torch.as_tensor(tok)
+
+
+def test_esm_if1_logprobs_through_k1_per_token(dev):
+    """One launch of the float32 K1 per encoder layer and per decoder self
+    attention; the per-token log-probs equal the plain attention's, and the
+    same check fails with the decoder's causal mask left off."""
+    model = tg.init_random(MID, seed=1, device=dev)
+    coords = _backbone(60, seed=1)
+    tok = _tokens(_seqs(6, 60, 1) + _seqs(2, 54, 2)).to(dev)
+
+    def token_logp(attention=None):
+        with torch.no_grad(), (mock.patch.object(tg, "mha", attention) if attention
+                               else contextlib.nullcontext()):
+            enc, pad = tg.encode_structure(model, coords)
+            logp = torch.log_softmax(model.decoder(tok[:, :-1], enc, pad), -1)
+        return logp.gather(-1, tok[:, 1:, None])[..., 0]
+
+    before = dict(fa.LAUNCHES)
+    got = token_logp()
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in fa.LAUNCHES.items() if v != before[k]}
+    assert launched == {"grouped_attention": MID.encoder_layers + MID.decoder_layers}
+    want = token_logp(fa.plain_mha)
+    live = tok[:, 1:] != tg.PAD_IDX
+    torch.testing.assert_close(got[live], want[live], atol=F32_ATOL, rtol=0)
+    leaked = token_logp(lambda q, k, v, causal=False, **kw: fa.plain_mha(q, k, v, **kw))
+    assert float((leaked - want)[live].abs().max()) > 100 * F32_ATOL
+
+
+def test_esm_if1_scores_on_the_card_equal_cpu(dev):
+    cpu = tg.init_random(MID, seed=2, device="cpu")
+    card = tg.load_state_dict(cpu.state_dict(), MID, device=dev)
+    coords = _backbone(70, seed=3)
+    seqs = _seqs(9, 70, 3) + _seqs(1, 72, 4)  # an indel row as long as the encoder
+    want = tg.score_sequences(cpu, coords, seqs, batch_size=4)
+    got = tg.score_sequences(card, coords, seqs, batch_size=4)
+    np.testing.assert_allclose(got, want, atol=F32_ATOL, rtol=0)
+    chains = {"A": coords[:40], "B": _backbone(30, seed=5)[:, :3] + 15.0}
+    short = [s[:40] for s in seqs[:4]]
+    want = tg.score_sequences_in_complex(cpu, chains, "A", short, batch_size=2)
+    got = tg.score_sequences_in_complex(card, chains, "A", short, batch_size=2)
+    np.testing.assert_allclose(got, want, atol=F32_ATOL, rtol=0)
+    assert np.isfinite(want).all()
+
+
+def test_protein_mpnn_scores_on_the_card_equal_cpu(dev):
+    config = tm.PRESETS["v_48_020"]
+    cpu = tm.init_random(config, seed=3, device="cpu")
+    card = tm.load_state_dict(cpu.state_dict(), config, device=dev)
+    coords = synthetic_helix_backbone(80, seed=4).astype(np.float32)
+    seqs = _seqs(5, 80, 5)
+    want = tm.score_sequences(cpu, coords, seqs, n_orders=3)
+    got = tm.score_sequences(card, coords, seqs, n_orders=3)
+    np.testing.assert_allclose(got, want, atol=F32_ATOL, rtol=0)
+    np.testing.assert_allclose(tm.score_sequences(card, coords, seqs, n_orders=3, max_pairs=4),
+                               got, atol=F32_ATOL, rtol=0)
+
+
+def test_saprot_trunk_goes_through_k4(dev):
+    config = esm2.EsmConfig("saprot_mid", 2, 256, 4, alphabet_size=saprot.VOCAB.size)
+    model = esm2.init_random(config, seed=4, device=dev)
+    coords = synthetic_helix_backbone(60, seed=6) + 0.4 * np.random.RandomState(6).randn(60, 4, 3)
+    seq = _seqs(1, 60, 6)[0]
+    muts = [f"{seq[p]}{p + 1}{a}" for p in range(0, 60, 5) for a in "AW" if a != seq[p]]
+    before = dict(fa.LAUNCHES)
+    got = saprot.score_assay_saprot(model, seq, coords, muts, batch_size=8)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in fa.LAUNCHES.items() if v != before[k]}
+    forwards = -(-len(muts) // 8)
+    assert launched == {"grouped_attention_bthd": 2 * forwards, "rope_qk": 2 * forwards}
+    with mock.patch.object(esm2, "mha_natural", fa.plain_mha_bthd):
+        want = saprot.score_assay_saprot(model, seq, coords, muts, batch_size=8)
+    np.testing.assert_allclose(got, want, atol=BF16_SCORE_ATOL, rtol=0)
