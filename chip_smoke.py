@@ -134,7 +134,7 @@ Phases (any failure raises, and the script exits non-zero):
    14's L=250 target and 16,384-row alignment and phase 15's indel assay,
    with no weights file, so K5 runs once on every alignment load and
    nothing else launches a kernel of the port except TranceptEVE's K1: (a)
-   ``train --model eve --steps 10000`` at EVE's default architecture (55M
+   ``train --model eve --steps 2000`` at EVE's default architecture (55M
    parameters, batch 256, float32 without TF32): the reference EVE file,
    steps/s, the loss of the first and last 100 steps, peak memory, then
    ``eve.train`` for 200 steps under torch.profiler (idle share, device
@@ -238,6 +238,31 @@ Phases (any failure raises, and the script exits non-zero):
    (g) K4 at SaProt-650M's rows (B32 H20 T252 D64 bf16, mask + RoPE): the
    call, the loop alone, plain, SDPA and bound, as
    ``grouped_attention_bthd:saprot_650m``.
+21. the structure-conditioned PLMs through the port's CLI at full width
+   with seeded random weights, on phase 14's L=250 target, its singles and
+   phase 20's helix: (a) ``prosst --checkpoint prosst_2048`` (12 x 768,
+   float32) with the 3Di k-means states, one forward and no kernel of the
+   port; (b) the same with ``--extra quantizer_dir=`` holding a seeded
+   ``AE.pt`` at the published size and 2,048 seeded centroids (the
+   quantizer's nodes, edges and seconds); (c) ``venusrem --checkpoint
+   prosst_2048`` with a 16,384-row alignment of the whole target (K5 once)
+   and ``struc_seq_aln_dir=``; (d) ``mulan --checkpoint mulan_small`` on
+   all singles (149 forwards of 32 x 252: 12 float32 K4 and 1 float32 K1
+   each); (e) ``mif`` and ``mif_st``; (f) each legacy method (``prosst`` and
+   ``mulan --extra method=additive``, ``venusrem --extra method=esm``;
+   ESM2-8M in bf16, 6 K4 and 6 rope_qk a forward) on the first 320
+   singles. Each run: the CLI wall and mutants/s, forwards and launches,
+   peak memory, two forwards under the profiler. (g) MULAN-small's
+   per-token log-probs of 8 rows, kernels against the plain attention, the
+   adapter's last key tile skipped shown to fail that check; the card
+   against the CPU at full size: ProSST-2048's log-probs, VenusREM's
+   scores, MULAN-small's scores of 32 singles, MIF's and MIF-ST's logits in
+   float32, the quantizer's embeddings and tokens on 32 anchors. (h) the
+   float32 K4 at MULAN-small's trunk rows (B32 T252 H20 D24, pad mask +
+   RoPE) and the float32 K1 at its adapter's (B32 H20 T252 D24, key mask),
+   each beside plain, SDPA and its 3xTF32 bound, as
+   ``grouped_attention_bthd:f32_mulan`` and
+   ``grouped_attention:f32_mulan_adapter``.
 
 Every phase holds the port to its rule: no module of the JAX package
 (``proteingym_tpu``) may be loaded. It prints one JSON line describing the
@@ -387,12 +412,13 @@ POTTS_CPU_STEPS, POTTS_LOSS_RTOL, POTTS_HJ_RTOL = 3, 1e-4, 2e-3
 # TF32's on the tensor cores: a 3xTF32 product takes three TF32 passes
 PEAK_F32_FLOPS, PEAK_TF32_FLOPS = 67e12, 495e12
 # the shapes of phase 16: phase 14's L=250 target and alignment and phase
-# 15's indel assay; EVE at its default architecture for 5,000 steps (cut
-# for time from train's default of 400,000 and the scorer's 10,000),
+# 15's indel assay; EVE at its default architecture for 2,000 steps (cut
+# for time from train's default of 400,000 and the scorer's 10,000; 5,000
+# before phase 21 came),
 # DeepSequence for 2,000 (cut: time), TranceptEVE on the first 512 of the
 # 4,750 singles (cut: time), Potts at the scorer's 300 steps, WaveNet at
 # its defaults (400 steps)
-TRAINER_SLICE = dict(checkpoint="Large", batch=32, eve_steps=5_000, profiled_steps=200,
+TRAINER_SLICE = dict(checkpoint="Large", batch=32, eve_steps=2_000, profiled_steps=200,
                      deepsequence_steps=2000, deepsequence_samples=2000, trancepteve_mutants=512,
                      eve_num_samples=20_000, potts_steps=300, wavenet_profiled_steps=50)
 # Card against CPU at phase 16's own sizes: the first TRAINER_CPU_STEPS
@@ -517,6 +543,42 @@ IF1_LOGP_ATOL = 1e-4
 # ProteinMPNN's log-probs, SaProt-650M's in a float32 copy; the same run
 # read 3.3e-6, 3.8e-6 and 5.7e-6
 IF1_CPU_ATOL, MPNN_CPU_ATOL, SAPROT_CPU_ATOL = 1e-4, 1e-4, 1e-4
+
+# the shapes of phase 21: phase 14's L=250 target and 4,750 singles on phase
+# 20's helix; ProSST-2048 (12 x 768, float32) with the 3Di k-means states
+# and with its quantizer at the published size (node (256, 32), edge (64,
+# 2), 6 layers; a seeded AE.pt and 2,048 seeded centroids); VenusREM over
+# ProSST-2048 with a 16,384-row alignment of phase 14's generator over all
+# 250 residues (its focus rows as long as the target, so the residue blend
+# runs) and a 64-row structure alignment; MULAN-small (ESM2-35M, float32)
+# on all singles; MIF and MIF-ST; each legacy method (ESM2-8M, bf16) on
+# the first 320 singles (cut: time); MULAN-small per token on 8 rows; the
+# card against the CPU on MULAN-small's first two batches and its ragged
+# last one (4,750 = 148 x 32 + 14) and the quantizer's first 32 anchors
+# (cuts: the CPU's time)
+PLM_SLICE = dict(batch=32, n_seqs=16384, struct_aln_rows=64, legacy_singles=320, logp_rows=8,
+                 mulan_cpu_batches=(0, 1, -1), quantizer_cpu_anchors=32)
+# (label, B, H, T, D) of the float32 K4 on MULAN-small's trunk rows ([CLS] +
+# 250 + [EOS], 20 heads of 24, pad mask + RoPE) and of the float32 K1 on its
+# adapter's (the same rows, key mask, no positions)
+K4_MULAN = ("f32_mulan", 32, 20, 252, 24)
+K1_MULAN = ("f32_mulan_adapter", 32, 20, 252, 24)
+# MULAN-small's per-token log-probs, float32 kernels against the plain
+# attention through the adapter and 12 layers: summation order only, 1.7e-6
+# at most over 8 x 252 tokens on an H100 at 700 W (a chip run of this
+# phase); the adapter's last key tile skipped moves them by 3.6e-3
+MULAN_LOGP_ATOL = 1e-4
+# card against CPU at full size, per element, float32 without TF32 on
+# both: ProSST-2048's log-probs, VenusREM's and MULAN-small's scores, MIF's
+# and MIF-ST's logits (the same run read 2.9e-6, 4.8e-7, 2.0e-6, 7.5e-6 and
+# 1.2e-5); the quantizer's pooled embeddings of unit norm (1.0e-7), and the
+# margin under which two nearest centroids count as tied
+PLM_CPU_ATOL, QUANT_EMB_ATOL, QUANT_MARGIN = 1e-4, 1e-5, 1e-4
+# MIF's and MIF-ST's scores as the CLI gives them (bf16 feed-forwards)
+# against the same bf16 module on the CPU: their bf16 products round apart,
+# so the limit is this factor times the bf16 noise read in the same run,
+# the CPU's bf16 scores' largest distance from those of a float32 copy
+MIF_BF16_FACTOR = 2.0
 
 
 def fail(msg: str) -> None:
@@ -2368,6 +2430,27 @@ def keeping(module, name, kept):
     return mock.patch.object(module, name, wrapper)
 
 
+def counting(box, owner, name):
+    """``owner.name`` patched to add one to ``box[0]`` at each call: the
+    forwards a CLI run makes."""
+    fn = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        box[0] += 1
+        return fn(*args, **kwargs)
+    return mock.patch.object(owner, name, wrapper)
+
+
+def profile_two(torch, fa, forward):
+    """``profile_forwards`` of two no-grad calls of ``forward``."""
+    def fn():
+        with torch.no_grad():
+            forward()
+            forward()
+        return 2
+    return profile_forwards(torch, fa, fn)
+
+
 def cli_score(torch, cli, root, n, model, dms_id, column, counters, batch_size,
               checkpoint=None, flags=(), extra=(), patches=()):
     """One ``score`` run of the port's CLI on the card, on
@@ -3875,15 +3958,6 @@ def phase_mlm(torch, dev, card, fa, check_close):
           f"L={m['long_length']} target ({len(long_muts)} singles); batch {batch}; {card}")
 
     forwards = [0]
-
-    def counting(cls, name):
-        fn = getattr(cls, name)
-
-        def wrapper(self, *args, **kwargs):
-            forwards[0] += 1
-            return fn(self, *args, **kwargs)
-        return mock.patch.object(cls, name, wrapper)
-
     kept = {}
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -3915,7 +3989,7 @@ def phase_mlm(torch, dev, card, fa, check_close):
             r = cli_score(torch, cli, root, len(assays[dms_id][1]), model, dms_id, column,
                           (fa.LAUNCHES, W.LAUNCHES), batch_size, checkpoint,
                           flags=["--structure-dir", str(root / "pdb")] if structure else [],
-                          extra=extra, patches=[counting(*counted), timed, *patches])
+                          extra=extra, patches=[counting(forwards, *counted), timed, *patches])
             return dict(r, forwards=forwards[0], scoring=spans["scoring"])
 
         def report(tag, what, r, want_forwards, per_forward, column, forward=None):
@@ -4274,15 +4348,6 @@ def phase_structure(torch, dev, card, fa, check_close):
           f"L={length} target and its helix (CA noise {s['ca_noise']} A); batch {batch}; {card}")
 
     forwards = [0]
-
-    def counting(cls, name):
-        fn = getattr(cls, name)
-
-        def wrapper(*args, **kwargs):
-            forwards[0] += 1
-            return fn(*args, **kwargs)
-        return mock.patch.object(cls, name, wrapper)
-
     kept, runs, errs = {}, {}, {}
     assays = {"STR_L250": singles, "STR_CPLX": singles[:s["complex_singles"]],
               "STR_MPNN": singles[:s["mpnn_singles"]]}
@@ -4309,16 +4374,8 @@ def phase_structure(torch, dev, card, fa, check_close):
             r = cli_score(torch, cli, root, len(assays[dms_id]), model, dms_id, column,
                           (fa.LAUNCHES, W.LAUNCHES), batch, checkpoint,
                           flags=["--structure-dir", str(root / "pdb")], extra=extra,
-                          patches=[counting(*counted), *patches])
+                          patches=[counting(forwards, *counted), *patches])
             return dict(r, forwards=forwards[0])
-
-        def two(forward):
-            def fn():
-                with torch.no_grad():
-                    forward()
-                    forward()
-                return 2
-            return profile_forwards(torch, fa, fn)
 
         # (a) ESM-IF1 on all singles
         c = gt.PRESETS["esm_if1"]
@@ -4330,7 +4387,7 @@ def phase_structure(torch, dev, card, fa, check_close):
         model = kept.pop("init_random")
         enc, enc_pad = gt.encode_structure(model, helix)
         toks = torch.as_tensor(np.stack([gt.tokenize(seq)] * batch), device=dev)
-        r["profile"] = two(lambda: model.decoder(toks[:, :-1], enc, enc_pad))
+        r["profile"] = profile_two(torch, fa, lambda: model.decoder(toks[:, :-1], enc, enc_pad))
         report_run("a", "esm_if1 --checkpoint esm_if1", r, card, "esm_if1_score",
                    -(-len(singles) // batch), {"grouped_attention": c.decoder_layers},
                    extra_launches={"grouped_attention": c.encoder_layers},
@@ -4369,7 +4426,7 @@ def phase_structure(torch, dev, card, fa, check_close):
         enc, enc_pad = gt.encode_structure(model, gt.concatenate_complex_coords(
             {"A": helix, "B": partner}, "A"))
         toks = torch.as_tensor(np.stack([gt.tokenize(seq)] * batch), device=dev)
-        r["profile"] = two(lambda: model.decoder(toks[:, :-1], enc, enc_pad))
+        r["profile"] = profile_two(torch, fa, lambda: model.decoder(toks[:, :-1], enc, enc_pad))
         del model, enc, toks
         report_run("b", f"esm_if1 complex_chains=A,B (encoder T={n_enc}, 10 spacers)", r, card,
                    "esm_if1_score", -(-len(assays["STR_CPLX"]) // batch),
@@ -4396,7 +4453,8 @@ def phase_structure(torch, dev, card, fa, check_close):
         tok = torch.as_tensor(mpnn.tokenize_sequence(seq), device=dev)
         pairs_tok = tok.expand(per_chunk, -1)
         pairs_ord = orders[torch.arange(per_chunk, device=dev) % s["mpnn_orders"]]
-        r["profile"] = two(lambda: mpnn.decode(model, enc_m, pairs_tok, pairs_ord))
+        r["profile"] = profile_two(torch, fa,
+                                   lambda: mpnn.decode(model, enc_m, pairs_tok, pairs_ord))
         report_run("c", f"protein_mpnn --checkpoint v_48_020, {s['mpnn_orders']} orders", r,
                    card, "pmpnn_ll", -(-n_pairs // per_chunk), {},
                    detail=f"; {n_pairs} pairs in chunks of {per_chunk} -> "
@@ -4428,7 +4486,7 @@ def phase_structure(torch, dev, card, fa, check_close):
         stoks = saprot.VOCAB.tokenize(seq, struc)
         full = torch.as_tensor(stoks, device=dev).expand(batch, -1).clone()
         full[torch.arange(batch), torch.arange(batch) + 1] = saprot.VOCAB.pair_base["#"]
-        r["profile"] = two(lambda: model(full))
+        r["profile"] = profile_two(torch, fa, lambda: model(full))
         report_run("d", "saprot --checkpoint saprot_650M", r, card, "SaProt_score",
                    -(-len(singles) // batch),
                    {"grouped_attention_bthd": sc.num_layers, "rope_qk": sc.num_layers},
@@ -4542,6 +4600,371 @@ def phase_structure(torch, dev, card, fa, check_close):
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
     return {"launches": {name: r["launches"] for name, r in runs.items()}, "k1": record,
             "k4": record4}
+
+
+def phase_structure_plms(torch, dev, card, fa, check_close):
+    """21. The structure-conditioned PLMs through the port's CLI at full
+    width with seeded random weights, on phase 14's L=250 target, its 4,750
+    singles and phase 20's helix (``--structure-dir``): (a) ``prosst
+    --checkpoint prosst_2048`` with the 3Di k-means states (one forward, no
+    kernel of the port); (b) the same with ``quantizer_dir=`` (a seeded
+    ``AE.pt`` at the published size and 2,048 seeded centroids): nodes,
+    edges and seconds of the quantizer; (c) ``venusrem --checkpoint
+    prosst_2048`` with a 16,384-row alignment of the whole target (K5 once)
+    and a structure alignment; (d) ``mulan --checkpoint mulan_small`` on
+    all singles (149 forwards of 32 x 252: 12 float32 K4 and 1 float32 K1
+    each); (e) ``mif`` and ``mif_st``; (f) each legacy method on the first
+    320 singles (ESM2-8M, bf16, K4). Each run: the CLI wall and mutants/s,
+    forwards and launches, peak memory, and two forwards under the
+    profiler. (g) MULAN-small's per-token log-probs of 8 rows, kernels
+    against the plain attention, with the adapter's last key tile skipped
+    shown to fail that check; the card against the CPU at full size:
+    ProSST-2048's log-probs, VenusREM's scores, MULAN-small's scores of a
+    batch, MIF's and MIF-ST's logits in float32, the quantizer's pooled
+    embeddings and tokens on the first 32 anchors (tokens flip only where
+    the two nearest centroids are within QUANT_MARGIN, counted). (h) the
+    float32 K4 at MULAN-small's trunk rows and the float32 K1 at its
+    adapter's, each beside plain, SDPA and its 3xTF32 bound."""
+    from proteingym_tpu_torch.data.structures import (
+        parse_pdb_backbone, synthetic_helix_backbone, write_pdb_backbone,
+    )
+    from proteingym_tpu_torch.models import esm2, mulan, prosst, prosst_quantizer as pq
+    from proteingym_tpu_torch.models import structure_plms as sp
+    from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.msa.parser import load_msa
+    from proteingym_tpu_torch.pipeline import cli
+
+    s = PLM_SLICE
+    batch, length = s["batch"], TRANCEPTION_SLICE["length"]
+    codes = np.random.RandomState(13).randint(1, 21, length)  # phase 14's target
+    seq = "".join(GAP_AA[c] for c in codes)
+    singles = [f"{seq[p]}{p + 1}{a}" for p in range(length) for a in AA if a != seq[p]]
+    helix = synthetic_helix_backbone(length, seed=20)  # phase 20's helix
+    helix[:, 1] += STRUCTURE_SLICE["ca_noise"] * np.random.RandomState(20).randn(length, 3)
+    phase_t0 = time.perf_counter()
+    print(f"[structure PLMs] ProSST-2048 (+ its quantizer), VenusREM, MULAN-small, MIF, MIF-ST "
+          f"(seeded random, full width) on phase 14's L={length} target and phase 20's helix; "
+          f"batch {batch}; {card}")
+
+    forwards = [0]
+    def on_cpu(model, build):
+        """A CPU copy of a card model: ``build("cpu")`` given its state."""
+        cpu = build("cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        return cpu
+
+    kept, runs, errs, spans, graphs = {}, {}, {}, {}, {}
+    legacy = singles[:s["legacy_singles"]]
+    assays = {"PLM_L250": singles, "PLM_LEGACY": legacy}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        for d in ("dms", "pdb", "msa", "weights", "ss_aln", "quantizer"):
+            (root / d).mkdir()
+        for dms_id, rows in assays.items():
+            y = np.random.RandomState(22).randn(len(rows))
+            write_csv_rows(root / "dms" / f"{dms_id}.csv", ["mutant", "DMS_score"],
+                           [[x, repr(float(v))] for x, v in zip(rows, y)])
+            write_pdb_backbone(root / "pdb" / f"{dms_id}.pdb", helix, seq)
+        # phase 14's generator over the whole target: its focus rows are as
+        # long as the target, so VenusREM's residue blend runs
+        write_a2m(root / "msa" / "PLM.a2m", "PLM", synth_family(codes, s["n_seqs"], seed=21))
+        write_csv_rows(root / "reference.csv",
+                       ["DMS_id", "DMS_filename", "UniProt_ID", "target_seq", "seq_len",
+                        "MSA_filename", "MSA_start", "MSA_end", "MSA_theta", "weight_file_name"],
+                       [[dms_id, f"{dms_id}.csv", "SYNTH_PLM", seq, length, "PLM.a2m", 1, length,
+                         0.2, "PLM.npy"] for dms_id in assays])
+        rs = np.random.RandomState(23)
+        ss_rows = ["".join(rs.choice(list(AA + "-"), length)) for _ in range(s["struct_aln_rows"])]
+        (root / "ss_aln" / "PLM_L250.fasta").write_text(
+            "".join(f">s{i}\n{r}\n" for i, r in enumerate(ss_rows)))
+        # a seeded encoder, and 2,048 centroids from its embeddings of 8
+        # seeded helices of 256 residues with CA noise of 0.1-2 A (random
+        # centroids would all lie far from the embeddings, one token for all)
+        qcfg = pq.AutoGraphEncoderConfig()
+        qref = pq.init_random(qcfg, seed=21, device=dev)
+        torch.save({k: v.cpu() for k, v in qref.state_dict().items()},
+                   root / "quantizer" / "AE.pt")
+        cents = []
+        for i, noise in enumerate((0.1, 0.3, 0.5, 0.8, 1.0, 1.3, 1.6, 2.0)):
+            bb = synthetic_helix_backbone(256, seed=30 + i)
+            bb[:, 1] += noise * np.random.RandomState(30 + i).randn(256, 3)
+            cents.append(pq.anchor_embeddings(qref, pq.graph_features(bb)).cpu().numpy())
+        cents = np.concatenate(cents)
+        np.save(root / "quantizer" / "2048.npy", cents)
+        del qref
+        coords = parse_pdb_backbone(root / "pdb" / "PLM_L250.pdb")[0]  # as the CLI reads it
+
+        def run(model, dms_id, column, counted, checkpoint=None, extra=(), patches=(), msa=False):
+            forwards[0] = 0
+            flags = ["--structure-dir", str(root / "pdb")]
+            if msa:
+                flags += ["--msa-dir", str(root / "msa"), "--weights-dir", str(root / "weights")]
+            r = cli_score(torch, cli, root, len(assays[dms_id]), model, dms_id, column,
+                          (fa.LAUNCHES, W.LAUNCHES), batch, checkpoint, flags=flags, extra=extra,
+                          patches=[counting(forwards, *counted), *patches])
+            return dict(r, forwards=forwards[0])
+
+        # (a) ProSST-2048 with the 3Di k-means states: one forward
+        c = prosst.PROSST_PRESETS["prosst_2048"]
+        r = run("prosst", "PLM_L250", "prosst_2048_score", (prosst.ProSST, "forward"),
+                "prosst_2048", patches=[keeping(prosst, "init_random", kept), mock.patch.object(
+                    prosst, "structure_token_ids", spans_of(torch, spans, "states",
+                                                            prosst.structure_token_ids))])
+        model = kept.pop("init_random")
+        states = prosst.structure_token_ids(coords, c.ss_vocab_size - 3)
+        toks = torch.as_tensor(prosst.tokenize_prosst(seq)[None], device=dev)
+        ss = torch.as_tensor(prosst.tokenize_structure_sequence(states)[None], device=dev)
+        r["profile"] = profile_two(torch, fa, lambda: model(toks, ss))
+        report_run("a", "prosst --checkpoint prosst_2048 (3Di k-means states)", r, card,
+                   "prosst_2048_score", 1, {},
+                   detail=f"; {len(set(states))} states in {spans['states']:.2f} s (host)")
+        runs["prosst"] = r
+        cpu = on_cpu(model, lambda d: prosst.init_random(c, device=d))
+        with torch.no_grad():
+            got = torch.log_softmax(model(toks, ss), -1)
+            t0 = time.perf_counter()
+            want = torch.log_softmax(cpu(toks.cpu(), ss.cpu()), -1)
+            cpu_s = time.perf_counter() - t0
+        errs["ProSST card vs CPU"] = check_close(
+            f"(g) ProSST-2048 log-probs of its forward, card vs CPU ({cpu_s:.2f} s on the CPU)",
+            got.cpu(), want, PLM_CPU_ATOL, 0.0)
+
+        # (b) ProSST-2048 with its own quantizer
+        sizes = {}
+
+        def sized(fn):
+            def wrapper(graph, anchors):
+                u = fn(graph, anchors)
+                sizes.update(nodes=len(u["node_s"]), edges=len(u["src"]))
+                return u
+            return wrapper
+
+        r = run("prosst", "PLM_L250", "prosst_2048_score", (prosst.ProSST, "forward"),
+                "prosst_2048", extra=[f"quantizer_dir={root / 'quantizer'}"],
+                patches=[keeping(pq, "load_state_dict", kept),
+                         mock.patch.object(pq, "union_graph", sized(pq.union_graph)),
+                         mock.patch.object(pq, "structure_tokens_from_coords", spans_of(
+                             torch, spans, "quantizer", pq.structure_tokens_from_coords))])
+        qmodel = kept.pop("load_state_dict")
+        graph = pq.graph_features(coords)
+        r["profile"] = profile_two(torch, fa, lambda: pq.anchor_embeddings(qmodel, graph))
+        tokens = pq.structure_tokens_from_coords(coords, qmodel, cents)
+        report_run("b", "prosst --checkpoint prosst_2048, quantizer_dir= (seeded AE.pt, 2,048 "
+                   "centroids)", r, card, "prosst_2048_score", 1, {},
+                   detail=f"; quantizer {sizes['nodes']} nodes, {sizes['edges']} edges in "
+                          f"{length} subgraphs, {spans['quantizer']:.3f} s, {len(set(tokens))} "
+                          "distinct tokens; the profiled forwards are the encoder's")
+        moved = float(np.abs(r["scores"] - runs["prosst"]["scores"]).max())
+        print(f"      the quantizer's tokens move the scores by up to {moved:.4g}")
+        runs["prosst_quantizer"] = r
+        qcpu = on_cpu(qmodel, lambda d: pq.init_random(qcfg, device=d))
+        anchors = range(s["quantizer_cpu_anchors"])
+        with torch.no_grad():
+            emb = pq.anchor_embeddings(qmodel, graph, anchors)
+            emb_cpu = pq.anchor_embeddings(qcpu, graph, anchors)
+        errs["quantizer card vs CPU"] = check_close(
+            f"(g) quantizer pooled embeddings, {len(anchors)} anchors, card vs CPU", emb.cpu(),
+            emb_cpu, QUANT_EMB_ATOL, 0.0)
+        d2 = pq.centroid_distances(emb_cpu, cents)
+        best2 = d2.topk(2, largest=False).values
+        near = (best2[:, 1] - best2[:, 0]) < QUANT_MARGIN
+        flips = pq.centroid_distances(emb, cents).argmin(-1).cpu() != d2.argmin(-1)
+        print(f"      tokens of the first {len(anchors)} anchors: {int(flips.sum())} differ, "
+              f"{int(near.sum())} have their two nearest centroids within {QUANT_MARGIN:g}")
+        if bool((flips & ~near).any()):
+            fail("quantizer: a token differs between the card and the CPU away from a near tie")
+        del qmodel, qcpu
+
+        # (c) VenusREM over ProSST-2048: the alignment's focus rows and a
+        # structure alignment; K5 once (no weights file yet)
+        r = run("venusrem", "PLM_L250", "VenusREM_score", (prosst.ProSST, "forward"),
+                "prosst_2048", extra=[f"struc_seq_aln_dir={root / 'ss_aln'}"], msa=True,
+                patches=[keeping(prosst, "init_random", kept)])
+        vmodel = kept.pop("init_random")
+        r["profile"] = profile_two(torch, fa, lambda: vmodel(toks, ss))
+        report_run("c", f"venusrem --checkpoint prosst_2048 ({s['n_seqs']}-row alignment, "
+                   f"{s['struct_aln_rows']}-row structure alignment)", r, card, "VenusREM_score",
+                   1, {}, extra_launches={"cluster_counts": 1})
+        runs["venusrem"] = r
+        vcpu = on_cpu(vmodel, lambda d: prosst.init_random(c, device=d))
+        focus = load_msa(root / "msa" / "PLM.a2m").sequences()
+        want = prosst.venusrem_score_assay_real(
+            vcpu, seq, states, singles, aa_alignment=([f">msa/1-{length}"], focus),
+            struct_alignment=([">s0"], ss_rows))
+        errs["VenusREM card vs CPU"] = check_close(
+            "(g) VenusREM scores of all singles, card vs CPU", torch.as_tensor(r["scores"]),
+            torch.as_tensor(want), PLM_CPU_ATOL, 0.0)
+        del model, cpu, vmodel, vcpu
+        torch.cuda.empty_cache()
+
+        # (d) MULAN-small on all singles
+        mc = mulan.PRESETS["mulan_small"]
+        r = run("mulan", "PLM_L250", "MULAN_score", (mulan.Mulan, "forward"), "mulan_small",
+                patches=[keeping(mulan, "init_random", kept)])
+        model = kept.pop("init_random")
+        angles = mulan.backbone_angle_features(coords[:, :3])
+        rows = np.tile(esm2.ALPHABET.tokenize(seq)[None], (batch, 1)).astype(np.int64)
+        feats = np.tile(mulan.build_struct_features(angles)[None], (batch, 1, 1))
+        rows[np.arange(batch), np.arange(batch) + 1] = esm2.ALPHABET.mask_idx
+        feats[np.arange(batch), np.arange(batch) + 1] = mulan.MASKED_ANGLE
+        rows_d, feats_d = torch.as_tensor(rows, device=dev), torch.as_tensor(feats, device=dev)
+        r["profile"] = profile_two(torch, fa, lambda: model(rows_d, feats_d))
+        report_run("d", "mulan --checkpoint mulan_small", r, card, "MULAN_score",
+                   -(-len(singles) // batch),
+                   {"grouped_attention_bthd": mc.esm.num_layers, "grouped_attention": 1})
+        runs["mulan"] = r
+        errs["MULAN per token"] = mulan_logp_held(torch, fa, esm2, mulan, model, rows_d, feats_d,
+                                                  s["logp_rows"])
+        cpu = on_cpu(model, lambda d: mulan.init_random(mc, device=d))
+        n_batches = -(-len(singles) // batch)
+        picked = [i for b in s["mulan_cpu_batches"] for i in
+                  range(b % n_batches * batch, min((b % n_batches + 1) * batch, len(singles)))]
+        t0 = time.perf_counter()
+        want = mulan.score_mutants(cpu, seq, angles, [singles[i] for i in picked],
+                                   batch_size=batch)
+        cpu_s = time.perf_counter() - t0
+        errs["MULAN card vs CPU"] = check_close(
+            f"(g) MULAN-small scores of {len(picked)} singles (batches "
+            f"{[b % n_batches for b in s['mulan_cpu_batches']]} of {n_batches}), card vs CPU "
+            f"({cpu_s:.1f} s on the CPU)", torch.as_tensor(r["scores"][picked]),
+            torch.as_tensor(want), PLM_CPU_ATOL, 0.0)
+        del model, cpu, rows_d, feats_d
+        torch.cuda.empty_cache()
+
+        # (e) MIF and MIF-ST: one forward each; the CLI's bf16 scores against
+        # the same module on the CPU, and the logits in float32 copies
+        for variant, column in (("mif", "MIF_score"), ("mif_st", "MIF_ST_score")):
+            r = run(variant, "PLM_L250", column, (sp.Mif, "forward"), variant,
+                    patches=[keeping(sp, "mif_init", kept)])
+            model = kept.pop("mif_init")
+            cfg = sp.MIF_PRESETS[variant]
+            mfeats = torch.as_tensor(sp.mif_structure_features(coords), device=dev)
+            mtoks = torch.as_tensor(sp.carp.CarpTokenizer().encode(seq)[None], dtype=torch.long,
+                                    device=dev)
+            r["profile"] = profile_two(torch, fa, lambda: model(mtoks, mfeats))
+            report_run("e", f"{variant} --checkpoint {variant} ({cfg.num_layers} x "
+                       f"{cfg.embed_dim}, bf16)", r, card, column, 1, {})
+            runs[variant] = r
+            state = {k: v.float() for k, v in model.state_dict().items()}
+            f32 = dataclasses.replace(cfg, dtype=torch.float32)
+            f32_cpu = sp.mif_load_state_dict({k: v.cpu() for k, v in state.items()}, f32,
+                                             device="cpu")
+            with torch.no_grad():
+                got = sp.mif_load_state_dict(state, f32, device=dev)(mtoks, mfeats)
+                want = f32_cpu(mtoks.cpu(), mfeats.cpu())
+            errs[f"{variant} card vs CPU"] = check_close(
+                f"(g) {variant} logits in float32, card vs CPU", got.cpu(), want,
+                PLM_CPU_ATOL, 0.0)
+            exact = sp.mif_score_assay(f32_cpu, coords, seq, singles)
+            bf16_cpu = sp.mif_score_assay(on_cpu(model, lambda d: sp.mif_init(cfg, device=d)),
+                                          coords, seq, singles)
+            noise = float(np.abs(bf16_cpu - exact).max())
+            print(f"      {variant} bf16 scores against the float32 copy's: the CPU's "
+                  f"{noise:.4g} at most, the card's {np.abs(r['scores'] - exact).max():.4g}")
+            errs[f"{variant} bf16 card vs CPU"] = check_close(
+                f"(g) {variant} scores of all singles as the CLI gives them (bf16), card vs CPU",
+                torch.as_tensor(r["scores"]), torch.as_tensor(bf16_cpu),
+                MIF_BF16_FACTOR * noise, 0.0)
+            del model, got, state, f32_cpu
+
+        # (f) the legacy methods over ESM2-8M (bf16, K4 + rope_qk), on the
+        # first singles; VenusREM's reads (c)'s weights file, so no K5
+        e8 = esm2.PRESETS["esm2_t6_8M"]
+        per = {"grouped_attention_bthd": e8.num_layers, "rope_qk": e8.num_layers}
+        n_tab = -(-(length + 2) // batch)  # one masked row per token, batch rows a forward
+        e8_rows = torch.as_tensor(np.tile(esm2.ALPHABET.tokenize(seq)[None], (batch, 1)),
+                                  dtype=torch.long, device=dev)
+        for tag, (model_name, column, extra, msa) in {
+                "prosst_additive": ("prosst", "ProSST_2048_score", ["method=additive"], False),
+                "mulan_additive": ("mulan", "MULAN_score", ["method=additive"], False),
+                "venusrem_esm": ("venusrem", "VenusREM_score", ["method=esm"], True)}.items():
+            r = run(model_name, "PLM_LEGACY", column, (esm2.EsmModel, "forward"), extra=extra,
+                    msa=msa, patches=[keeping(esm2, "init_random", kept)])
+            trunk = kept.pop("init_random")
+            r["profile"] = profile_two(torch, fa, lambda: trunk(e8_rows))
+            report_run("f", f"{model_name} --extra {extra[0]} (ESM2-8M)", r, card, column, n_tab,
+                       per)
+            runs[tag] = r
+
+    # (h) the float32 K4 at MULAN-small's trunk rows and K1 at its adapter's
+    records = {}
+    for key, (label, b, h, tt, d) in (("k4", K4_MULAN), ("k1", K1_MULAN)):
+        gen = torch.Generator(device=dev).manual_seed(tt + d)
+        q, k, v = (torch.randn(b, tt, h, d, generator=gen, device=dev) for _ in range(3))
+        mask = torch.arange(tt, device=dev)[None, :] < torch.tensor(
+            [tt - (i % 4) * 7 for i in range(b)], device=dev)[:, None]
+        tr = lambda x: x.transpose(1, 2)  # noqa: E731
+        if key == "k4":  # ESM2's layers: q pre-scaled, RoPE in the kernel
+            q = q * d ** -0.5
+            call = dict(key_mask=mask, sm_scale=1.0, rope_base=10000.0)
+            kernel = lambda: fa.grouped_mha_bthd(q, k, v, **call)  # noqa: E731
+            plain = lambda: fa.plain_mha_bthd(q, k, v, **call)  # noqa: E731
+            qr, kr = fa.plain_rope_qk(tr(q), tr(k), 1.0, 10000.0)
+            what = f"B{b} T{tt} H{h} D{d} float32, pad mask + RoPE"
+        else:  # the adapter: (B, H, T, D) views of (B, T, H, D) projections, the default scale
+            q, k, v = tr(q), tr(k), tr(v)
+            kernel = lambda: fa.grouped_mha(q, k, v, key_mask=mask)  # noqa: E731
+            plain = lambda: fa.plain_mha(q, k, v, key_mask=mask)  # noqa: E731
+            qr, kr = q * d ** -0.5, k
+            what = f"B{b} H{h} T{tt} D{d} float32, key mask"
+        got = kernel()
+        torch.cuda.synchronize()
+        err = check_close(f"(h) {'K4' if key == 'k4' else 'K1'} {what} ({label})", got, plain(),
+                          F32_ATOL, F32_RTOL)
+        vv = v if key == "k1" else tr(v)
+        lib = sdpa(torch, qr, kr, vv, mask[:, None, None, :])
+        times = median_pair(torch, {"kernel": kernel, "plain": plain, "sdpa": lib}, reps=3,
+                            inner=5, rounds=1)
+        bnd = bound(4.0 * b * h * d * tt * float(mask.sum(-1).float().mean()),
+                    nbytes(q, k, v, got, mask), peak=PEAK_TF32_FLOPS / 3)
+        print(f"  (h) {'K4' if key == 'k4' else 'K1'} {what}: kernel {times['kernel']:.4f} ms, "
+              f"plain {times['plain']:.4f} ms, SDPA with the mask {times['sdpa']:.4f} ms "
+              f"({sdpa_backend(torch, lib)}), bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+              f"3xTF32 at 495/3 TFLOP/s; {card})")
+        records[key] = dict(label=label, shape=what, ms=times["kernel"], plain_ms=times["plain"],
+                            library_ms=times["sdpa"], max_abs_err=err, **bnd)
+        del q, k, v, qr, kr, got
+        torch.cuda.empty_cache()
+    print(f"  [structure PLMs] {time.perf_counter() - phase_t0:.1f} s in all; (g) "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    return {"launches": {name: r["launches"] for name, r in runs.items()}, **records}
+
+
+def mulan_logp_held(torch, fa, esm2, mulan, model, rows, feats, n):
+    """MULAN's per-token log-probs of the first ``n`` masked rows with the
+    kernels (K4 in the trunk, K1 in the adapter) and with the plain
+    attention, held per token within MULAN_LOGP_ATOL; a planted fault, the
+    adapter's last key tile (keys 192-251) skipped, must fail that check.
+    Returns the max |kernel - plain|."""
+    rows, feats = rows[:n], feats[:n]
+    plain = [mock.patch.object(esm2, "mha_natural", fa.plain_mha_bthd),
+             mock.patch.object(mulan, "mha", fa.plain_mha)]
+
+    def last_tile_skipped(q, k, v, key_mask=None, **kw):
+        mask = key_mask.clone()
+        mask[:, 192:] = False
+        return fa.plain_mha(q, k, v, key_mask=mask, **kw)
+
+    def token_logp(patches=()):
+        with torch.no_grad(), contextlib.ExitStack() as stack:
+            for patch in patches:
+                stack.enter_context(patch)
+            logp = torch.log_softmax(model(rows, feats), -1)
+        return logp.gather(-1, rows[..., None])[..., 0]
+
+    counts = dict(fa.LAUNCHES)
+    got = token_logp()
+    fa.LAUNCHES.update(counts)  # the check's launches are not the path's
+    want = token_logp(plain)
+    err = check_close(f"(g) MULAN-small: {n} rows' per-token log-probs, kernels vs plain", got,
+                      want, MULAN_LOGP_ATOL, 0.0)
+    diff = float((token_logp([plain[0], mock.patch.object(mulan, "mha", last_tile_skipped)])
+                  - want).abs().max())
+    print(f"      planted fault, the adapter's last key tile skipped: max |diff| {diff:.4g} a "
+          f"token (limit {MULAN_LOGP_ATOL:g})")
+    if not diff > MULAN_LOGP_ATOL:
+        fail("MULAN: the per-token check did not catch the adapter's skipped key tile")
+    return err
 
 
 def main() -> int:
@@ -4766,10 +5189,11 @@ def main() -> int:
     zoo = phase_zoo(torch, dev, card, fa, check_close)
     mlm = phase_mlm(torch, dev, card, fa, check_close)
     structure = phase_structure(torch, dev, card, fa, check_close)
+    plms = phase_structure_plms(torch, dev, card, fa, check_close)
 
     if "jax" in sys.modules:
         fail("the port imported jax")
-    # the guard below covers the modules of every phase, phases 15-20's too
+    # the guard below covers the modules of every phase, phases 15-21's too
     missing = [m for m in ("proteingym_tpu_torch.native", "proteingym_tpu_torch.models.hmm",
                            "proteingym_tpu_torch.models.potts",
                            "proteingym_tpu_torch.models.wavenet",
@@ -4786,7 +5210,14 @@ def main() -> int:
                            "proteingym_tpu_torch.models.gvp_transformer",
                            "proteingym_tpu_torch.models.protein_mpnn",
                            "proteingym_tpu_torch.models.saprot",
-                           "proteingym_tpu_torch.ops.tridi") if m not in sys.modules]
+                           "proteingym_tpu_torch.ops.tridi",
+                           "proteingym_tpu_torch.models.prosst",
+                           "proteingym_tpu_torch.models.prosst_quantizer",
+                           "proteingym_tpu_torch.models.mulan",
+                           "proteingym_tpu_torch.models.structure_plms",
+                           "proteingym_tpu_torch.ops.gvp", "proteingym_tpu_torch.ops.gnn",
+                           "proteingym_tpu_torch.models.state_dict")
+               if m not in sys.modules]
     if missing:
         fail(f"modules the phases drive were not loaded: {missing}")
     jax_package = sorted(m for m in sys.modules
@@ -4799,7 +5230,7 @@ def main() -> int:
         "grouped_attention": dict(
             max_abs_err=max(max_abs_err, k2["k1_self_err"], msa_run["k1_err"],
                             tr_run["k1_err"], indel_run["k1"]["max_abs_err"], zoo["k1_err"],
-                            mlm["k1_err"]),
+                            mlm["k1_err"], plms["k1"]["max_abs_err"]),
             shape="B8 H16 T4352 D64, 16 segments + causal",
             **{key: k2["k1"][key] for key in k1_keys},
             other_shapes=[{"shape": "B16 H20 T256 D64 mask+rope, pre-pass + loop",
@@ -4820,7 +5251,7 @@ def main() -> int:
                "eve": tr_run["eve_launches"], "trancepteve_indel": indel_run["a"]["launches"],
                "tranception_indel": indel_run["a_tranception"]["launches"],
                **trainers["launches"], **baselines["launches"], **zoo["launches"],
-               **mlm["launches"], **structure["launches"]}
+               **mlm["launches"], **structure["launches"], **plms["launches"]}
     records = [{
         "name": name,
         "route": "cuda",
@@ -4866,6 +5297,12 @@ def main() -> int:
                     "source": source4, "replaces": replaces4,
                     "launches": by_path["saprot"]["grouped_attention_bthd"],
                     "counter": "grouped_attention_bthd", "path": "saprot", **structure["k4"]})
+    # the float32 K4 and K1 at MULAN-small's trunk and adapter, with the launches of the mulan path
+    for rec, counter in ((plms["k4"], "grouped_attention_bthd"), (plms["k1"], "grouped_attention")):
+        src, rep_ = KERNELS[counter]
+        records.append({"name": f"{counter}:{rec['label']}", "route": "cuda", "source": src,
+                        "replaces": rep_, "launches": by_path["mulan"][counter],
+                        "counter": counter, "path": "mulan", **rec})
     # K2 in float32 at ESM3's rows past 1,024 tokens, with the launches of that path
     source, replaces = KERNELS["flash_attention"]
     records.append({"name": "flash_attention:esm3_long", "route": "cuda", "source": source,

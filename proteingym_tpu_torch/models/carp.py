@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Dict, List, Mapping, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +44,8 @@ from torch import nn
 
 from proteingym_tpu_torch.devices import resolve_device
 from proteingym_tpu_torch.models.ar_zoo import matmul_f32
-from proteingym_tpu_torch.models.esm2 import LayerNorm, copy_state_dict
+from proteingym_tpu_torch.models.esm2 import LayerNorm
+from proteingym_tpu_torch.models.state_dict import copy_state_dict
 
 # sequence_models.constants: CAN_AAS + AMB_AAS + OTHER_AAS + specials
 CARP_ALPHABET = list("ACDEFGHIKLMNPQRSTVWYBZXJOU") + ["-", "*", "#", "@"]
@@ -221,10 +222,16 @@ class Carp(nn.Module):
         self.decoder = ConvHolder(FeedForward(d, config.vocab_size, torch.float32,
                                               bias=layout.decoder_bias))
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor,
+                extra_embedding: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``extra_embedding`` (T, D), a per-position conditioning (MIF's
+        structure projection), is cast to the model dtype and added to
+        every row's embedding before the blocks."""
         x = self.embedder.embedder(tokens)
         if hasattr(self.embedder, "up_embedder"):
             x = self.embedder.up_embedder.conv(x)
+        if extra_embedding is not None:
+            x = x + extra_embedding[None].to(x.dtype)
         for block in self.embedder.layers:
             x = block(x)
         if hasattr(self, "last_norm"):
@@ -244,7 +251,13 @@ def init_random(config: CarpConfig, seed: int = 0, device="cuda") -> Carp:
     draws differ): the embedding N(0, 0.02^2), each feed-forward and the
     head N(0, 2 / n_in), each convolution N(0, 2 / (k d/2)), zero biases,
     unit layer-norm scales."""
-    model = _empty_carp(config, native_layout(config), device)
+    return fill_random(_empty_carp(config, native_layout(config), device), seed)
+
+
+@torch.no_grad()
+def fill_random(model: Carp, seed: int) -> Carp:
+    """``init_random``'s draws into the CARP modules of ``model``; modules
+    of other kinds are left as they are."""
     dev = model.decoder.conv.weight.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     for m in model.modules():

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from proteingym_tpu_torch.devices import resolve_device
+from proteingym_tpu_torch.models.state_dict import copy_state_dict
 from proteingym_tpu_torch.ops.flash_attention import KeyTiles, mha_natural
 
 # upper bound on independent sequences per packed row (one-hot width)
@@ -206,13 +207,18 @@ class EsmModel(nn.Module):
         self.lm_head = LMHead(config, device=device)
 
     def forward(self, tokens: torch.Tensor, segment_ids: Optional[torch.Tensor] = None,
-                return_representations: bool = False):
+                return_representations: bool = False,
+                extra_embedding: Optional[torch.Tensor] = None):
         """``segment_ids`` (B, T) int, 0 = padding, 1..S contiguous: each row
         packs independent sequences, each scored as if alone (block-diagonal
         attention, per-segment token-dropout scale, positions restarting per
         segment). With ``return_representations`` returns (logits, reps),
         reps[i] the output of layer i and reps[num_layers] the
-        post-final-LN tensor (fair-esm's convention)."""
+        post-final-LN tensor (fair-esm's convention). ``extra_embedding``, a
+        shared (T', D) or per-row (B, T, D) conditioning (structure
+        adapters; a shared one is cut to the rows' T), is cast to the
+        stored dtype and added to the token embeddings before the token
+        dropout, as in the JAX ``apply``."""
         cfg = self.config
         pad, mask_idx = ALPHABET.padding_idx, ALPHABET.mask_idx
         padding_mask = tokens == pad
@@ -224,6 +230,10 @@ class EsmModel(nn.Module):
             ).float()  # (B, T, S)
 
         x = self.embed_tokens(tokens)
+        if extra_embedding is not None:
+            cond = extra_embedding if extra_embedding.dim() == 3 else \
+                extra_embedding[None, :x.shape[1]]
+            x = x + cond.to(x.dtype)
         if cfg.token_dropout:
             is_masked = tokens == mask_idx
             x = x.masked_fill(is_masked[..., None], 0.0)
@@ -320,23 +330,49 @@ def load_fair_esm_state_dict(state_dict: Mapping, config: EsmConfig,
     return copy_state_dict(_empty_model(config, device), state_dict, config.name)
 
 
-@torch.no_grad()
-def copy_state_dict(model: nn.Module, state_dict: Mapping, name: str) -> nn.Module:
-    """Copy each of the model's tensors from the same-named entry of
-    ``state_dict`` (tensors or numpy arrays, taken through float32). Entries
-    the model does not hold are ignored; one it needs and does not find, or
-    one of another shape, raises (``name`` labels the checkpoint)."""
-    for key, param in model.state_dict().items():
-        if key not in state_dict:
-            raise KeyError(f"checkpoint for {name} lacks {key!r}")
+def convert_hf_esm_state_dict(state_dict: Mapping, config: EsmConfig,
+                              prefix: str = "esm.") -> Dict[str, torch.Tensor]:
+    """A HuggingFace ``EsmForMaskedLM`` state dict (transformers'
+    modeling_esm names under ``prefix``) in the port's fair-esm names, which
+    ``copy_state_dict`` reads. The math is fair-esm's; only the names
+    differ. An untied ``lm_head.decoder.weight`` raises: the head reuses
+    the token embedding, as in the published ESM2 and MULAN releases."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def get(key):
         value = state_dict[key]
-        if not torch.is_tensor(value):
-            value = torch.from_numpy(np.asarray(value, dtype=np.float32))
-        if tuple(value.shape) != tuple(param.shape):
-            raise ValueError(f"{key}: checkpoint shape {tuple(value.shape)}, "
-                             f"model shape {tuple(param.shape)}")
-        param.copy_(value.to(device=param.device, dtype=torch.float32))
-    return model
+        return value if torch.is_tensor(value) else torch.from_numpy(
+            np.asarray(value, dtype=np.float32))
+
+    def copy(ours, theirs):
+        for suffix in ("weight", "bias"):
+            sd[f"{ours}.{suffix}"] = get(f"{theirs}.{suffix}")
+
+    enc = f"{prefix}encoder"
+    for i in range(config.num_layers):
+        p, h = f"layers.{i}", f"{enc}.layer.{i}"
+        copy(f"{p}.self_attn_layer_norm", f"{h}.attention.LayerNorm")
+        for ours, theirs in (("q", "query"), ("k", "key"), ("v", "value")):
+            copy(f"{p}.self_attn.{ours}_proj", f"{h}.attention.self.{theirs}")
+        copy(f"{p}.self_attn.out_proj", f"{h}.attention.output.dense")
+        copy(f"{p}.final_layer_norm", f"{h}.LayerNorm")
+        copy(f"{p}.fc1", f"{h}.intermediate.dense")
+        copy(f"{p}.fc2", f"{h}.output.dense")
+    sd["embed_tokens.weight"] = get(f"{prefix}embeddings.word_embeddings.weight")
+    copy("emb_layer_norm_after", f"{enc}.emb_layer_norm_after")
+    copy("lm_head.dense", "lm_head.dense")
+    copy("lm_head.layer_norm", "lm_head.layer_norm")
+    sd["lm_head.bias"] = get("lm_head.bias")
+    if "lm_head.decoder.weight" in state_dict:
+        dec = get("lm_head.decoder.weight").float()
+        if not torch.allclose(dec, sd["embed_tokens.weight"].float(), atol=1e-6, rtol=0):
+            raise ValueError("HF checkpoint has an untied lm_head.decoder.weight; this "
+                             "converter assumes weight tying with word_embeddings")
+    if not config.use_rotary:
+        sd["embed_positions.weight"] = get(f"{prefix}embeddings.position_embeddings.weight")
+        if config.emb_layer_norm_before:
+            copy("emb_layer_norm_before", f"{prefix}embeddings.layer_norm")
+    return sd
 
 
 def params_from_jax(params, config: EsmConfig) -> Dict[str, torch.Tensor]:

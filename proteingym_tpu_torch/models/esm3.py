@@ -50,7 +50,8 @@ from torch import nn
 
 from proteingym_tpu_torch.models import esmc
 from proteingym_tpu_torch.models.ar_zoo import _empty, _init_normal
-from proteingym_tpu_torch.models.esm2 import LayerNorm, copy_state_dict
+from proteingym_tpu_torch.models.esm2 import LayerNorm
+from proteingym_tpu_torch.models.state_dict import copy_state_dict
 
 # token constants (ref esm/utils/constants/esm3.py:7-40)
 SEQ_BOS, SEQ_PAD, SEQ_EOS = 0, 1, 2

@@ -43,7 +43,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from proteingym_tpu_torch.models.ar_zoo import Linear, _empty, _init_normal, matmul_f32
-from proteingym_tpu_torch.models.esm2 import LayerNorm, copy_state_dict
+from proteingym_tpu_torch.models.esm2 import LayerNorm
+from proteingym_tpu_torch.models.state_dict import copy_state_dict
 from proteingym_tpu_torch.ops.flash_attention import KeyTiles, mha
 from proteingym_tpu_torch.ops.rotary import apply_rotary_bhtd
 

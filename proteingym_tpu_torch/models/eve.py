@@ -41,7 +41,7 @@ from torch import nn
 
 from proteingym_tpu_torch.data.mutants import parse_mutant
 from proteingym_tpu_torch.devices import adam, no_tf32, resolve_device, seeded_generator
-from proteingym_tpu_torch.models.esm2 import copy_state_dict
+from proteingym_tpu_torch.models.state_dict import copy_state_dict
 
 ALPHABET = "ACDEFGHIKLMNPQRSTVWY"
 

@@ -46,7 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from proteingym_tpu_torch.devices import resolve_device
-from proteingym_tpu_torch.models.esm2 import copy_state_dict
+from proteingym_tpu_torch.models.state_dict import copy_state_dict
 from proteingym_tpu_torch.ops.flash_attention import mha
 
 # invariant_gvp alphabet (ref esm/esm/data.py:165-171)

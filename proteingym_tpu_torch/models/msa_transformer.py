@@ -39,7 +39,8 @@ from torch import nn
 
 from proteingym_tpu_torch.data.windows import get_optimal_window
 from proteingym_tpu_torch.devices import resolve_device
-from proteingym_tpu_torch.models.esm2 import ALPHABET, LayerNorm, LMHead, copy_state_dict
+from proteingym_tpu_torch.models.esm2 import ALPHABET, LayerNorm, LMHead
+from proteingym_tpu_torch.models.state_dict import copy_state_dict
 from proteingym_tpu_torch.models.esm_scoring import score_mutants_from_table
 from proteingym_tpu_torch.ops.flash_attention import mha
 

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from proteingym_tpu_torch.devices import adam, no_tf32, resolve_device, seeded_generator
-from proteingym_tpu_torch.models.esm2 import copy_state_dict
+from proteingym_tpu_torch.models.state_dict import copy_state_dict
 
 WAVENET_ALPHABET = "*ACDEFGHIKLMNPQRSTVWYX"  # 0 = BOS/pad
 BOS = 0

@@ -24,6 +24,8 @@ def _load_torch_state_dict(path: Path):
         return blob["model"], blob.get("cfg") or blob.get("args")
     if isinstance(blob, dict) and "model_state_dict" in blob:  # EVE layout
         return blob["model_state_dict"], None
+    if isinstance(blob, dict) and isinstance(blob.get("state_dict"), dict):  # Lightning layout
+        return blob["state_dict"], None
     return blob, None
 
 

@@ -12,7 +12,9 @@ autoregressive zoo ``progen2``, ``rita``, ``protgpt2``, ``progen3`` and
 ``unirep`` (whole sequences, so indels too), the masked LMs ``esmc``,
 ``esm3`` (structure-conditioned with --structure-dir), ``xtrimopglm``
 (MLM or AR) and ``carp``, the backbone-conditioned ``esm_if1`` (one chain
-or a complex), ``protein_mpnn`` and ``saprot`` (--structure-dir), plus
+or a complex), ``protein_mpnn`` and ``saprot`` (--structure-dir), the
+structure-conditioned ``prosst`` (with its GVP quantizer), ``venusrem``,
+``mulan``, ``mif`` and ``mif_st`` (--structure-dir), plus
 ``score_esm_packed_batch``, the cross-assay packed ESM path.
 
 A scorer is ``scorer(ctx: ScoreContext)`` and returns either ``{column:
@@ -1038,3 +1040,239 @@ def score_saprot(ctx: ScoreContext) -> Dict[str, np.ndarray]:
                                            struc_seq=struc_seq, batch_size=ctx.batch_size,
                                            vocab=vocab)
     return {"SaProt_score": scores}
+
+
+# ---------------------------------------------------------------------------
+# The structure-conditioned PLMs: ProSST, VenusREM, MULAN, MIF / MIF-ST
+# ---------------------------------------------------------------------------
+
+
+def _file_in(ctx: ScoreContext, directory, suffix: str) -> Optional[Path]:
+    """``directory/<DMS_id or UniProt_ID><suffix>``, the first that exists."""
+    for stem in (ctx.record.DMS_id, ctx.record.UniProt_ID):
+        path = Path(directory) / f"{stem}{suffix}"
+        if path.exists():
+            return path
+    return None
+
+
+def _prosst_model(ctx: ScoreContext):
+    from proteingym_tpu_torch.models import prosst
+    from proteingym_tpu_torch.pipeline.checkpoints import resolve_preset_state
+
+    config, state = resolve_preset_state(
+        ctx.checkpoint, prosst.PROSST_PRESETS, "prosst_tiny", "ProSST", prosst.state_shape,
+        prosst.config_shape, ctx.extra.get("params"))
+    model = (prosst.load_hf_state_dict(state, config, device=ctx.device) if state is not None
+             else prosst.init_random(config, seed=0, device=ctx.device))
+    return config, model
+
+
+def _structure_fasta_tokens(ctx: ScoreContext):
+    from proteingym_tpu_torch.models import prosst
+
+    sdir = ctx.extra.get("structure_fasta_dir")
+    path = _file_in(ctx, sdir, ".fasta") if sdir else None
+    return prosst.read_structure_sequence_fasta(path) if path is not None else None
+
+
+def _quantizer_tokens(ctx: ScoreContext, k_states: int) -> np.ndarray:
+    """ProSST's own structure tokens: the GVP encoder of ``quantizer_dir/AE.pt``
+    over the backbone, then the nearest of the centroids in
+    ``quantizer_centroids=`` or ``quantizer_dir/<K>.npy`` or ``centroids.npy``."""
+    from proteingym_tpu_torch.models import prosst_quantizer as pq
+    from proteingym_tpu_torch.pipeline.checkpoints import _load_torch_state_dict
+
+    qdir = Path(str(ctx.extra["quantizer_dir"]))
+    if (qdir / "params").exists():
+        raise ValueError(f"{qdir} holds an orbax params/ directory: those are JAX-only; put "
+                         "the vendored AE.pt there")
+    if not (qdir / "AE.pt").exists():
+        raise FileNotFoundError(f"prosst quantizer_dir {qdir} holds no AE.pt")
+    cents = ctx.extra.get("quantizer_centroids")
+    if cents is None:
+        cents = next((p for p in (qdir / f"{k_states}.npy", qdir / "centroids.npy")
+                      if p.exists()), None)
+    if cents is None:
+        raise FileNotFoundError("prosst quantizer_dir given but no centroids found; pass "
+                                "--extra quantizer_centroids=<K.npy>")
+    model = pq.load_state_dict(_load_torch_state_dict(qdir / "AE.pt")[0], device=ctx.device)
+    return pq.structure_tokens_from_coords(_load_structure(ctx), model, pq.load_centroids(cents))
+
+
+@register_scorer("prosst")
+def score_prosst(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """ProSST (ref prosst/compute_fitness.py:15-120): WT marginals over the
+    residue stream with the structure stream fixed, in ``{preset}_score``
+    (the registry merges ``ProSST-{K}``). Structure tokens from ``--extra
+    structure_fasta_dir=`` (ProSST's integer FASTAs), else from
+    ``quantizer_dir=`` (the vendored ``AE.pt`` GVP encoder and ``{K}.npy``
+    or ``centroids.npy`` k-means centroids, or ``quantizer_centroids=``)
+    over the backbone in --structure-dir, else the 3Di k-means states.
+    --checkpoint is a preset (``prosst_tiny`` the default, ``prosst_{20,
+    128, 512, 1024, 2048, 4096}``) with seeded random weights or an HF
+    state dict file, its preset found by layers, width and structure
+    vocabulary; ``extra["params"]`` an HF-named state dict. ``--extra
+    method=additive`` is the legacy scorer: ``esm_checkpoint=``
+    (``esm2_t6_8M``) with a ``k_structure=`` (2048) state table, in
+    ``ProSST_{k}_score``."""
+    from proteingym_tpu_torch.models import prosst
+
+    if ctx.extra.get("method") == "additive":
+        from proteingym_tpu_torch.models import esm2
+
+        esm_config = esm2.PRESETS.get(ctx.extra.get("esm_checkpoint", "esm2_t6_8M"),
+                                      esm2.PRESETS["esm2_t6_8M"])
+        k = int(ctx.extra.get("k_structure", 2048))
+        model = prosst.prosst_init(esm_config, k_structure=k, seed=0, device=ctx.device)
+        with no_tf32():
+            scores = prosst.score_assay_prosst(model, _load_structure(ctx), ctx.record.target_seq,
+                                               ctx.mutants, k_structure=k, chunk=ctx.batch_size)
+        return {f"ProSST_{k}_score": scores}
+
+    config, model = _prosst_model(ctx)
+    seq = ctx.record.target_seq
+    k_states = config.ss_vocab_size - 3
+    with no_tf32():
+        tokens = _structure_fasta_tokens(ctx)
+        if tokens is None and ctx.extra.get("quantizer_dir"):
+            tokens = _quantizer_tokens(ctx, k_states)
+        if tokens is None:
+            tokens = prosst.structure_token_ids(_load_structure(ctx), k_states)
+        scores = prosst.score_assay_prosst_real(model, seq, tokens[:len(seq)], ctx.mutants)
+    return {f"{config.name}_score": scores}
+
+
+@register_scorer("venusrem")
+def score_venusrem(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """VenusREM (ref venusrem/compute_fitness.py): ProSST's WT log-probs
+    blended with alignment column distributions, in ``VenusREM_score`` (the
+    registry merges ``VenusREM``). The residue alignment from ``--extra
+    aa_seq_aln_dir=`` (FASTAs with '>name/a-b' headers), else the assay
+    MSA's focus rows when they are as long as the target; the structure
+    alignment from ``struc_seq_aln_dir=``; structure tokens as ``prosst``
+    finds them without a quantizer; ``alpha=`` (0.8). --checkpoint as for
+    ``prosst`` (published: ProSST-2048). ``--extra method=esm`` is the
+    legacy ESM blend over ``esm_checkpoint=`` (``esm2_t6_8M``)."""
+    from proteingym_tpu_torch.models import prosst
+
+    if ctx.extra.get("method") == "esm":
+        from proteingym_tpu_torch.models.structure_plms import venusrem_score_assay
+        from proteingym_tpu_torch.pipeline.checkpoints import load_esm_checkpoint
+
+        model, _ = load_esm_checkpoint(ctx.extra.get("esm_checkpoint", "esm2_t6_8M"),
+                                       device=ctx.device)
+        seq_aln = None
+        if ctx.msa_dir is not None and ctx.record.MSA_filename:
+            seq_aln = ctx.load_msa().sequences()
+        with no_tf32():
+            scores = venusrem_score_assay(model, ctx.record.target_seq, ctx.mutants,
+                                          seq_alignment=seq_aln, chunk=ctx.batch_size)
+        return {"VenusREM_score": scores}
+
+    config, model = _prosst_model(ctx)
+    seq = ctx.record.target_seq
+    aa_aln = None
+    if ctx.extra.get("aa_seq_aln_dir"):
+        path = _file_in(ctx, ctx.extra["aa_seq_aln_dir"], ".fasta")
+        aa_aln = prosst.read_alignment_fasta(path) if path is not None else None
+    elif ctx.msa_dir is not None and ctx.record.MSA_filename:
+        # the assay MSA's focus rows, aligned to the target and of one length
+        fseqs = ctx.load_msa().sequences()
+        if fseqs and len(fseqs[0]) == len(seq):
+            aa_aln = ([f">msa/1-{len(seq)}"], fseqs)
+    struct_aln = None
+    if ctx.extra.get("struc_seq_aln_dir"):
+        path = _file_in(ctx, ctx.extra["struc_seq_aln_dir"], ".fasta")
+        struct_aln = prosst.read_alignment_fasta(path) if path is not None else None
+    with no_tf32():
+        tokens = _structure_fasta_tokens(ctx)
+        if tokens is None:
+            tokens = prosst.structure_token_ids(_load_structure(ctx), config.ss_vocab_size - 3)
+        scores = prosst.venusrem_score_assay_real(
+            model, seq, tokens[:len(seq)], ctx.mutants, aa_alignment=aa_aln,
+            struct_alignment=struct_aln, alpha=float(ctx.extra.get("alpha", 0.8)))
+    return {"VenusREM_score": scores}
+
+
+@register_scorer("mulan")
+def score_mulan(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """MULAN (ref mulan/compute_fitness.py): the masked mutant's probability
+    ratio with the backbone's angles in the adapter, in ``MULAN_score``.
+    phi and psi come from --structure-dir's backbone, chi1-5 stay at the
+    NaN fill, unless ``--extra angles_dir=`` holds ``<DMS_id or
+    UniProt_ID>.npy`` (L, 7) radians. --checkpoint is a preset
+    (``mulan_tiny`` the default, ``mulan_small``) with seeded random
+    weights or a ``StructEsmForMaskedLM`` state dict file, its preset found
+    by the trunk's layers and width; ``extra["params"]`` such a state dict.
+    ``--batch-size`` mutants a forward. ``--extra method=additive`` is the
+    legacy scorer: the ESM2 preset --checkpoint names (``esm2_t6_8M``) with
+    a linear dihedral adapter, masked marginals."""
+    from proteingym_tpu_torch.models import esm2, mulan
+    from proteingym_tpu_torch.pipeline.checkpoints import _block_count, resolve_preset_state
+
+    if ctx.extra.get("method") == "additive":
+        from proteingym_tpu_torch.models.structure_plms import mulan_init, mulan_score_assay
+
+        config = esm2.PRESETS.get(ctx.checkpoint or "esm2_t6_8M", esm2.PRESETS["esm2_t6_8M"])
+        model = mulan_init(config, seed=0, device=ctx.device)
+        with no_tf32():
+            scores = mulan_score_assay(model, _load_structure(ctx), ctx.record.target_seq,
+                                       ctx.mutants, chunk=ctx.batch_size)
+        return {"MULAN_score": scores}
+
+    config, state = resolve_preset_state(
+        ctx.checkpoint, mulan.PRESETS, "mulan_tiny", "MULAN",
+        lambda sd: (_block_count(sd, "esm.encoder.layer."),
+                    int(np.shape(sd["esm.embeddings.word_embeddings.weight"])[1])),
+        lambda c: (c.esm.num_layers, c.esm.embed_dim), ctx.extra.get("params"))
+    model = (mulan.load_torch_state_dict(state, config, device=ctx.device) if state is not None
+             else mulan.init_random(config, seed=0, device=ctx.device))
+    angles = None
+    if ctx.extra.get("angles_dir"):
+        path = _file_in(ctx, ctx.extra["angles_dir"], ".npy")
+        angles = np.load(path) if path is not None else None
+    if angles is None:
+        angles = mulan.backbone_angle_features(_load_structure(ctx)[:, :3])
+    with no_tf32():
+        scores = mulan.score_mutants(model, ctx.record.target_seq, angles, ctx.mutants,
+                                     batch_size=ctx.batch_size)
+    return {"MULAN_score": scores}
+
+
+def _score_mif(ctx: ScoreContext, variant: str, column: str) -> Dict[str, np.ndarray]:
+    from proteingym_tpu_torch.models import structure_plms as sp
+    from proteingym_tpu_torch.pipeline.checkpoints import _block_count, resolve_preset_state
+
+    coords = _load_structure(ctx)
+    config, state = resolve_preset_state(
+        ctx.checkpoint, sp.MIF_PRESETS, variant, "MIF",
+        lambda sd: (_block_count(sd, "embedder.layers."),
+                    int(np.shape(sd["decoder.conv.weight"])[1])),
+        lambda c: (c.num_layers, c.embed_dim), ctx.extra.get("params"))
+    model = (sp.mif_load_state_dict(state, config, device=ctx.device) if state is not None
+             else sp.mif_init(config, seed=0, device=ctx.device))
+    with no_tf32():
+        scores = sp.mif_score_assay(model, coords, ctx.record.target_seq, ctx.mutants)
+    return {column: scores}
+
+
+@register_scorer("mif")
+def score_mif(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """MIF masked inverse folding (ref carp_mif/compute_fitness.py:31-48):
+    CARP with the backbone's structure features (--structure-dir) added to
+    its embeddings, WT marginals over the mutated positions' mean, in
+    ``MIF_score`` (the registry merges ``mif_score``). --checkpoint is a
+    preset (``mif`` the default: 8 x 256, dilations to 32; ``mif_st``) with
+    seeded random weights, or a state dict file in the model's names (its
+    preset found by blocks and width); ``extra["params"]`` such a state
+    dict. A literal WT row fails, as in the JAX scorer."""
+    return _score_mif(ctx, "mif", "MIF_score")
+
+
+@register_scorer("mif_st")
+def score_mif_st(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """MIF-ST: ``mif`` with the sequence-transfer trunk (default preset
+    ``mif_st``: 16 x 512, dilations to 64), in ``MIF_ST_score`` (the
+    registry merges ``mifst_score``)."""
+    return _score_mif(ctx, "mif_st", "MIF_ST_score")

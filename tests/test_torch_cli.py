@@ -309,7 +309,8 @@ def test_models_lists_the_registry(capsys):
     assert {"progen2", "rita", "protgpt2", "progen3", "unirep"} <= set(names)
     assert {"esmc", "esm3", "xtrimopglm", "carp"} <= set(names)
     assert {"esm_if1", "protein_mpnn", "saprot"} <= set(names)
-    assert len(SCORERS) == 29
+    assert {"prosst", "venusrem", "mulan", "mif", "mif_st"} <= set(names)
+    assert len(SCORERS) == 34
 
 
 # the AR zoo on the CPU: the tiny float32 shapes (head dims 8 and 16), a
@@ -523,3 +524,119 @@ def test_structure_scorers_match_the_jax_cli(tmp_path, monkeypatch, run):
     values = np.asarray([float(r[column]) for r in got])
     assert np.isfinite(values).all() and len(set(values)) > len(values) // 2
     np.testing.assert_allclose(values, [want[r["mutant"]] for r in got], atol=1e-5, rtol=0)
+
+
+# the structure-conditioned PLMs, each on one weight set through both CLIs
+# (--device cpu, float32): the port reads a state dict file in the published
+# layout through --checkpoint (ProSST's HF names, MULAN's
+# StructEsmForMaskedLM, MIF's own), the JAX CLI gets the same weights through
+# its patched init; the legacy methods' inits are patched on both sides, and
+# MIF's presets are narrowed to 3 x 32 float32 on both. (port arguments, JAX
+# arguments, column)
+STRUCTURE_PLM_RUNS = {
+    "prosst": ([], ["--checkpoint", "prosst_tiny"], "prosst_tiny_score"),
+    "prosst_additive": (["--extra", "method=additive", "esm_checkpoint=esm2_tiny", "k_structure=8"],
+                        ["--extra", "method=additive", "esm_checkpoint=esm2_tiny",
+                         "k_structure=8"], "ProSST_8_score"),
+    "venusrem": (["--extra", "struc_seq_aln_dir=aln"], ["--extra", "struc_seq_aln_dir=aln"],
+                 "VenusREM_score"),
+    "venusrem_esm": (["--extra", "method=esm", "esm_checkpoint=esm2_tiny:ckpt"],
+                     ["--extra", "method=esm", "esm_checkpoint=esm2_tiny:ckpt"], "VenusREM_score"),
+    "mulan": ([], [], "MULAN_score"),
+    "mulan_additive": (["--checkpoint", "esm2_tiny", "--extra", "method=additive"],
+                       ["--checkpoint", "esm2_tiny", "--extra", "method=additive"], "MULAN_score"),
+    "mif": ([], [], "MIF_score"),
+    "mif_st": ([], [], "MIF_ST_score"),
+}
+
+
+@pytest.mark.parametrize("run", sorted(STRUCTURE_PLM_RUNS))
+def test_structure_plm_scorers_match_the_jax_cli(tmp_path, monkeypatch, run):
+    import dataclasses
+
+    from proteingym_tpu.models import carp as jc
+    from proteingym_tpu.models import mulan as jm
+    from proteingym_tpu.models import prosst as jp
+    from proteingym_tpu.models import structure_plms as jsp
+    from proteingym_tpu_torch.data.structures import synthetic_helix_backbone, write_pdb_backbone
+    from proteingym_tpu_torch.models import mulan as tm
+    from proteingym_tpu_torch.models import prosst as tp
+    from proteingym_tpu_torch.models import structure_plms as tsp
+    from tests import test_torch_mulan, test_torch_prosst, test_torch_structure_plms
+
+    ref, dms_dir, (dms_id,) = _write_assays(tmp_path, n_assays=1)
+    seq = next(r for r in csv.DictReader(open(ref)))["target_seq"]
+    backbone = synthetic_helix_backbone(len(seq), seed=2)
+    backbone[:, 1] += 0.05 * np.random.RandomState(2).randn(len(seq), 3)
+    (tmp_path / "pdb").mkdir()
+    write_pdb_backbone(tmp_path / "pdb" / "P0.pdb", backbone, seq)
+    port_args, jax_args, column = STRUCTURE_PLM_RUNS[run]
+    model = run.split("_")[0] if run != "mif_st" else run
+    ckpt = tmp_path / "weights.pt"
+    state = None
+    if run in ("prosst", "venusrem"):
+        sd = test_torch_prosst.hf_state(seed=5)
+        params, _ = test_torch_prosst.both(sd)
+        monkeypatch.setattr(jp, "prosst_init_params", lambda rng, c: params)
+        state = sd
+        rows = ["".join(np.random.default_rng(i).choice(list(AA), len(seq))) for i in range(6)]
+        (tmp_path / "aln").mkdir()
+        (tmp_path / "aln" / f"{dms_id}.fasta").write_text(
+            "".join(f">r{i}\n{r}\n" for i, r in enumerate(rows)))
+    elif run == "prosst_additive":
+        params, net = test_torch_prosst.legacy_additive(seed=5)
+        monkeypatch.setattr(jp, "prosst_init", lambda rng, c, k_structure: params)
+        monkeypatch.setattr(tp, "prosst_init", lambda c, k_structure, seed, device: net)
+    elif run == "venusrem_esm":
+        _save_checkpoint(ckpt, 5)
+    elif run == "mulan":
+        tiny = tm.PRESETS["mulan_tiny"]
+        sd = test_torch_mulan.struct_esm_state(tiny, seed=5)
+        with jax.enable_x64(False):
+            params = jm.convert_torch_state_dict(sd, jm.MulanConfig(
+                esm=dataclasses.replace(test_torch_mulan.JC.esm, num_layers=6, embed_dim=320,
+                                        num_heads=20)))
+        monkeypatch.setattr(jm, "init_params", lambda rng, c: params)
+        state = sd
+    elif run == "mulan_additive":
+        from proteingym_tpu_torch.models import esm2 as tesm
+
+        with jax.enable_x64(False):
+            params = jax.device_get(jsp.mulan_init(jax.random.PRNGKey(5),
+                                                   test_torch_prosst.JESM))
+        net = tsp.AngleConditionedEsm(tesm.load_fair_esm_state_dict(
+            tesm.params_from_jax(params, tesm.PRESETS["esm2_tiny"]), tesm.PRESETS["esm2_tiny"],
+            device="cpu"))
+        adapter = params["angle_adapter"]
+        net.angle_adapter.weight.data.copy_(torch.from_numpy(np.array(adapter["w"]).T))
+        net.angle_adapter.bias.data.copy_(torch.from_numpy(np.array(adapter["b"])))
+        monkeypatch.setattr(jsp, "mulan_init", lambda rng, c: params)
+        monkeypatch.setattr(tsp, "mulan_init", lambda c, seed, device: net)
+    else:
+        narrow = test_torch_structure_plms
+        params, net = narrow.native(seed=5)
+        monkeypatch.setattr(jc, "CarpConfig",
+                            lambda name, *a, **k: dataclasses.replace(narrow.JCFG, name=name))
+        monkeypatch.setattr(jsp, "mif_init", lambda rng, c, feat_dim: params)
+        monkeypatch.setattr(tsp, "MIF_PRESETS", {v: dataclasses.replace(narrow.TCFG, name=v)
+                                                 for v in ("mif", "mif_st")})
+        state = net.state_dict()
+    if state is not None:
+        torch.save({k: torch.as_tensor(v) for k, v in state.items()}, ckpt)
+        port_args = ["--checkpoint", str(ckpt), *port_args]
+    fix = lambda args: [a.replace("=aln", f"={tmp_path / 'aln'}").replace(":ckpt", f":{ckpt}")
+                        for a in args]  # noqa: E731
+    common = ["--model", model, "--dms-reference", str(ref), "--dms-dir", str(dms_dir),
+              "--structure-dir", str(tmp_path / "pdb"), "--batch-size", "8", "--quiet"]
+    with jax.enable_x64(False):
+        assert jcli.main(["--platform", "cpu", "score", *common, "--output-dir",
+                          str(tmp_path / "jax"), *fix(jax_args)]) == 0
+    assert tcli.main(["score", *common, "--device", "cpu", "--output-dir", str(tmp_path / "port"),
+                      *fix(port_args)]) == 0
+    want = {r["mutant"]: float(r[column]) for r in _read(tmp_path / "jax" / f"{dms_id}.csv")}
+    got = _read(tmp_path / "port" / f"{dms_id}.csv")
+    assert list(got[0]) == ["mutant", "DMS_score", "mutated_sequence", column]
+    assert [r["mutant"] for r in got] == list(want)
+    values = np.asarray([float(r[column]) for r in got])
+    assert np.isfinite(values).all() and len(set(values)) > len(values) // 2
+    np.testing.assert_allclose(values, [want[r["mutant"]] for r in got], atol=1e-4, rtol=0)

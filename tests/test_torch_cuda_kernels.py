@@ -249,6 +249,9 @@ BTHD_CASES = {
     "all_masked_row": (2, 100, 4, 32, {"key_mask": torch.stack(
         [torch.ones(100, dtype=torch.bool), torch.zeros(100, dtype=torch.bool)])}),
     "hd24_scale": (2, 77, 4, 24, {"sm_scale": 0.3, "rope_base": 10000.0}),
+    # MULAN-small's trunk: 20 heads of 24, each row its own pad tail, RoPE
+    "hd24_mask_rope": (4, 252, 20, 24, {"key_mask": _lengths_mask(252, [252, 240, 131, 30]),
+                                        "rope_base": 10000.0}),
     "hd128_T1024": (1, 1024, 2, 128, {"rope_base": 10000.0,
                                       "key_mask": _lengths_mask(1024, [1000])}),
 }

@@ -43,6 +43,10 @@ def test_port_imports_without_jax_or_pandas():
         new |= {"proteingym_tpu_torch.models." + m for m in ("gvp_transformer", "protein_mpnn",
                                                              "saprot")}
         new |= {"proteingym_tpu_torch.ops.tridi"}
+        new |= {"proteingym_tpu_torch.models." + m for m in ("prosst", "prosst_quantizer", "mulan",
+                                                             "structure_plms")}
+        new |= {"proteingym_tpu_torch.ops.gvp", "proteingym_tpu_torch.ops.gnn",
+                "proteingym_tpu_torch.models.state_dict"}
         assert new <= set(names), sorted(new - set(names))
         print("ok")
     """)
@@ -65,12 +69,13 @@ def test_native_imports_without_a_compiler(tmp_path):
         from proteingym_tpu_torch.models import ar_zoo, progen3, unirep
         from proteingym_tpu_torch.models import carp, esm3, esmc, xtrimo
         from proteingym_tpu_torch.models import gvp_transformer, protein_mpnn, saprot
+        from proteingym_tpu_torch.models import mulan, prosst, prosst_quantizer, structure_plms
         from proteingym_tpu_torch.pipeline import scorers
         assert native._lib is None and native._nj_lib is None
         assert {"hmm", "potts", "evmutation", "site_independent", "wavenet", "gemme", "escott",
                 "siterm", "rsalor", "provean", "progen2", "rita", "protgpt2", "progen3",
                 "unirep", "esmc", "esm3", "xtrimopglm", "carp", "esm_if1", "protein_mpnn",
-                "saprot"} <= set(scorers.SCORERS)
+                "saprot", "prosst", "venusrem", "mulan", "mif", "mif_st"} <= set(scorers.SCORERS)
         print("ok")
     """)], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

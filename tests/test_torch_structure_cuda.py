@@ -1,10 +1,13 @@
-"""ESM-IF1, ProteinMPNN and SaProt on the card: K1's float32 kernel at
+"""ESM-IF1, ProteinMPNN, SaProt and MULAN on the card: K1's float32 kernel at
 ESM-IF1's two shapes (the decoder's causal self attention with the PAD
 mask, the encoder's with its padding mask) against its plain version,
 ESM-IF1's log-probs with the kernel against the plain attention per token
 (a causal mask left off must fail that check), its scores, the multichain
-path and ProteinMPNN's scores on the card against the CPU, and SaProt's
-trunk through K4.
+path and ProteinMPNN's scores on the card against the CPU, SaProt's
+trunk through K4, and a toy MULAN (its float32 trunk on K4, its adapter on
+K1 in "mask" mode, both at head dim 24) per token against the plain
+attention, with the adapter's last key tile skipped shown to fail that
+check.
 
 Every test needs an NVIDIA GPU (marker ``cuda``) and skips without one.
 The file imports neither jax nor the JAX package:
@@ -20,7 +23,8 @@ import pytest
 import torch
 
 from proteingym_tpu_torch.data.structures import synthetic_helix_backbone
-from proteingym_tpu_torch.models import esm2, gvp_transformer as tg, protein_mpnn as tm, saprot
+from proteingym_tpu_torch.models import esm2, gvp_transformer as tg, mulan, protein_mpnn as tm
+from proteingym_tpu_torch.models import saprot
 from proteingym_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
@@ -159,3 +163,47 @@ def test_saprot_trunk_goes_through_k4(dev):
     with mock.patch.object(esm2, "mha_natural", fa.plain_mha_bthd):
         want = saprot.score_assay_saprot(model, seq, coords, muts, batch_size=8)
     np.testing.assert_allclose(got, want, atol=BF16_SCORE_ATOL, rtol=0)
+
+
+def test_mulan_logprobs_through_k1_and_k4_per_token(dev):
+    import dataclasses
+
+    # 2 layers of 8 heads of 24 (the published model: 20 of 24), float32
+    trunk = esm2.EsmConfig("mulan_toy", 2, 192, 8, dtype=torch.float32)
+    config = dataclasses.replace(mulan.PRESETS["mulan_small"], name="mulan_toy", esm=trunk)
+    model = mulan.init_random(config, seed=7, device=dev)
+    seq = _seqs(1, 250, 7)[0]
+    angles = mulan.backbone_angle_features(_backbone(250, 7))
+    toks = np.tile(esm2.ALPHABET.tokenize(seq)[None], (8, 1)).astype(np.int64)
+    feats = np.tile(mulan.build_struct_features(angles)[None], (8, 1, 1))
+    for i in range(8):  # each row a masked position, and a pad tail on half of them
+        toks[i, 1 + 30 * i] = esm2.ALPHABET.mask_idx
+        feats[i, 1 + 30 * i] = mulan.MASKED_ANGLE
+    toks[4:, -20:] = esm2.ALPHABET.padding_idx
+    toks_d, feats_d = torch.as_tensor(toks, device=dev), torch.as_tensor(feats, device=dev)
+
+    def logp(patches=()):
+        with torch.no_grad(), contextlib.ExitStack() as stack:
+            for patch in patches:
+                stack.enter_context(patch)
+            return torch.log_softmax(model(toks_d, feats_d), -1)
+
+    before = dict(fa.LAUNCHES)
+    got = logp()
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in fa.LAUNCHES.items() if v != before[k]}
+    assert launched == {"grouped_attention": 1, "grouped_attention_bthd": 2}
+    plain = [mock.patch.object(esm2, "mha_natural", fa.plain_mha_bthd),
+             mock.patch.object(mulan, "mha", fa.plain_mha)]
+    want = logp(plain)
+    live = torch.as_tensor(toks != esm2.ALPHABET.padding_idx, device=dev)
+    err = float((got - want).abs()[live].max())
+    assert err < F32_ATOL, err
+
+    def last_tile_skipped(q, k, v, key_mask=None, **kw):  # the adapter's keys past 192 dropped
+        mask = key_mask.clone()
+        mask[:, 192:] = False
+        return fa.plain_mha(q, k, v, key_mask=mask, **kw)
+
+    fault = logp([plain[0], mock.patch.object(mulan, "mha", last_tile_skipped)])
+    assert float((fault - want).abs()[live].max()) > 10 * F32_ATOL  # 3.5e-3 on the CPU
