@@ -263,6 +263,27 @@ Phases (any failure raises, and the script exits non-zero):
    each beside plain, SDPA and its 3xTF32 bound, as
    ``grouped_attention_bthd:f32_mulan`` and
    ``grouped_attention:f32_mulan_adapter``.
+22. structure slice C through the port's CLI at full width with seeded
+   random weights, on phase 14's L=250 target, its singles and phase 20's
+   helix in a PDB with B-factors 90 but 50 on 40 residues: (a) ``protssn``
+   over ESM2-650M (``esm_checkpoint=esm2_t33_650M``) with the nine
+   ``protssn_k{10,20,30}_h{512,768,1280}`` members and seeded statistics
+   (one ESM forward: 33 K4 + 33 rope_qk; each member's edges, host graph
+   seconds and device ms); (b) ``s2f --checkpoint s2f``, ``s3f --checkpoint
+   s3f`` with a seeded 3,000-point surface, ``s3f_msa --checkpoint s3f``
+   with phase 21's 16,384-row alignment (K5 once); (c) ``aido`` on the
+   target with the alignment (8 forwards of 32 x 252) and on an L=1,000
+   target (48 forwards of 32 x 770), 8 K1 + 8 rope_qk a forward. Each run:
+   the CLI wall and mutants/s, forwards and launches, peak memory, two
+   forwards under the profiler. (d) AIDO's per-token log-probs of 8 rows,
+   K1 against the plain attention, the last key tile skipped shown to fail
+   that check; the card against the CPU at full size: ProtSSN k20_h512's
+   logits, S3F's node logits with its surface and S2F's scores (one
+   edge dropped on the card shown to fail each), AIDO's bf16 table rows of
+   one chunk within a gate set from the run's own bf16 noise. (e) K1 at
+   AIDO's two shapes (B32 H8 T252 and T770 D64 bf16, every key live)
+   beside plain, SDPA and the bound, as ``grouped_attention:aido_T252`` and
+   ``grouped_attention:aido_T770``.
 
 Every phase holds the port to its rule: no module of the JAX package
 (``proteingym_tpu``) may be loaded. It prints one JSON line describing the
@@ -579,6 +600,50 @@ PLM_CPU_ATOL, QUANT_EMB_ATOL, QUANT_MARGIN = 1e-4, 1e-5, 1e-4
 # so the limit is this factor times the bf16 noise read in the same run,
 # the CPU's bf16 scores' largest distance from those of a float32 copy
 MIF_BF16_FACTOR = 2.0
+
+# the shapes of phase 22: phase 14's L=250 target and its 4,750 singles on
+# phase 20's helix, the PDB's B-factors 90 but 50 on residues 101-140 (both
+# pLDDT branches of S2F / S3F run); ProtSSN's nine published (k, h) members
+# over ESM2-650M with seeded statistics, one file per k; S2F and S3F at
+# their published widths over ESM2-650M, S3F's surface 3,000 seeded points
+# 2-4 A off the helix's CA atoms with 42 seeded features each; S3F-MSA and
+# AIDO on phase 21's 16,384-row alignment of the whole target (K5 once, for
+# S3F-MSA; AIDO reads its weights file); AIDO also on a seeded L=1,000
+# target with all its singles (windows at 0 and 232: T=770); AIDO's
+# per-token log-probs on 8 rows; the card against the CPU on ProtSSN
+# k20_h512, S3F's node logits with its surface, S2F's scores and AIDO's
+# table rows of one chunk
+SLICE_C = dict(batch=32, n_seqs=16384, low_plddt=(100, 140), surface_points=3000,
+               surface_features=42, long_length=1000, logp_rows=8,
+               protssn_cpu="protssn_k20_h512")
+# (label, B, H, T, D) of AIDO's bf16 K1: [CLS] + 250 + [EOS], and a
+# 768-residue window; every key live, the default scale through the pre-pass
+K1_AIDO = (("aido_T252", 32, 8, 252, 64), ("aido_T770", 32, 8, 770, 64))
+# AIDO's per-token log-probs, bf16 K1 against the plain attention through 8
+# layers, the kernel run's expert routing replayed in the others: a router
+# near-tie, which one bf16 ulp flips, moves a token by up to 0.275 (the
+# GPU test's 2 layers; 0.066 here), as much as a planted fault, so the
+# check compares the attention alone. With the replay the bf16 rounding
+# of the outputs remains: 1.13e-2 on an H100 at 700 W (a chip run of this
+# phase), the last key tile skipped 0.186
+AIDO_LOGP_ATOL = 5e-2
+# card against CPU at full size, per element, float32 without TF32 on both
+# (index_add_'s sums in another order on the card): S3F's node logits with
+# its surface, S2F's scores (a chip run of this phase read 3.2e-6 and
+# 4.3e-6; one edge out of residue 60 dropped moved S3F's logits by 2.4e-2
+# and S2F's scores by 5.1e-2)
+SLICE_C_CPU_ATOL = 1e-4
+# ProtSSN k20_h512's logits, card against CPU, per element within this
+# share of their largest magnitude: on seeded random weights the features
+# grow through the six residual layers (messages summed over ~20 edges), so
+# log(softmax + 1e-9) saturates at 0 and log(1e-9) and hides any fault;
+# the logits are held instead (the same run: 3.6e-2 of 1.38e4, one edge
+# dropped 516)
+PROTSSN_CPU_RTOL = 1e-5
+# AIDO's table rows (bf16) against the same bf16 module on the CPU, the
+# card's routing replayed: this factor times the bf16 noise read in the same
+# run (the CPU's bf16 rows' largest distance from a float32 copy's)
+AIDO_BF16_FACTOR = 2.0
 
 
 def fail(msg: str) -> None:
@@ -4967,6 +5032,426 @@ def mulan_logp_held(torch, fa, esm2, mulan, model, rows, feats, n):
     return err
 
 
+def phase_slice_c(torch, dev, card, fa, check_close):
+    """22. Structure slice C through the port's CLI at full width with seeded
+    random weights, on phase 14's L=250 target, its 4,750 singles and phase
+    20's helix in a PDB whose B-factors are 90 but 50 on 40 residues: (a)
+    ``protssn`` with ``esm_checkpoint=esm2_t33_650M`` and the nine published
+    members ``protssn_k{10,20,30}_h{512,768,1280}`` with seeded statistics
+    (one ESM forward: 33 K4 + 33 rope_qk; each member's edges, host graph
+    seconds and device ms); (b) ``s2f --checkpoint s2f``, ``s3f
+    --checkpoint s3f`` with a 3,000-point seeded surface and ``s3f_msa
+    --checkpoint s3f`` with phase 21's 16,384-row alignment (K5 once): the
+    radius graph's edges, the surface graph's size and seconds; (c) ``aido``
+    on the target with the alignment (8 forwards of 32 x 252) and on an
+    L=1,000 target (48 forwards of 32 x 770), 8 K1 + 8 rope_qk a forward.
+    Each run: the CLI wall and mutants/s, forwards and launches, peak
+    memory, two forwards under the profiler. (d) AIDO's per-token log-probs
+    of 8 rows, kernels against the plain attention, with the last key tile
+    skipped shown to fail that check; the card against the CPU at full
+    size: ProtSSN k20_h512's logits, S3F's node logits with its surface
+    and S2F's scores (one edge dropped on the card shown to fail each), and
+    AIDO's table rows of one chunk in bf16 within AIDO_BF16_FACTOR x the
+    run's own bf16 noise. (e) K1 at AIDO's two shapes beside plain, SDPA and
+    the bound, as ``grouped_attention:aido_T252`` / ``:aido_T770``."""
+    from proteingym_tpu_torch.data.structures import (
+        parse_pdb_backbone, parse_pdb_bfactors, synthetic_helix_backbone, write_pdb_backbone,
+    )
+    from proteingym_tpu_torch.models import esm2, protssn, s3f
+    from proteingym_tpu_torch.models import structure_plms as sp
+    from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.pipeline import cli
+
+    s = SLICE_C
+    batch, length = s["batch"], TRANCEPTION_SLICE["length"]
+    codes = np.random.RandomState(13).randint(1, 21, length)  # phase 14's target
+    seq = "".join(GAP_AA[c] for c in codes)
+    singles = [f"{seq[p]}{p + 1}{a}" for p in range(length) for a in AA if a != seq[p]]
+    helix = synthetic_helix_backbone(length, seed=20)  # phase 20's helix
+    helix[:, 1] += STRUCTURE_SLICE["ca_noise"] * np.random.RandomState(20).randn(length, 3)
+    lo, hi = s["low_plddt"]
+    plddt = np.full(length, 90.0)
+    plddt[lo:hi] = 50.0
+    long_seq, long_singles = synth_assay(s["long_length"], 23)
+    assays = {"SC_L250": singles, "SC_L1000": long_singles}
+    e650 = esm2.PRESETS["esm2_t33_650M"]
+    esm_per = {"grouped_attention_bthd": e650.num_layers, "rope_qk": e650.num_layers}
+    aido_cfg = sp.AidoConfig()
+    aido_per = {"grouped_attention": aido_cfg.num_layers, "rope_qk": aido_cfg.num_layers}
+    phase_t0 = time.perf_counter()
+    print(f"[slice C] ProtSSN's 9 members, S2F, S3F, S3F-MSA (over ESM2-650M) and AIDO (seeded "
+          f"random, full width) on phase 14's L={length} target and phase 20's helix; batch "
+          f"{batch}; {card}")
+
+    forwards = [0]
+    kept, runs, errs, spans, sizes = {}, {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        for d in ("dms", "pdb", "msa", "weights", "surface", "stats"):
+            (root / d).mkdir()
+        for dms_id, rows in assays.items():
+            y = np.random.RandomState(22).randn(len(rows))
+            write_csv_rows(root / "dms" / f"{dms_id}.csv", ["mutant", "DMS_score"],
+                           [[x, repr(float(v))] for x, v in zip(rows, y)])
+        write_pdb_backbone(root / "pdb" / "SC_L250.pdb", helix, seq, bfactors=plddt)
+        write_a2m(root / "msa" / "SC.a2m", "SC", synth_family(codes, s["n_seqs"], seed=21))
+        write_csv_rows(root / "reference.csv",
+                       ["DMS_id", "DMS_filename", "UniProt_ID", "target_seq", "seq_len",
+                        "MSA_filename", "MSA_start", "MSA_end", "MSA_theta", "weight_file_name"],
+                       [[dms_id, f"{dms_id}.csv", "SYNTH_SC", sq, len(sq), "SC.a2m", 1, len(sq),
+                         0.2, "SC.npy"] for dms_id, sq in (("SC_L250", seq),
+                                                           ("SC_L1000", long_seq))])
+        rs = np.random.RandomState(24)
+        n_pts = s["surface_points"]
+        dirs = rs.randn(n_pts, 3)
+        dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+        surf_pos = helix[rs.randint(0, length, n_pts), 1] + dirs * rs.uniform(2, 4, (n_pts, 1))
+        np.savez(root / "surface" / "SC_L250.npz", position=surf_pos.astype(np.float32),
+                 feature=rs.randn(n_pts, s["surface_features"]).astype(np.float32))
+        stats = {}
+        for k in (10, 20, 30):
+            r_ = np.random.RandomState(k)
+            stats[k] = root / "stats" / f"cath_k{k}_mean_attr.pt"
+            torch.save({"pos_std": torch.from_numpy(r_.uniform(8, 12, 3)),
+                        "edge_attr_mean": torch.from_numpy(r_.uniform(0, 0.5, 93)),
+                        "edge_attr_std": torch.from_numpy(r_.uniform(0.5, 2.0, 93))}, stats[k])
+        coords = parse_pdb_backbone(root / "pdb" / "SC_L250.pdb")[0]  # as the CLI reads it
+        bf = parse_pdb_bfactors(root / "pdb" / "SC_L250.pdb")
+        if not np.array_equal(bf, plddt.astype(np.float32)):
+            fail("slice C: the PDB's B-factors do not read back")
+        n_low = int((bf < 70).sum())
+        print(f"  the PDB: {n_low} residues under pLDDT 70 (the ESM logits), {length - n_low} "
+              "at or over it (the GVP-GNN's)")
+
+        def run(model, dms_id, column, counted, checkpoint=None, extra=(), patches=(),
+                msa=False):
+            forwards[0] = 0
+            flags = ["--structure-dir", str(root / "pdb")]
+            if msa:
+                flags += ["--msa-dir", str(root / "msa"), "--weights-dir", str(root / "weights")]
+            r = cli_score(torch, cli, root, len(assays[dms_id]), model, dms_id, column,
+                          (fa.LAUNCHES, W.LAUNCHES), batch, checkpoint, flags=flags, extra=extra,
+                          patches=[counting(forwards, *counted), *patches])
+            return dict(r, forwards=forwards[0])
+
+        # (a) ProtSSN's nine members over ESM2-650M, one ESM forward
+        members = [f"protssn_k{k}_h{h}" for k in (10, 20, 30) for h in (512, 768, 1280)]
+        graphs, member_ms = [], []
+
+        def timed_graph(fn):
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                graphs.append((len(out[0]), time.perf_counter() - t0))
+                return out
+            return wrapper
+
+        def timed_logp(fn):
+            def wrapper(model, *args):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                out = fn(model, *args)
+                end.record()
+                torch.cuda.synchronize()
+                member_ms.append(start.elapsed_time(end))
+                return out
+            return wrapper
+
+        stat_list = ",".join(str(stats[int(m.split("_")[1][1:])]) for m in members)
+        r = run("protssn", "SC_L250", "ProtSSN_ensemble", (esm2.EsmModel, "forward"),
+                ",".join(members), extra=["esm_checkpoint=esm2_t33_650M",
+                                          f"norm_stats={stat_list}"],
+                patches=[keeping(protssn, "esm_embeddings", kept),
+                         mock.patch.object(protssn, "init_random", spans_of(
+                             torch, spans, "member inits", protssn.init_random)),
+                         mock.patch.object(protssn, "score_mutants_egnn", spans_of(
+                             torch, spans, "member scoring", protssn.score_mutants_egnn)),
+                         mock.patch.object(protssn, "build_calpha_graph",
+                                           timed_graph(protssn.build_calpha_graph)),
+                         mock.patch.object(protssn, "egnn_log_probs",
+                                           timed_logp(protssn.egnn_log_probs))])
+        emb = kept.pop("esm_embeddings")
+        cfg = dataclasses.replace(protssn.PROTSSN_PRESETS[s["protssn_cpu"]], input_dim=emb.shape[1])
+        model = protssn.init_random(cfg, seed=0, device=dev)  # the CLI's member, rebuilt
+        src, dst, edge_attr, pos = protssn.build_calpha_graph(coords[:, :3], cfg.k_neighbors)
+        npos, nea = protssn.apply_norm_stats(pos, edge_attr, protssn.load_norm_stats(stats[20]))
+        r["profile"] = profile_two(torch, fa, lambda: protssn.egnn_log_probs(
+            model, emb, npos, src, dst, nea))
+        report_run("a", "protssn, 9 members over esm2_t33_650M", r, card, "ProtSSN_ensemble", 1,
+                   esm_per, detail=f"; the members' seeded inits {spans['member inits']:.2f} s, "
+                   f"their score loops {spans['member scoring']:.2f} s, graphs "
+                   f"{sum(g[1] for g in graphs):.2f} s, forwards {sum(member_ms) / 1e3:.2f} s; "
+                   "the profiled forwards are k20_h512's")
+        for name, (edges, secs), ms in zip(members, graphs, member_ms):
+            print(f"      {name}: {edges} edges, graph {secs:.3f} s (host), device {ms:.2f} ms")
+        runs["protssn"] = r
+        cpu = protssn.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, cfg,
+                                      device="cpu")
+
+        def protssn_logits(net, edges):
+            d = net.lin.weight.device
+            f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=d)  # noqa: E731
+            i = lambda x: torch.as_tensor(x[edges], dtype=torch.long, device=d)  # noqa: E731
+            with torch.no_grad():
+                return net(f(emb), f(npos), i(src), i(dst), f(nea[edges])).cpu()
+
+        every = np.ones(len(src), bool)
+        logp = protssn.egnn_log_probs(model, emb, npos, src, dst, nea)
+        got = protssn_logits(model, every)
+        t0 = time.perf_counter()
+        want = protssn_logits(cpu, every)
+        cpu_s = time.perf_counter() - t0
+        scale = float(want.abs().max())
+        saturated = float(((logp == 0) | (logp < -20.7)).float().mean())
+        errs["ProtSSN card vs CPU"] = check_close(
+            f"(d) ProtSSN {s['protssn_cpu']} logits, card vs CPU ({cpu_s:.2f} s on the CPU; |logit| "
+            f"up to {scale:.4g}, {saturated:.1%} of the log-probs at 0 or log 1e-9)", got, want,
+            PROTSSN_CPU_RTOL * scale, 0.0)
+        moved = float((protssn_logits(model, np.arange(len(src)) != len(src) // 2)
+                       - want).abs().max())
+        print(f"      planted fault, one edge dropped on the card: max |diff| {moved:.4g} "
+              f"(limit {PROTSSN_CPU_RTOL * scale:.4g})")
+        if not moved > PROTSSN_CPU_RTOL * scale:
+            fail("ProtSSN: the card-vs-CPU check did not catch a dropped edge")
+        del model, cpu, got, want, logp
+        torch.cuda.empty_cache()
+
+        # (b) S2F, S3F with its surface, S3F-MSA (K5 once: no weights file yet)
+        def sized(fn, key):
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                sizes[key] = (out, time.perf_counter() - t0)
+                return out
+            return wrapper
+
+        for variant, column, msa in (("s2f", "S2F_score", False), ("s3f", "S3F_score", False),
+                                     ("s3f_msa", "S3F_MSA_score", True)):
+            logits_store, score_store = {}, {}
+            r = run(variant, "SC_L250", column, (esm2.EsmModel, "forward"),
+                    "s2f" if variant == "s2f" else "s3f", msa=msa,
+                    extra=["esm_checkpoint=esm2_t33_650M",
+                           *([] if variant == "s2f" else [f"surface_dir={root / 'surface'}"])],
+                    patches=[keeping(s3f, "init_random", kept),
+                             mock.patch.object(s3f, "radius_graph",
+                                               sized(s3f.radius_graph, "radius")),
+                             mock.patch.object(s3f, "build_surface_inputs",
+                                               sized(s3f.build_surface_inputs, "surface")),
+                             capturing(torch, s3f, "gvpgnn_node_logits", logits_store),
+                             capturing(torch, s3f, "score_mutants_gvpgnn", score_store)])
+            model = kept.pop("init_random")
+            m_args, surface = logits_store["args"][1:], logits_store["kwargs"].get("surface")
+            r["profile"] = profile_two(torch, fa, lambda: s3f.gvpgnn_node_logits(
+                model, *m_args, surface=surface))
+            (src, dst), radius_s = sizes["radius"]
+            detail = f"; radius graph {len(src)} edges in {radius_s:.3f} s"
+            if surface is not None:
+                detail += (f"; surface {len(surface['position'])} points, {len(surface['src'])} "
+                           f"edges, built in {sizes['surface'][1]:.2f} s (host)")
+            detail += f"; GVP-GNN {logits_store['seconds']:.3f} s; the profiled forwards are its"
+            report_run("b", f"{variant} --checkpoint {'s2f' if variant == 's2f' else 's3f'}", r,
+                       card, column, 1, esm_per,
+                       extra_launches={"cluster_counts": 1} if msa else None, detail=detail)
+            runs[variant] = r
+            if variant == "s3f_msa":
+                continue
+            cpu = s3f.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()},
+                                      model.config, device="cpu")
+            emb_, pos_, src_, dst_ = m_args
+            t0 = time.perf_counter()
+            want = s3f.gvpgnn_node_logits(cpu, emb_.cpu(), pos_, src_, dst_, surface)
+            cpu_s = time.perf_counter() - t0
+            if variant == "s3f":
+                errs["S3F card vs CPU"] = check_close(
+                    f"(d) S3F node logits with the surface, card vs CPU ({cpu_s:.2f} s on the "
+                    "CPU)", logits_store["out"].cpu(), want, SLICE_C_CPU_ATOL, 0.0)
+            else:
+                _, esm20, bfac, _, _ = score_store["args"]
+                want_scores = s3f.score_mutants_gvpgnn(want, esm20, bfac, seq, singles)
+                errs["S2F card vs CPU"] = check_close(
+                    f"(d) S2F scores of all singles, card vs CPU ({cpu_s:.2f} s on the CPU)",
+                    torch.as_tensor(r["scores"]), torch.as_tensor(want_scores),
+                    SLICE_C_CPU_ATOL, 0.0)
+            # the planted fault: the first edge out of residue 60 (pLDDT 90, so
+            # its row's score reads the GVP-GNN's logits) dropped on the card
+            keep = np.arange(len(src_)) != int(np.flatnonzero(np.asarray(src_) == 60)[0])
+            dropped = s3f.gvpgnn_node_logits(model, emb_, pos_, src_[keep], dst_[keep], surface)
+            if variant == "s3f":
+                moved, of = float((dropped.cpu() - want).abs().max()), "the logits"
+            else:  # S2F's check reads the scores: the fault's logits scored as the CLI does
+                moved = float(np.abs(s3f.score_mutants_gvpgnn(dropped, esm20, bfac, seq, singles)
+                                     - want_scores).max())
+                of = "the scores"
+            print(f"      planted fault, one edge out of residue 60 dropped on the card: max "
+                  f"|diff| of {of} {moved:.4g} (limit {SLICE_C_CPU_ATOL:g})")
+            if not moved > SLICE_C_CPU_ATOL:
+                fail(f"{variant}: the card-vs-CPU check did not catch a dropped edge")
+            del cpu, want, dropped
+        del model
+        torch.cuda.empty_cache()
+
+        # (c) AIDO on the target with the alignment (its weights file from
+        # (b)), then on the L=1,000 target without one
+        for tag, dms_id, msa in (("aido", "SC_L250", True), ("aido_L1000", "SC_L1000", False)):
+            n_res = len(seq) if dms_id == "SC_L250" else len(long_seq)
+            want_fwd = sum(-(-min(sp.AIDO_WINDOW, n_res - st) // batch)
+                           for st in sp.aido_sliding_starts(n_res))
+            r = run("aido", dms_id, "AIDO_score", (sp.Aido, "forward"), msa=msa,
+                    patches=[keeping(sp, "aido_init", kept)])
+            model = kept.pop("aido_init")
+            t_win = min(sp.AIDO_WINDOW, n_res) + 2
+            grid = torch.as_tensor(np.tile(esm2.ALPHABET.tokenize(
+                (seq if dms_id == "SC_L250" else long_seq)[:t_win - 2])[None], (batch, 1)),
+                device=dev)
+            r["profile"] = profile_two(torch, fa, lambda: model(grid))
+            report_run("c", f"aido on L={n_res} ({'with' if msa else 'without'} the alignment; "
+                       f"windows at {sp.aido_sliding_starts(n_res)}, T={t_win})", r, card,
+                       "AIDO_score", want_fwd, aido_per)
+            runs[tag] = r
+        # (d) AIDO's per-token log-probs of 8 rows, kernels vs plain attention
+        rows = torch.as_tensor(np.tile(esm2.ALPHABET.tokenize(seq)[None], (s["logp_rows"], 1)),
+                               device=dev)
+        rows[torch.arange(s["logp_rows"]), 1 + 29 * torch.arange(s["logp_rows"])] = \
+            esm2.ALPHABET.mask_idx
+        errs["AIDO per token"] = aido_logp_held(torch, fa, sp, model, rows)
+        # (d) AIDO's table rows of the first chunk (32 grids of the L=250
+        # target), the card's bf16 against the same bf16 module on the CPU
+        # (its plain attention), within AIDO_BF16_FACTOR x the CPU's own bf16
+        # noise against a float32 copy
+        chunk = torch.as_tensor(np.tile(esm2.ALPHABET.tokenize(seq)[None], (batch, 1)))
+        chunk[torch.arange(batch), 1 + torch.arange(batch)] = esm2.ALPHABET.mask_idx
+        at = (torch.arange(batch), 1 + torch.arange(batch))
+        aido_cpu = sp.aido_load_state_dict({k: v.cpu() for k, v in model.state_dict().items()},
+                                           aido_cfg, device="cpu")
+        f32_cfg = dataclasses.replace(aido_cfg, dtype=torch.float32)
+        aido_f32 = sp.aido_load_state_dict({k: v.cpu().float()
+                                            for k, v in model.state_dict().items()}, f32_cfg,
+                                           device="cpu")
+        counts, chosen = dict(fa.LAUNCHES), []
+        with torch.no_grad():
+            with routes(torch, record=chosen):
+                got = model(chunk.to(dev))[at].cpu()
+            fa.LAUNCHES.update(counts)  # the check's launches are not the path's
+            t0 = time.perf_counter()
+            with routes(torch, replay=chosen):
+                want = aido_cpu(chunk)[at]
+            cpu_s = time.perf_counter() - t0
+            with routes(torch, replay=chosen):
+                exact = aido_f32(chunk)[at]
+        noise = float((want - exact).abs().max())
+        print(f"      AIDO table rows against a float32 copy's: the CPU's bf16 {noise:.4g} at "
+              f"most, the card's {float((got - exact).abs().max()):.4g}")
+        errs["AIDO card vs CPU"] = check_close(
+            f"(d) AIDO table rows of one chunk ({batch} grids, bf16, the card's routing "
+            f"replayed), card vs CPU ({cpu_s:.1f} s on the CPU)", got, want,
+            AIDO_BF16_FACTOR * noise, 0.0)
+        with torch.no_grad(), routes(torch, replay=chosen), mock.patch.object(
+                sp, "mha", lambda *a, **kw: last_key_tile_skipped(fa, *a, **kw)):
+            moved = float((model(chunk.to(dev))[at].cpu() - want).abs().max())
+        print(f"      planted fault, the last key tile skipped on the card: max |diff| {moved:.4g} "
+              f"(limit {AIDO_BF16_FACTOR * noise:.4g})")
+        if not moved > AIDO_BF16_FACTOR * noise:
+            fail("AIDO: the card-vs-CPU check did not catch the skipped key tile")
+        del model, aido_cpu, aido_f32
+
+    # (e) K1 at AIDO's two shapes: (B, T, H, D) projections seen as (B, H,
+    # T, D), every key live, the default scale (the pre-pass rounds q * 1/8)
+    records = []
+    for label, b, h, tt, d in K1_AIDO:
+        gen = torch.Generator(device=dev).manual_seed(tt + d + h)
+        q, k, v = (torch.randn(b, tt, h, d, generator=gen, device=dev).to(torch.bfloat16)
+                   .transpose(1, 2) for _ in range(3))
+        key_mask = torch.ones(b, tt, dtype=torch.bool, device=dev)
+        got = fa.grouped_mha(q, k, v, key_mask=key_mask)
+        torch.cuda.synchronize()
+        what = f"B{b} H{h} T{tt} D{d} bf16, key mask, every key live"
+        err = check_close(f"(e) K1 {what} ({label})", got,
+                          fa.plain_mha(q.float(), k.float(), v.float(), key_mask=key_mask),
+                          BF16_ATOL, BF16_RTOL)
+        fns = {"kernel": lambda: fa.grouped_mha(q, k, v, key_mask=key_mask),
+               "plain": lambda: fa.plain_mha(q, k, v, key_mask=key_mask),
+               "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)}
+        times = median_pair(torch, fns, reps=3, inner=5, rounds=1)
+        bnd = bound(4.0 * b * h * d * tt * tt, nbytes(q, k, v, got))
+        print(f"  (e) K1 {what}: kernel {times['kernel']:.4f} ms, plain {times['plain']:.4f} ms, "
+              f"SDPA without a mask {times['sdpa']:.4f} ms ({sdpa_backend(torch, fns['sdpa'])}), "
+              f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; {card})")
+        records.append(dict(label=label, shape=what, ms=times["kernel"], plain_ms=times["plain"],
+                            library_ms=times["sdpa"], max_abs_err=err, **bnd))
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    print(f"  [slice C] {time.perf_counter() - phase_t0:.1f} s in all; (d) "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    return {"launches": {name: r["launches"] for name, r in runs.items()}, "k1": records}
+
+
+@contextlib.contextmanager
+def routes(torch, record=None, replay=None):
+    """The MoE's routing weights (``progen3.router_weights``, one (N, E)
+    tensor a layer) appended to ``record`` as the model computes them, or
+    taken from ``replay`` in the same order: a check that replays one run's
+    routing compares everything but the router's discrete top-k choice."""
+    from proteingym_tpu_torch.models import progen3
+
+    fn, taken = progen3.router_weights, iter(replay or ())
+
+    def wrapper(x32, router, num_experts, top_k):
+        if replay is not None:
+            return next(taken).to(x32.device)
+        weights = fn(x32, router, num_experts, top_k)
+        record.append(weights)
+        return weights
+    with mock.patch.object(progen3, "router_weights", wrapper):
+        yield
+
+
+def last_key_tile_skipped(fa, q, k, v, key_mask=None, **kw):
+    """The plain attention with keys 192 on (the last 64-key tile of a
+    252-token row) masked: the planted fault of phase 22's AIDO checks."""
+    mask = key_mask.clone()
+    mask[:, 192:] = False
+    return fa.plain_mha(q, k, v, key_mask=mask, **kw)
+
+
+def aido_logp_held(torch, fa, sp, model, rows):
+    """AIDO's per-token log-probs of ``rows`` (one masked position each) with
+    K1 and with the plain attention, the kernel run's routing replayed in
+    the others, held per token within AIDO_LOGP_ATOL; a planted fault, the
+    last key tile (keys 192-251) skipped, must fail that check. Returns the
+    max |kernel - plain|."""
+    def last_tile_skipped(*args, **kw):
+        return last_key_tile_skipped(fa, *args, **kw)
+
+    chosen = []
+
+    def token_logp(attention=None, replay=True):
+        with torch.no_grad(), contextlib.ExitStack() as stack:
+            if attention is not None:
+                stack.enter_context(mock.patch.object(sp, "mha", attention))
+            if attention is None or replay:
+                stack.enter_context(routes(torch, record=chosen) if attention is None
+                                    else routes(torch, replay=chosen))
+            logp = torch.log_softmax(model(rows), -1)
+        return logp.gather(-1, rows[..., None])[..., 0]
+
+    counts = dict(fa.LAUNCHES)
+    got = token_logp()
+    fa.LAUNCHES.update(counts)  # the check's launches are not the path's
+    want = token_logp(fa.plain_mha)
+    free = float((token_logp(fa.plain_mha, replay=False) - got).abs().max())
+    print(f"      without the replay (each run routes for itself): max |diff| {free:.4g} a "
+          "token")
+    err = check_close(f"(d) AIDO: {len(rows)} rows' per-token log-probs, K1 vs plain", got, want,
+                      AIDO_LOGP_ATOL, 0.0)
+    diff = float((token_logp(last_tile_skipped) - want).abs().max())
+    print(f"      planted fault, the last key tile skipped: max |diff| {diff:.4g} a token "
+          f"(limit {AIDO_LOGP_ATOL:g})")
+    if not diff > AIDO_LOGP_ATOL:
+        fail("AIDO: the per-token check did not catch the skipped key tile")
+    return err
+
+
 def main() -> int:
     try:
         import torch
@@ -5190,10 +5675,11 @@ def main() -> int:
     mlm = phase_mlm(torch, dev, card, fa, check_close)
     structure = phase_structure(torch, dev, card, fa, check_close)
     plms = phase_structure_plms(torch, dev, card, fa, check_close)
+    slice_c = phase_slice_c(torch, dev, card, fa, check_close)
 
     if "jax" in sys.modules:
         fail("the port imported jax")
-    # the guard below covers the modules of every phase, phases 15-21's too
+    # the guard below covers the modules of every phase, phases 15-22's too
     missing = [m for m in ("proteingym_tpu_torch.native", "proteingym_tpu_torch.models.hmm",
                            "proteingym_tpu_torch.models.potts",
                            "proteingym_tpu_torch.models.wavenet",
@@ -5216,7 +5702,9 @@ def main() -> int:
                            "proteingym_tpu_torch.models.mulan",
                            "proteingym_tpu_torch.models.structure_plms",
                            "proteingym_tpu_torch.ops.gvp", "proteingym_tpu_torch.ops.gnn",
-                           "proteingym_tpu_torch.models.state_dict")
+                           "proteingym_tpu_torch.models.state_dict",
+                           "proteingym_tpu_torch.models.protssn",
+                           "proteingym_tpu_torch.models.s3f")
                if m not in sys.modules]
     if missing:
         fail(f"modules the phases drive were not loaded: {missing}")
@@ -5230,7 +5718,8 @@ def main() -> int:
         "grouped_attention": dict(
             max_abs_err=max(max_abs_err, k2["k1_self_err"], msa_run["k1_err"],
                             tr_run["k1_err"], indel_run["k1"]["max_abs_err"], zoo["k1_err"],
-                            mlm["k1_err"], plms["k1"]["max_abs_err"]),
+                            mlm["k1_err"], plms["k1"]["max_abs_err"],
+                            *(rec["max_abs_err"] for rec in slice_c["k1"])),
             shape="B8 H16 T4352 D64, 16 segments + causal",
             **{key: k2["k1"][key] for key in k1_keys},
             other_shapes=[{"shape": "B16 H20 T256 D64 mask+rope, pre-pass + loop",
@@ -5251,7 +5740,8 @@ def main() -> int:
                "eve": tr_run["eve_launches"], "trancepteve_indel": indel_run["a"]["launches"],
                "tranception_indel": indel_run["a_tranception"]["launches"],
                **trainers["launches"], **baselines["launches"], **zoo["launches"],
-               **mlm["launches"], **structure["launches"], **plms["launches"]}
+               **mlm["launches"], **structure["launches"], **plms["launches"],
+               **slice_c["launches"]}
     records = [{
         "name": name,
         "route": "cuda",
@@ -5303,6 +5793,12 @@ def main() -> int:
         records.append({"name": f"{counter}:{rec['label']}", "route": "cuda", "source": src,
                         "replaces": rep_, "launches": by_path["mulan"][counter],
                         "counter": counter, "path": "mulan", **rec})
+    # bf16 K1 at AIDO's two shapes, with the launches of the aido path of each
+    for rec, path in zip(slice_c["k1"], ("aido", "aido_L1000")):
+        records.append({"name": f"grouped_attention:{rec['label']}", "route": "cuda",
+                        "source": source, "replaces": replaces,
+                        "launches": by_path[path]["grouped_attention"],
+                        "counter": "grouped_attention", "path": path, **rec})
     # K2 in float32 at ESM3's rows past 1,024 tokens, with the launches of that path
     source, replaces = KERNELS["flash_attention"]
     records.append({"name": "flash_attention:esm3_long", "route": "cuda", "source": source,

@@ -1,15 +1,62 @@
-"""Backbone geometric features for the structure models (counterpart of the
-feature half of proteingym_tpu/ops/gvp.py, in numpy): per-residue dihedral
-and orientation features, and per-edge distance and offset features over a
-k-nearest-neighbour graph (``ops/gnn.knn_graph``). The GVP layers that read
-them come with the models that use them.
+"""The plain Geometric Vector Perceptron and the backbone features of the
+structure models (counterpart of proteingym_tpu/ops/gvp.py).
+
+A GVP maps scalar features s (..., s_in) and vector features V (..., v_in,
+3) to
+
+  Vh = W_h V                        (channel mixing, rotation-equivariant)
+  s' = act(W_s [s ; ||Vh||])        (||.|| = sqrt(sum + 1e-8))
+  V' = (W_v Vh) * sigmoid(W_g s')   (the gate read from the activated s')
+
+The features, in numpy: per-residue dihedral and orientation features, and
+per-edge distance and offset features over a k-nearest-neighbour graph
+(``ops/gnn.knn_graph``). The drorlab GVP variant of S2F / S3F, whose norms
+and gate differ, lives in ``models/s3f.py``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
+from torch import nn
+
+
+class Gvp(nn.Module):
+    """The JAX ``gvp_init`` / ``gvp_apply``: ``wh`` (v_in -> h) and ``wv`` (h
+    -> v_out) without bias, ``ws`` (s_in + h -> s_out), and ``gate`` (s_out
+    -> v_out) when ``vector_gate`` and v_out; h = max(v_in, v_out)."""
+
+    def __init__(self, s_in: int, v_in: int, s_out: int, v_out: int, vector_gate: bool = True):
+        super().__init__()
+        h = max(v_in, v_out)
+        self.wh = nn.Linear(v_in, h, bias=False)
+        self.wv = nn.Linear(h, v_out, bias=False)
+        self.ws = nn.Linear(s_in + h, s_out)
+        self.gate = nn.Linear(s_out, v_out) if vector_gate and v_out else None
+
+    def forward(self, s: torch.Tensor, v: torch.Tensor, activate: bool = True):
+        """s (..., s_in), v (..., v_in, 3) -> (s (..., s_out), v (..., v_out, 3))."""
+        vh = self.wh(v.transpose(-1, -2))  # (..., 3, h)
+        s_out = self.ws(torch.cat([s, torch.sqrt((vh * vh).sum(-2) + 1e-8)], -1))
+        if activate:
+            s_out = torch.relu(s_out)
+        v_out = self.wv(vh).transpose(-1, -2)
+        if self.gate is not None:
+            v_out = v_out * torch.sigmoid(self.gate(s_out))[..., None]
+        return s_out, v_out
+
+
+def gvp_params_from_jax(p) -> Dict[str, torch.Tensor]:
+    """One JAX ``gvp_init`` dict (numpy leaves) in ``Gvp``'s names."""
+    t = lambda a: torch.from_numpy(np.array(np.asarray(a, dtype=np.float32).T))  # noqa: E731
+    sd = {"wh.weight": t(p["wh"]), "wv.weight": t(p["wv"]), "ws.weight": t(p["ws"]["w"]),
+          "ws.bias": torch.from_numpy(np.array(p["ws"]["b"], dtype=np.float32))}
+    if "gate" in p:
+        sd["gate.weight"] = t(p["gate"]["w"])
+        sd["gate.bias"] = torch.from_numpy(np.array(p["gate"]["b"], dtype=np.float32))
+    return sd
 
 
 def dihedral(p0, p1, p2, p3, floor: Optional[float] = None) -> np.ndarray:

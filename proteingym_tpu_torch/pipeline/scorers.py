@@ -14,8 +14,11 @@ autoregressive zoo ``progen2``, ``rita``, ``protgpt2``, ``progen3`` and
 (MLM or AR) and ``carp``, the backbone-conditioned ``esm_if1`` (one chain
 or a complex), ``protein_mpnn`` and ``saprot`` (--structure-dir), the
 structure-conditioned ``prosst`` (with its GVP quantizer), ``venusrem``,
-``mulan``, ``mif`` and ``mif_st`` (--structure-dir), plus
-``score_esm_packed_batch``, the cross-assay packed ESM path.
+``mulan``, ``mif`` and ``mif_st`` (--structure-dir), ``protssn`` (an EGNN
+ensemble over PLM embeddings), ``s2f`` / ``s3f`` / ``s3f_msa`` (a GVP-GNN
+over PLM embeddings, with a surface stream) and ``aido`` (an MoE masked LM
+with MSA retrieval), plus ``score_esm_packed_batch``, the cross-assay
+packed ESM path.
 
 A scorer is ``scorer(ctx: ScoreContext)`` and returns either ``{column:
 scores}``, which the CLI writes after the input columns, or a whole
@@ -1276,3 +1279,203 @@ def score_mif_st(ctx: ScoreContext) -> Dict[str, np.ndarray]:
     ``mif_st``: 16 x 512, dilations to 64), in ``MIF_ST_score`` (the
     registry merges ``mifst_score``)."""
     return _score_mif(ctx, "mif_st", "MIF_ST_score")
+
+
+# ---------------------------------------------------------------------------
+# Structure slice C: ProtSSN, S2F / S3F / S3F-MSA, AIDO
+# ---------------------------------------------------------------------------
+
+PROTSSN_TINY = dict(name="protssn_tiny", input_dim=320, m_dim=32, n_layers=2)
+
+
+@register_scorer("protssn")
+def score_protssn(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """ProtSSN (ref protssn/compute_fitness.py:53-113): the PLM's final-layer
+    embeddings (``--extra esm_checkpoint=``, ``esm2_t6_8M``) through the
+    EGNN_Sparse stack over the backbone in --structure-dir, in
+    ``ProtSSN_score``, or ``ProtSSN_ensemble`` when --checkpoint is a
+    comma-separated list: its members scored one at a time, each freed
+    before the next, their scores averaged (an empty entry raises). A member
+    is a preset (``protssn_k{10,20,30}_h{512,768,1280}``, ``protssn_tiny``
+    the default) with seeded random weights, resized to the PLM's width, or
+    a published ``protssn_k{k}_h{h}.pt``, whose k comes from its name (20
+    when the name has none) and whose width must be the PLM's. ``--extra
+    norm_stats=`` names the ``cath_k{k}_mean_attr.pt`` statistics, one for
+    all or one per member; without it the positions are only centred."""
+    from proteingym_tpu_torch.models import protssn
+    from proteingym_tpu_torch.pipeline.checkpoints import (
+        _load_torch_state_dict, load_esm_checkpoint,
+    )
+
+    presets = {**protssn.PROTSSN_PRESETS,
+               "protssn_tiny": protssn.ProtssnEgnnConfig(**PROTSSN_TINY)}
+    specs = [x.strip() for x in str(ctx.checkpoint).split(",")] if ctx.checkpoint else [None]
+    if ctx.checkpoint and not all(specs):
+        # an empty entry would score a random preset into the average
+        raise ValueError(f"empty entry in --checkpoint ensemble list: {ctx.checkpoint!r}")
+    stats_spec = ctx.extra.get("norm_stats")
+    stats_paths = [x.strip() for x in str(stats_spec).split(",")] if stats_spec else [None]
+    if len(stats_paths) == 1:
+        stats_paths = stats_paths * len(specs)
+    if len(stats_paths) != len(specs):
+        raise ValueError(f"{len(specs)} checkpoints but {len(stats_paths)} norm_stats")
+
+    esm_model, esm_config = load_esm_checkpoint(ctx.extra.get("esm_checkpoint", "esm2_t6_8M"),
+                                                device=ctx.device)
+    coords = _load_structure(ctx)
+    seq = ctx.record.target_seq
+    with no_tf32():
+        emb = protssn.esm_embeddings(esm_model, seq)
+    del esm_model
+    per_member = []
+    for spec, stats_path in zip(specs, stats_paths):
+        if spec is None or spec in presets:
+            config = presets[spec or "protssn_tiny"]
+            if config.input_dim != esm_config.embed_dim:  # a preset takes the PLM's width
+                config = dataclasses.replace(config, input_dim=esm_config.embed_dim)
+            model = protssn.init_random(config, seed=0, device=ctx.device)
+        else:
+            path = Path(spec)
+            if not path.is_file():
+                raise ValueError(f"Unknown ProtSSN checkpoint {spec!r}: not a preset "
+                                 f"({sorted(presets)}) and not a file (orbax directories "
+                                 "are JAX-only)")
+            state, _ = _load_torch_state_dict(path)
+            config = protssn.config_from_state_dict(state, protssn.base_config_for_file(path))
+            if config.input_dim != esm_config.embed_dim:
+                raise ValueError(f"PLM width {esm_config.embed_dim} != EGNN input_dim "
+                                 f"{config.input_dim} of {spec}")
+            model = protssn.load_state_dict(state, config, device=ctx.device)
+        src, dst, edge_attr, pos = protssn.build_calpha_graph(
+            coords[:, :3], config.k_neighbors, config.cutoff, config.seq_dist_cut)
+        stats = (protssn.load_norm_stats(stats_path) if stats_path
+                 else protssn.identity_norm_stats())
+        npos, nea = protssn.apply_norm_stats(pos, edge_attr, stats)
+        with no_tf32():
+            logp = protssn.egnn_log_probs(model, emb, npos, src, dst, nea)
+        per_member.append(protssn.score_mutants_egnn(logp, seq, ctx.mutants))
+        del model, logp
+    column = "ProtSSN_ensemble" if len(specs) > 1 else "ProtSSN_score"
+    return {column: np.mean(per_member, axis=0)}
+
+
+def _surface_inputs(ctx: ScoreContext, pos: np.ndarray, config):
+    """``surface_dir/<UniProt_ID or DMS_id>.npz`` (``position``, ``feature``)
+    as the surface graph's arrays, or None."""
+    from proteingym_tpu_torch.models import s3f
+
+    sdir = ctx.extra.get("surface_dir")
+    if not sdir:
+        return None
+    for stem in (ctx.record.UniProt_ID, ctx.record.DMS_id):
+        path = Path(sdir) / f"{stem}.npz"
+        if path.exists():
+            blob = np.load(path)
+            return s3f.build_surface_inputs(blob["position"], blob["feature"], pos, config)
+    return None
+
+
+def _plddt(ctx: ScoreContext, length: int) -> Optional[np.ndarray]:
+    """The PDB's per-residue CA B-factors (pLDDT), or None when their count
+    is not the sequence's. Read after ``_load_structure``, which has found
+    and parsed the same file."""
+    from proteingym_tpu_torch.data.structures import parse_pdb_bfactors
+
+    plddt = parse_pdb_bfactors(ctx.structure_path())
+    return plddt if len(plddt) == length else None
+
+
+def _score_s3f(ctx: ScoreContext, variant: str) -> Dict[str, np.ndarray]:
+    from proteingym_tpu_torch.models import esm2, s3f
+    from proteingym_tpu_torch.models.structure_plms import AA20, alignment_count_logits
+    from proteingym_tpu_torch.pipeline.checkpoints import load_esm_checkpoint, resolve_preset_state
+
+    use_surface = variant != "s2f"
+    config, state = resolve_preset_state(
+        ctx.checkpoint, s3f.S3F_PRESETS, "s3f_tiny" if use_surface else "s2f_tiny", "S3F",
+        s3f.state_shape, s3f.config_shape, ctx.extra.get("params"))
+    esm_model, esm_config = load_esm_checkpoint(ctx.extra.get("esm_checkpoint", "esm2_t6_8M"),
+                                                device=ctx.device)
+    coords = _load_structure(ctx)
+    if esm_config.embed_dim != config.node_in:
+        if state is not None:
+            raise ValueError(f"PLM width {esm_config.embed_dim} != checkpoint node_in "
+                             f"{config.node_in}")
+        config = dataclasses.replace(config, node_in=esm_config.embed_dim)
+    model = (s3f.load_state_dict(state, config, device=ctx.device) if state is not None
+             else s3f.init_random(config, seed=0, device=ctx.device))
+    seq = ctx.record.target_seq
+    tokens = torch.as_tensor(esm2.ALPHABET.tokenize(seq)[None], device=ctx.device)
+    with no_tf32(), torch.no_grad():
+        # one forward: the embeddings and the ESM logits in the head's order
+        logits, reps = esm_model(tokens, return_representations=True)
+    del esm_model
+    emb = reps[max(reps)][0, 1:1 + len(seq)].float()
+    cols = [esm2.ALPHABET.get_idx(a) for a in s3f.TD_RESIDUES]
+    esm20 = logits[0, 1:1 + len(seq)][:, cols].float().cpu().numpy()
+    pos = coords[:, 1].astype(np.float32)  # CA
+    src, dst = s3f.radius_graph(pos, config.radius)
+    surface = _surface_inputs(ctx, pos, config) if use_surface else None
+    with no_tf32():
+        node_logits = s3f.gvpgnn_node_logits(model, emb, pos, src, dst, surface=surface)
+    scores = s3f.score_mutants_gvpgnn(node_logits, esm20, _plddt(ctx, len(seq)), seq,
+                                      ctx.mutants)
+    if variant == "s3f_msa":
+        msa_seqs = ctx.load_msa().sequences()
+        if msa_seqs and len(msa_seqs[0]) == len(seq):
+            scores = scores + s3f.score_table(alignment_count_logits(msa_seqs),
+                                              {a: i for i, a in enumerate(AA20)}, seq,
+                                              ctx.mutants)
+    return {{"s2f": "S2F_score", "s3f": "S3F_score", "s3f_msa": "S3F_MSA_score"}[variant]: scores}
+
+
+@register_scorer("s2f")
+def score_s2f(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """S2F (ref S3F/s3f/gvp.py, task.py, script/evaluate.py): the PLM's
+    final-layer features (``--extra esm_checkpoint=``, ``esm2_t6_8M``)
+    through the GVP-GNN over the 10 A CA graph of --structure-dir's
+    backbone, the rows whose PDB B-factor (pLDDT) is under 70 taking the
+    PLM's own logits, in ``S2F_score``. --checkpoint is a preset
+    (``s2f_tiny`` the default, ``s2f``; seeded random weights, resized to
+    the PLM's width) or a published file, its preset found by layers,
+    widths and surface stream; ``extra["params"]`` a state dict in the
+    published names. WT rows score 0."""
+    return _score_s3f(ctx, "s2f")
+
+
+@register_scorer("s3f")
+def score_s3f(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """S3F: ``s2f`` with the surface stream over ``--extra surface_dir=``'s
+    ``<UniProt_ID or DMS_id>.npz`` (``position`` (S, 3), ``feature`` (S,
+    42)); without one it runs structure-only. Default preset ``s3f_tiny``;
+    ``s3f`` is the published width. In ``S3F_score``."""
+    return _score_s3f(ctx, "s3f")
+
+
+@register_scorer("s3f_msa")
+def score_s3f_msa(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """S3F-MSA: ``s3f`` plus the alignment's count prior (log p(mt) - log
+    p(wt) of its columns) when the MSA's first row is as long as the
+    target, in ``S3F_MSA_score``; needs the assay's MSA."""
+    return _score_s3f(ctx, "s3f_msa")
+
+
+@register_scorer("aido")
+def score_aido(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """AIDO-class MoE masked LM with MSA retrieval (ref AIDO/compute_fitness.py),
+    ``AidoConfig()`` on seeded random weights, ``--batch-size`` masked grids
+    a forward, the assay's alignment and its weights blended in when it has
+    one, in ``AIDO_score``. A literal WT row fails, as in the JAX scorer."""
+    from proteingym_tpu_torch.models import structure_plms as sp
+
+    config = sp.AidoConfig()
+    model = sp.aido_init(config, seed=0, device=ctx.device)
+    msa_seqs = msa_w = None
+    if ctx.msa_dir is not None and ctx.record.MSA_filename:
+        msa = ctx.load_msa()
+        msa_seqs, msa_w = msa.sequences(), msa.weights
+    with no_tf32():
+        scores = sp.aido_score_assay(model, ctx.record.target_seq, ctx.mutants,
+                                     msa_sequences=msa_seqs, msa_weights=msa_w,
+                                     chunk=ctx.batch_size)
+    return {"AIDO_score": scores}

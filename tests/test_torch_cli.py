@@ -310,7 +310,8 @@ def test_models_lists_the_registry(capsys):
     assert {"esmc", "esm3", "xtrimopglm", "carp"} <= set(names)
     assert {"esm_if1", "protein_mpnn", "saprot"} <= set(names)
     assert {"prosst", "venusrem", "mulan", "mif", "mif_st"} <= set(names)
-    assert len(SCORERS) == 34
+    assert {"protssn", "s2f", "s3f", "s3f_msa", "aido"} <= set(names)
+    assert len(SCORERS) == 39
 
 
 # the AR zoo on the CPU: the tiny float32 shapes (head dims 8 and 16), a
@@ -352,7 +353,8 @@ def test_ar_zoo_scorers_through_the_cli(tmp_path, model):
 @pytest.mark.parametrize("model", ["gemme", "escott", "siterm", "rsalor", "provean",
                                    "progen2", "rita", "protgpt2", "progen3", "unirep",
                                    "esmc", "esm3", "xtrimopglm", "carp", "esm_if1",
-                                   "protein_mpnn", "saprot"])
+                                   "protein_mpnn", "saprot", "protssn", "s2f", "s3f",
+                                   "s3f_msa", "aido"])
 def test_alignment_baselines_on_cuda_without_gpu_raise(tmp_path, monkeypatch, model):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ref, dms_dir, _ = _write_assays(tmp_path, n_assays=1)
@@ -640,3 +642,155 @@ def test_structure_plm_scorers_match_the_jax_cli(tmp_path, monkeypatch, run):
     values = np.asarray([float(r[column]) for r in got])
     assert np.isfinite(values).all() and len(set(values)) > len(values) // 2
     np.testing.assert_allclose(values, [want[r["mutant"]] for r in got], atol=1e-4, rtol=0)
+
+
+# structure slice C through both CLIs (--device cpu, float32) on one assay
+# with a written PDB whose B-factors put residues on both sides of S3F's
+# pLDDT threshold of 70, an alignment of the whole target, and for the
+# surface variants a seeded surface .npz. ProtSSN: the port reads published
+# files named protssn_k{k}_h16.pt (their k from the name), the JAX CLI the
+# same weights through its patched presets and init; S2F / S3F: the port
+# reads a published-names file, the JAX CLI the same weights through its
+# patched init; AIDO: a tiny float32 config on both sides. (scorer,
+# arguments of both, column)
+SLICE_C_RUNS = {
+    "protssn": ("protssn", ["--checkpoint", "k10"], "ProtSSN_score"),
+    "protssn_ensemble": ("protssn", ["--checkpoint", "k10,k5"], "ProtSSN_ensemble"),
+    "s2f": ("s2f", [], "S2F_score"),
+    "s3f": ("s3f", ["--extra", "surface_dir=surf"], "S3F_score"),
+    "s3f_msa": ("s3f_msa", ["--extra", "surface_dir=surf"], "S3F_MSA_score"),
+    "aido": ("aido", [], "AIDO_score"),
+    "aido_msa": ("aido", [], "AIDO_score"),
+}
+
+
+def _slice_c_world(tmp_path, msa):
+    from proteingym_tpu_torch.data.structures import synthetic_helix_backbone, write_pdb_backbone
+
+    ref, dms_dir, (dms_id,) = _write_assays(tmp_path, n_assays=1)
+    seq = next(r for r in csv.DictReader(open(ref)))["target_seq"]
+    backbone = synthetic_helix_backbone(len(seq), seed=2)
+    backbone[:, 1] += 0.05 * np.random.RandomState(2).randn(len(seq), 3)
+    plddt = np.where(np.arange(len(seq)) % 4 == 1, 55.0, 88.0)
+    (tmp_path / "pdb").mkdir()
+    write_pdb_backbone(tmp_path / "pdb" / "P0.pdb", backbone, seq, bfactors=plddt)
+    rs = np.random.RandomState(3)
+    (tmp_path / "surf").mkdir()
+    ca = backbone[:, 1]
+    np.savez(tmp_path / "surf" / "P0.npz",
+             position=(ca[rs.randint(0, len(seq), 60)] + 2 * rs.randn(60, 3)).astype(np.float32),
+             feature=rs.randn(60, 10).astype(np.float32))
+    if msa:
+        (tmp_path / "msa").mkdir()
+        rows = [seq] + ["".join(c if rs.rand() < 0.7 else rs.choice(list(AA + "-")) for c in seq)
+                        for _ in range(11)]
+        (tmp_path / "msa" / "SYN.a2m").write_text(
+            f">SYN/1-{len(seq)}\n{rows[0]}\n" + "".join(f">h{i}\n{r}\n"
+                                                       for i, r in enumerate(rows[1:])))
+        with open(ref, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["DMS_id", "DMS_filename", "UniProt_ID", "target_seq", "seq_len",
+                        "MSA_filename", "MSA_start", "MSA_end", "MSA_theta", "weight_file_name"])
+            w.writerow([dms_id, f"{dms_id}.csv", "P0", seq, len(seq), "SYN.a2m", 1, len(seq),
+                        0.2, "SYN.npy"])
+    return ref, dms_dir, dms_id, seq
+
+
+@pytest.mark.parametrize("run", sorted(SLICE_C_RUNS))
+def test_structure_slice_c_scorers_match_the_jax_cli(tmp_path, monkeypatch, run):
+    import dataclasses
+
+    from proteingym_tpu.models import protssn as jp
+    from proteingym_tpu.models import s3f as js
+    from proteingym_tpu.models import structure_plms as jsp
+    from proteingym_tpu_torch.models import s3f as ts
+    from proteingym_tpu_torch.models import structure_plms as tsp
+    from tests import test_torch_aido, test_torch_protssn, test_torch_s3f
+
+    model, args, column = SLICE_C_RUNS[run]
+    msa = run in ("s3f_msa", "aido_msa")
+    ref, dms_dir, dms_id, seq = _slice_c_world(tmp_path, msa)
+    esm = _save_checkpoint(tmp_path / "esm.pt", 5)
+    port_args = jax_args = list(args)
+    if model == "protssn":
+        from proteingym_tpu_torch.models import protssn as tp
+
+        stats = test_torch_protssn._stats(3)
+        torch.save({k: torch.from_numpy(v) for k, v in stats.items()}, tmp_path / "stats.pt")
+        presets, params, files = {}, {}, {}
+        for i, k in enumerate((10, 5)):
+            name = f"protssn_k{k}_h16"
+            c = tp.ProtssnEgnnConfig(name=name, input_dim=128, m_dim=16, n_layers=2,
+                                     k_neighbors=k)
+            sd = test_torch_protssn.published_state(c, seed=11 + i)
+            files[f"k{k}"] = tmp_path / f"{name}.pt"
+            torch.save(sd, files[f"k{k}"])
+            presets[name] = jp.ProtssnEgnnConfig(name=name, input_dim=128, m_dim=16, n_layers=2,
+                                                 k_neighbors=k)
+            with jax.enable_x64(False):
+                params[name] = jp.convert_torch_state_dict(sd, presets[name])
+        monkeypatch.setattr(jp, "PROTSSN_PRESETS", presets)
+        monkeypatch.setattr(jp, "init_egnn_params", lambda rng, c: params[c.name])
+        # the JAX stack under one jit: op by op it takes seconds
+        monkeypatch.setattr(jp, "egnn_log_probs", jax.jit(jp.egnn_log_probs, static_argnums=1))
+        specs = args[1].split(",")
+        port_args = ["--checkpoint", ",".join(str(files[x]) for x in specs)]
+        jax_args = ["--checkpoint", ",".join(f"protssn_{x}_h16" for x in specs)]
+        extra = ["--extra", f"esm_checkpoint=esm2_tiny:{esm}", f"norm_stats={tmp_path}/stats.pt"]
+        port_args, jax_args = port_args + extra, jax_args + extra
+    elif model in ("s2f", "s3f", "s3f_msa"):
+        tiny = {name: dataclasses.replace(c, node_in=128) for name, c in ts.S3F_PRESETS.items()
+                if name.endswith("_tiny")}
+        monkeypatch.setattr(ts, "S3F_PRESETS", {**ts.S3F_PRESETS, **tiny})
+        c = tiny["s2f_tiny" if model == "s2f" else "s3f_tiny"]
+        sd = test_torch_s3f.published_state(c, seed=12, prefix="")
+        with jax.enable_x64(False):
+            params = js.convert_torch_state_dict_gvpgnn(sd, js.GvpGnnConfig(**dataclasses.asdict(c)))
+        monkeypatch.setattr(js, "gvpgnn_init", lambda rng, cfg: params)
+        monkeypatch.setattr(js, "gvpgnn_node_logits",
+                            jax.jit(js.gvpgnn_node_logits, static_argnums=1))
+        torch.save(sd, tmp_path / "s3f.pt")
+        extra = ["--extra", f"esm_checkpoint=esm2_tiny:{esm}"]
+        if "--extra" in args:
+            extra.append(args[args.index("--extra") + 1].replace("=surf", f"={tmp_path}/surf"))
+        port_args, jax_args = ["--checkpoint", str(tmp_path / "s3f.pt")] + extra, extra
+    else:
+        params, net = test_torch_aido.native()
+        monkeypatch.setattr(jsp, "AidoConfig", lambda: test_torch_aido.JCFG)
+        monkeypatch.setattr(jsp, "aido_init", lambda rng, c: params)
+        monkeypatch.setattr(tsp, "AidoConfig", lambda: test_torch_aido.TCFG)
+        monkeypatch.setattr(tsp, "aido_init", lambda c, seed, device: net)
+    common = ["--model", model, "--dms-reference", str(ref), "--dms-dir", str(dms_dir),
+              "--structure-dir", str(tmp_path / "pdb"), "--batch-size", "8", "--quiet"]
+    if msa:
+        common += ["--msa-dir", str(tmp_path / "msa"), "--weights-dir", str(tmp_path / "w")]
+    # the port first: it writes the alignment's weights, which the JAX CLI reads
+    assert tcli.main(["score", *common, "--device", "cpu", "--output-dir", str(tmp_path / "port"),
+                      *port_args]) == 0
+    with jax.enable_x64(False):
+        assert jcli.main(["--platform", "cpu", "score", *common, "--output-dir",
+                          str(tmp_path / "jax"), *jax_args]) == 0
+    want = {r["mutant"]: float(r[column]) for r in _read(tmp_path / "jax" / f"{dms_id}.csv")}
+    got = _read(tmp_path / "port" / f"{dms_id}.csv")
+    assert list(got[0]) == ["mutant", "DMS_score", "mutated_sequence", column]
+    assert [r["mutant"] for r in got] == list(want)
+    values = np.asarray([float(r[column]) for r in got])
+    assert np.isfinite(values).all() and len(set(values)) > len(values) // 2
+    np.testing.assert_allclose(values, [want[r["mutant"]] for r in got], atol=1e-4, rtol=0)
+    assert (tmp_path / "w" / "SYN.npy").exists() == msa
+
+
+def test_protssn_ensemble_lists(tmp_path):
+    from proteingym_tpu_torch.data.reference import load_reference
+    from proteingym_tpu_torch.pipeline import scorers as tscorers
+
+    ref, _, ids = _write_assays(tmp_path, n_assays=1)
+    ctx = tscorers.ScoreContext(record=load_reference(ref)[ids[0]], mutants=[],
+                                device=torch.device("cpu"))
+    for spec, extra, match in (("protssn_k10_h512,", {}, "empty entry"),
+                               ("protssn_k10_h512, ,protssn_tiny", {}, "empty entry"),
+                               ("protssn_tiny,protssn_tiny", {"norm_stats": "a.pt,b.pt,c.pt"},
+                                "2 checkpoints but 3 norm_stats")):
+        ctx.checkpoint, ctx.extra = spec, extra
+        with pytest.raises(ValueError, match=match):
+            tscorers.SCORERS["protssn"](ctx)

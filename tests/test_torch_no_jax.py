@@ -47,6 +47,7 @@ def test_port_imports_without_jax_or_pandas():
                                                              "structure_plms")}
         new |= {"proteingym_tpu_torch.ops.gvp", "proteingym_tpu_torch.ops.gnn",
                 "proteingym_tpu_torch.models.state_dict"}
+        new |= {"proteingym_tpu_torch.models." + m for m in ("protssn", "s3f")}
         assert new <= set(names), sorted(new - set(names))
         print("ok")
     """)
@@ -70,12 +71,14 @@ def test_native_imports_without_a_compiler(tmp_path):
         from proteingym_tpu_torch.models import carp, esm3, esmc, xtrimo
         from proteingym_tpu_torch.models import gvp_transformer, protein_mpnn, saprot
         from proteingym_tpu_torch.models import mulan, prosst, prosst_quantizer, structure_plms
+        from proteingym_tpu_torch.models import protssn, s3f
         from proteingym_tpu_torch.pipeline import scorers
         assert native._lib is None and native._nj_lib is None
         assert {"hmm", "potts", "evmutation", "site_independent", "wavenet", "gemme", "escott",
                 "siterm", "rsalor", "provean", "progen2", "rita", "protgpt2", "progen3",
                 "unirep", "esmc", "esm3", "xtrimopglm", "carp", "esm_if1", "protein_mpnn",
-                "saprot", "prosst", "venusrem", "mulan", "mif", "mif_st"} <= set(scorers.SCORERS)
+                "saprot", "prosst", "venusrem", "mulan", "mif", "mif_st", "protssn", "s2f", "s3f",
+                "s3f_msa", "aido"} <= set(scorers.SCORERS)
         print("ok")
     """)], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

@@ -7,7 +7,12 @@ path and ProteinMPNN's scores on the card against the CPU, SaProt's
 trunk through K4, and a toy MULAN (its float32 trunk on K4, its adapter on
 K1 in "mask" mode, both at head dim 24) per token against the plain
 attention, with the adapter's last key tile skipped shown to fail that
-check.
+check. Structure slice C: K1 in bf16 at AIDO's two shapes (8 heads of 64,
+every key live, the default scale through the pre-pass) against its plain
+version; AIDO's per-token log-probs through K1 against the plain attention
+(the last key tile skipped must fail that check); ProtSSN's stack, S3F with
+its surface stream and a float32 AIDO's sliding table on the card against
+the CPU.
 
 Every test needs an NVIDIA GPU (marker ``cuda``) and skips without one.
 The file imports neither jax nor the JAX package:
@@ -24,7 +29,8 @@ import torch
 
 from proteingym_tpu_torch.data.structures import synthetic_helix_backbone
 from proteingym_tpu_torch.models import esm2, gvp_transformer as tg, mulan, protein_mpnn as tm
-from proteingym_tpu_torch.models import saprot
+from proteingym_tpu_torch.models import progen3, protssn, s3f, saprot
+from proteingym_tpu_torch.models import structure_plms as sp
 from proteingym_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
@@ -207,3 +213,129 @@ def test_mulan_logprobs_through_k1_and_k4_per_token(dev):
 
     fault = logp([plain[0], mock.patch.object(mulan, "mha", last_tile_skipped)])
     assert float((fault - want).abs()[live].max()) > 10 * F32_ATOL  # 3.5e-3 on the CPU
+
+
+# (B, H, T, D) of AIDO's attention: [CLS] + 250 + [EOS], and a 768-residue window
+K1_AIDO = {"T252": (32, 8, 252, 64), "T770": (32, 8, 770, 64)}
+# bf16 kernel vs the float32 plain version of the same bf16 inputs
+BF16_ATOL = 2e-2
+# AIDO's per-token log-probs (bf16, 2 layers at the published width), K1
+# against the plain attention with the kernel run's expert routing
+# replayed: the outputs' bf16 rounding only, 7.1e-3 on an H100 at 700 W,
+# and the last key tile skipped 0.275 (without the replay a router near-tie
+# flipped by one bf16 ulp moves a token by 0.275 too)
+AIDO_LOGP_ATOL = 2e-2
+
+
+@pytest.mark.parametrize("shape", sorted(K1_AIDO))
+def test_k1_at_aido_shapes_matches_plain(shape, dev):
+    b, h, t, d = K1_AIDO[shape]
+    gen = torch.Generator(device=dev).manual_seed(t)
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev).to(torch.bfloat16)
+               .transpose(1, 2) for _ in range(3))
+    mask = torch.ones(b, t, dtype=torch.bool, device=dev)
+    before = dict(fa.LAUNCHES)
+    got = fa.mha(q, k, v, key_mask=mask)
+    torch.cuda.synchronize()
+    launched = {k_: v_ - before[k_] for k_, v_ in fa.LAUNCHES.items() if v_ != before[k_]}
+    assert launched == {"grouped_attention": 1, "rope_qk": 1}
+    want = fa.plain_mha(q.float(), k.float(), v.float(), key_mask=mask)
+    torch.testing.assert_close(got.float(), want, atol=BF16_ATOL, rtol=BF16_ATOL)
+
+
+def _aido_rows(n, t, seed):
+    rng = np.random.RandomState(seed)
+    rows = np.asarray([[esm2.ALPHABET.cls_idx] + [esm2.ALPHABET.get_idx(a) for a in
+                                                  rng.choice(list(AA), t - 2)]
+                       + [esm2.ALPHABET.eos_idx] for _ in range(n)], np.int64)
+    rows[np.arange(n), 1 + 29 * np.arange(n)] = esm2.ALPHABET.mask_idx
+    return rows
+
+
+def test_aido_logprobs_through_k1_per_token(dev):
+    import dataclasses
+
+    model = sp.aido_init(dataclasses.replace(sp.AidoConfig(), num_layers=2), seed=6, device=dev)
+    rows = torch.as_tensor(_aido_rows(8, 252, 6), device=dev)
+    chosen, route = [], progen3.router_weights
+
+    def logp(attention=None):
+        # the kernel run records its expert routing, the others replay it
+        replay = None if attention is None else iter(list(chosen))
+
+        def routed(x32, router, num_experts, top_k):
+            if replay is not None:
+                return next(replay)
+            chosen.append(route(x32, router, num_experts, top_k))
+            return chosen[-1]
+
+        with torch.no_grad(), contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(progen3, "router_weights", routed))
+            if attention is not None:
+                stack.enter_context(mock.patch.object(sp, "mha", attention))
+            out = torch.log_softmax(model(rows), -1)
+        return out.gather(-1, rows[..., None])[..., 0]
+
+    before = dict(fa.LAUNCHES)
+    got = logp()
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in fa.LAUNCHES.items() if v != before[k]}
+    assert launched == {"grouped_attention": 2, "rope_qk": 2}
+    want = logp(fa.plain_mha)
+    err = float((got - want).abs().max())
+
+    def last_tile_skipped(q, k, v, key_mask=None, **kw):  # keys past 192 dropped
+        mask = key_mask.clone()
+        mask[:, 192:] = False
+        return fa.plain_mha(q, k, v, key_mask=mask, **kw)
+
+    fault = float((logp(last_tile_skipped) - want).abs().max())
+    print(f"AIDO per token, 2 layers, routing replayed: K1 vs plain {err:.4g}, "
+          f"the last key tile skipped {fault:.4g} (limit {AIDO_LOGP_ATOL:g})")
+    assert err < AIDO_LOGP_ATOL, err
+    assert fault > AIDO_LOGP_ATOL, fault
+
+
+def test_protssn_on_the_card_equals_cpu(dev):
+    config = protssn.ProtssnEgnnConfig(name="mid", input_dim=160, m_dim=64, n_layers=2)
+    cpu = protssn.init_random(config, seed=3, device="cpu")
+    card = protssn.load_state_dict(cpu.state_dict(), config, device=dev)
+    src, dst, edge_attr, pos = protssn.build_calpha_graph(_backbone(90, 4)[:, :3], 20)
+    npos, nea = protssn.apply_norm_stats(pos, edge_attr, protssn.identity_norm_stats())
+    emb = np.random.RandomState(5).randn(90, 160).astype(np.float32)
+    want = protssn.egnn_log_probs(cpu, emb, npos, src, dst, nea)
+    got = protssn.egnn_log_probs(card, emb, npos, src, dst, nea)
+    torch.testing.assert_close(got.cpu(), want, atol=F32_ATOL, rtol=0)
+
+
+def test_s3f_with_its_surface_on_the_card_equals_cpu(dev):
+    import dataclasses
+
+    config = dataclasses.replace(s3f.S3F_PRESETS["s3f"], node_in=160, num_layers=2)
+    cpu = s3f.init_random(config, seed=4, device="cpu")
+    card = s3f.load_state_dict(cpu.state_dict(), config, device=dev)
+    pos = _backbone(90, 5)[:, 1]
+    src, dst = s3f.radius_graph(pos, config.radius)
+    rs = np.random.RandomState(6)
+    surface = s3f.build_surface_inputs(
+        (pos[rs.randint(0, 90, 400)] + 2 * rs.randn(400, 3)).astype(np.float32),
+        rs.randn(400, config.surf_in_s).astype(np.float32), pos, config)
+    emb = rs.randn(90, 160).astype(np.float32)
+    want = s3f.gvpgnn_node_logits(cpu, emb, pos, src, dst, surface)
+    got = s3f.gvpgnn_node_logits(card, emb, pos, src, dst, surface)
+    torch.testing.assert_close(got.cpu(), want, atol=F32_ATOL, rtol=0)
+
+
+def test_aido_table_on_the_card_equals_cpu(dev):
+    # float32 at head dim 64 (the float32 K1), one published window over 40 residues
+    config = sp.AidoConfig(name="aido_mid", num_layers=2, embed_dim=128, num_heads=2, ffn_dim=64,
+                           num_experts=4, dtype=torch.float32)
+    cpu = sp.aido_init(config, seed=5, device="cpu")
+    card = sp.aido_load_state_dict(cpu.state_dict(), config, device=dev)
+    seq = _seqs(1, 40, 8)[0]
+    want = sp.aido_logits_table(cpu, seq, chunk=8)
+    before = dict(fa.LAUNCHES)
+    got = sp.aido_logits_table(card, seq, chunk=8)
+    # one window: 40 masked grids in 5 forwards of 2 layers
+    assert fa.LAUNCHES["grouped_attention"] - before["grouped_attention"] == 2 * 5
+    np.testing.assert_allclose(got, want, atol=F32_ATOL, rtol=0)

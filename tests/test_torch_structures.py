@@ -81,3 +81,44 @@ def test_written_backbone_reads_back(tmp_path):
         got, got_seq = parse(tmp_path / "x.pdb")
         assert got_seq == seq
         np.testing.assert_allclose(got, coords, atol=5e-4, rtol=0)  # 3 decimals
+
+
+def _with_bfactors(path):
+    """The awkward PDB with every atom's B-factor its own seeded number, and
+    one CA whose field does not parse (read as 0)."""
+    rs = np.random.RandomState(5)
+    lines = []
+    for i, line in enumerate(path.read_text().splitlines()):
+        if line.startswith(("ATOM", "HETATM")):
+            field = "  x.yz" if i == 7 else f"{rs.uniform(20, 99):6.2f}"
+            line = line[:60] + field + line[66:]
+        lines.append(line)
+    path.write_text("\n".join(lines) + "\n")
+
+
+@pytest.mark.parametrize("chain", [None, "A", "B"])
+def test_parse_pdb_bfactors_equals_jax(tmp_path, chain):
+    path = tmp_path / "awkward.pdb"
+    _awkward_pdb(path)
+    _with_bfactors(path)
+    got = tstruct.parse_pdb_bfactors(path, chain=chain)
+    want = jstruct.parse_pdb_bfactors(path, chain=chain)
+    assert got.dtype == np.float32 and want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    # one B-factor per residue that parse_pdb_backbone keeps
+    assert len(got) == len(tstruct.parse_pdb_backbone(path, chain=chain)[1])
+    if chain in (None, "B"):
+        assert (got == 0).sum() == 1 and (got[got != 0] >= 20).all()
+
+
+def test_written_bfactors_read_back(tmp_path):
+    coords = tstruct.synthetic_helix_backbone(30, seed=4)
+    seq = "ACDEFGHIKLMNPQRSTVWY"[:15] * 2
+    plddt = np.where(np.arange(30) % 7 < 3, 50.0, 90.0) + np.arange(30) * 0.013
+    tstruct.write_pdb_backbone(tmp_path / "b.pdb", coords, seq, bfactors=plddt)
+    for parse in (tstruct.parse_pdb_bfactors, jstruct.parse_pdb_bfactors):
+        # 2 decimals, then float32
+        np.testing.assert_allclose(parse(tmp_path / "b.pdb"), plddt, atol=5.1e-3, rtol=0)
+    tstruct.write_pdb_backbone(tmp_path / "z.pdb", coords, seq)  # no B-factors: 0
+    assert not jstruct.parse_pdb_bfactors(tmp_path / "z.pdb").any()
+    assert tstruct.parse_pdb_backbone(tmp_path / "b.pdb")[1] == seq
