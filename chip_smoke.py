@@ -134,13 +134,13 @@ Phases (any failure raises, and the script exits non-zero):
    14's L=250 target and 16,384-row alignment and phase 15's indel assay,
    with no weights file, so K5 runs once on every alignment load and
    nothing else launches a kernel of the port except TranceptEVE's K1: (a)
-   ``train --model eve --steps 2000`` at EVE's default architecture (55M
+   ``train --model eve --steps 1000`` at EVE's default architecture (55M
    parameters, batch 256, float32 without TF32): the reference EVE file,
    steps/s, the loss of the first and last 100 steps, peak memory, then
    ``eve.train`` for 200 steps under torch.profiler (idle share, device
    time by kind of kernel, launches per step) and the decoder KL timed
    alone; (b)
-   ``score --model deepsequence`` without --checkpoint (2,000 steps, 2,000
+   ``score --model deepsequence`` without --checkpoint (1,000 steps, 2,000
    draws): finite evol indices under the JAX column, the 190 mutants past
    the alignment empty; (c) ``score --model trancepteve --extra
    retrieval_type=TranceptEVE eve_checkpoints=<(a)'s file>`` on the first
@@ -284,6 +284,26 @@ Phases (any failure raises, and the script exits non-zero):
    AIDO's two shapes (B32 H8 T252 and T770 D64 bf16, every key live)
    beside plain, SDPA and the bound, as ``grouped_attention:aido_T252`` and
    ``grouped_attention:aido_T770``.
+23. the supervised track and the VESPA family at full width with seeded
+   weights, on phase 14's L=250 target (4,750 singles; every 4th, 1,024,
+   for ProteinNPT and Kermut) and phase 20's helix: (a) ``vespa``
+   (``vespa_mode=full``) through the scorer's library call with a
+   ProtT5-XL T5ForConditionalGeneration state dict in ``extra["params"]``
+   (24 + 24 layers), a ``prott5cons`` ConsCNN file and DEFAULT_BLEND: the
+   masked log-odds table's seconds, 4 rows card vs CPU, T5's absent softmax
+   scale put in shown to fail; (b) ``score --model vespag --checkpoint
+   state_dict_v2.pt --extra esm_checkpoint=esm2_t36_3B`` (36 K4 + 36
+   rope_qk), the landscape card vs CPU on the same embeddings, K4 at B1
+   H40 T252 D64 beside plain, SDPA and the bound as
+   ``grouped_attention_bthd:esm2_3b``; (c) ``ohe_ridge`` and
+   ``embeddings_ridge --checkpoint esm2_t33_650M`` over all singles and
+   three schemes (149 forwards of 33 K4 + 33 rope_qk), features of 8 rows
+   and the ridges' out-of-fold predictions card vs CPU; (d) ``proteinnpt
+   --extra npt_steps=200``: ms a step, the idle share, 5 steps card vs CPU
+   on the same draws; (e) ``kermut --structure-dir`` (50 steps a fold): the
+   last fold's hyperparameters and predictions card vs CPU, the distance
+   term dropped shown to fail; (f) ``supervised-score`` ->
+   ``merge-supervised`` -> ``evaluate-supervised`` over (c)-(e)'s files.
 
 Every phase holds the port to its rule: no module of the JAX package
 (``proteingym_tpu``) may be loaded. It prints one JSON line describing the
@@ -433,14 +453,14 @@ POTTS_CPU_STEPS, POTTS_LOSS_RTOL, POTTS_HJ_RTOL = 3, 1e-4, 2e-3
 # TF32's on the tensor cores: a 3xTF32 product takes three TF32 passes
 PEAK_F32_FLOPS, PEAK_TF32_FLOPS = 67e12, 495e12
 # the shapes of phase 16: phase 14's L=250 target and alignment and phase
-# 15's indel assay; EVE at its default architecture for 2,000 steps (cut
+# 15's indel assay; EVE at its default architecture for 1,000 steps (cut
 # for time from train's default of 400,000 and the scorer's 10,000; 5,000
-# before phase 21 came),
-# DeepSequence for 2,000 (cut: time), TranceptEVE on the first 512 of the
+# before phase 21 came, 2,000 before phase 23),
+# DeepSequence for 1,000 (cut: time; 2,000 before phase 23), TranceptEVE on the first 512 of the
 # 4,750 singles (cut: time), Potts at the scorer's 300 steps, WaveNet at
 # its defaults (400 steps)
-TRAINER_SLICE = dict(checkpoint="Large", batch=32, eve_steps=2_000, profiled_steps=200,
-                     deepsequence_steps=2000, deepsequence_samples=2000, trancepteve_mutants=512,
+TRAINER_SLICE = dict(checkpoint="Large", batch=32, eve_steps=1_000, profiled_steps=200,
+                     deepsequence_steps=1000, deepsequence_samples=2000, trancepteve_mutants=512,
                      eve_num_samples=20_000, potts_steps=300, wavenet_profiled_steps=50)
 # Card against CPU at phase 16's own sizes: the first TRAINER_CPU_STEPS
 # Adam steps of EVE (lr 1e-4, batch 256 of 16,384 rows) and WaveNet (lr
@@ -2543,7 +2563,8 @@ def cli_score(torch, cli, root, n, model, dms_id, column, counters, batch_size,
         fail(f"{model} score CLI exited {rc} on {dms_id}")
     return dict(wall=wall, launches={k: v for c in counters for k, v in c.items()}, n=n,
                 scores=read_scores(out_dir / f"{dms_id}.csv", column, n),
-                peak_gib=torch.cuda.max_memory_allocated() / 2**30, mutants_per_s=n / wall)
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, mutants_per_s=n / wall,
+                out=out_dir / f"{dms_id}.csv")
 
 
 def report_run(tag, what, r, card, column, want_forwards, per_forward, extra_launches=None,
@@ -5452,6 +5473,478 @@ def aido_logp_held(torch, fa, sp, model, rows):
     return err
 
 
+# the shapes of phase 23: phase 14's L=250 target with its 4,750 singles
+# (the ridges, VESPA, VespaG) and every 4th of them, 1,024 (ProteinNPT and
+# Kermut: time), on phase 20's helix; ProtT5-XL's 4 table rows (of 250) on
+# the CPU, ProteinNPT's 200 steps a fold (600 published: time), 5 steps of it
+# on the card and the CPU with the same draws, the embedding ridge's
+# features of 8 rows on the CPU (in float32: ESM2-650M's bf16 on 64 rows
+# would take minutes of the host's cores)
+SUPERVISED_SLICE = dict(batch=32, subset=1024, npt_steps=200, t5_cpu_rows=(0, 83, 166, 249),
+                        feature_cpu_rows=8, npt_cpu_steps=5, profiled_npt_steps=20)
+# (label, B, H, T, D) of K4 at ESM2-3B's rows, VespaG's trunk: 40 heads of 64
+K4_ESM2_3B = ("esm2_3b", 1, 40, 252, 64)
+# ProtT5-XL's masked log-odds, card against CPU: float32 without TF32 on both
+# through 24 + 24 layers of d_ff 16384, summation order apart: 7.6e-3 on an
+# H100 at 700 W (a chip run of this phase); T5's softmax scale put in (the
+# planted fault) moved them by 2.35
+VESPA_CPU_ATOL = 5e-2
+# VespaG's float32 head (2560 -> 256 -> 20) on the same embeddings; a LeakyReLU
+# slope of 0.2 for 0.01 moves the landscape by ~0.1
+VESPAG_CPU_ATOL = 1e-4
+# the ridges' out-of-fold predictions, card (cuSOLVER) against CPU (LAPACK),
+# float32 Choleskys of the 5,000-wide one-hot Gram (counts up to ~3,800 on
+# its diagonal beside lam 1) and the 1,280-wide embedding one on the same
+# features: the one-hot ridge's read 1.5e-2 on an H100 at 700 W (a chip run
+# of this phase); each row given its neighbour's target (the planted fault)
+# must move them more
+RIDGE_CPU_ATOL = 5e-2
+# ESM2-650M's mean-pooled features, bf16 on the card against a float32 copy
+# on the CPU: the card's own bf16 rounding through 33 layers; the last key
+# tile dropped in every layer (the planted fault) moves them by O(0.1)
+FEATURE_CPU_ATOL = 1e-1
+# ProteinNPT's parameters after 5 Adam steps on the same draws (key biases
+# aside: softmax ignores them, Adam turns their rounding into +-lr steps)
+NPT_STEP_ATOL = 1e-4
+# Kermut's hyperparameters after 50 Adam steps at lr 0.1 through a float32
+# Cholesky of an ~820-wide Gram, and the fold's predictions with them
+KERMUT_CPU_ATOL = 1e-2
+
+
+def k4_record(torch, dev, fa, card, spec, tag):
+    """K4 at ``spec`` (label, B, H, T, D) as ESM2's layers call it, bf16
+    (B, T, H, D) q/k/v, q pre-scaled, RoPE in the pre-pass, every key live:
+    held against the plain version, timed beside it, SDPA on the rotated
+    q/k and the bound."""
+    label, b, h, tt, d = spec
+    gen = torch.Generator(device=dev).manual_seed(tt + h)
+    q, k, v = (torch.randn(b, tt, h, d, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    q = (q.float() * d ** -0.5).to(torch.bfloat16)
+    mask = torch.ones(b, tt, dtype=torch.bool, device=dev)
+    call = dict(key_mask=mask, sm_scale=1.0, rope_base=10000.0)
+    got = fa.grouped_mha_bthd(q, k, v, **call)
+    torch.cuda.synchronize()
+    what = f"B{b} H{h} T{tt} D{d} bf16, mask + RoPE (every key live)"
+    err = check_close(f"({tag}) K4 {what} ({label})", got,
+                      fa.plain_mha_bthd(q.float(), k.float(), v.float(), **call),
+                      BF16_ATOL, BF16_RTOL)
+    tr = lambda x: x.transpose(1, 2)  # noqa: E731
+    qr, kr = fa.rope_qk(tr(q), tr(k), 1.0, 10000.0)
+    lib = sdpa(torch, qr, kr, tr(v), mask[:, None, None, :])
+    times = median_pair(torch, {
+        "plain": lambda: fa.plain_mha_bthd(q, k, v, **call),
+        "kernel": lambda: fa.grouped_mha_bthd(tr(qr), tr(kr), v, key_mask=mask, sm_scale=1.0),
+        "sdpa": lib,
+        "call": lambda: fa.grouped_mha_bthd(q, k, v, **call),
+    }, reps=3, inner=10, rounds=1)
+    bnd = bound(4.0 * d * h * tt * float(mask.sum()), nbytes(q, k, v, got, mask))
+    print(f"  ({tag}) K4 {what}: the call (pre-pass + loop) {times['call']:.4f} ms, the loop "
+          f"alone {times['kernel']:.4f} ms, plain {times['plain']:.4f} ms, SDPA on the rotated "
+          f"q/k {times['sdpa']:.4f} ms ({sdpa_backend(torch, lib)}), bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; {card})")
+    return dict(label=label, shape=what, ms=times["call"], loop_ms=times["kernel"],
+                plain_ms=times["plain"], library_ms=times["sdpa"], max_abs_err=err, **bnd)
+
+
+def key_tail_dropped(fa, tail=64):
+    """``mha_natural`` with each row's last ``tail`` keys masked: the
+    planted fault of phase 23's feature check."""
+    def attention(q, k, v, key_mask=None, **kw):
+        mask = key_mask.clone()
+        mask[:, -tail:] = False
+        return fa.mha_natural(q, k, v, key_mask=mask, **kw)
+    return attention
+
+
+def phase_supervised(torch, dev, card, fa, check_close):
+    """23. The supervised track and the VESPA family at full width with seeded
+    weights, on phase 14's L=250 target (4,750 singles) and every 4th of
+    them (1,024), phase 20's helix as the structure: (a) ``vespa``,
+    ``vespa_mode=full``, through the scorer's library call with a ProtT5-XL
+    T5ForConditionalGeneration state dict (24 + 24 layers, HF names) in
+    ``extra["params"]``, a ``prott5cons`` ConsCNN file and DEFAULT_BLEND
+    (no kernel of the port: T5's (B, H, T, T) bias is plain attention): the
+    masked log-odds table's seconds, 4 of its rows on the card against the
+    CPU, T5's absent softmax scale put in shown to fail that check; (b)
+    ``score --model vespag --checkpoint state_dict_v2.pt --extra
+    esm_checkpoint=esm2_t36_3B`` (a seeded FNN 2560 -> 256 -> 20; one
+    ESM2-3B forward, 36 K4 + 36 rope_qk): the landscape on the card
+    against the CPU on the same embeddings (a LeakyReLU slope of 0.2 shown
+    to fail), K4 at B1 H40 T252 D64 beside plain, SDPA and the bound; (c)
+    ``ohe_ridge`` and ``embeddings_ridge --checkpoint esm2_t33_650M`` over
+    all singles and three schemes (149 forwards of 33 K4 + 33 rope_qk):
+    seconds, the features of 8 rows against a float32 CPU copy (the last
+    key tile dropped shown to fail), the last scheme's out-of-fold
+    predictions against the CPU's ridge on the same features; (d)
+    ``proteinnpt --extra npt_steps=200`` on the 1,024: ms a step, the idle
+    share of 20 profiled steps, 5 steps on the card and the CPU with the
+    same draws per parameter (other draws shown to fail); (e) ``kermut
+    --structure-dir`` on the 1,024 (50 Adam steps a fold): seconds, the last
+    fold's hyperparameters and predictions against the CPU's fit, the
+    distance term dropped shown to fail; (f) ``supervised-score --model
+    OHE_ridge`` -> ``merge-supervised`` -> ``evaluate-supervised`` over
+    (c)-(e)'s files, each one's wall."""
+    from proteingym_tpu_torch.data.mutants import apply_mutant
+    from proteingym_tpu_torch.data.reference import load_reference
+    from proteingym_tpu_torch.data.structures import synthetic_helix_backbone, write_pdb_backbone
+    from proteingym_tpu_torch.models import esm2, kermut, prot_t5, protein_npt, protssn
+    from proteingym_tpu_torch.models import supervised_baselines as sb
+    from proteingym_tpu_torch.models import vespa_heads, vespag
+    from proteingym_tpu_torch.pipeline import cli, scorers
+
+    s = SUPERVISED_SLICE
+    batch, length = s["batch"], TRANCEPTION_SLICE["length"]
+    codes = np.random.RandomState(13).randint(1, 21, length)  # phase 14's target
+    seq = "".join(GAP_AA[c] for c in codes)
+    singles = [f"{seq[p]}{p + 1}{a}" for p in range(length) for a in AA if a != seq[p]]
+    subset = singles[::len(singles) // s["subset"]][:s["subset"]]
+    helix = synthetic_helix_backbone(length, seed=20)  # phase 20's helix
+    helix[:, 1] += STRUCTURE_SLICE["ca_noise"] * np.random.RandomState(20).randn(length, 3)
+    y = np.random.RandomState(23).randn(len(singles))
+    zero_shot = y + np.random.RandomState(24).randn(len(singles))
+    schemes = sb.CV_SCHEMES
+    phase_t0 = time.perf_counter()
+    print(f"[supervised] VESPA (ProtT5-XL + ConsCNN), VespaG (over ESM2-3B), the OHE and "
+          f"embedding ridges (ESM2-650M), ProteinNPT and Kermut (seeded, full width) on phase "
+          f"14's L={length} target ({len(singles)} singles; {len(subset)} for ProteinNPT and "
+          f"Kermut) and phase 20's helix; batch {batch}; {card}")
+    runs, errs, walls = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        for d in ("dms", "pdb"):
+            (root / d).mkdir()
+        at = {m: i for i, m in enumerate(singles)}
+        for dms_id, rows in (("SUP_L250", singles), ("SUP_1024", subset)):
+            write_csv_rows(root / "dms" / f"{dms_id}.csv", ["mutant", "DMS_score", "zero_shot_score"],
+                           [[m, repr(float(y[at[m]])), repr(float(zero_shot[at[m]]))]
+                            for m in rows])
+            write_pdb_backbone(root / "pdb" / f"{dms_id}.pdb", helix, seq)
+        write_csv_rows(root / "reference.csv",
+                       ["DMS_id", "DMS_filename", "UniProt_ID", "target_seq", "seq_len", "taxon",
+                        "coarse_selection_type", "MSA_Neff_L_category"],
+                       [["SUP_L250", "SUP_L250.csv", "SUP_A", seq, length, "Human", "Activity",
+                         "Low"],
+                        ["SUP_1024", "SUP_1024.csv", "SUP_B", seq, length, "Virus", "Stability",
+                         "High"]])
+        reference = load_reference(root / "reference.csv")
+
+        # (a) VESPA through the library call, ProtT5-XL's state dict in extra["params"]
+        xl = prot_t5.PRESETS["prot_t5_xl"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t5 = prot_t5.init_random(xl, seed=0, device=dev, decoder_layers=xl.num_layers)
+        state = t5.state_dict()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in t5.parameters())
+        cons = vespa_heads.init_conscnn(seed=0, device=dev)
+        torch.save({"0.weight": cons.conv1.weight[..., None].cpu(),
+                    "0.bias": cons.conv1.bias.cpu(),
+                    "3.weight": cons.conv2.weight[..., None].cpu(),
+                    "3.bias": cons.conv2.bias.cpu()}, root / "prott5cons.pt")
+        ctx = scorers.ScoreContext(record=reference["SUP_L250"], mutants=singles, device=dev,
+                                   extra={"vespa_mode": "full", "params": state,
+                                          "conscnn_checkpoint": str(root / "prott5cons.pt")})
+        kept, table = {}, {}
+        for name in fa.LAUNCHES:
+            fa.LAUNCHES[name] = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with keeping(prot_t5, "load_state_dict", kept), \
+                capturing(torch, prot_t5, "masked_logodds", table):
+            vespa = scorers.SCORERS["vespa"](ctx)["VESPA_score"]
+        wall = time.perf_counter() - t0
+        check_launches("vespa", dict(fa.LAUNCHES), {})
+        runs["vespa"] = {"launches": dict(fa.LAUNCHES)}
+        if len(vespa) != len(singles) or not np.isfinite(vespa).all() or (vespa > 0).any():
+            fail("vespa: scores not finite, not one per single, or above 0")
+        del ctx, state, t5
+        model = kept.pop("load_state_dict")
+        print(f"  (a) vespa_mode=full: ProtT5-XL T5ForConditionalGeneration ({n_params / 1e9:.2f}B "
+              f"parameters float32, seeded on the card in {init_s:.2f} s), {len(singles)} finite "
+              f"VESPA_score in {wall:.2f} s, of which the masked log-odds table ({length} encoder "
+              f"rows in chunks of 32, one 2-token decode each) {table['seconds']:.2f} s; no "
+              f"kernel of the port (T5's bias is plain attention); peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+        rows = list(s["t5_cpu_rows"])
+        t0 = time.perf_counter()
+        cpu_model = prot_t5.load_state_dict(model.state_dict(), device="cpu")
+        want = prot_t5.masked_logodds(cpu_model, seq, positions=rows)
+        cpu_s = time.perf_counter() - t0
+        del cpu_model
+        errs["ProtT5-XL log-odds card vs CPU"] = check_close(
+            f"(a) ProtT5-XL masked log-odds, rows {rows}, card vs CPU ({cpu_s:.1f} s on the CPU)",
+            torch.from_numpy(table["out"][rows]), torch.from_numpy(want), VESPA_CPU_ATOL, 0.0)
+        real = prot_t5._attend
+        with mock.patch.object(prot_t5, "_attend",
+                               lambda q, k, v, b: real(q * q.shape[-1] ** -0.5, k, v, b)):
+            bad = prot_t5.masked_logodds(model, seq, positions=rows)
+        fault = float(np.abs(bad - want).max())
+        print(f"  (a) the planted fault, T5's absent d_kv**-0.5 softmax scale put in: max |diff| "
+              f"{fault:.3g} (limit {VESPA_CPU_ATOL:g})")
+        if fault <= VESPA_CPU_ATOL:
+            fail("vespa: the planted softmax-scale fault passes the card-vs-CPU check")
+        del model, kept, table, bad
+        torch.cuda.empty_cache()
+
+        # (b) VespaG through the CLI over ESM2-3B
+        e3b = esm2.PRESETS["esm2_t36_3B"]
+        rs = np.random.RandomState(25)
+        gain = math.sqrt(2.0 / (1 + 1e-2 ** 2))
+        head_sd = {"net.0.weight": torch.from_numpy(
+                       (rs.randn(256, e3b.embed_dim) * gain / math.sqrt(e3b.embed_dim))
+                       .astype(np.float32)),
+                   "net.0.bias": torch.from_numpy((0.01 * rs.randn(256)).astype(np.float32)),
+                   "net.2.weight": torch.from_numpy(
+                       (rs.randn(20, 256) * gain / math.sqrt(256)).astype(np.float32)),
+                   "net.2.bias": torch.from_numpy((0.01 * rs.randn(20)).astype(np.float32))}
+        torch.save(head_sd, root / "state_dict_v2.pt")
+        emb = {}
+        r = cli_score(torch, cli, root, len(singles), "vespag", "SUP_L250", "VespaG_score",
+                      [fa.LAUNCHES], batch, checkpoint=str(root / "state_dict_v2.pt"),
+                      extra=["esm_checkpoint=esm2_t36_3B"],
+                      patches=[capturing(torch, protssn, "esm_embeddings", emb)])
+        r["forwards"] = emb["calls"]
+        report_run("b", "vespag --checkpoint state_dict_v2.pt (ESM2-3B)", r, card, "VespaG_score",
+                   1, {"grouped_attention_bthd": e3b.num_layers, "rope_qk": e3b.num_layers},
+                   detail=f"; the embeddings {emb['seconds']:.2f} s")
+        runs["vespag"] = r
+        head = vespag.load_state_dict(head_sd, device=dev)
+        land = vespag.landscape(head, emb["out"])
+        if not np.allclose(vespag.score_mutants_reference(land, seq, singles), r["scores"],
+                           atol=1e-6):
+            fail("vespag: the CLI's scores are not its landscape's")
+        want = vespag.landscape(vespag.load_state_dict(head_sd, device="cpu"), emb["out"].cpu())
+        errs["VespaG landscape card vs CPU"] = check_close(
+            "(b) VespaG landscape (250 x 20), card vs CPU on the same embeddings",
+            torch.from_numpy(land), torch.from_numpy(want), VESPAG_CPU_ATOL, 0.0)
+        with mock.patch.object(vespag, "LEAKY_SLOPE", 0.2):
+            fault = float(np.abs(vespag.landscape(head, emb["out"]) - want).max())
+        print(f"  (b) the planted fault, a LeakyReLU slope of 0.2: max |diff| {fault:.3g} "
+              f"(limit {VESPAG_CPU_ATOL:g})")
+        if fault <= VESPAG_CPU_ATOL:
+            fail("vespag: the planted slope fault passes the card-vs-CPU check")
+        del emb, head
+        torch.cuda.empty_cache()
+        record = k4_record(torch, dev, fa, card, K4_ESM2_3B, "b")
+
+        # (c) the ridges through the CLI
+        ohe, emb_ridge, feats = {}, {}, {}
+        r = cli_score(torch, cli, root, len(singles), "ohe_ridge", "SUP_L250",
+                      f"OHE_ridge_{schemes[0]}", [fa.LAUNCHES], batch,
+                      patches=[capturing(torch, sb, "ridge_cv_predict", ohe)])
+        r["forwards"] = 0
+        report_run("c", "ohe_ridge, 3 schemes x 5 folds", r, card, f"OHE_ridge_{schemes[0]}", 0,
+                   {}, detail=f"; the ridges {ohe['seconds']:.2f} s (features "
+                   f"{ohe['args'][0].shape[1]} wide)")
+        runs["ohe_ridge"] = r
+        e650 = esm2.PRESETS["esm2_t33_650M"]
+        r = cli_score(torch, cli, root, len(singles), "embeddings_ridge", "SUP_L250",
+                      f"Emb_ridge_{schemes[0]}", [fa.LAUNCHES], batch, checkpoint="esm2_t33_650M",
+                      patches=[capturing(torch, sb, "ridge_cv_predict", emb_ridge),
+                               capturing(torch, sb, "esm_embedding_features", feats)])
+        r["forwards"] = -(-len(singles) // batch)
+        report_run("c", "embeddings_ridge --checkpoint esm2_t33_650M", r, card,
+                   f"Emb_ridge_{schemes[0]}", r["forwards"],
+                   {"grouped_attention_bthd": e650.num_layers, "rope_qk": e650.num_layers},
+                   detail=f"; the features {feats['seconds']:.2f} s, the ridges "
+                   f"{emb_ridge['seconds']:.2f} s")
+        runs["embeddings_ridge"] = r
+        random_folds = sb.assign_folds(singles, schemes[0])
+        for name, box in (("OHE", ohe), ("embedding", emb_ridge)):
+            # fold_random_5 (the contiguous scheme holds out unseen positions:
+            # the one-hot ridge predicts about the training mean there)
+            features, targets = box["args"][:2]
+            got = sb.ridge_cv_predict(features, targets, random_folds, device=dev)
+            t0 = time.perf_counter()
+            want = sb.ridge_cv_predict(features, targets, random_folds, device="cpu")
+            errs[f"{name} ridge card vs CPU"] = check_close(
+                f"(c) {name} ridge, {schemes[0]} out of fold, card vs CPU ("
+                f"{time.perf_counter() - t0:.1f} s on the CPU)", torch.from_numpy(got),
+                torch.from_numpy(want), RIDGE_CPU_ATOL, 0.0)
+            bad = sb.ridge_cv_predict(features, np.roll(targets, 1), random_folds, device=dev)
+            fault = float(np.abs(bad - want).max())
+            print(f"  (c) the planted fault, each row given its neighbour's target: max |diff| "
+                  f"{fault:.3g} (limit {RIDGE_CPU_ATOL:g})")
+            if fault <= RIDGE_CPU_ATOL:
+                fail(f"{name} ridge: the planted target fault passes the card-vs-CPU check")
+        esm_card = feats["args"][0]
+        n_rows = s["feature_cpu_rows"]
+        rows8 = feats["args"][1][:n_rows]
+        cpu_esm = esm2.load_fair_esm_state_dict(  # a float32 copy of the card's bf16 weights
+            esm_card.state_dict(), dataclasses.replace(e650, dtype=torch.float32), device="cpu")
+        t0 = time.perf_counter()
+        want = sb.esm_embedding_features(cpu_esm, rows8, batch_size=n_rows)
+        cpu_s = time.perf_counter() - t0
+        del cpu_esm
+        errs["embedding features card vs CPU"] = check_close(
+            f"(c) ESM2-650M features of {n_rows} rows, bf16 card vs float32 CPU ({cpu_s:.1f} s)",
+            torch.from_numpy(feats["out"][:n_rows]), torch.from_numpy(want), FEATURE_CPU_ATOL, 0.0)
+        with mock.patch.object(esm2, "mha_natural", key_tail_dropped(fa)):
+            bad = sb.esm_embedding_features(esm_card, rows8, batch_size=n_rows)
+        fault = float(np.abs(bad - want).max())
+        print(f"  (c) the planted fault, the last 64 keys of every row dropped in every layer: "
+              f"max |diff| {fault:.3g} (limit {FEATURE_CPU_ATOL:g})")
+        if fault <= FEATURE_CPU_ATOL:
+            fail("embeddings_ridge: the planted key fault passes the card-vs-CPU check")
+        del esm_card, feats, ohe, emb_ridge
+        torch.cuda.empty_cache()
+
+        # (d) ProteinNPT through the CLI on the 1,024
+        spans = {}
+        r = cli_score(torch, cli, root, len(subset), "proteinnpt", "SUP_1024",
+                      f"ProteinNPT_{schemes[0]}", [fa.LAUNCHES], batch,
+                      extra=[f"npt_steps={s['npt_steps']}"],
+                      patches=[mock.patch.object(protein_npt, "train", spans_of(
+                          torch, spans, "train", protein_npt.train))])
+        n_steps = len(schemes) * 5 * s["npt_steps"]
+        r["forwards"] = 0
+        report_run("d", f"proteinnpt --extra npt_steps={s['npt_steps']}", r, card,
+                   f"ProteinNPT_{schemes[0]}", 0, {},
+                   detail=f"; training {spans['train']:.2f} s for {n_steps} steps -> "
+                   f"{spans['train'] / n_steps * 1e3:.2f} ms a step")
+        runs["proteinnpt"] = r
+        c = protein_npt.ProteinNptConfig()
+        npt_feats = protein_npt.residue_features([apply_mutant(seq, m) for m in subset], length)
+        npt_y = np.asarray([y[at[m]] for m in subset])
+        npt_aux = sb.standardized_aux(np.asarray([zero_shot[at[m]] for m in subset]))
+        prof_c = dataclasses.replace(c, steps=s["profiled_npt_steps"])
+        prof_model = protein_npt.init_random(prof_c, seed=1, device=dev)
+        _, pwall, busy, n_launch, _ = device_seconds(torch, lambda: protein_npt.train(
+            prof_model, prof_c, npt_feats, npt_y, aux=npt_aux, seed=1))
+        idle = "not read" if busy is None else f"{1.0 - busy / pwall:.3f}"
+        print(f"  (d) {prof_c.steps} steps under the profiler: wall {pwall / prof_c.steps * 1e3:.2f}"
+              f" ms a step, device "
+              + ("not read" if busy is None else f"{busy / prof_c.steps * 1e3:.2f} ms")
+              + f" a step, {n_launch / prof_c.steps:.0f} launches a step, idle share {idle}")
+        cpu_m = protein_npt.init_random(c, seed=2, device="cpu")
+        card_m = protein_npt.load_state_dict(cpu_m.state_dict(), c, device=dev)
+        start = {k: v.clone() for k, v in cpu_m.state_dict().items()}
+        draws = list(protein_npt.draw_batches(c, len(npt_y), s["npt_cpu_steps"],
+                                              torch.Generator().manual_seed(3)))
+        t0 = time.perf_counter()
+        cpu_m, _ = protein_npt.train(cpu_m, c, npt_feats, npt_y, aux=npt_aux, draws=draws)
+        cpu_s = time.perf_counter() - t0
+        on_card = [(i.to(dev), h.to(dev)) for i, h in draws]
+        card_m, _ = protein_npt.train(card_m, c, npt_feats, npt_y, aux=npt_aux, draws=on_card)
+        want, got = cpu_m.state_dict(), card_m.state_dict()
+        live = [k for k in want if not k.endswith(".k.bias")]
+        worst = max(float((got[k].cpu() - want[k]).abs().max()) for k in live)
+        moved = math.sqrt(sum(float(((want[k] - start[k]) ** 2).sum()) for k in live))
+        apart = math.sqrt(sum(float(((got[k].cpu() - want[k]) ** 2).sum()) for k in live))
+        print(f"  (d) {s['npt_cpu_steps']} Adam steps, the same draws, card vs CPU ({cpu_s:.1f} s on "
+              f"the CPU): {len(live)} parameter tensors, largest |diff| {worst:.3g} (limit "
+              f"{NPT_STEP_ATOL:g}), ||card - CPU|| / ||update|| {apart / moved:.3g}")
+        if worst > NPT_STEP_ATOL:
+            fail(f"proteinnpt: card and CPU parameters differ by {worst:.3g} after "
+                 f"{s['npt_cpu_steps']} steps")
+        errs["ProteinNPT steps card vs CPU"] = worst
+        card_m = protein_npt.load_state_dict(start, c, device=dev)
+        card_m, _ = protein_npt.train(card_m, c, npt_feats, npt_y, aux=npt_aux,
+                                      draws=[on_card[0]] * len(on_card))
+        fault = max(float((card_m.state_dict()[k].cpu() - want[k]).abs().max()) for k in live)
+        print(f"  (d) the planted fault, step 0's draws in every step: largest |diff| {fault:.3g}")
+        if fault <= NPT_STEP_ATOL:
+            fail("proteinnpt: the planted draw fault passes the card-vs-CPU check")
+        del cpu_m, card_m, prof_model
+        torch.cuda.empty_cache()
+
+        # (e) Kermut through the CLI on the 1,024
+        fits, preds, mpnn_t = {}, {}, {}
+        r = cli_score(torch, cli, root, len(subset), "kermut", "SUP_1024", f"kermut_{schemes[0]}",
+                      [fa.LAUNCHES], batch, flags=["--structure-dir", str(root / "pdb")],
+                      patches=[capturing(torch, kermut, "fit", fits),
+                               capturing(torch, kermut, "predict", preds),
+                               capturing(torch, kermut, "conditional_probs_from_mpnn", mpnn_t)])
+        r["forwards"] = 0
+        report_run("e", "kermut --structure-dir (gp_steps=50, n_orders=2)", r, card,
+                   f"kermut_{schemes[0]}", 0, {},
+                   detail=f"; the MPNN conditionals {mpnn_t['seconds']:.2f} s, {fits['calls']} "
+                   f"fits {fits['seconds']:.2f} s, predictions {preds['seconds']:.2f} s")
+        runs["kermut"] = r
+        data, train, y_tr = fits["args"]
+        steps = fits["kwargs"]["steps"]
+        t0 = time.perf_counter()
+        h_cpu = kermut.fit(data, train, y_tr, steps=steps, device="cpu")
+        p_cpu = kermut.predict(h_cpu, data, train, y_tr, preds["args"][4], device="cpu")
+        cpu_s = time.perf_counter() - t0
+        names = list(kermut.HYPER_INIT)
+        h_card = fits["out"]
+        errs["Kermut hyperparameters card vs CPU"] = check_close(
+            f"(e) Kermut's {len(names)} hyperparameters, last fold ({len(y_tr)} train), card vs "
+            f"CPU ({cpu_s:.1f} s on the CPU)",
+            torch.tensor([float(h_card[k]) for k in names]),
+            torch.tensor([float(h_cpu[k]) for k in names]), KERMUT_CPU_ATOL, 0.0)
+        errs["Kermut predictions card vs CPU"] = check_close(
+            f"(e) Kermut's predictions of that fold ({len(p_cpu)}), card vs CPU",
+            torch.from_numpy(preds["out"]), torch.from_numpy(p_cpu), KERMUT_CPU_ATOL, 0.0)
+        print("  (e) fitted: " + ", ".join(f"{k} {float(h_card[k]):.4g}" for k in names))
+        tables = fits["kwargs"]["tables"]
+        tables.distance = torch.zeros_like(tables.distance)
+        bad = kermut.fit(data, train, y_tr, steps=steps, tables=tables)
+        fault = max(abs(float(bad[k]) - float(h_cpu[k])) for k in names)
+        print(f"  (e) the planted fault, the distance term dropped: largest |diff| {fault:.3g} "
+              f"(limit {KERMUT_CPU_ATOL:g})")
+        if fault <= KERMUT_CPU_ATOL:
+            fail("kermut: the planted distance fault passes the card-vs-CPU check")
+        del fits, preds, tables, bad
+
+        # (f) supervised-score -> merge-supervised -> evaluate-supervised
+        sroot = root / "supervised"
+        t0 = time.perf_counter()
+        if cli.main(["supervised-score", "--model", "OHE_ridge", "--dms-reference",
+                     str(root / "reference.csv"), "--dms-dir", str(root / "dms"), "--dms-id",
+                     "SUP_L250", "--output-dir", str(sroot), "--device", "cuda"]) != 0:
+            fail("supervised-score exited non-zero")
+        walls["supervised-score"] = time.perf_counter() - t0
+        models = {"OHE_ridge": None, "Emb_ridge": runs["embeddings_ridge"],
+                  "ProteinNPT": runs["proteinnpt"], "Kermut": runs["kermut"]}
+        prefixes = {"Emb_ridge": "Emb_ridge", "ProteinNPT": "ProteinNPT", "Kermut": "kermut"}
+        for name, run in models.items():
+            if run is None:
+                continue
+            with open(run["out"], newline="") as f:
+                table_rows = list(csv.DictReader(f))
+            for scheme in schemes:
+                out = sroot / scheme / name.lower()
+                out.mkdir(parents=True, exist_ok=True)
+                write_csv_rows(out / run["out"].name, ["mutant", "y_pred", "DMS_score"],
+                               [[x["mutant"], x[f"{prefixes[name]}_{scheme}"], x["DMS_score"]]
+                                for x in table_rows])
+        config = root / "supervised_config.json"
+        config.write_text(json.dumps({"model_list_supervised_substitutions_DMS": {
+            name: {"input_score_name": "y_pred", "location": name.lower(), "key": "mutant",
+                   "label_name": "DMS_score", "model_type": "Supervised"} for name in models}}))
+        t0 = time.perf_counter()
+        if cli.main(["merge-supervised", "--dms-reference", str(root / "reference.csv"),
+                     "--dms-dir", str(root / "dms"), "--scores-root", str(sroot), "--config",
+                     str(config), "--output-dir", str(root / "merged"), "--device", "cuda"]) != 0:
+            fail("merge-supervised exited non-zero")
+        walls["merge-supervised"] = time.perf_counter() - t0
+        long_rows = read_table(root / "merged" / "merged_scores_substitutions_DMS.csv")
+        if len(long_rows) != 1 + 2 * len(models) * len(schemes):
+            fail(f"merge-supervised: {len(long_rows) - 1} long rows, expected "
+                 f"{2 * len(models) * len(schemes)}")
+        t0 = time.perf_counter()
+        if cli.main(["evaluate-supervised", "--dms-reference", str(root / "reference.csv"),
+                     "--input-scoring-file", str(root / "merged" /
+                                                  "merged_scores_substitutions_DMS.csv"),
+                     "--output-dir", str(root / "bench"), "--no-html"]) != 0:
+            fail("evaluate-supervised exited non-zero")
+        walls["evaluate-supervised"] = time.perf_counter() - t0
+        summary = read_table(root / "bench" / "Spearman" /
+                             "Summary_performance_DMS_substitutions_Spearman.csv")
+        if len(summary) != 1 + len(models):
+            fail(f"evaluate-supervised: {len(summary) - 1} ranked models, expected {len(models)}")
+        print("  (f) " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+              + f"; {len(long_rows) - 1} long rows, the Spearman leaderboard: "
+              + ", ".join(f"{row[1]} {row[3]}" for row in summary[1:]))
+    print(f"  [supervised] {time.perf_counter() - phase_t0:.1f} s in all; "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    return {"launches": {name: r["launches"] for name, r in runs.items()}, "k4": record}
+
+
 def main() -> int:
     try:
         import torch
@@ -5676,10 +6169,11 @@ def main() -> int:
     structure = phase_structure(torch, dev, card, fa, check_close)
     plms = phase_structure_plms(torch, dev, card, fa, check_close)
     slice_c = phase_slice_c(torch, dev, card, fa, check_close)
+    supervised = phase_supervised(torch, dev, card, fa, check_close)
 
     if "jax" in sys.modules:
         fail("the port imported jax")
-    # the guard below covers the modules of every phase, phases 15-22's too
+    # the guard below covers the modules of every phase, phases 15-23's too
     missing = [m for m in ("proteingym_tpu_torch.native", "proteingym_tpu_torch.models.hmm",
                            "proteingym_tpu_torch.models.potts",
                            "proteingym_tpu_torch.models.wavenet",
@@ -5704,7 +6198,15 @@ def main() -> int:
                            "proteingym_tpu_torch.ops.gvp", "proteingym_tpu_torch.ops.gnn",
                            "proteingym_tpu_torch.models.state_dict",
                            "proteingym_tpu_torch.models.protssn",
-                           "proteingym_tpu_torch.models.s3f")
+                           "proteingym_tpu_torch.models.s3f",
+                           "proteingym_tpu_torch.models.prot_t5",
+                           "proteingym_tpu_torch.models.vespa_heads",
+                           "proteingym_tpu_torch.models.vespag",
+                           "proteingym_tpu_torch.models.supervised_baselines",
+                           "proteingym_tpu_torch.models.protein_npt",
+                           "proteingym_tpu_torch.models.kermut",
+                           "proteingym_tpu_torch.merge.supervised",
+                           "proteingym_tpu_torch.metrics.supervised")
                if m not in sys.modules]
     if missing:
         fail(f"modules the phases drive were not loaded: {missing}")
@@ -5741,7 +6243,7 @@ def main() -> int:
                "tranception_indel": indel_run["a_tranception"]["launches"],
                **trainers["launches"], **baselines["launches"], **zoo["launches"],
                **mlm["launches"], **structure["launches"], **plms["launches"],
-               **slice_c["launches"]}
+               **slice_c["launches"], **supervised["launches"]}
     records = [{
         "name": name,
         "route": "cuda",
@@ -5787,6 +6289,11 @@ def main() -> int:
                     "source": source4, "replaces": replaces4,
                     "launches": by_path["saprot"]["grouped_attention_bthd"],
                     "counter": "grouped_attention_bthd", "path": "saprot", **structure["k4"]})
+    # K4 at ESM2-3B's rows (VespaG's trunk), with the launches of the vespag path
+    records.append({"name": f"grouped_attention_bthd:{supervised['k4']['label']}",
+                    "route": "cuda", "source": source4, "replaces": replaces4,
+                    "launches": by_path["vespag"]["grouped_attention_bthd"],
+                    "counter": "grouped_attention_bthd", "path": "vespag", **supervised["k4"]})
     # the float32 K4 and K1 at MULAN-small's trunk and adapter, with the launches of the mulan path
     for rec, counter in ((plms["k4"], "grouped_attention_bthd"), (plms["k1"], "grouped_attention")):
         src, rep_ = KERNELS[counter]

@@ -133,10 +133,10 @@ def _rows(table: Table, index: Optional[Sequence] = None) -> List[List[str]]:
 def write_csv(path, table: Table, index: Optional[Sequence] = None,
               index_label: str = "") -> None:
     """``DataFrame.to_csv``: with ``index``, a first column headed
-    ``index_label``."""
+    ``index_label``; lines end in ``\n``, as pandas writes them here."""
     header = ([index_label] if index is not None else []) + table.names
     with open(path, "w", newline="") as f:
-        writer = csv.writer(f)
+        writer = csv.writer(f, lineterminator="\n")
         writer.writerow(header)
         writer.writerows(_rows(table, index))
 

@@ -449,7 +449,7 @@ def _write_columns(path, header: List[str], cols: List[np.ndarray]) -> None:
     """A CSV whose header may repeat a name (the JAX package's function-
     level file lists ``Selection Type`` twice)."""
     with open(path, "w", newline="") as f:
-        w = csv.writer(f)
+        w = csv.writer(f, lineterminator="\n")
         w.writerow(header)
         for i in range(len(cols[0]) if cols else 0):
             w.writerow([format_cell(c[i]) for c in cols])

@@ -2,8 +2,10 @@
 proteingym_tpu/pipeline/cli.py for ``score --model esm|poet|msa_transformer|
 tranception|trancepteve|eve|deepsequence|site_independent|potts|evmutation|
 hmm|wavenet|gemme|escott|siterm|rsalor|provean|progen2|rita|protgpt2|
-progen3|unirep``, ``train --model eve|potts``,
-``weights``, ``merge``, ``evaluate``, ``evaluate-clinical`` and ``models``).
+progen3|unirep`` and every later scorer (``models`` lists the 45),
+``score --checkpoint-root``, ``train --model eve|potts``, ``weights``,
+``merge``, ``evaluate``, ``evaluate-clinical``, ``supervised-score``,
+``merge-supervised``, ``evaluate-supervised`` and ``models``).
 
     python -m proteingym_tpu_torch.pipeline.cli score --model esm \\
         --checkpoint esm2_t33_650M --dms-reference ref.csv --dms-dir dms/ \\
@@ -54,6 +56,20 @@ progen3|unirep``, ``train --model eve|potts``,
         --merged-dir merged/ --config config.json --output-dir bench/ [--device cuda|cpu]
     python -m proteingym_tpu_torch.pipeline.cli evaluate-clinical \\
         --clinical-reference clinical.csv --merged-dir merged/ --output-dir bench/
+    python -m proteingym_tpu_torch.pipeline.cli score --model vespa \\
+        --extra vespa_mode=full prot_t5_checkpoint=t5/ conscnn_checkpoint=cons.pt \\
+        --dms-reference ref.csv --dms-dir dms/ --output-dir out/
+    python -m proteingym_tpu_torch.pipeline.cli score --model vespag \\
+        --checkpoint state_dict_v2.pt --extra esm_checkpoint=esm2_t36_3B \\
+        --dms-reference ref.csv --dms-dir dms/ --output-dir out/
+    python -m proteingym_tpu_torch.pipeline.cli score --model ohe_ridge|embeddings_ridge|proteinnpt|kermut \\
+        --dms-reference ref.csv --dms-dir dms/ --output-dir out/ [--structure-dir pdbs/]
+    python -m proteingym_tpu_torch.pipeline.cli supervised-score --model OHE_ridge \\
+        --dms-reference ref.csv --dms-dir dms/ --output-dir scores_root/
+    python -m proteingym_tpu_torch.pipeline.cli merge-supervised --dms-reference ref.csv \\
+        --dms-dir dms/ --scores-root scores_root/ --config config.json --output-dir merged/
+    python -m proteingym_tpu_torch.pipeline.cli evaluate-supervised --dms-reference ref.csv \\
+        --input-scoring-file merged/merged_scores_substitutions_DMS.csv --output-dir bench/
     python -m proteingym_tpu_torch.pipeline.cli models
 
 Per assay it writes ``<DMS_id>.csv`` (the input columns, plus
@@ -76,7 +92,18 @@ beside that stem.
 
 ``--structure-dir`` holds ``<UniProt_ID>.pdb`` or ``<DMS_id>.pdb`` per
 assay, which ``escott``, ``rsalor`` and ``esm3`` read when it is there. ``models``
-prints the scorer names, sorted, one per line.
+prints the scorer names, sorted, one per line. ``--checkpoint-root DIR``
+routes each assay to its own checkpoint, ``DIR/<EVE_model_path>`` of its
+reference row (the clinical reference's column); an assay without one is
+skipped (``task_missing_input``).
+
+``supervised-score`` writes each CV scheme's out-of-fold predictions of a
+supervised baseline (``OHE_ridge``, ``embeddings_ridge``, ``ProteinNPT``) as
+``<output-dir>/<scheme>/<model>/<DMS_id>.csv`` (mutant, y_pred, DMS_score),
+the layout ``merge-supervised`` reads; it joins them per scheme, writes the
+merged files and the long ``merged_scores_<type>_DMS.csv`` (Spearman and MSE
+per assay, model and scheme, computed on ``--device``), which
+``evaluate-supervised`` turns into the supervised leaderboards on the host.
 
 ``merge`` joins each model's score files onto the assays and runs on the
 host; ``evaluate`` and ``evaluate-clinical`` write the JAX package's metric
@@ -96,8 +123,8 @@ import numpy as np
 
 from proteingym_tpu_torch.data.mutants import apply_mutant
 from proteingym_tpu_torch.data.reference import load_reference
-from proteingym_tpu_torch.data.table import Table, write_csv
-from proteingym_tpu_torch.devices import resolve_device
+from proteingym_tpu_torch.data.table import NA_STRINGS, Table, write_csv
+from proteingym_tpu_torch.devices import no_tf32, resolve_device
 from proteingym_tpu_torch.pipeline.manifest import Manifest
 from proteingym_tpu_torch.pipeline.scorers import (
     SCORERS, ScoreContext, score_esm_packed_batch,
@@ -204,6 +231,14 @@ def cmd_score(args) -> int:
                 for row in rows:
                     row["mutated_sequence"] = apply_mutant(rec.target_seq, row["mutant"])
             key = "mutant" if "mutant" in columns else "mutated_sequence"
+            checkpoint = args.checkpoint
+            if args.checkpoint_root:
+                eve_path = (rec.raw or {}).get("EVE_model_path")
+                if not eve_path or eve_path in NA_STRINGS:
+                    log.emit("task_missing_input", task=task,
+                             path="EVE_model_path (reference column)")
+                    continue
+                checkpoint = str(Path(args.checkpoint_root) / eve_path)
             ctx = ScoreContext(
                 record=rec,
                 mutants=[row[key] for row in rows],
@@ -211,11 +246,12 @@ def cmd_score(args) -> int:
                 mutated_sequences=[row["mutated_sequence"] for row in rows],
                 msa_dir=Path(args.msa_dir) if args.msa_dir else None,
                 weights_dir=Path(args.weights_dir) if args.weights_dir else None,
-                checkpoint=args.checkpoint,
+                checkpoint=checkpoint,
                 structure_dir=Path(args.structure_dir) if args.structure_dir else None,
                 indel_mode=args.indel_mode,
                 batch_size=args.batch_size,
                 extra=extra,
+                assay=Table({c: [row[c] for row in rows] for c in columns}, n_rows=len(rows)),
             )
             with log.phase("score", task=task, n_mutants=len(rows)):
                 t0 = time.perf_counter()
@@ -381,6 +417,84 @@ def cmd_evaluate_clinical(args) -> int:
     return 0
 
 
+def cmd_supervised_score(args) -> int:
+    """A supervised baseline over the assays, its out-of-fold predictions in
+    the ``<output-dir>/<cv_scheme>/<model>/<DMS_id>.csv`` layout that
+    merge-supervised reads."""
+    from proteingym_tpu_torch.merge.supervised import read_csv_inferred
+    from proteingym_tpu_torch.models.supervised_baselines import (
+        load_aug_scores, make_embedding_feature_fn, run_supervised_baseline,
+    )
+
+    device = resolve_device(args.device)
+    reference = load_reference(args.dms_reference)
+    records = [reference[args.dms_id]] if args.dms_id else list(reference)
+    feature_fn, model = None, args.model
+    if model.lower() in ("embeddings_ridge", "embeddings"):
+        model = "embeddings_ridge"
+        feature_fn = make_embedding_feature_fn(args.checkpoint, device=device)
+    out_root = Path(args.output_dir)
+    for rec in records:
+        dms_path = Path(args.dms_dir) / (rec.DMS_filename or f"{rec.DMS_id}.csv")
+        if not dms_path.exists():
+            print(f"missing {dms_path}; skipping")
+            continue
+        assay = read_csv_inferred(dms_path)
+        aux = None
+        if args.aug_col:
+            aux = assay.floats(args.aug_col)
+        elif args.aug_scores_dir:
+            spath = Path(args.aug_scores_dir) / f"{rec.DMS_id}.csv"
+            if spath.exists():
+                aux = load_aug_scores(assay["mutant"].tolist(), spath, args.aug_score_col)
+            else:
+                print(f"no zero-shot scores for {rec.DMS_id}; running unaugmented")
+        with no_tf32():
+            results = run_supervised_baseline(assay, rec.target_seq, model=model, lam=args.lam,
+                                              feature_fn=feature_fn, aux=aux, device=device)
+        for scheme, preds in results.items():
+            d = out_root / scheme / args.model.lower()
+            d.mkdir(parents=True, exist_ok=True)
+            write_csv(d / f"{rec.DMS_id}.csv", preds)
+    return 0
+
+
+def cmd_merge_supervised(args) -> int:
+    from proteingym_tpu_torch.merge.supervised import (
+        merge_supervised, supervised_filesystem_loaders,
+    )
+
+    device = resolve_device(args.device)
+    reference = load_reference(args.dms_reference)
+    registry = _load_registry_arg(args.config, "DMS_supervised", args.mutation_type)
+    dms_loader, score_loader = supervised_filesystem_loaders(args.dms_dir, args.scores_root)
+    merge_supervised(reference, registry, dms_loader, score_loader, output_dir=args.output_dir,
+                     mutation_type=args.mutation_type, device=device)
+    return 0
+
+
+def cmd_evaluate_supervised(args) -> int:
+    import json
+
+    from proteingym_tpu_torch.data.table import read_csv
+    from proteingym_tpu_torch.metrics.supervised import evaluate_supervised
+
+    reference = load_reference(args.dms_reference)
+    long_scores = read_csv(args.input_scoring_file, numeric=("Spearman", "MSE"))
+    kwargs = {}
+    if args.constants:
+        with open(args.constants) as f:
+            constants = json.load(f)
+        kwargs = dict(clean_names=constants.get("supervised_clean_names"),
+                      model_types=constants.get("supervised_model_types"),
+                      model_references=constants.get("supervised_model_references"),
+                      model_details=constants.get("supervised_model_details"))
+    evaluate_supervised(long_scores, reference, args.output_dir, mutation_type=args.mutation_type,
+                        top_model=args.top_model, bootstrap_samples=args.bootstrap_samples,
+                        write_html_files=not args.no_html, **kwargs)
+    return 0
+
+
 def cmd_models(args) -> int:
     for name in sorted(SCORERS):
         print(name)
@@ -394,6 +508,9 @@ def build_parser() -> argparse.ArgumentParser:
     s = sub.add_parser("score", help="score assays with one model")
     s.add_argument("--model", required=True)
     s.add_argument("--checkpoint", default=None)
+    s.add_argument("--checkpoint-root", default=None, metavar="DIR",
+                   help="per-assay checkpoints: DIR/<EVE_model_path> of each reference row "
+                        "(the clinical reference's column); rows without one are skipped")
     s.add_argument("--dms-reference", required=True)
     s.add_argument("--dms-dir", required=True)
     s.add_argument("--dms-id", default=None)
@@ -478,6 +595,49 @@ def build_parser() -> argparse.ArgumentParser:
     ec.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the per-protein AUCs run")
     ec.set_defaults(fn=cmd_evaluate_clinical)
+
+    ss = sub.add_parser("supervised-score", help="supervised baselines (per CV scheme)")
+    ss.add_argument("--model", default="OHE_ridge",
+                    help="OHE_ridge | embeddings_ridge | ProteinNPT")
+    ss.add_argument("--dms-reference", required=True)
+    ss.add_argument("--dms-dir", required=True)
+    ss.add_argument("--dms-id", default=None)
+    ss.add_argument("--output-dir", required=True)
+    ss.add_argument("--lam", type=float, default=1.0)
+    ss.add_argument("--checkpoint", default=None,
+                    help="the ESM trunk of embeddings_ridge (an ESM checkpoint spec)")
+    ss.add_argument("--aug-col", default=None,
+                    help="a zero-shot column of the assay CSV, appended as an 'Augmented' "
+                         "ridge feature")
+    ss.add_argument("--aug-scores-dir", default=None,
+                    help="per-assay zero-shot score CSVs (<DMS_id>.csv, joined on mutant)")
+    ss.add_argument("--aug-score-col", default=None)
+    ss.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the ridges and ProteinNPT run")
+    ss.set_defaults(fn=cmd_supervised_score)
+
+    ms = sub.add_parser("merge-supervised", help="merge supervised CV scores")
+    ms.add_argument("--dms-reference", required=True)
+    ms.add_argument("--dms-dir", required=True)
+    ms.add_argument("--scores-root", required=True)
+    ms.add_argument("--config", default=None)
+    ms.add_argument("--output-dir", required=True)
+    ms.add_argument("--mutation-type", default="substitutions", choices=mutation_types)
+    ms.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the per-assay Spearman runs")
+    ms.set_defaults(fn=cmd_merge_supervised)
+
+    es = sub.add_parser("evaluate-supervised",
+                        help="supervised Spearman/MSE leaderboards (host only)")
+    es.add_argument("--dms-reference", required=True)
+    es.add_argument("--input-scoring-file", required=True, help="the long merged scores CSV")
+    es.add_argument("--constants", default=None)
+    es.add_argument("--output-dir", required=True)
+    es.add_argument("--mutation-type", default="substitutions", choices=mutation_types)
+    es.add_argument("--top-model", default=None)
+    es.add_argument("--bootstrap-samples", type=int, default=10000)
+    es.add_argument("--no-html", action="store_true")
+    es.set_defaults(fn=cmd_evaluate_supervised)
 
     lm = sub.add_parser("models", help="list the scorers")
     lm.set_defaults(fn=cmd_models)

@@ -17,8 +17,11 @@ structure-conditioned ``prosst`` (with its GVP quantizer), ``venusrem``,
 ``mulan``, ``mif`` and ``mif_st`` (--structure-dir), ``protssn`` (an EGNN
 ensemble over PLM embeddings), ``s2f`` / ``s3f`` / ``s3f_msa`` (a GVP-GNN
 over PLM embeddings, with a surface stream) and ``aido`` (an MoE masked LM
-with MSA retrieval), plus ``score_esm_packed_batch``, the cross-assay
-packed ESM path.
+with MSA retrieval), ``vespa`` / ``vespag`` (ProtT5 with VESPA's heads,
+VespaG's heads over PLM embeddings), the supervised ``ohe_ridge``,
+``embeddings_ridge``, ``proteinnpt`` and ``kermut`` (out-of-fold
+predictions per CV scheme, several columns), plus
+``score_esm_packed_batch``, the cross-assay packed ESM path.
 
 A scorer is ``scorer(ctx: ScoreContext)`` and returns either ``{column:
 scores}``, which the CLI writes after the input columns, or a whole
@@ -37,6 +40,7 @@ import torch
 
 from proteingym_tpu_torch.data.mutants import is_wt_row, parse_mutant
 from proteingym_tpu_torch.data.reference import AssayRecord
+from proteingym_tpu_torch.data.table import Table
 from proteingym_tpu_torch.devices import no_tf32
 
 SCORERS: Dict[str, Callable] = {}
@@ -64,6 +68,7 @@ class ScoreContext:
     indel_mode: bool = False
     batch_size: int = 32
     extra: dict = dataclasses.field(default_factory=dict)
+    assay: Optional[Table] = None  # the assay CSV's columns (DMS_score, fold_*, ...)
     _msa: object = dataclasses.field(default=None, init=False, repr=False)
 
     def load_msa(self, theta: Optional[float] = None):
@@ -1479,3 +1484,262 @@ def score_aido(ctx: ScoreContext) -> Dict[str, np.ndarray]:
                                      msa_sequences=msa_seqs, msa_weights=msa_w,
                                      chunk=ctx.batch_size)
     return {"AIDO_score": scores}
+
+
+# ---------------------------------------------------------------------------
+# The VESPA family and the supervised track
+# ---------------------------------------------------------------------------
+
+
+def _torch_file_state(spec, family: str, weights_name: str = "pytorch_model.bin"):
+    """The state dict of a published torch file, or of ``weights_name`` in a
+    directory; an orbax ``params/`` directory (JAX-only) raises."""
+    from proteingym_tpu_torch.pipeline.checkpoints import _load_torch_state_dict
+
+    path = Path(str(spec))
+    if path.is_dir():
+        if (path / "params").exists():
+            raise ValueError(f"{spec} holds an orbax params/ directory: those are JAX-only; "
+                             f"pass the published {family} torch file")
+        path = path / weights_name
+    if not path.is_file():
+        raise FileNotFoundError(f"{family} checkpoint {spec!r}: no such file")
+    return _load_torch_state_dict(path)[0]
+
+
+def _load_prot_t5(ctx: ScoreContext):
+    """ProtT5 from ``extra["params"]`` (an HF-named state dict) or from
+    ``--extra prot_t5_checkpoint=`` (an HF ``pytorch_model.bin`` or a
+    directory holding one)."""
+    from proteingym_tpu_torch.models import prot_t5
+
+    state = ctx.extra.get("params")
+    if state is None:
+        state = _torch_file_state(ctx.extra["prot_t5_checkpoint"], "ProtT5")
+    return prot_t5.load_state_dict(state, device=ctx.device)
+
+
+def _plm_embeddings(ctx: ScoreContext, wt: str):
+    """(L, D) per-residue trunk embeddings for the VESPA-class heads, and D:
+    ProtT5's with ``--extra prot_t5_checkpoint=``, else the ESM2 trunk of
+    ``esm_checkpoint=`` (``esm2_t6_8M``; VespaG's published trunk is
+    ``esm2_t36_3B``)."""
+    from proteingym_tpu_torch.models import prot_t5, protssn
+    from proteingym_tpu_torch.pipeline.checkpoints import load_esm_checkpoint
+
+    with no_tf32():
+        if ctx.extra.get("prot_t5_checkpoint"):
+            model = prot_t5.load_state_dict(
+                _torch_file_state(ctx.extra["prot_t5_checkpoint"], "ProtT5"), device=ctx.device)
+            return prot_t5.embeddings(model, wt), model.config.d_model
+        model, config = load_esm_checkpoint(ctx.extra.get("esm_checkpoint", "esm2_t6_8M"),
+                                            device=ctx.device)
+        return protssn.esm_embeddings(model, wt), config.embed_dim
+
+
+@register_scorer("vespag")
+@register_scorer("vespa")
+def score_vespag(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """VESPA and VespaG, one scorer under both names as in the JAX package.
+
+    ``--extra vespa_mode=full|light``: VESPA / VESPAl (Marquet et al. 2022),
+    ProtT5's embeddings through the ConsCNN (``conscnn_checkpoint=``, a
+    ``prott5cons`` .pt), BLOSUM62 and, in ``full``, ProtT5's masked
+    log-odds through the logistic blend (``vespa_blend=`` JSON {"w", "b"},
+    ``DEFAULT_BLEND`` without it), then the reference's sum of log(1 - p),
+    in ``VESPA_score``. ``vespa_mode=logodds``: the masked log-odds alone
+    (sum of log p(mt) - log p(wt)). ProtT5 is ``prot_t5_checkpoint=`` (an HF
+    T5ForConditionalGeneration ``pytorch_model.bin`` or its directory), or
+    for a library call ``extra["params"]``.
+
+    Otherwise VespaG in ``VespaG_score``: with --checkpoint (the published
+    ``state_dict_v2.pt``; ``extra["params"]`` its state dict) the head over
+    the trunk's embeddings (``esm_checkpoint=``, or ProtT5's), the reference's
+    masked landscape summed per mutant with a sigmoid (``normalize=0`` off);
+    without one a seeded FNN head distilled from GEMME's table of the
+    assay's MSA (``train_steps=`` 200 Adam steps), scored in focus
+    coordinates (mutants off the focus columns NaN, a literal WT row 0)."""
+    from proteingym_tpu_torch.models import gemme, prot_t5, vespa_heads, vespag
+
+    mode = str(ctx.extra.get("vespa_mode", ""))
+    wt = ctx.record.target_seq
+    has_t5 = ctx.extra.get("params") is not None or ctx.extra.get("prot_t5_checkpoint")
+    if mode in ("full", "light", "logodds") and not has_t5:
+        raise ValueError(f"vespa_mode={mode} needs --extra prot_t5_checkpoint=<HF "
+                         "T5ForConditionalGeneration pytorch_model.bin or its directory>")
+    if mode in ("full", "light"):
+        cc = ctx.extra.get("conscnn_checkpoint")
+        if not cc:
+            raise ValueError("vespa_mode=full/light needs --extra conscnn_checkpoint=<the "
+                             "prott5cons .pt>")
+        model = _load_prot_t5(ctx)
+        cnn = vespa_heads.load_conscnn_state_dict(_torch_file_state(cc, "ConsCNN"),
+                                                  device=ctx.device)
+        with no_tf32():
+            cons = vespa_heads.conservation_probs(cnn, prot_t5.embeddings(model, wt))
+            logodds = None
+            if mode == "full":
+                table = prot_t5.masked_logodds(model, wt)
+                logodds = table[:, [prot_t5.AA_TOKEN_IDS[a] for a in vespa_heads.AA20]]
+        blend = None
+        if ctx.extra.get("vespa_blend"):
+            import json
+
+            raw = json.loads(Path(ctx.extra["vespa_blend"]).read_text())
+            blend = {"w": np.asarray(raw["w"], np.float32), "b": float(raw["b"])}
+        effect = vespa_heads.vespa_table(wt, cons, logodds, blend)
+        return {"VESPA_score": vespa_heads.score_mutants(effect, wt, ctx.mutants)}
+    if mode == "logodds":
+        model = _load_prot_t5(ctx)
+        with no_tf32():
+            table = prot_t5.masked_logodds(model, wt)
+        ids = prot_t5.AA_TOKEN_IDS
+        scores = np.zeros(len(ctx.mutants))
+        for i, m in enumerate(ctx.mutants):
+            if is_wt_row(m):
+                continue
+            for tok in str(m).split(":"):
+                w, pos, mt = tok[0], int(tok[1:-1]) - 1, tok[-1]
+                if wt[pos] != w:
+                    raise ValueError(f"WT mismatch in {tok}")
+                scores[i] += table[pos, ids[mt]] - table[pos, ids[w]]
+        return {"VESPA_score": scores}
+
+    if ctx.checkpoint or ctx.extra.get("params") is not None:
+        state = ctx.extra.get("params")
+        if state is None:
+            state = _torch_file_state(ctx.checkpoint, "VespaG", "state_dict_v2.pt")
+        head = vespag.load_state_dict(state, device=ctx.device)
+        emb, _ = _plm_embeddings(ctx, wt)
+        with no_tf32():
+            table = vespag.landscape(head, emb)
+        normalize = str(ctx.extra.get("normalize", "1")) not in ("0", "false", "False")
+        return {"VespaG_score": vespag.score_mutants_reference(table, wt, ctx.mutants,
+                                                               normalize=normalize)}
+
+    msa = ctx.load_msa()
+    teacher = gemme.fit_gemme(msa.matrix, msa.weights, device=ctx.device)
+    focus_wt = msa.focus_seq_trimmed.upper()
+    emb, embed_dim = _plm_embeddings(ctx, focus_wt)
+    with no_tf32():
+        head = vespag.train_from_teacher(vespag.init_fnn(embed_dim, seed=0, device=ctx.device),
+                                         emb, teacher.combined(),
+                                         steps=int(ctx.extra.get("train_steps", 200)))
+        scores = _score_focus_model(
+            ctx, msa, lambda wt_seq, remapped: vespag.score_mutants(head, emb, wt_seq, remapped),
+            ctx.mutants)
+    return {"VespaG_score": scores}
+
+
+SUPERVISED_PREFIX = {"ohe_ridge": "OHE_ridge", "embeddings_ridge": "Emb_ridge",
+                     "proteinnpt": "ProteinNPT"}
+
+
+def _score_supervised(ctx: ScoreContext, name: str) -> Dict[str, np.ndarray]:
+    """Out-of-fold predictions per CV scheme of the assay's ``DMS_score``
+    (published ``fold_*`` columns when the assay has them), one column
+    ``{OHE_ridge|Emb_ridge|ProteinNPT}[_aug]_{scheme}`` each. The
+    'Augmented' ridges take a zero-shot column from ``--extra aug_col=`` (a
+    column of the assay) or ``aug_file=`` (a scores CSV joined on mutant,
+    ``aug_file_col=`` or its last non-key column); ``lam=`` (1.0)."""
+    from proteingym_tpu_torch.models.supervised_baselines import (
+        load_aug_scores, make_embedding_feature_fn, run_supervised_baseline,
+    )
+
+    if ctx.assay is None:
+        raise ValueError(f"{name} needs the assay table (DMS_score and the fold columns)")
+    aux = None
+    if ctx.extra.get("aug_col"):
+        aux = ctx.assay.floats(ctx.extra["aug_col"])
+    elif ctx.extra.get("aug_file"):
+        aux = load_aug_scores(ctx.assay["mutant"].tolist(), ctx.extra["aug_file"],
+                              ctx.extra.get("aug_file_col"))
+    feature_fn, model, npt_config = None, "OHE_ridge", None
+    if name == "embeddings_ridge":
+        model = "embeddings_ridge"
+        feature_fn = make_embedding_feature_fn(ctx.checkpoint, batch_size=ctx.batch_size,
+                                               device=ctx.device)
+    elif name == "proteinnpt":
+        from proteingym_tpu_torch.models.protein_npt import ProteinNptConfig
+
+        model = "ProteinNPT"
+        if any(k in ctx.extra for k in ("npt_steps", "npt_layers", "npt_dim")):
+            defaults = ProteinNptConfig()
+            npt_config = ProteinNptConfig(
+                steps=int(ctx.extra.get("npt_steps", defaults.steps)),
+                num_layers=int(ctx.extra.get("npt_layers", defaults.num_layers)),
+                embed_dim=int(ctx.extra.get("npt_dim", defaults.embed_dim)))
+    with no_tf32():
+        results = run_supervised_baseline(ctx.assay, ctx.record.target_seq, model=model,
+                                          lam=float(ctx.extra.get("lam", 1.0)),
+                                          feature_fn=feature_fn, aux=aux, npt_config=npt_config,
+                                          device=ctx.device)
+    prefix = SUPERVISED_PREFIX[name] + ("_aug" if aux is not None and name != "proteinnpt"
+                                        else "")
+    return {f"{prefix}_{scheme}": table["y_pred"] for scheme, table in results.items()}
+
+
+@register_scorer("ohe_ridge")
+def score_ohe_ridge(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """The one-hot ridge (``_score_supervised``)."""
+    return _score_supervised(ctx, "ohe_ridge")
+
+
+@register_scorer("embeddings_ridge")
+def score_embeddings_ridge(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """The embedding ridge: each ``mutated_sequence``'s mean-pooled final-layer
+    ESM embedding (--checkpoint, an ESM spec; ``esm2_t6_8M`` without one),
+    BOS and EOS in the mean (``_score_supervised``)."""
+    return _score_supervised(ctx, "embeddings_ridge")
+
+
+@register_scorer("proteinnpt")
+def score_proteinnpt(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """ProteinNPT, one model per fold from seed 42 + fold, its auxiliary
+    token the assay's ``zero_shot_score`` / ``Tranception_score`` when it has
+    one; ``--extra npt_steps= npt_layers= npt_dim=`` (600, 2, 48)
+    (``_score_supervised``)."""
+    return _score_supervised(ctx, "proteinnpt")
+
+
+KERMUT_MPNN = dict(name="kermut_probs", hidden_dim=64, edge_features=64, k_neighbors=16)
+
+
+@register_scorer("kermut")
+def score_kermut(ctx: ScoreContext) -> Dict[str, np.ndarray]:
+    """Kermut's GP (ref kermut/proteingym_benchmark.py) per CV scheme, in
+    ``kermut_{scheme}``: the mutation kernel over the backbone in
+    --structure-dir and the conditionals of a seeded ProteinMPNN
+    (``KERMUT_MPNN``) averaged over ``--extra n_orders=`` (2) decoding
+    orders; per fold ``gp_steps=`` (50) Adam steps on the marginal
+    likelihood, then the posterior mean."""
+    from proteingym_tpu_torch.models import kermut
+    from proteingym_tpu_torch.models import protein_mpnn as mpnn
+    from proteingym_tpu_torch.data.table import parse_numeric
+    from proteingym_tpu_torch.models.supervised_baselines import CV_SCHEMES, assign_folds
+
+    if ctx.assay is None:
+        raise ValueError("kermut needs the assay table (DMS_score and the fold columns)")
+    coords = _load_structure(ctx)
+    model = mpnn.init_random(mpnn.MpnnConfig(**KERMUT_MPNN), seed=0, device=ctx.device)
+    steps = int(ctx.extra.get("gp_steps", 50))
+    with no_tf32():
+        probs = kermut.conditional_probs_from_mpnn(model, coords, ctx.record.target_seq,
+                                                   n_orders=int(ctx.extra.get("n_orders", 2)))
+        data = kermut.KermutData.build(probs, coords[:, 1])
+        tables = kermut.DeviceTables(data, ctx.device)
+        enc = kermut.encode_variants(ctx.mutants)
+        y = ctx.assay.floats("DMS_score")
+        out = {}
+        for scheme in CV_SCHEMES:
+            folds = (parse_numeric(ctx.assay[scheme]) if scheme in ctx.assay
+                     else assign_folds(ctx.mutants, scheme))
+            preds = np.zeros(len(y))
+            for fold in np.unique(folds):
+                test = folds == fold
+                train = tuple(t[~test] for t in enc)
+                hypers = kermut.fit(data, train, y[~test], steps=steps, tables=tables)
+                preds[test] = kermut.predict(hypers, data, train, y[~test],
+                                             tuple(t[test] for t in enc), tables=tables)
+            out[f"kermut_{scheme}"] = preds
+    return out

@@ -3,6 +3,7 @@ assays with the same fair-esm checkpoint, and their score columns agree."""
 
 import csv
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ from tests.test_torch_eve_train import one_thread  # noqa: F401
 
 ATOL = 1e-4
 AA = "ACDEFGHIKLMNPQRSTVWY"
+SUPERVISED_SCHEMES = ["fold_random_5", "fold_modulo_5", "fold_contiguous_5"]
 
 
 def _write_assays(root, n_assays=2):
@@ -311,7 +313,8 @@ def test_models_lists_the_registry(capsys):
     assert {"esm_if1", "protein_mpnn", "saprot"} <= set(names)
     assert {"prosst", "venusrem", "mulan", "mif", "mif_st"} <= set(names)
     assert {"protssn", "s2f", "s3f", "s3f_msa", "aido"} <= set(names)
-    assert len(SCORERS) == 39
+    assert {"vespa", "vespag", "ohe_ridge", "embeddings_ridge", "proteinnpt", "kermut"} <= set(names)
+    assert len(SCORERS) == 45
 
 
 # the AR zoo on the CPU: the tiny float32 shapes (head dims 8 and 16), a
@@ -794,3 +797,316 @@ def test_protssn_ensemble_lists(tmp_path):
         ctx.checkpoint, ctx.extra = spec, extra
         with pytest.raises(ValueError, match=match):
             tscorers.SCORERS["protssn"](ctx)
+
+
+# the VESPA family and the supervised scorers through both CLIs (--device
+# cpu, float32), each on one weight set: the port reads the published
+# torch files (an HF ProtT5 pytorch_model.bin, a prott5cons .pt, VespaG's
+# state_dict_v2.pt), the JAX CLI the same weights from orbax directories or
+# its patched inits; ProteinNPT's training replays the JAX run's draws.
+# (scorer, extra arguments of both, columns)
+SUPERVISED_RUNS = {
+    "vespa_full": ("vespa", ["vespa_mode=full"], ["VESPA_score"]),
+    "vespa_light": ("vespa", ["vespa_mode=light"], ["VESPA_score"]),
+    "vespa_logodds": ("vespa", ["vespa_mode=logodds"], ["VESPA_score"]),
+    "vespag_checkpoint": ("vespag", [], ["VespaG_score"]),
+    "vespag_teacher": ("vespag", ["train_steps=20"], ["VespaG_score"]),
+    "ohe_ridge": ("ohe_ridge", [], [f"OHE_ridge_{s}" for s in SUPERVISED_SCHEMES]),
+    "ohe_ridge_aug": ("ohe_ridge", ["aug_col=zero_shot_score"],
+                      [f"OHE_ridge_aug_{s}" for s in SUPERVISED_SCHEMES]),
+    "embeddings_ridge": ("embeddings_ridge", [], [f"Emb_ridge_{s}" for s in SUPERVISED_SCHEMES]),
+    "proteinnpt": ("proteinnpt", ["npt_steps=3", "npt_dim=8", "npt_layers=1"],
+                   [f"ProteinNPT_{s}" for s in SUPERVISED_SCHEMES]),
+    "kermut": ("kermut", ["gp_steps=5", "n_orders=1"], [f"kermut_{s}" for s in SUPERVISED_SCHEMES]),
+}
+
+
+def _jax_checkpoint_dirs(monkeypatch, trees):
+    """The JAX CLI reads these scorers' weights from orbax directories
+    (``<dir>/params`` + ``config.json``): each ``{dir: (params, config)}``
+    gets its directory, and ``restore_pytree`` hands back the params from
+    memory (orbax's set-up costs seconds a test)."""
+    from proteingym_tpu.pipeline import checkpoints as jckpt
+
+    for path, (_, config) in trees.items():
+        (path / "params").mkdir(parents=True)
+        if config is not None:
+            (path / "config.json").write_text(json.dumps(config))
+    by_dir = {str((path / "params").resolve()): params for path, (params, _) in trees.items()}
+    monkeypatch.setattr(jckpt, "restore_pytree", lambda p: by_dir[str(Path(p).resolve())])
+
+
+def _supervised_world(tmp_path, folds=False):
+    """The slice C world (assay, helix PDB, alignment of the whole target)
+    with a zero-shot column in the assay, and with ``folds`` published fold
+    columns of two folds each (the slow JAX sides compile once a fold)."""
+    ref, dms_dir, dms_id, seq = _slice_c_world(tmp_path, msa=True)
+    rows = _read(dms_dir / f"{dms_id}.csv")
+    zs = np.random.RandomState(8).randn(len(rows))
+    n = len(rows)
+    fold_cols = {s: [i % 2 for i in range(n)] for s in SUPERVISED_SCHEMES} if folds else {}
+    with open(dms_dir / f"{dms_id}.csv", "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["mutant", "DMS_score", "zero_shot_score", *fold_cols])
+        w.writerows([r["mutant"], r["DMS_score"], f"{z:.5f}", *(c[i] for c in fold_cols.values())]
+                    for i, (r, z) in enumerate(zip(rows, zs)))
+    return ref, dms_dir, dms_id, seq
+
+
+def _memoised(fn):
+    """``fn`` with its results kept by the bytes of its array arguments (and
+    the rest by value): a deterministic JAX fit on the same fold runs once."""
+    cache = {}
+
+    def key(x):
+        if isinstance(x, (tuple, list)):
+            return tuple(key(v) for v in x)
+        if isinstance(x, dict):
+            return tuple((k, key(v)) for k, v in sorted(x.items()))
+        if isinstance(x, (np.ndarray, jax.Array)):
+            x = np.asarray(x)
+            return (x.dtype.str, x.shape, x.tobytes())
+        try:
+            return hash(x), x
+        except TypeError:
+            return id(x)
+
+    def wrapper(*args, **kwargs):
+        k = (key(args), key(sorted(kwargs.items())))
+        if k not in cache:
+            cache[k] = fn(*args, **kwargs)
+        return cache[k]
+    return wrapper
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("run", sorted(SUPERVISED_RUNS))
+def test_supervised_and_vespa_scorers_match_the_jax_cli(tmp_path, monkeypatch, run):
+    import dataclasses
+
+    from proteingym_tpu.models import esm2 as jesm
+    from proteingym_tpu.models import kermut as jk
+    from proteingym_tpu.models import prot_t5 as jt5
+    from proteingym_tpu.models import protein_mpnn as jm
+    from proteingym_tpu.models import protein_npt as jnpt
+    from proteingym_tpu.models import vespa_heads as jvh
+    from proteingym_tpu.models import vespag as jvg
+    from proteingym_tpu_torch.models import protein_mpnn as tm
+    from proteingym_tpu_torch.models import protein_npt as tnpt
+    from proteingym_tpu_torch.models import vespag as tvg
+    from tests import test_torch_prot_t5, test_torch_protein_npt, test_torch_vespa
+
+    model, extra, columns = SUPERVISED_RUNS[run]
+    folds = model in ("proteinnpt", "kermut", "embeddings_ridge")
+    ref, dms_dir, dms_id, seq = _supervised_world(tmp_path, folds=folds)
+    esm = _save_checkpoint(tmp_path / "esm.pt", 5)
+    esm_sd = fair_esm_state(tesm.PRESETS["esm2_tiny"], 5)
+    port_extra, jax_extra, port_args, jax_args = list(extra), list(extra), [], []
+    if model == "vespa":
+        sd = test_torch_prot_t5.hf_state(test_torch_prot_t5.TINY, seed=7, decoder_layers=2)
+        (tmp_path / "t5").mkdir()
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+                   tmp_path / "t5" / "pytorch_model.bin")
+        cons = {"0.weight": np.random.RandomState(1).randn(32, 64, 7, 1).astype(np.float32) * .05,
+                "0.bias": np.zeros(32, np.float32),
+                "3.weight": np.random.RandomState(2).randn(9, 32, 7, 1).astype(np.float32) * .1,
+                "3.bias": np.zeros(9, np.float32)}
+        torch.save({k: torch.from_numpy(v) for k, v in cons.items()}, tmp_path / "cons.pt")
+        with jax.enable_x64(False):
+            jconfig = jt5.config_from_state_dict(sd)
+            _jax_checkpoint_dirs(monkeypatch, {
+                tmp_path / "t5j": (jt5.convert_torch_state_dict(sd, jconfig), {
+                    k: v for k, v in dataclasses.asdict(jconfig).items() if k != "dtype"}),
+                tmp_path / "consj": (jvh.convert_conscnn_state_dict(cons), None)})
+        # the JAX T5 under one jit a function (op by op it takes seconds)
+        monkeypatch.setattr(jt5, "apply", jax.jit(jt5.apply, static_argnums=1))
+        monkeypatch.setattr(jt5, "decoder_apply", jax.jit(jt5.decoder_apply, static_argnums=1))
+        port_extra += [f"prot_t5_checkpoint={tmp_path / 't5'}", f"conscnn_checkpoint={tmp_path}/cons.pt"]
+        jax_extra += [f"prot_t5_checkpoint={tmp_path / 't5j'}",
+                      f"conscnn_checkpoint={tmp_path / 'consj'}"]
+    elif run == "vespag_checkpoint":
+        sd = test_torch_vespa.vespag_state("fnn", 128)
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, tmp_path / "vg.pt")
+        with jax.enable_x64(False):
+            params = jvg.convert_torch_state_dict(sd)
+        _jax_checkpoint_dirs(monkeypatch, {tmp_path / "vgj": (
+            {k: v for k, v in params.items() if k != "arch"}, {"arch": "fnn"})})
+        port_args, jax_args = ["--checkpoint", str(tmp_path / "vg.pt")], [
+            "--checkpoint", str(tmp_path / "vgj")]
+        port_extra = jax_extra = extra + [f"esm_checkpoint=esm2_tiny:{esm}"]
+    elif run == "vespag_teacher":
+        with jax.enable_x64(False):
+            params = jvg.init_params(jax.random.PRNGKey(0), jvg.VespagConfig(embed_dim=128))
+        start = tvg.params_from_jax({k: v if k == "arch" else jax.tree_util.tree_map(
+            np.asarray, v) for k, v in params.items()})
+        monkeypatch.setattr(tvg, "init_fnn", lambda d, seed, device: tvg.load_state_dict(
+            start, device=device))
+        port_extra = jax_extra = extra + [f"esm_checkpoint=esm2_tiny:{esm}"]
+    elif model == "embeddings_ridge":
+        with jax.enable_x64(False):
+            params = jesm.convert_torch_state_dict(esm_sd, jesm.PRESETS["esm2_tiny"])
+        monkeypatch.setattr(jesm, "init_params", lambda rng, c: params)
+        port_args, jax_args = ["--checkpoint", f"esm2_tiny:{esm}"], ["--checkpoint", "esm2_tiny"]
+    elif model == "proteinnpt":
+        real_train = tnpt.train
+
+        def jax_init(c, seed, device):
+            with jax.enable_x64(False):
+                p = jnpt.init_params(jax.random.PRNGKey(seed),
+                                     jnpt.ProteinNptConfig(**dataclasses.asdict(c)))
+            return tnpt.load_state_dict(tnpt.params_from_jax(jax.tree_util.tree_map(
+                np.asarray, p)), c, device=device)
+
+        draws = _memoised(test_torch_protein_npt.jax_draws)
+
+        def replayed(model_, c, feats, targets, aux=None, seed=0, draws_=None):
+            return real_train(model_, c, feats, targets, aux=aux, seed=seed,
+                              draws=draws(c, len(targets), c.steps, seed))
+        monkeypatch.setattr(jnpt, "init_params",
+                            _memoised(jax.jit(jnpt.init_params, static_argnums=1)))
+        monkeypatch.setattr(tnpt, "init_random", jax_init)
+        monkeypatch.setattr(tnpt, "train", replayed)
+        monkeypatch.setattr(jnpt, "train", _memoised(jnpt.train))
+        monkeypatch.setattr(jnpt, "predict", _memoised(jnpt.predict))
+    elif model == "kermut":
+        real_init = tm.init_random
+        with jax.enable_x64(False):
+            jparams = jm.init_params(jax.random.PRNGKey(0), jm.MpnnConfig(
+                name="kermut_probs", hidden_dim=64, edge_features=64, k_neighbors=16))
+
+        def jax_mpnn(config, seed=0, device="cuda"):
+            if config.name != "kermut_probs":
+                return real_init(config, seed=seed, device=device)
+            return tm.load_state_dict(tm.params_from_jax(jax.tree_util.tree_map(
+                np.asarray, jparams), config), config, device=device)
+        monkeypatch.setattr(tm, "init_random", jax_mpnn)
+        monkeypatch.setattr(jk, "fit", _memoised(jk.fit))
+        monkeypatch.setattr(jk, "predict", _memoised(jk.predict))
+        monkeypatch.setattr(jm, "init_params", lambda rng, c: jparams)  # drawn once, above
+    common = ["--model", model, "--dms-reference", str(ref), "--dms-dir", str(dms_dir),
+              "--structure-dir", str(tmp_path / "pdb"), "--msa-dir", str(tmp_path / "msa"),
+              "--weights-dir", str(tmp_path / "w"), "--batch-size", "8", "--quiet"]
+    assert tcli.main(["score", *common, "--device", "cpu", "--output-dir", str(tmp_path / "port"),
+                      *port_args, *(["--extra", *port_extra] if port_extra else [])]) == 0
+    with jax.enable_x64(False):
+        assert jcli.main(["--platform", "cpu", "score", *common, "--output-dir",
+                          str(tmp_path / "jax"), *jax_args,
+                          *(["--extra", *jax_extra] if jax_extra else [])]) == 0
+    want = _read(tmp_path / "jax" / f"{dms_id}.csv")
+    got = _read(tmp_path / "port" / f"{dms_id}.csv")
+    assert list(got[0]) == ["mutant", "DMS_score", "zero_shot_score",
+                            *(SUPERVISED_SCHEMES if folds else []), "mutated_sequence",
+                            *columns] == list(want[0])
+    assert [r["mutant"] for r in got] == [r["mutant"] for r in want]
+    atol = 1e-3 if model == "kermut" else 2e-4
+    for column in columns:
+        values = np.asarray([float(r[column]) for r in got])
+        # the ridges predict one value per held-out position of the modulo folds
+        assert np.isfinite(values).all() and len(set(values)) > 3, column
+        np.testing.assert_allclose(values, [float(r[column]) for r in want], atol=atol, rtol=0,
+                                   err_msg=column)
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_supervised_score_merge_evaluate_match_the_jax_cli(tmp_path):
+    """supervised-score (OHE_ridge) -> merge-supervised ->
+    evaluate-supervised through both CLIs: the score files within the
+    ridge's float32 noise; merged from the same score files, the merged
+    files within 2e-12 (pandas' CSV float parser is not correctly rounded);
+    evaluated from the same long table, the metric files equal byte for
+    byte."""
+    from tests.test_torch_supervised import assert_same_csv
+
+    ref, dms_dir, ids = _write_assays(tmp_path, n_assays=2)
+    with open(ref) as f:
+        rows = list(csv.reader(f))
+    with open(ref, "w", newline="") as f:  # the evaluation's categories
+        w = csv.writer(f)
+        w.writerow(rows[0] + ["taxon", "coarse_selection_type", "MSA_Neff_L_category"])
+        w.writerows(r + [["Human", "Virus"][i], ["Activity", "Stability"][i], "Low"]
+                    for i, r in enumerate(rows[1:]))
+    for dms_id in ids:  # the published layout: mutated_sequence and two-fold columns
+        assay = _read(dms_dir / f"{dms_id}.csv")
+        seq = next(r for r in csv.DictReader(open(ref)) if r["DMS_id"] == dms_id)["target_seq"]
+        with open(dms_dir / f"{dms_id}.csv", "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["mutant", "mutated_sequence", "DMS_score", *SUPERVISED_SCHEMES])
+            w.writerows([r["mutant"], tcli.apply_mutant(seq, r["mutant"]), r["DMS_score"],
+                         *[i % 2] * 3] for i, r in enumerate(assay))
+    config = tmp_path / "config.json"  # two models over one set of files, and a missing one
+    config.write_text(json.dumps({"model_list_supervised_substitutions_DMS": {
+        name: {"input_score_name": "y_pred", "location": location, "key": "mutant",
+               "label_name": "DMS_score", "model_type": "Supervised"}
+        for name, location in (("OHE_ridge", "ohe_ridge"), ("OHE_again", "ohe_ridge"),
+                               ("Absent", "absent"))}}))
+    for side in ("jax", "port"):
+        root = tmp_path / side
+        args = ["supervised-score", "--model", "OHE_ridge", "--dms-reference", str(ref),
+                "--dms-dir", str(dms_dir), "--output-dir", str(root / "scores")]
+        with jax.enable_x64(False):
+            rc = (tcli.main(args + ["--device", "cpu"]) if side == "port"
+                  else jcli.main(["--platform", "cpu", *args]))
+        assert rc == 0
+        args = ["merge-supervised", "--dms-reference", str(ref), "--dms-dir", str(dms_dir),
+                "--scores-root", str(tmp_path / "jax" / "scores"), "--config", str(config),
+                "--output-dir", str(root / "merged")]
+        assert (tcli.main(args + ["--device", "cpu"]) if side == "port"
+                else jcli.main(["--platform", "cpu", *args])) == 0
+        args = ["evaluate-supervised", "--dms-reference", str(ref), "--input-scoring-file",
+                str(tmp_path / "jax" / "merged" / "merged_scores_substitutions_DMS.csv"),
+                "--output-dir", str(root / "bench"), "--bootstrap-samples", "100", "--no-html"]
+        assert (tcli.main(args) if side == "port" else jcli.main(["--platform", "cpu", *args])) == 0
+    scores = sorted(p.relative_to(tmp_path / "jax") for p in (tmp_path / "jax").rglob("*.csv")
+                    if "bench" not in p.parts)
+    assert len(scores) == 3 * 2 + 3 * 2 + 1  # score files, merged files, the long table
+    for rel in scores:
+        assert_same_csv(tmp_path / "port" / rel, tmp_path / "jax" / rel, atol=2e-4 if "scores"
+                        in rel.parts else 2e-12)
+    bench = sorted(p.relative_to(tmp_path / "jax") for p in (tmp_path / "jax" / "bench").rglob("*"))
+    assert bench and bench == sorted(p.relative_to(tmp_path / "port")
+                                     for p in (tmp_path / "port" / "bench").rglob("*"))
+    for rel in bench:
+        if rel.suffix == ".csv":
+            assert (tmp_path / "port" / rel).read_bytes() == (tmp_path / "jax" / rel).read_bytes()
+
+
+def test_checkpoint_root_routes_each_assay(tmp_path):
+    """score --checkpoint-root: each assay reads DIR/<EVE_model_path> of its
+    reference row (a plmc model here), a row without one is skipped with
+    task_missing_input; the scores equal the JAX CLI's."""
+    from proteingym_tpu_torch.models import potts as tpotts
+    from proteingym_tpu_torch.pipeline.scorers import POTTS_ALPHABET
+    from tests.test_torch_gemme import write_baseline_world
+
+    write_baseline_world(tmp_path)
+    ref = tmp_path / "ref.csv"
+    rows = list(csv.DictReader(open(ref)))
+    ctx = tcli.ScoreContext(record=tcli.load_reference(ref)[0], mutants=[],
+                            device=torch.device("cpu"), msa_dir=tmp_path / "msa")
+    msa = ctx.load_msa()
+    model = tpotts.train_potts_plm(msa.matrix, msa.weights, POTTS_ALPHABET,
+                                   np.asarray(msa.focus_cols) + 4, msa.focus_seq_trimmed,
+                                   steps=5, device="cpu")
+    (tmp_path / "models" / "sub").mkdir(parents=True)
+    tpotts.write_plmc_model(model, tmp_path / "models" / "sub" / "fam.model")
+    other = dict(rows[0], DMS_id="FAM_OTHER")
+    with open(ref, "w", newline="") as f:
+        w = csv.DictWriter(f, list(rows[0]) + ["EVE_model_path"])
+        w.writeheader()
+        w.writerow(dict(rows[0], EVE_model_path="sub/fam.model"))
+        w.writerow(dict(other, EVE_model_path=""))
+    common = ["--model", "potts", "--dms-reference", str(ref), "--dms-dir", str(tmp_path / "dms"),
+              "--checkpoint-root", str(tmp_path / "models"), "--quiet"]
+    assert tcli.main(["score", *common, "--device", "cpu", "--output-dir",
+                      str(tmp_path / "port")]) == 0
+    assert jcli.main(["--platform", "cpu", "score", *common, "--output-dir",
+                      str(tmp_path / "jax")]) == 0
+    dms_id = rows[0]["DMS_id"]
+    got, want = _read(tmp_path / "port" / f"{dms_id}.csv"), _read(tmp_path / "jax" / f"{dms_id}.csv")
+    assert [r["mutant"] for r in got] == [r["mutant"] for r in want]
+    np.testing.assert_allclose([float(r["EVmutation_score"] or "nan") for r in got],
+                               [float(r["EVmutation_score"] or "nan") for r in want],
+                               atol=1e-5, rtol=0, equal_nan=True)
+    assert not (tmp_path / "port" / "FAM_OTHER.csv").exists()
+    events = [json.loads(x) for x in (tmp_path / "port" / "events.jsonl").read_text().splitlines()]
+    assert [e["task"] for e in events if e["event"] == "task_missing_input"] == ["potts/FAM_OTHER"]

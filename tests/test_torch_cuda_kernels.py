@@ -252,6 +252,9 @@ BTHD_CASES = {
     # MULAN-small's trunk: 20 heads of 24, each row its own pad tail, RoPE
     "hd24_mask_rope": (4, 252, 20, 24, {"key_mask": _lengths_mask(252, [252, 240, 131, 30]),
                                         "rope_base": 10000.0}),
+    # ESM2-3B's trunk (VespaG's): 40 heads of 64, one L=250 row, RoPE
+    "hd64_h40_esm2_3b": (2, 252, 40, 64, {"key_mask": _lengths_mask(252, [252, 190]),
+                                          "rope_base": 10000.0}),
     "hd128_T1024": (1, 1024, 2, 128, {"rope_base": 10000.0,
                                       "key_mask": _lengths_mask(1024, [1000])}),
 }

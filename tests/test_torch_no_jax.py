@@ -48,6 +48,9 @@ def test_port_imports_without_jax_or_pandas():
         new |= {"proteingym_tpu_torch.ops.gvp", "proteingym_tpu_torch.ops.gnn",
                 "proteingym_tpu_torch.models.state_dict"}
         new |= {"proteingym_tpu_torch.models." + m for m in ("protssn", "s3f")}
+        new |= {"proteingym_tpu_torch.models." + m for m in (
+            "prot_t5", "vespa_heads", "vespag", "supervised_baselines", "protein_npt", "kermut")}
+        new |= {"proteingym_tpu_torch.merge.supervised", "proteingym_tpu_torch.metrics.supervised"}
         assert new <= set(names), sorted(new - set(names))
         print("ok")
     """)
@@ -72,13 +75,19 @@ def test_native_imports_without_a_compiler(tmp_path):
         from proteingym_tpu_torch.models import gvp_transformer, protein_mpnn, saprot
         from proteingym_tpu_torch.models import mulan, prosst, prosst_quantizer, structure_plms
         from proteingym_tpu_torch.models import protssn, s3f
+        from proteingym_tpu_torch.models import kermut, prot_t5, protein_npt, vespa_heads, vespag
+        from proteingym_tpu_torch.models import supervised_baselines
+        from proteingym_tpu_torch.merge import supervised
+        from proteingym_tpu_torch.metrics import supervised as supervised_metrics
         from proteingym_tpu_torch.pipeline import scorers
         assert native._lib is None and native._nj_lib is None
         assert {"hmm", "potts", "evmutation", "site_independent", "wavenet", "gemme", "escott",
                 "siterm", "rsalor", "provean", "progen2", "rita", "protgpt2", "progen3",
                 "unirep", "esmc", "esm3", "xtrimopglm", "carp", "esm_if1", "protein_mpnn",
                 "saprot", "prosst", "venusrem", "mulan", "mif", "mif_st", "protssn", "s2f", "s3f",
-                "s3f_msa", "aido"} <= set(scorers.SCORERS)
+                "s3f_msa", "aido", "vespa", "vespag", "ohe_ridge", "embeddings_ridge",
+                "proteinnpt", "kermut"} <= set(scorers.SCORERS)
+        assert len(scorers.SCORERS) == 45
         print("ok")
     """)], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

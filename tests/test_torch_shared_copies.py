@@ -92,3 +92,39 @@ def test_structure_vocabularies_equal_the_jax_packages():
     assert tm.MPNN_ALPHABET == jm.MPNN_ALPHABET
     assert tt.TRIDI_VOCAB == jt.TRIDI_VOCAB
     assert (ts.SEQ_CHARS, ts.STRUC_CHARS, ts.BLOCK) == (js.SEQ_CHARS, js.STRUC_CHARS, js.BLOCK)
+
+
+def test_supervised_track_copies_equal_the_jax_packages():
+    # the tables the VESPA family and the supervised track copied: ProtT5's
+    # reconstructed token ids, VESPA's blend and BLOSUM block, the CV
+    # schemes, the evaluation's category names and Kermut's initial values
+    import numpy as np
+
+    from proteingym_tpu.merge import supervised as jms
+    from proteingym_tpu.metrics import supervised as jmet
+    from proteingym_tpu.models import kermut as jk
+    from proteingym_tpu.models import prot_t5 as jt5
+    from proteingym_tpu.models import supervised_baselines as jsb
+    from proteingym_tpu.models import vespa_heads as jvh
+    from proteingym_tpu_torch.merge import supervised as tms
+    from proteingym_tpu_torch.metrics import supervised as tmet
+    from proteingym_tpu_torch.models import kermut as tk
+    from proteingym_tpu_torch.models import prot_t5 as tt5
+    from proteingym_tpu_torch.models import supervised_baselines as tsb
+    from proteingym_tpu_torch.models import vespa_heads as tvh
+
+    assert tt5.AA_TOKEN_IDS == jt5.AA_TOKEN_IDS
+    assert (tt5.PAD_ID, tt5.EOS_ID, tt5.UNK_ID) == (jt5.PAD_ID, jt5.EOS_ID, jt5.UNK_ID)
+    for name in ("prot_t5_xl", "prot_t5_tiny"):
+        t, j = tt5.PRESETS[name], jt5.PRESETS[name]
+        assert all(getattr(t, f) == getattr(j, f) for f in ("vocab_size", "d_model", "d_kv",
+                   "num_heads", "num_layers", "d_ff", "num_buckets", "max_distance", "gated"))
+    np.testing.assert_array_equal(tvh.DEFAULT_BLEND["w"], jvh.DEFAULT_BLEND["w"])
+    assert tvh.DEFAULT_BLEND["b"] == jvh.DEFAULT_BLEND["b"]
+    np.testing.assert_array_equal(tvh._blosum20(), jvh._blosum20())
+    assert (tms.CV_SCHEMES_SUBS, tms.CV_SCHEMES_INDELS) == (jms.CV_SCHEMES_SUBS,
+                                                            jms.CV_SCHEMES_INDELS)
+    assert tsb.CV_SCHEMES == jsb.CV_SCHEMES
+    assert (tmet.METRICS, tmet.TAXON_COLUMNS, tmet.DEPTH_COLUMNS, tmet.FUNCTION_CATEGORIES) == (
+        jmet.METRICS, jmet.TAXON_COLUMNS, jmet.DEPTH_COLUMNS, jmet.FUNCTION_CATEGORIES)
+    assert {k: float(v) for k, v in jk.init_hypers().items()} == tk.HYPER_INIT
