@@ -134,20 +134,20 @@ Phases (any failure raises, and the script exits non-zero):
    14's L=250 target and 16,384-row alignment and phase 15's indel assay,
    with no weights file, so K5 runs once on every alignment load and
    nothing else launches a kernel of the port except TranceptEVE's K1: (a)
-   ``train --model eve --steps 1000`` at EVE's default architecture (55M
+   ``train --model eve --steps 500`` at EVE's default architecture (55M
    parameters, batch 256, float32 without TF32): the reference EVE file,
    steps/s, the loss of the first and last 100 steps, peak memory, then
    ``eve.train`` for 200 steps under torch.profiler (idle share, device
    time by kind of kernel, launches per step) and the decoder KL timed
    alone; (b)
-   ``score --model deepsequence`` without --checkpoint (1,000 steps, 2,000
+   ``score --model deepsequence`` without --checkpoint (500 steps, 2,000
    draws): finite evol indices under the JAX column, the 190 mutants past
    the alignment empty; (c) ``score --model trancepteve --extra
    retrieval_type=TranceptEVE eve_checkpoints=<(a)'s file>`` on the first
    512 singles: 36 K1 launches per forward at B32 H20 T256, the EVE
    prior's seconds and mutants/s; (d) ``train --model potts --steps 300``:
    the ``.model`` file read back equals the trained h and J; (e) ``score
-   --model wavenet`` at its defaults on the indel assay and on the
+   --model wavenet --extra steps=200`` on the indel assay and on the
    singles: training seconds, mutants/s, the idle share of
    ``wavenet.train`` for 50 steps and of the scoring; (f) EVE's and
    WaveNet's first 3 Adam steps on the card against the same steps on the
@@ -173,13 +173,14 @@ Phases (any failure raises, and the script exits non-zero):
 18. the AR zoo through the port's CLI, each family at its preset's full
    width and depth with seeded random weights, on phase 14's L=250 target
    and singles: (a) ``progen2 --checkpoint progen2-xlarge`` (32 x 4096, 16
-   heads of 256) on the first 1,024 singles, (b) ``rita --checkpoint
-   RITA_xl`` on all 4,750 and on phase 15's 2,001-row indel assay (T=416),
-   (c) ``protgpt2`` at its defaults (36 x 1280, 20 heads of 64, byte-level
-   tokens), (d) ``progen3 --checkpoint progen3-3b`` (28 x 2304, 24 heads of
-   96, 8 experts, top-2, float32 products) on the first 256, (e) ``unirep``
-   (hidden 1,900) on all singles and again with ``--extra
-   evotune_steps=100`` on phase 14's alignment (K5 once): each run's
+   heads of 256) on the first 512 singles, (b) ``rita --checkpoint
+   RITA_xl`` on the first 512 and on every 2nd row of phase 15's indel
+   assay (1,001 rows, T=416), (c) ``protgpt2`` at its defaults (36 x 1280, 20 heads of 64,
+   byte-level tokens) on the first 512, (d) ``progen3 --checkpoint
+   progen3-3b`` (28 x 2304, 24 heads of 96, 8 experts, top-2, float32
+   products) on the first 256, (e) ``unirep`` (hidden 1,900) on all singles
+   and again with ``--extra evotune_steps=20`` on phase 14's alignment (K5
+   once): each run's
    column, forwards, K1 launches a forward, mutants/s, peak memory and the
    idle share of two forwards of its first scoring pass; (f) each transformer family's
    mean log-likelihoods of 8 rows against the plain attention; (g) the
@@ -299,11 +300,33 @@ Phases (any failure raises, and the script exits non-zero):
    ``embeddings_ridge --checkpoint esm2_t33_650M`` over all singles and
    three schemes (149 forwards of 33 K4 + 33 rope_qk), features of 8 rows
    and the ridges' out-of-fold predictions card vs CPU; (d) ``proteinnpt
-   --extra npt_steps=200``: ms a step, the idle share, 5 steps card vs CPU
+   --extra npt_steps=50``: ms a step, the idle share, 5 steps card vs CPU
    on the same draws; (e) ``kermut --structure-dir`` (50 steps a fold): the
    last fold's hyperparameters and predictions card vs CPU, the distance
    term dropped shown to fail; (f) ``supervised-score`` ->
    ``merge-supervised`` -> ``evaluate-supervised`` over (c)-(e)'s files.
+24. the last slice: (a) ESM2-650M masked-LM training (``esm_train``: bf16
+   compute on float32 masters, AdamW with optax's defaults, the plain
+   attention) for 20 steps on a repeated batch of 8 x 252 tokens (ms a
+   step, tokens/s, peak memory, the loss falling), one bf16 step's update
+   against the same step in float32 on the card, the loss over the
+   unmasked positions shown to fail; (b) ProtSSN's ``train_denoising`` at
+   ProtssnConfig's defaults on phase 20's helix with ESM2-650M embeddings
+   (33 K4 + 33 rope_qk), 100 steps (ms a step, idle share, final loss), 3
+   steps card vs CPU on the same draws, other draws shown to fail; (c)
+   ``score --mesh data=1,model=1`` through the CLI over a one-rank NCCL
+   group (Megatron's row-parallel layers), the scores against phase 4's
+   to ``MESH_SCORES_ATOL`` (K4 under ``esm_mesh``), a
+   doubled all-reduce shown to fail; (d) ring attention on that group at
+   B1 H20 T4096 D64 against the plain attention, the key mask dropped shown
+   to fail; (e) the expert-parallel ProGen3 forward at progen3-3b's widths,
+   8 of its 28 layers (depth cut for time), against ``ProGen3.forward``
+   (the float32 K1 under ``progen3_expert``), experts at the wrong indices
+   shown to fail; (f) ``score --profile-dir`` with ESM2-8M: the trace names
+   K4's loop, the plain attention shown to fail. K4 at the mesh run's chunk
+   and the float32 K1 at (e)'s rows join the ``kernels`` line as
+   ``grouped_attention_bthd:esm_mesh`` and
+   ``grouped_attention:f32_progen3_expert``.
 
 Every phase holds the port to its rule: no module of the JAX package
 (``proteingym_tpu``) may be loaded. It prints one JSON line describing the
@@ -453,15 +476,17 @@ POTTS_CPU_STEPS, POTTS_LOSS_RTOL, POTTS_HJ_RTOL = 3, 1e-4, 2e-3
 # TF32's on the tensor cores: a 3xTF32 product takes three TF32 passes
 PEAK_F32_FLOPS, PEAK_TF32_FLOPS = 67e12, 495e12
 # the shapes of phase 16: phase 14's L=250 target and alignment and phase
-# 15's indel assay; EVE at its default architecture for 1,000 steps (cut
+# 15's indel assay; EVE at its default architecture for 500 steps (cut
 # for time from train's default of 400,000 and the scorer's 10,000; 5,000
-# before phase 21 came, 2,000 before phase 23),
-# DeepSequence for 1,000 (cut: time; 2,000 before phase 23), TranceptEVE on the first 512 of the
-# 4,750 singles (cut: time), Potts at the scorer's 300 steps, WaveNet at
-# its defaults (400 steps)
-TRAINER_SLICE = dict(checkpoint="Large", batch=32, eve_steps=1_000, profiled_steps=200,
-                     deepsequence_steps=1000, deepsequence_samples=2000, trancepteve_mutants=512,
-                     eve_num_samples=20_000, potts_steps=300, wavenet_profiled_steps=50)
+# before phase 21 came, 2,000 before phase 23, 1,000 before phase 24),
+# DeepSequence for 500 (cut: time; 2,000 before phase 23, 1,000 before
+# phase 24), TranceptEVE on the first 512 of the
+# 4,750 singles (cut: time), Potts at the scorer's 300 steps, WaveNet for
+# 200 steps (cut: time; its default of 400 before phase 24)
+TRAINER_SLICE = dict(checkpoint="Large", batch=32, eve_steps=500, profiled_steps=200,
+                     deepsequence_steps=500, deepsequence_samples=2000, trancepteve_mutants=512,
+                     eve_num_samples=20_000, potts_steps=300, wavenet_steps=200,
+                     wavenet_profiled_steps=50)
 # Card against CPU at phase 16's own sizes: the first TRAINER_CPU_STEPS
 # Adam steps of EVE (lr 1e-4, batch 256 of 16,384 rows) and WaveNet (lr
 # 1e-3, batch 32), every draw made on the CPU and handed to both sides. The
@@ -498,12 +523,17 @@ F81_MU_RTOL = 1e-4
 
 
 # the shapes of phase 18: phase 14's L=250 target, alignment and 4,750
-# singles and phase 15's 2,001-row indel assay; each AR family at its
-# preset's full width and depth with seeded random weights; ProGen2-xlarge
-# on the first 1,024 singles and ProGen3-3b on the first 256 (cut: time);
-# UniRep evotuned for 100 steps; 8 rows (4 sequences, both directions)
+# singles and every 2nd row of phase 15's 2,001-row indel assay (1,001
+# with the WT; cut: time, all of them before phase 24); each AR family at its
+# preset's full width and depth with seeded random weights; ProGen2-xlarge,
+# RITA_xl and ProtGPT2 on the first 512 singles (cut: time; RITA_xl and
+# ProtGPT2 on all 4,750 before phase 24, then all three on 1,024) and
+# ProGen3-3b on the first 256 (cut: time);
+# UniRep evotuned for 20 steps (100 before phase 24: each step is ~0.3 s of
+# host work); 8 rows (4 sequences, both directions)
 # held against the plain attention per transformer family
-ZOO_SLICE = dict(batch=32, progen2_singles=1024, progen3_singles=256, evotune_steps=100,
+ZOO_SLICE = dict(batch=32, progen2_singles=512, progen3_singles=256, indel_stride=2,
+                 evotune_steps=20,
                  logp_rows=4)
 # (label, B, H, T, D) of the float32 K1 on the zoo's paths: the L=250 rows
 # of ProGen2-xlarge, RITA_xl, ProtGPT2 and ProGen3-3b, and RITA_xl's indel
@@ -3279,7 +3309,7 @@ def phase_trainers(torch, dev, card, fa):
             t0 = time.perf_counter()
             with capturing(torch, wavenet, "train", trained), \
                     capturing(torch, wavenet, "score_sequences", scored):
-                table = score("wavenet", dms_id)
+                table = score("wavenet", dms_id, extra=[f"steps={s['wavenet_steps']}"])
             wall_e = time.perf_counter() - t0
             out["launches"][path] = launched()
             check_launches(f"wavenet {dms_id}", launched(), {"cluster_counts": 1})
@@ -3671,11 +3701,11 @@ def phase_baselines(torch, dev, card, fa):
 def phase_zoo(torch, dev, card, fa, check_close):
     """18. The AR zoo through the port's CLI at each preset's full width and
     depth (seeded random weights) on phase 14's L=250 target: (a)
-    ``progen2 --checkpoint progen2-xlarge`` on the first 1,024 singles, (b)
-    ``rita --checkpoint RITA_xl`` on all 4,750 and on phase 15's indel
-    assay, (c) ``protgpt2`` at its defaults on all singles, (d) ``progen3
-    --checkpoint progen3-3b`` on the first 256, (e) ``unirep`` on all
-    singles, then with ``--extra evotune_steps=100`` on phase 14's
+    ``progen2 --checkpoint progen2-xlarge`` on the first 512 singles, (b)
+    ``rita --checkpoint RITA_xl`` on the first 512 and on every 2nd row of
+    phase 15's indel assay, (c) ``protgpt2`` at its defaults on the first 512, (d)
+    ``progen3 --checkpoint progen3-3b`` on the first 256, (e) ``unirep`` on
+    all singles, then with ``--extra evotune_steps=20`` on phase 14's
     alignment; for each run its column, forwards, K1 launches per forward,
     mutants/s, peak memory and the idle share of two forwards of its first
     scoring pass (torch.profiler); (f) per-row log-likelihoods of 8 rows per
@@ -3693,11 +3723,12 @@ def phase_zoo(torch, dev, card, fa, check_close):
     single_seqs = [seq[:int(m[1:-1]) - 1] + m[-1] + seq[int(m[1:-1]):] for m in singles]
     seq400 = "".join(GAP_AA[c] for c in np.random.RandomState(15).randint(1, 21, ind["length"]))
     indels = indel_variants(seq400, ind["variants"], 15) + [seq400]  # phase 15's assay
+    indels = indels[::z["indel_stride"]]  # every kind of variant, and the WT last
     phase_t0 = time.perf_counter()
     print(f"[zoo] ProGen2, RITA, ProtGPT2, ProGen3, UniRep (seeded random, full width and "
           f"depth) on phase 14's L={length} target ({len(singles)} singles, MSA N="
-          f"{t['n_seqs']} over residues 1-{covered}) and phase 15's {len(indels)}-row indel "
-          f"assay; batch {batch}; {card}")
+          f"{t['n_seqs']} over residues 1-{covered}) and {len(indels)} rows of phase 15's indel "
+          f"assay (one row in {z['indel_stride']}); batch {batch}; {card}")
 
     # every scoring pass (one direction of batched_ar_loglik): its forwards
     # and seconds; after a run's first pass, its first 2 x batch rows again
@@ -3808,9 +3839,9 @@ def phase_zoo(torch, dev, card, fa, check_close):
         torch.cuda.empty_cache()
 
         # (b) RITA_xl on the singles and on the indel assay
-        assays_of["b"] = single_seqs
+        assays_of["b"] = assays["ZOO_L250_P2"][1]
         cfg = ar_zoo.RITA_PRESETS["RITA_xl"]
-        r = run("rita", "ZOO_L250", "RITA_xl_score", "RITA_xl",
+        r = run("rita", "ZOO_L250_P2", "RITA_xl_score", "RITA_xl",
                 patches=[keeping(ar_zoo, "rita_init", kept)])
         report("b", "rita --checkpoint RITA_xl, singles", r, cfg.num_layers, "RITA_xl_score")
         runs["rita_xl"] = r
@@ -3825,9 +3856,9 @@ def phase_zoo(torch, dev, card, fa, check_close):
         runs["rita_xl_indel"] = r
 
         # (c) ProtGPT2 at its defaults (byte-level tokens)
-        assays_of["c"] = single_seqs
+        assays_of["c"] = assays["ZOO_L250_P2"][1]
         cfg = ar_zoo.Gpt2Config()
-        r = run("protgpt2", "ZOO_L250", "ProtGPT2_score",
+        r = run("protgpt2", "ZOO_L250_P2", "ProtGPT2_score",
                 patches=[keeping(ar_zoo, "gpt2_init", kept)])
         report("c", "protgpt2 (36 x 1280, 20 heads, 50,257 tokens)", r, cfg.num_layers,
                "ProtGPT2_score")
@@ -3876,42 +3907,49 @@ def phase_zoo(torch, dev, card, fa, check_close):
 
     # (g) the float32 K1 alone at the zoo's shapes, as the models hand it in:
     # (B, T, H, D) memory seen as (B, H, T, D), causal, no mask
-    records = []
-    for label, b, h, tt, d in K1_ZOO:
-        gen = torch.Generator(device=dev).manual_seed(tt + d)
-        q, k, v = (torch.randn(b, tt, h, d, generator=gen, device=dev).transpose(1, 2)
-                   for _ in range(3))
-        got = fa.grouped_mha(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        want = fa.plain_mha(q, k, v, causal=True)
-        err = check_close(f"(g) float32 K1 B{b} H{h} T{tt} D{d} causal ({label})", got, want,
-                          F32_ATOL, F32_RTOL)
-        del want
-        times = median_pair(torch, {
-            "kernel": lambda: fa.grouped_mha(q, k, v, causal=True),
-            "plain": lambda: fa.plain_mha(q, k, v, causal=True),
-            "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v,
-                                                                             is_causal=True),
-        }, reps=3, inner=5, rounds=1)
-        # the least time on the tensor cores: three TF32 passes per product
-        flops = 4.0 * b * h * d * tt * (tt + 1) / 2
-        bnd = bound(flops, nbytes(q, k, v, got), peak=PEAK_TF32_FLOPS / 3)
-        simt = bound(flops, nbytes(q, k, v, got), peak=PEAK_F32_FLOPS)
-        print(f"  (g) float32 K1 B{b} H{h} T{tt} D{d} causal: kernel {times['kernel']:.4f} ms, "
-              f"plain {times['plain']:.4f} ms, SDPA is_causal {times['sdpa']:.4f} ms, bound "
-              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, 3xTF32 at 495/3 TFLOP/s; "
-              f"{simt['bound_ms']:.4f} ms float32 at 67 TFLOP/s outside the tensor cores; "
-              f"{card})")
-        records.append(dict(label=label, shape=f"B{b} H{h} T{tt} D{d} float32, causal",
-                            ms=times["kernel"], plain_ms=times["plain"],
-                            library_ms=times["sdpa"], max_abs_err=err, **bnd))
-        del q, k, v, got
-        torch.cuda.empty_cache()
+    records = [f32_k1_record(torch, dev, fa, card, spec, "g") for spec in K1_ZOO]
     print(f"  [zoo] {time.perf_counter() - phase_t0:.1f} s in all; (f) max |diff| "
           + ", ".join(f"{k} {v:.3g}" for k, v in ll_errs.items())
           + f" (atol {ZOO_LL_ATOL:g})")
     return {"launches": {name: r["launches"] for name, r in runs.items()}, "k1": records,
             "k1_err": max(rec["max_abs_err"] for rec in records)}
+
+
+def f32_k1_record(torch, dev, fa, card, spec, tag):
+    """The float32 K1 alone at ``spec`` (label, B, H, T, D) as the AR models
+    hand it in: (B, T, H, D) memory seen as (B, H, T, D), causal, no mask.
+    Held against its plain version and timed beside it, SDPA ``is_causal``
+    and the bound (three TF32 passes per product on the tensor cores)."""
+    label, b, h, tt, d = spec
+    gen = torch.Generator(device=dev).manual_seed(tt + d)
+    q, k, v = (torch.randn(b, tt, h, d, generator=gen, device=dev).transpose(1, 2)
+               for _ in range(3))
+    got = fa.grouped_mha(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = fa.plain_mha(q, k, v, causal=True)
+    err = check_close(f"({tag}) float32 K1 B{b} H{h} T{tt} D{d} causal ({label})", got, want,
+                      F32_ATOL, F32_RTOL)
+    del want
+    times = median_pair(torch, {
+        "kernel": lambda: fa.grouped_mha(q, k, v, causal=True),
+        "plain": lambda: fa.plain_mha(q, k, v, causal=True),
+        "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                                         is_causal=True),
+    }, reps=3, inner=5, rounds=1)
+    # the least time on the tensor cores: three TF32 passes per product
+    flops = 4.0 * b * h * d * tt * (tt + 1) / 2
+    bnd = bound(flops, nbytes(q, k, v, got), peak=PEAK_TF32_FLOPS / 3)
+    simt = bound(flops, nbytes(q, k, v, got), peak=PEAK_F32_FLOPS)
+    print(f"  ({tag}) float32 K1 B{b} H{h} T{tt} D{d} causal: kernel {times['kernel']:.4f} ms, "
+          f"plain {times['plain']:.4f} ms, SDPA is_causal {times['sdpa']:.4f} ms, bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, 3xTF32 at 495/3 TFLOP/s; "
+          f"{simt['bound_ms']:.4f} ms float32 at 67 TFLOP/s outside the tensor cores; "
+          f"{card})")
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return dict(label=label, shape=f"B{b} H{h} T{tt} D{d} float32, causal",
+                ms=times["kernel"], plain_ms=times["plain"], library_ms=times["sdpa"],
+                max_abs_err=err, **bnd)
 
 
 def k2_esm3_long(torch, dev, card, fa, check_close, b, h, t, d):
@@ -5476,11 +5514,12 @@ def aido_logp_held(torch, fa, sp, model, rows):
 # the shapes of phase 23: phase 14's L=250 target with its 4,750 singles
 # (the ridges, VESPA, VespaG) and every 4th of them, 1,024 (ProteinNPT and
 # Kermut: time), on phase 20's helix; ProtT5-XL's 4 table rows (of 250) on
-# the CPU, ProteinNPT's 200 steps a fold (600 published: time), 5 steps of it
+# the CPU, ProteinNPT's 50 steps a fold (600 published, 200 before phase
+# 24, then 100: time; each step is ~15 ms of host work), 5 steps of it
 # on the card and the CPU with the same draws, the embedding ridge's
 # features of 8 rows on the CPU (in float32: ESM2-650M's bf16 on 64 rows
 # would take minutes of the host's cores)
-SUPERVISED_SLICE = dict(batch=32, subset=1024, npt_steps=200, t5_cpu_rows=(0, 83, 166, 249),
+SUPERVISED_SLICE = dict(batch=32, subset=1024, npt_steps=50, t5_cpu_rows=(0, 83, 166, 249),
                         feature_cpu_rows=8, npt_cpu_steps=5, profiled_npt_steps=20)
 # (label, B, H, T, D) of K4 at ESM2-3B's rows, VespaG's trunk: 40 heads of 64
 K4_ESM2_3B = ("esm2_3b", 1, 40, 252, 64)
@@ -5577,7 +5616,7 @@ def phase_supervised(torch, dev, card, fa, check_close):
     seconds, the features of 8 rows against a float32 CPU copy (the last
     key tile dropped shown to fail), the last scheme's out-of-fold
     predictions against the CPU's ridge on the same features; (d)
-    ``proteinnpt --extra npt_steps=200`` on the 1,024: ms a step, the idle
+    ``proteinnpt --extra npt_steps=50`` on the 1,024: ms a step, the idle
     share of 20 profiled steps, 5 steps on the card and the CPU with the
     same draws per parameter (other draws shown to fail); (e) ``kermut
     --structure-dir`` on the 1,024 (50 Adam steps a fold): seconds, the last
@@ -5945,7 +5984,467 @@ def phase_supervised(torch, dev, card, fa, check_close):
     return {"launches": {name: r["launches"] for name, r in runs.items()}, "k4": record}
 
 
+# the shapes of phase 24: ESM2-650M masked-LM training on 8 rows of phase
+# 4's L=250 target (20 AdamW steps, the batch and its masks repeated);
+# ProtSSN's surrogate at ProtssnConfig's defaults (node 1,280, hidden 512, 6
+# layers, k = 20) on phase 20's target and helix for 100 steps (the JAX
+# default), its first 3 steps on the card and the CPU with the same draws;
+# ``score --mesh data=1,model=1`` at phase 4's chunk of 16; ring attention
+# at B1 H20 T4096 D64 with the last 96 keys masked; ProGen3-3b's widths cut
+# to 8 of its 28 layers (time) on 16 singles of phase 14's target; a
+# profiled CLI run of ESM2-8M on 24 singles of an L=60 target
+PARALLEL_SLICE = dict(train_rows=8, train_steps=20, protssn_steps=100, protssn_cpu_steps=3,
+                      protssn_profiled_steps=20, ring=(1, 20, 4096, 64), ring_masked=96,
+                      mesh_bias_std=0.05, progen3_layers=8, progen3_rows=16, profile_length=60,
+                      profile_mutants=24)
+# (a) one bf16 AdamW step against the same step computed in float32 on the
+# card, same batch and masks: the disagreement sum |g32| |d16 - d32| / sum
+# |g32| |d32| over every parameter (d an update, g32 the float32 step's
+# gradient). Adam's first step is about lr sign(g), so an entry whose
+# gradient is within bf16 noise of 0 steps the other way; weighting by |g32|
+# counts it by the little gradient it carries. Readings of a chip run of
+# this phase on an H100 at 700 W: 2.9e-5; the loss taken over the unmasked
+# positions (the planted fault) 8.5e-2, its update still agreeing where the
+# LM head's and the embeddings' large gradients point alike
+ESM_TRAIN_DISAGREE_TOL = 1e-3
+# (b) ProtSSN's first 3 Adam steps (lr 1e-3) card against CPU on the same
+# draws: the first loss (float32 sums in other orders) and the update
+# disagreement of (a) with the CPU's last gradient as the weight. At
+# ProtssnConfig's defaults the JAX package's own losses from its init run
+# to ~1e7-1e9 (tests/test_torch_protssn_train.py holds the port's first
+# two against them on the CPU), so float32 noise flips many small-gradient
+# entries' Adam steps (a per-entry bound would be 2 lr a step) and each
+# step carries the flips of the one before. Readings of 3 steps on an H100
+# at 700 W: disagreement 1.24e-2, other draws on the card (the planted
+# fault) 0.70; the gate sits between the two
+PROTSSN_LOSS_RTOL, PROTSSN_DISAGREE_TOL = 1e-5, 0.1
+# (c) ``score --mesh data=1,model=1`` against phase 4's scores of the same
+# assay without --mesh, card against card, bf16. The sharded layers run
+# Megatron's row-parallel path at every model size: out_proj's and fc2's
+# bias-free product, summed over the group (of one here), then the bias.
+# ``F.linear`` of a (B, T, D) input is a product and then a bias add too,
+# so the two paths run the same bf16 operations. Readings of a chip run on
+# an H100 at 700 W: max |diff| 0; a doubled all-reduce (the planted
+# fault) 0.105
+MESH_SCORES_ATOL = 1e-6
+# (c) the same on seeded nonzero biases (std 0.05) in every layer, the
+# sharded model's scores against the unsharded model's, bf16: the
+# row-parallel bias is added to the product's bf16 result after the sum,
+# the unsharded layer's inside the product, so a few outputs a layer round
+# one bf16 ulp apart, which 33 layers carry to ~4e-2 in a log-prob (as
+# TABLE_ATOL allows) and twice that in a score, a difference of two.
+# Readings of a chip run on an H100 at 700 W: 7.73e-2; the bias added twice
+# (the planted fault) 0.59; the gate sits between the two
+MESH_BIAS_ATOL = 0.2
+# (e) the expert-parallel forward against ProGen3.forward on one rank:
+# float32 logits, the one-rank all-reduce an identity
+EXPERT_LOGITS_ATOL = 1e-5
+# the symbol of K4's bf16 loop in a torch.profiler trace
+K4_SYMBOL = "hopper_attention_kernel"
+
+
+def update_disagreement(start, d16_model, d32_model):
+    """sum |g32| |d16 - d32| / sum |g32| |d32| over every parameter of two
+    trainers' models that started at ``start`` (float64 sums on the
+    reference's device), with d32_model the reference and g32 its last
+    gradient. A master cast at use is named by its parametrization
+    (``...q_proj.parametrizations.weight.original``); it is matched by the
+    plain name."""
+    num = den = 0.0
+    p16 = {n.replace(".parametrizations.", ".").replace(".original", ""): p
+           for n, p in d16_model.named_parameters()}
+    for name, p32 in d32_model.named_parameters():
+        w = p32.grad.double().abs()
+        d32 = p32.detach().double() - start[name]
+        d16 = p16[name].detach().to(p32.device).double() - start[name]
+        num += float((w * (d16 - d32).abs()).sum())
+        den += float((w * d32.abs()).sum())
+    return num / den
+
+
+def phase_parallel(torch, dev, card, fa, check_close, esm_run):
+    """24. The last slice: (a) ESM2-650M masked-LM training (``esm_train``,
+    bf16 compute on float32 masters, AdamW, the plain attention): 20 steps
+    on a repeated batch of 8 x 252 tokens (ms a step, tokens/s, peak
+    memory, the loss falling), one bf16 step's update against the same step
+    in float32 on the card (``update_disagreement``), the loss taken over
+    the unmasked positions shown to fail that check; (b) ProtSSN's
+    ``train_denoising`` at ProtssnConfig's defaults on phase 20's helix with
+    ESM2-650M embeddings (33 K4 + 33 rope_qk) for 100 steps (ms a step,
+    idle share of 20 profiled steps, final loss), 3 steps card vs CPU
+    with the same draws, other draws shown to fail; (c) ``score --mesh
+    data=1,model=1`` through the CLI on phase 4's assay over a one-rank
+    NCCL group (a FileStore): the scores against phase 4's without --mesh
+    to ``MESH_SCORES_ATOL``, K4's launches under ``esm_mesh``, a doubled
+    all-reduce shown to fail; (d) ring attention on the one-rank group at B1 H20 T4096 D64
+    against the plain attention, the key mask dropped shown to fail; (e)
+    ProGen3's expert-parallel forward at progen3-3b's widths (8 of 28
+    layers) against ``ProGen3.forward``, the float32 K1's launches under
+    ``progen3_expert``, experts held at the wrong indices shown to fail;
+    (f) ``score --profile-dir`` on ESM2-8M: the trace names K4's loop, a
+    run with the plain attention shown to fail that check. The records
+    ``grouped_attention_bthd:esm_mesh`` and
+    ``grouped_attention:f32_progen3_expert``."""
+    import torch.distributed as dist
+
+    from proteingym_tpu_torch.data.structures import synthetic_helix_backbone
+    from proteingym_tpu_torch.devices import no_tf32
+    from proteingym_tpu_torch.models import esm2, esm_scoring, esm_train, progen3, protssn
+    from proteingym_tpu_torch.ops import gnn
+    from proteingym_tpu_torch.ops.ring_attention import ring_attention
+    from proteingym_tpu_torch.parallel import mesh as pmesh
+    from proteingym_tpu_torch.pipeline import cli
+
+    s = PARALLEL_SLICE
+    phase_t0 = time.perf_counter()
+    seq, mutants, scores_250, chunk = esm_run
+    config = esm2.PRESETS["esm2_t33_650M"]
+    print(f"[parallel] phase 24: ESM2-650M training, ProtSSN's denoising trainer, score "
+          f"--mesh, ring attention, expert-parallel ProGen3-3b (8 of 28 layers: depth cut for "
+          f"time), score --profile-dir ({card})")
+    launches = {}
+
+    def reset():
+        for name in fa.LAUNCHES:
+            fa.LAUNCHES[name] = 0
+
+    # (a) masked-LM training of ESM2-650M
+    t0 = time.perf_counter()
+    model = esm2.init_random(config, seed=0, device=dev)  # the CLI preset's weights
+    rs = np.random.RandomState(24)
+    rows = [seq] + ["".join(AA[i] for i in rs.randint(0, 20, len(seq)))
+                    for _ in range(s["train_rows"] - 1)]
+    tokens = torch.as_tensor(np.stack([esm2.ALPHABET.tokenize(r) for r in rows]),
+                             dtype=torch.long, device=dev)
+    gen = torch.Generator(device=dev)
+    init, step = esm_train.make_train_step(config)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init(model)
+    reset()
+    losses, times = [], []
+    for _ in range(s["train_steps"]):
+        gen.manual_seed(7)  # the repeated batch: the same masks each step
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(step(state, tokens, generator=gen))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    launches["esm_train"] = dict(fa.LAUNCHES)
+    check_launches("esm_train (the plain attention)", launches["esm_train"], {})
+
+    def two_steps():
+        for _ in range(2):
+            gen.manual_seed(7)
+            step(state, tokens, generator=gen)
+        return 2
+    prof = profile_forwards(torch, fa, two_steps)
+    losses = [float(x) for x in losses]
+    step_ms = statistics.median(times[1:]) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  (a) esm_train on {tuple(tokens.shape)} tokens, bf16 compute on float32 masters, "
+          f"AdamW (lr 1e-4, wd 1e-4): {step_ms:.2f} ms a step (median of steps 2-"
+          f"{s['train_steps']}; the first {times[0] * 1e3:.1f} ms), "
+          f"{tokens.numel() / step_ms * 1e3:.0f} tokens/s, peak device memory {peak:.2f} GiB; "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} ({card})")
+    if prof is not None:
+        print(f"      two steps under torch.profiler: idle share {prof['idle']:.1%}, device "
+              f"{prof['ms']:.2f} ms a step, GEMMs {prof['gemm']:.1%}; the costliest kernels: "
+              f"{prof['top']}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0] - 0.1):
+        fail(f"(a) the loss did not fall on the repeated batch: {losses}")
+    del state
+    torch.cuda.empty_cache()
+
+    gen.manual_seed(11)
+    masked = esm_train.mask_batch(gen, tokens)
+    start = {n: p.detach().double() for n, p in model.named_parameters()}
+    init32, step32 = esm_train.make_train_step(dataclasses.replace(config, dtype=torch.float32))
+    s32 = init32(model)
+    loss32 = float(step32(s32, tokens, masked=masked))
+    s16 = init(model)
+    loss16 = float(step(s16, tokens, masked=masked))
+    dis = update_disagreement(start, s16.model, s32.model)
+    del s16
+    torch.cuda.empty_cache()
+    special = (tokens == esm2.ALPHABET.cls_idx) | (tokens == esm2.ALPHABET.eos_idx)
+    faulty = init(model)
+    step(faulty, tokens, masked=(masked[0], ~masked[1] & ~special))  # planted fault
+    dis_fault = update_disagreement(start, faulty.model, s32.model)
+    del faulty, s32, start
+    torch.cuda.empty_cache()
+    print(f"  (a) one step bf16 vs float32 on the card, same batch and masks: losses {loss16:.6f} "
+          f"/ {loss32:.6f}, update disagreement {dis:.4g} (gate {ESM_TRAIN_DISAGREE_TOL:g}); "
+          f"the loss over the unmasked positions (planted fault) {dis_fault:.4g}")
+    if not dis <= ESM_TRAIN_DISAGREE_TOL:
+        fail(f"(a) the bf16 step's update disagrees with float32's: {dis:.4g}")
+    if not dis_fault > ESM_TRAIN_DISAGREE_TOL:
+        fail(f"(a) the planted fault passed the update check: {dis_fault:.4g}")
+    t_a = time.perf_counter() - t0
+
+    # (b) ProtSSN's denoising trainer
+    t0 = time.perf_counter()
+    length = TRANCEPTION_SLICE["length"]
+    codes = np.random.RandomState(13).randint(1, 21, length)  # phase 14's target
+    target = "".join(GAP_AA[c] for c in codes)
+    helix = synthetic_helix_backbone(length, seed=20)  # phase 20's helix
+    helix[:, 1] += STRUCTURE_SLICE["ca_noise"] * np.random.RandomState(20).randn(length, 3)
+    ca = helix[:, 1].astype(np.float32)
+    native = np.asarray([AA.index(c) for c in target])
+    reset()
+    emb = protssn.esm_embeddings(model, target)
+    launches["protssn_train"] = dict(fa.LAUNCHES)
+    check_launches("protssn_train (the embeddings)", launches["protssn_train"],
+                   {"grouped_attention_bthd": config.num_layers, "rope_qk": config.num_layers})
+    pc = protssn.ProtssnConfig()
+    net = protssn.init_params(pc, seed=0, device=dev)
+    first = {k: v.clone() for k, v in net.state_dict().items()}
+    with no_tf32():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        protssn.train_denoising(net, pc, emb, ca, native, steps=s["protssn_steps"], seed=0)
+        wall = time.perf_counter() - t1
+        _, pwall, busy, _, _ = device_seconds(torch, lambda: protssn.train_denoising(
+            net, pc, emb, ca, native, steps=s["protssn_profiled_steps"], seed=1))
+    first_loss, final_loss = float(net.losses[0]), float(net.losses[-1])
+    idle = "not measured" if busy is None else f"{1 - busy / pwall:.1%}"
+    print(f"  (b) train_denoising at node {pc.node_dim}, hidden {pc.hidden_dim}, "
+          f"{pc.num_layers} layers, k {pc.k_neighbors}, L={length}: {s['protssn_steps']} steps "
+          f"in {wall:.2f} s ({wall / s['protssn_steps'] * 1e3:.2f} ms a step), idle share "
+          f"{idle} over {s['protssn_profiled_steps']} profiled steps; loss {first_loss:.1f} -> "
+          f"{final_loss:.1f} after {s['protssn_steps']} steps, least "
+          f"{float(net.losses.min()):.1f} ({card})")
+    # the JAX init (He-normal in every layer) grows the surrogate's features
+    # through 6 residual layers: the JAX package's own losses at these
+    # widths run to ~1e7-1e9 on the CPU (tests/test_torch_protssn_train.py)
+    # and Adam at lr 1e-3 does not settle within 100 steps, so a falling loss
+    # is not asked, a finite one is
+    if not np.isfinite(net.losses).all():
+        fail(f"(b) non-finite denoising losses: {net.losses}")
+    draws = np.random.RandomState(25).rand(s["protssn_cpu_steps"], length, 1) < 0.25
+    other = np.random.RandomState(26).rand(s["protssn_cpu_steps"], length, 1) < 0.25
+    results = {}
+    for where, noise in (("card", draws), ("cpu", draws), ("fault", other)):
+        m = gnn.egnn_load_state_dict(first, pc.egnn(), device="cpu" if where == "cpu" else dev)
+        with no_tf32():
+            protssn.train_denoising(m, pc, emb if where != "cpu" else emb.cpu(), ca, native,
+                                    steps=s["protssn_cpu_steps"], noise=noise)
+        results[where] = m
+    start = {k: v.cpu().double() for k, v in first.items()}
+    loss_rel = abs(float(results["card"].losses[0]) - float(results["cpu"].losses[0])) \
+        / abs(float(results["cpu"].losses[0]))
+    dis = update_disagreement(start, results["card"], results["cpu"])
+    dis_fault = update_disagreement(start, results["fault"], results["cpu"])
+    worst = params_against(results["card"], results["cpu"], start, WAVENET_CPU_ATOL)
+    print(f"  (b) {s['protssn_cpu_steps']} step(s) card vs CPU, same draws: first loss within "
+          f"{loss_rel:.3g} relative (rtol {PROTSSN_LOSS_RTOL:g}; losses card "
+          f"{results['card'].losses.tolist()}, CPU {results['cpu'].losses.tolist()}), update "
+          f"disagreement {dis:.4g} (gate {PROTSSN_DISAGREE_TOL:g}; per tensor: "
+          f"{held_to(worst, WAVENET_CPU_ATOL, WAVENET_CPU_MAX)[0]}); other draws on the card "
+          f"(planted fault) {dis_fault:.4g}")
+    if not (loss_rel <= PROTSSN_LOSS_RTOL and dis <= PROTSSN_DISAGREE_TOL):
+        fail("(b) ProtSSN's trainer on the card disagrees with the CPU")
+    if not dis_fault > PROTSSN_DISAGREE_TOL:
+        fail("(b) the planted fault passed the card-vs-CPU check")
+    del results, net
+    t_b = time.perf_counter() - t0
+
+    # (c) score --mesh data=1,model=1 through the CLI on a one-rank NCCL group
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ref, dms_dir = write_assays(root, [("SYNTH_L250", seq, mutants)])
+        reset()
+        t1 = time.perf_counter()
+        rc = cli.main(["score", "--model", "esm", "--checkpoint", "esm2_t33_650M",
+                       "--dms-reference", str(ref), "--dms-dir", str(dms_dir),
+                       "--output-dir", str(root / "out"), "--batch-size", str(chunk),
+                       "--device", "cuda", "--quiet", "--fail-fast", "--mesh", "data=1,model=1"])
+        mesh_wall = time.perf_counter() - t1
+        if rc != 0:
+            fail(f"score --mesh exited {rc}")
+        launches["esm_mesh"] = dict(fa.LAUNCHES)
+        meshed = read_scores(root / "out" / "SYNTH_L250.csv", "esm2_t33_650M_score",
+                             len(mutants))
+    n_fwd = n_chunk_forwards(len(seq), chunk)
+    check_launches("esm_mesh", launches["esm_mesh"],
+                   {"grouped_attention_bthd": config.num_layers * n_fwd,
+                    "rope_qk": config.num_layers * n_fwd})
+    mesh = pmesh.make_mesh(1, 1, device=dev)
+    diff = float(np.abs(meshed - scores_250).max())
+    sharded = esm2.make_sharded_apply_fn(model, mesh)
+    toks = esm2.ALPHABET.tokenize(seq)
+    with mock.patch.object(esm2, "reduce_from_group", lambda x, group: 2 * x):  # planted
+        table = esm_scoring.masked_marginal_table(sharded, toks, chunk=chunk,
+                                                  window=config.max_positions, pad_to_multiple=64)
+    fault_diff = float(np.abs(esm_scoring.score_mutants_from_table(table, mutants, seq)
+                              - scores_250).max())
+    print(f"  (c) score --mesh data=1,model=1 (NCCL, world {dist.get_world_size()}, "
+          f"{dist.get_backend()}): {len(meshed)} scores in {mesh_wall:.2f} s, against phase "
+          f"4's without --mesh max |diff| {diff:.3g} (atol {MESH_SCORES_ATOL:g}); launches "
+          f"{launches['esm_mesh']}; a doubled all-reduce (planted fault) {fault_diff:.3g}")
+    if not diff <= MESH_SCORES_ATOL:
+        fail(f"(c) score --mesh differs from the unsharded scores by {diff:.3g}")
+    if not fault_diff > MESH_SCORES_ATOL:
+        fail("(c) the planted fault passed the mesh check")
+    # the preset's biases are 0, which hides where a row-parallel layer adds
+    # its bias: the same scores with seeded nonzero biases in every layer,
+    # through the sharded and the unsharded model
+    with torch.no_grad():
+        bgen = torch.Generator(device=dev).manual_seed(24)
+        for name, p in model.named_parameters():
+            if name.startswith("layers.") and name.endswith(".bias"):
+                p.copy_(s["mesh_bias_std"] * torch.randn(p.shape, generator=bgen, device=dev))
+
+    def biased_scores(fn):
+        t = esm_scoring.masked_marginal_table(fn, toks, chunk=chunk, window=config.max_positions,
+                                              pad_to_multiple=64)
+        return esm_scoring.score_mutants_from_table(t, mutants, seq)
+    want_b = biased_scores(model)
+    bias_diff = float(np.abs(biased_scores(esm2.make_sharded_apply_fn(model, mesh))
+                             - want_b).max())
+    with mock.patch.object(esm2, "_row_parallel",  # planted: the bias inside the summed product
+                           lambda x, lin, m: esm2.reduce_from_group(lin(x), m.model_group)
+                           + lin.bias):
+        bias_fault = float(np.abs(biased_scores(esm2.make_sharded_apply_fn(model, mesh))
+                                  - want_b).max())
+    print(f"  (c) with seeded biases (std {s['mesh_bias_std']:g}) in every layer, the sharded "
+          f"model against the unsharded: max |diff| {bias_diff:.3g} (atol "
+          f"{MESH_BIAS_ATOL:g}); the bias added twice (planted fault) {bias_fault:.3g}")
+    if not bias_diff <= MESH_BIAS_ATOL:
+        fail(f"(c) with biases the sharded model differs by {bias_diff:.3g}")
+    if not bias_fault > MESH_BIAS_ATOL:
+        fail("(c) the planted bias fault passed the mesh check")
+    del sharded, table, model
+    torch.cuda.empty_cache()
+    t_c = time.perf_counter() - t0
+
+    # (d) ring attention on the one-rank group
+    t0 = time.perf_counter()
+    b, h, tt, d = s["ring"]
+    rgen = torch.Generator(device=dev).manual_seed(tt)
+    q, k, v = (torch.randn(b, h, tt, d, generator=rgen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    key_mask = torch.ones(b, tt, dtype=torch.bool, device=dev)
+    key_mask[:, -s["ring_masked"]:] = False
+    got = ring_attention(q, k, v, key_mask=key_mask)
+    torch.cuda.synchronize()
+    want = fa.plain_mha(q.float(), k.float(), v.float(), key_mask=key_mask)
+    ring_err = check_close(f"(d) ring B{b} H{h} T{tt} D{d} bf16, mask", got, want,
+                           BF16_ATOL, BF16_RTOL)
+    unmasked = ring_attention(q, k, v)  # the planted fault: the key mask dropped
+    fault_err = float((unmasked.float() - want).abs().max())
+    if not bool(((unmasked.float() - want).abs() > BF16_ATOL + BF16_RTOL * want.abs()).any()):
+        fail("(d) the planted fault passed the ring check")
+    del want, unmasked
+    rt = median_pair(torch, {
+        "ring": lambda: ring_attention(q, k, v, key_mask=key_mask),
+        "plain": lambda: fa.plain_mha(q, k, v, key_mask=key_mask),
+    }, reps=3, inner=2, rounds=1)
+    print(f"  (d) ring attention, one rank: {rt['ring']:.3f} ms (float32 fold), plain "
+          f"{rt['plain']:.3f} ms; the key mask dropped (planted fault) max |diff| "
+          f"{fault_err:.3g} ({card})")
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    t_d = time.perf_counter() - t0
+
+    # (e) the expert-parallel ProGen3 forward
+    t0 = time.perf_counter()
+    pcfg = dataclasses.replace(progen3.PRESETS["progen3-3b"], num_layers=s["progen3_layers"])
+    pg = progen3.init_random(pcfg, seed=0, device=dev)
+    singles = [f"{target[p]}{p + 1}{a}" for p in range(0, length, 16) for a in "AW"
+               if a != target[p]][:s["progen3_rows"]]
+    tok = progen3.ProGen3Tokenizer()
+    from proteingym_tpu_torch.data.mutants import apply_mutant
+    ptoks = torch.as_tensor(np.stack([tok.encode_clm(apply_mutant(target, m))
+                                      for m in singles]), dtype=torch.long, device=dev)
+    with torch.no_grad(), no_tf32():
+        dense = pg(ptoks)
+        reset()
+        got = progen3.expert_sharded_apply(pg, ptoks)
+        torch.cuda.synchronize()
+        launches["progen3_expert"] = dict(fa.LAUNCHES)
+        moe = pg.model.layers[0].block_sparse_moe
+        held = moe.experts
+        # the planted fault: the experts held at the wrong routing indices
+        moe.experts = torch.nn.ModuleList(list(held)[::-1])
+        wrong = pg(ptoks)
+        moe.experts = held
+    check_launches("progen3_expert", launches["progen3_expert"],
+                   {"grouped_attention": pcfg.num_layers})
+    ediff = float((got - dense).abs().max())
+    efault = float((wrong - dense).abs().max())
+    print(f"  (e) expert_sharded_apply ({pcfg.num_experts} experts over a group of "
+          f"{dist.get_world_size()}, {pcfg.num_layers} of 28 layers at hidden "
+          f"{pcfg.hidden_dim}, FFN {pcfg.ffn_dim}) on {tuple(ptoks.shape)} tokens against "
+          f"ProGen3.forward: max |diff| {ediff:.3g} (atol {EXPERT_LOGITS_ATOL:g}); launches "
+          f"{launches['progen3_expert']}; experts at the wrong indices (planted fault) "
+          f"{efault:.3g}")
+    if not ediff <= EXPERT_LOGITS_ATOL:
+        fail(f"(e) the expert-parallel forward differs by {ediff:.3g}")
+    if not efault > EXPERT_LOGITS_ATOL:
+        fail("(e) the planted fault passed the expert check")
+    t_shape = ptoks.shape[1]
+    del pg, dense, got, wrong
+    torch.cuda.empty_cache()
+    k1 = f32_k1_record(torch, dev, fa, card, ("progen3_expert", s["progen3_rows"],
+                                              pcfg.num_heads, t_shape, pcfg.head_dim), "e")
+    t_e = time.perf_counter() - t0
+
+    # (f) score --profile-dir
+    t0 = time.perf_counter()
+    pseq, pmuts = synth_assay(s["profile_length"], 5)
+    pmuts = pmuts[::len(pmuts) // s["profile_mutants"]][:s["profile_mutants"]]
+    found = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ref, dms_dir = write_assays(root, [("PROF", pseq, pmuts)])
+        for tag, patches in (("kernel", ()), ("plain", (mock.patch.object(
+                esm2, "mha_natural", fa.plain_mha_bthd),))):
+            reset()
+            with contextlib.ExitStack() as stack:
+                for p in patches:
+                    stack.enter_context(p)
+                rc = cli.main(["score", "--model", "esm", "--checkpoint", "esm2_t6_8M",
+                               "--dms-reference", str(ref), "--dms-dir", str(dms_dir),
+                               "--output-dir", str(root / f"out_{tag}"), "--batch-size", "16",
+                               "--device", "cuda", "--quiet", "--fail-fast", "--profile-dir",
+                               str(root / f"tb_{tag}")])
+            if rc != 0:
+                fail(f"score --profile-dir exited {rc}")
+            if tag == "kernel":
+                launches["esm_profile"] = dict(fa.LAUNCHES)
+            traces = list((root / f"tb_{tag}").glob("*.pt.trace.json"))
+            if len(traces) != 1:
+                fail(f"(f) {len(traces)} trace files in --profile-dir, expected 1")
+            events = json.loads(traces[0].read_text())["traceEvents"]
+            found[tag] = sum(K4_SYMBOL in str(e.get("name", "")) for e in events)
+            found[f"{tag}_mb"] = traces[0].stat().st_size / 2**20
+    small = esm2.PRESETS["esm2_t6_8M"]
+    n_fwd = n_chunk_forwards(len(pseq), 16)
+    check_launches("esm_profile", launches["esm_profile"],
+                   {"grouped_attention_bthd": small.num_layers * n_fwd,
+                    "rope_qk": small.num_layers * n_fwd})
+    print(f"  (f) score --profile-dir: a {found['kernel_mb']:.2f} MiB Chrome trace naming "
+          f"{K4_SYMBOL} {found['kernel']} times ({small.num_layers} x {n_fwd} launches); with "
+          f"the plain attention (planted fault) {found['plain']} times")
+    if found["kernel"] == 0:
+        fail(f"(f) the trace does not name {K4_SYMBOL}")
+    if found["plain"] != 0:
+        fail("(f) the planted fault passed the trace check")
+    t_f = time.perf_counter() - t0
+
+    record = k4_record(torch, dev, fa, card, ("esm_mesh", chunk, config.num_heads,
+                                              K4_TIMED[0][2], config.head_dim), "c")
+    pmesh.shutdown()
+    print(f"  [parallel] {time.perf_counter() - phase_t0:.1f} s in all: (a) {t_a:.1f} s, "
+          f"(b) {t_b:.1f} s, (c) {t_c:.1f} s, (d) {t_d:.1f} s, (e) {t_e:.1f} s, (f) "
+          f"{t_f:.1f} s; ring err {ring_err:.3g}")
+    return {"launches": launches, "k4": record, "k1": k1}
+
+
 def main() -> int:
+    script_t0 = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -6147,33 +6646,47 @@ def main() -> int:
     check_launches("windowed", win_launches, {"grouped_attention_bthd": expected_long,
                                               "rope_qk": expected_long})
 
-    k5 = phase_cluster_counts(torch, dev, card)
-    k2 = phase_long_attention(torch, dev, card, fa, qkv, lengths_mask, check_close)
-    poet_run = phase_poet(torch, dev, card, fa, check_close)
-    k3_k4 = phase_k3_k4(torch, dev, card, fa, qkv, lengths_mask, check_close)
-    packed = phase_packed(torch, card, fa, cli, esm2, scores)
-    seg_packed = phase_segment_packed(torch, dev, card, fa, esm2, check_close,
-                                      packed["scores"])
-    wt = phase_wt_pppl(torch, dev, card, fa, cli, esm2, esm_scoring,
-                       (seq, mutants, scores, chunk))
-    phase_merge_evaluate_real(cli, wt)
-    phase_evaluate_scale(torch, dev, card, cli)
-    phase_clinical(cli)
-    msa_run = phase_msa_transformer(torch, dev, card, fa, check_close)
-    tr_run = phase_tranception(torch, dev, card, fa, check_close)
-    indel_run = phase_indels(torch, dev, card, fa, check_close)
-    trainers = phase_trainers(torch, dev, card, fa)
-    baselines = phase_baselines(torch, dev, card, fa)
-    zoo = phase_zoo(torch, dev, card, fa, check_close)
-    mlm = phase_mlm(torch, dev, card, fa, check_close)
-    structure = phase_structure(torch, dev, card, fa, check_close)
-    plms = phase_structure_plms(torch, dev, card, fa, check_close)
-    slice_c = phase_slice_c(torch, dev, card, fa, check_close)
-    supervised = phase_supervised(torch, dev, card, fa, check_close)
+    phase_s = {"1-5": time.perf_counter() - script_t0}
+
+    def timed(name, phase, *args):
+        t = time.perf_counter()
+        result = phase(*args)
+        phase_s[name] = time.perf_counter() - t
+        return result
+
+    k5 = timed("cluster_counts", phase_cluster_counts, torch, dev, card)
+    k2 = timed("long_attention", phase_long_attention, torch, dev, card, fa, qkv, lengths_mask,
+               check_close)
+    poet_run = timed("poet", phase_poet, torch, dev, card, fa, check_close)
+    k3_k4 = timed("k3_k4", phase_k3_k4, torch, dev, card, fa, qkv, lengths_mask, check_close)
+    packed = timed("packed", phase_packed, torch, card, fa, cli, esm2, scores)
+    seg_packed = timed("segment_packed", phase_segment_packed, torch, dev, card, fa, esm2,
+                       check_close, packed["scores"])
+    wt = timed("wt_pppl", phase_wt_pppl, torch, dev, card, fa, cli, esm2, esm_scoring,
+               (seq, mutants, scores, chunk))
+    timed("evaluate_real", phase_merge_evaluate_real, cli, wt)
+    timed("evaluate_scale", phase_evaluate_scale, torch, dev, card, cli)
+    timed("clinical", phase_clinical, cli)
+    msa_run = timed("msa_transformer", phase_msa_transformer, torch, dev, card, fa, check_close)
+    tr_run = timed("tranception", phase_tranception, torch, dev, card, fa, check_close)
+    indel_run = timed("indels", phase_indels, torch, dev, card, fa, check_close)
+    trainers = timed("trainers", phase_trainers, torch, dev, card, fa)
+    baselines = timed("baselines", phase_baselines, torch, dev, card, fa)
+    zoo = timed("zoo", phase_zoo, torch, dev, card, fa, check_close)
+    mlm = timed("mlm", phase_mlm, torch, dev, card, fa, check_close)
+    structure = timed("structure", phase_structure, torch, dev, card, fa, check_close)
+    plms = timed("structure_plms", phase_structure_plms, torch, dev, card, fa, check_close)
+    slice_c = timed("slice_c", phase_slice_c, torch, dev, card, fa, check_close)
+    supervised = timed("supervised", phase_supervised, torch, dev, card, fa, check_close)
+    parallel = timed("parallel", phase_parallel, torch, dev, card, fa, check_close,
+                     (seq, mutants, scores, chunk))
+    print("[time] seconds by phase (the build and phases 1-5 as one): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+          + f"; {time.perf_counter() - script_t0:.1f} s in all so far ({card})")
 
     if "jax" in sys.modules:
         fail("the port imported jax")
-    # the guard below covers the modules of every phase, phases 15-23's too
+    # the guard below covers the modules of every phase, phases 15-24's too
     missing = [m for m in ("proteingym_tpu_torch.native", "proteingym_tpu_torch.models.hmm",
                            "proteingym_tpu_torch.models.potts",
                            "proteingym_tpu_torch.models.wavenet",
@@ -6206,7 +6719,11 @@ def main() -> int:
                            "proteingym_tpu_torch.models.protein_npt",
                            "proteingym_tpu_torch.models.kermut",
                            "proteingym_tpu_torch.merge.supervised",
-                           "proteingym_tpu_torch.metrics.supervised")
+                           "proteingym_tpu_torch.metrics.supervised",
+                           "proteingym_tpu_torch.models.esm_train",
+                           "proteingym_tpu_torch.parallel.mesh",
+                           "proteingym_tpu_torch.ops.ring_attention",
+                           "proteingym_tpu_torch.pipeline.profiler")
                if m not in sys.modules]
     if missing:
         fail(f"modules the phases drive were not loaded: {missing}")
@@ -6243,7 +6760,7 @@ def main() -> int:
                "tranception_indel": indel_run["a_tranception"]["launches"],
                **trainers["launches"], **baselines["launches"], **zoo["launches"],
                **mlm["launches"], **structure["launches"], **plms["launches"],
-               **slice_c["launches"], **supervised["launches"]}
+               **slice_c["launches"], **supervised["launches"], **parallel["launches"]}
     records = [{
         "name": name,
         "route": "cuda",
@@ -6306,6 +6823,16 @@ def main() -> int:
                         "source": source, "replaces": replaces,
                         "launches": by_path[path]["grouped_attention"],
                         "counter": "grouped_attention", "path": path, **rec})
+    # K4 at the chunk of score --mesh, and the float32 K1 at the expert-parallel
+    # ProGen3-3b's rows, each with the launches of its path
+    records.append({"name": "grouped_attention_bthd:esm_mesh", "route": "cuda",
+                    "source": source4, "replaces": replaces4,
+                    "launches": by_path["esm_mesh"]["grouped_attention_bthd"],
+                    "counter": "grouped_attention_bthd", "path": "esm_mesh", **parallel["k4"]})
+    records.append({"name": "grouped_attention:f32_progen3_expert", "route": "cuda",
+                    "source": source, "replaces": replaces,
+                    "launches": by_path["progen3_expert"]["grouped_attention"],
+                    "counter": "grouped_attention", "path": "progen3_expert", **parallel["k1"]})
     # K2 in float32 at ESM3's rows past 1,024 tokens, with the launches of that path
     source, replaces = KERNELS["flash_attention"]
     records.append({"name": "flash_attention:esm3_long", "route": "cuda", "source": source,

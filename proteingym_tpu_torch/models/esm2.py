@@ -21,12 +21,17 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from proteingym_tpu_torch.devices import resolve_device
 from proteingym_tpu_torch.models.state_dict import copy_state_dict
 from proteingym_tpu_torch.ops.flash_attention import KeyTiles, mha_natural
+from proteingym_tpu_torch.parallel.mesh import (
+    copy_to_group, esm_param_sharding, reduce_from_group, shard_params,
+)
 
 # upper bound on independent sequences per packed row (one-hot width)
 MAX_ROW_SEGMENTS = 28
@@ -82,6 +87,7 @@ class EsmConfig:
     use_rotary: bool = True  # ESM2; False -> learned positions (ESM-1b/1v)
     emb_layer_norm_before: bool = False  # ESM-1b only
     max_positions: int = 1024  # learned positional embeddings; scoring window
+    remat: bool = False  # recompute each layer in the backward (training memory)
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -140,7 +146,7 @@ class SelfAttention(nn.Module):
         self.v_proj = nn.Linear(d, d, **kw)
         self.out_proj = nn.Linear(d, d, **kw)
 
-    def forward(self, x, key_mask, segment_ids=None, key_tiles=None):
+    def forward(self, x, key_mask, segment_ids=None, key_tiles=None, attention=None):
         b, t, d = x.shape
 
         def heads(y):  # (B, T, D) -> (B, T, H, hd) view, no copy
@@ -149,7 +155,7 @@ class SelfAttention(nn.Module):
         # the softmax scale is applied to q after its bias; RoPE is linear,
         # so the kernel rotates the pre-scaled q exactly
         q = heads(self.q_proj(x) * self.scaling)
-        ctx = mha_natural(q, heads(self.k_proj(x)), heads(self.v_proj(x)),
+        ctx = (attention or mha_natural)(q, heads(self.k_proj(x)), heads(self.v_proj(x)),
                           key_mask=key_mask, sm_scale=1.0, rope_base=self.rope_base,
                           segment_ids=segment_ids, key_tiles=key_tiles)
         return self.out_proj(ctx.reshape(b, t, d))
@@ -165,8 +171,9 @@ class TransformerLayer(nn.Module):
         self.fc1 = nn.Linear(d, config.ffn_dim, **kw)
         self.fc2 = nn.Linear(config.ffn_dim, d, **kw)
 
-    def forward(self, x, key_mask, segment_ids=None, key_tiles=None):
-        x = x + self.self_attn(self.self_attn_layer_norm(x), key_mask, segment_ids, key_tiles)
+    def forward(self, x, key_mask, segment_ids=None, key_tiles=None, attention=None):
+        x = x + self.self_attn(self.self_attn_layer_norm(x), key_mask, segment_ids, key_tiles,
+                               attention)
         return x + self.fc2(F.gelu(self.fc1(self.final_layer_norm(x))))
 
 
@@ -208,7 +215,7 @@ class EsmModel(nn.Module):
 
     def forward(self, tokens: torch.Tensor, segment_ids: Optional[torch.Tensor] = None,
                 return_representations: bool = False,
-                extra_embedding: Optional[torch.Tensor] = None):
+                extra_embedding: Optional[torch.Tensor] = None, attention=None):
         """``segment_ids`` (B, T) int, 0 = padding, 1..S contiguous: each row
         packs independent sequences, each scored as if alone (block-diagonal
         attention, per-segment token-dropout scale, positions restarting per
@@ -218,7 +225,12 @@ class EsmModel(nn.Module):
         shared (T', D) or per-row (B, T, D) conditioning (structure
         adapters; a shared one is cut to the rows' T), is cast to the
         stored dtype and added to the token embeddings before the token
-        dropout, as in the JAX ``apply``."""
+        dropout, as in the JAX ``apply``. ``attention``: the (B, T, H, D)
+        attention function of every layer, ``mha_natural`` (the kernels)
+        when None; a training step passes ``plain_mha_bthd``, the
+        differentiable plain version. With ``config.remat`` and grad mode
+        on, each layer is recomputed in the backward
+        (``torch.utils.checkpoint``, the JAX ``jax.checkpoint``)."""
         cfg = self.config
         pad, mask_idx = ALPHABET.padding_idx, ALPHABET.mask_idx
         padding_mask = tokens == pad
@@ -267,8 +279,13 @@ class EsmModel(nn.Module):
         # the segmented layers' key-tile extents, found once for all of them
         key_tiles = KeyTiles(segment_ids, key_mask) if segment_ids is not None else None
         reps = {}
+        remat = cfg.remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(x, key_mask, segment_ids, key_tiles)
+            if remat:
+                x = checkpoint(layer, x, key_mask, segment_ids, key_tiles, attention,
+                               use_reentrant=False)
+            else:
+                x = layer(x, key_mask, segment_ids, key_tiles, attention)
             if return_representations:
                 reps[i + 1] = x
         x = self.emb_layer_norm_after(x)
@@ -286,6 +303,140 @@ def make_segmented_apply_fn(model: EsmModel) -> EsmModel:
     closes over a config so that one jitted program serves every caller;
     the module carries its own weights, so here it is the model itself."""
     return model
+
+
+class _ShardedSelfAttention(nn.Module):
+    """This rank's heads of a ``SelfAttention``: q/k/v split by output
+    (heads), out_proj by input, summed over the model group once."""
+
+    def __init__(self, attn: SelfAttention, local: Mapping[str, torch.Tensor], prefix: str,
+                 heads: int, mesh):
+        super().__init__()
+        self.num_heads, self.head_dim = heads, attn.head_dim
+        self.scaling, self.rope_base = attn.scaling, attn.rope_base
+        self.mesh = mesh
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            setattr(self, name, _linear(local, f"{prefix}.{name}"))
+
+    def forward(self, x, key_mask, segment_ids=None, key_tiles=None, attention=None):
+        b, t, _ = x.shape
+
+        def heads(y):
+            return y.view(b, t, self.num_heads, self.head_dim)
+
+        x = _copy_to_model(x, self.mesh)
+        q = heads(self.q_proj(x) * self.scaling)
+        ctx = (attention or mha_natural)(q, heads(self.k_proj(x)), heads(self.v_proj(x)),
+                                         key_mask=key_mask, sm_scale=1.0,
+                                         rope_base=self.rope_base, segment_ids=segment_ids,
+                                         key_tiles=key_tiles)
+        return _row_parallel(ctx.reshape(b, t, -1), self.out_proj, self.mesh)
+
+
+class _ShardedTransformerLayer(nn.Module):
+    def __init__(self, layer: TransformerLayer, local, prefix: str, heads: int, mesh):
+        super().__init__()
+        self.mesh = mesh
+        self.self_attn_layer_norm = layer.self_attn_layer_norm
+        self.self_attn = _ShardedSelfAttention(layer.self_attn, local, f"{prefix}.self_attn",
+                                               heads, mesh)
+        self.final_layer_norm = layer.final_layer_norm
+        self.fc1 = _linear(local, f"{prefix}.fc1")
+        self.fc2 = _linear(local, f"{prefix}.fc2")
+
+    def forward(self, x, key_mask, segment_ids=None, key_tiles=None, attention=None):
+        x = x + self.self_attn(self.self_attn_layer_norm(x), key_mask, segment_ids, key_tiles,
+                               attention)
+        h = _copy_to_model(self.final_layer_norm(x), self.mesh)
+        return x + _row_parallel(F.gelu(self.fc1(h)), self.fc2, self.mesh)
+
+
+def _linear(local: Mapping[str, torch.Tensor], prefix: str) -> nn.Linear:
+    weight, bias = local[f"{prefix}.weight"], local[f"{prefix}.bias"]
+    with torch.device("meta"):
+        lin = nn.Linear(weight.shape[1], weight.shape[0], dtype=weight.dtype)
+    lin.weight = nn.Parameter(weight, requires_grad=weight.requires_grad)
+    lin.bias = nn.Parameter(bias, requires_grad=bias.requires_grad)
+    return lin
+
+
+def _copy_to_model(x, mesh):
+    return copy_to_group(x, mesh.model_group)
+
+
+def _row_parallel(x, linear: nn.Linear, mesh):
+    """``linear`` with its weight split by input: this rank's partial
+    product summed over the model group, the bias added once after the
+    sum (at every model size, a group of one included)."""
+    return reduce_from_group(F.linear(x, linear.weight), mesh.model_group) + linear.bias
+
+
+class ShardedEsm(EsmModel):
+    """An ``EsmModel`` over a (data, model) mesh (counterpart of the JAX
+    ``make_sharded_apply_fn``): each model rank holds its heads' q/k/v and
+    out_proj slices and its slice of the FFN (``parallel.mesh.
+    esm_param_sharding``), with one all-reduce after out_proj and one after
+    fc2 (Megatron, gradients included); embeddings, layer norms and the LM
+    head are held whole by every rank (the plan splits the embeddings and
+    the head's dense, which make under 1% of a forward's products). Each
+    rank's attention is the port's kernel on its own heads. ``forward``
+    splits a chunk's rows over the data ranks, padding it with copies of
+    its last row to a multiple of the data size (as XLA pads a sharded
+    batch), and gathers the logits back in row order; ``forward_local`` is
+    the model-parallel forward of this rank's rows alone. Parameter names
+    are the ``EsmModel``'s."""
+
+    def __init__(self, model: EsmModel, mesh):
+        nn.Module.__init__(self)
+        cfg = self.config = model.config
+        self.mesh = mesh
+        if not mesh.member:
+            raise ValueError(f"rank {mesh.rank} is outside the {mesh.data} x {mesh.model} mesh")
+        if cfg.num_heads % mesh.model:
+            raise ValueError(f"a model axis of {mesh.model} does not divide "
+                             f"{cfg.num_heads} heads")
+        tensors = dict(model.named_parameters())
+        local = shard_params(tensors, esm_param_sharding(tensors, mesh), mesh)
+        self.embed_tokens = model.embed_tokens
+        if not cfg.use_rotary:
+            self.embed_positions = model.embed_positions
+            if cfg.emb_layer_norm_before:
+                self.emb_layer_norm_before = model.emb_layer_norm_before
+        heads = cfg.num_heads // mesh.model
+        self.layers = nn.ModuleList(
+            _ShardedTransformerLayer(layer, local, f"layers.{i}", heads, mesh)
+            for i, layer in enumerate(model.layers))
+        self.emb_layer_norm_after = model.emb_layer_norm_after
+        self.lm_head = model.lm_head
+
+    def forward_local(self, tokens, segment_ids=None, attention=None):
+        return EsmModel.forward(self, tokens, segment_ids=segment_ids, attention=attention)
+
+    def forward(self, tokens, segment_ids=None, return_representations=False,
+                extra_embedding=None, attention=None):
+        if return_representations or extra_embedding is not None:
+            raise ValueError("the sharded forward returns logits only")
+        n, b = self.mesh.data, tokens.shape[0]
+        rows = -(-b // n)
+        pad = rows * n - b
+        if pad:  # XLA pads a batch that the data axis does not divide
+            tokens = torch.cat([tokens, tokens[-1:].expand(pad, -1)])
+            if segment_ids is not None:
+                segment_ids = torch.cat([segment_ids, segment_ids[-1:].expand(pad, -1)])
+        mine = slice(self.mesh.data_index * rows, (self.mesh.data_index + 1) * rows)
+        out = self.forward_local(tokens[mine].contiguous(),
+                                 None if segment_ids is None else segment_ids[mine].contiguous(),
+                                 attention).contiguous()
+        parts = [torch.empty_like(out) for _ in range(n)]
+        dist.all_gather(parts, out, group=self.mesh.data_group)
+        return torch.cat(parts)[:b]
+
+
+def make_sharded_apply_fn(model: EsmModel, mesh) -> ShardedEsm:
+    """The tokens -> logits callable for mesh execution: ``ShardedEsm``. The
+    JAX helper returns a function over sharded params; the module carries
+    its own shards."""
+    return ShardedEsm(model, mesh)
 
 
 def _empty_model(config: EsmConfig, device) -> EsmModel:

@@ -21,7 +21,13 @@ the routing weight. The function is the same, with num_experts / top_k
 fewer expert FLOPs (4x at top-2 of 8). The float32 products (projections,
 experts, lm_head) run in full float32: torch's default for a float32
 ``matmul`` is TF32 off, and the scorer runs inside ``devices.no_tf32()``.
-The expert-parallel forward (``expert_sharded_apply``) is not ported.
+
+The expert-parallel forward (``shard_experts`` / ``expert_sharded_apply``)
+keeps E / n experts (w1/w2/w3) on each rank of a process group of n, the
+router and everything else replicated; each rank runs its experts, routed,
+on the tokens that chose them, and one all-reduce per layer sums the
+ranks' expert outputs. It equals the unsharded forward up to the order of
+the float32 sums.
 
 Embeddings are stored in the model dtype (the cast the JAX model makes at
 every use, made once); norms, projections, experts and the head in
@@ -39,6 +45,7 @@ from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -174,6 +181,9 @@ class SparseMoeBlock(nn.Module):
         self.c = c
         self.gate = nn.Linear(c.hidden_dim, c.num_experts, bias=False)
         self.experts = nn.ModuleList(Expert(c) for _ in range(c.num_experts))
+        # expert parallelism (shard_experts): the index of experts[0] among
+        # all E, and the group whose ranks hold the other experts
+        self.first_expert, self.group = 0, None
 
     def forward(self, x):
         return moe_ffn(x, self)
@@ -183,16 +193,20 @@ def moe_ffn(x: torch.Tensor, moe: SparseMoeBlock) -> torch.Tensor:
     """The token-dropless MoE on (B, T, D) x, routed: each expert runs in
     float32 on the tokens whose top-k holds it, and its outputs, times their
     routing weights, are added into the float32 result; cast to x's dtype.
-    The JAX dense route's function, with num_experts / top_k fewer FLOPs."""
+    The JAX dense route's function, with num_experts / top_k fewer FLOPs.
+    Under ``shard_experts`` the block holds this rank's experts only and
+    the ranks' results are summed over its group (the JAX ``psum``)."""
     c = moe.c
     xe = x.float().reshape(-1, x.shape[-1])
     weights = router_weights(xe, moe.gate.weight.t(), c.num_experts, c.top_k)  # (N, E)
     out = torch.zeros_like(xe)
-    for e, expert in enumerate(moe.experts):
+    for e, expert in enumerate(moe.experts, start=moe.first_expert):
         # a routed weight of 0 (an underflowed probability) adds nothing either way
         idx = (weights[:, e] > 0).nonzero().squeeze(1)
         if idx.numel():
             out.index_add_(0, idx, expert(xe[idx]) * weights[idx, e, None])
+    if moe.group is not None:
+        dist.all_reduce(out, group=moe.group)
     return out.view(x.shape).to(x.dtype)
 
 
@@ -269,6 +283,38 @@ class ProGen3(nn.Module):
         """Logits over the 26 letters for harness tokens 0..25 (A..Z): the
         JAX ``restricted_apply_fn``."""
         return self(tokens + AA_OFFSET)[..., AA_OFFSET:AA_OFFSET + 26]
+
+
+def shard_experts(model: ProGen3, group=None) -> ProGen3:
+    """Keep this rank's E / n experts of every layer (n the size of
+    ``group``, default the whole world; rank r holds experts r E / n ..
+    (r + 1) E / n - 1) and drop the rest, in place; the forward then sums
+    each layer's expert outputs over ``group``. Every rank of the group
+    must run the same forwards."""
+    group = group or dist.group.WORLD
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    e = model.config.num_experts
+    if e % n:
+        raise ValueError(f"{e} experts do not divide over a group of {n}")
+    for layer in model.model.layers:
+        moe = layer.block_sparse_moe
+        if moe.group is not None:
+            raise ValueError("the experts are sharded already")
+        local = e // n
+        moe.experts = nn.ModuleList(list(moe.experts)[r * local:(r + 1) * local])
+        moe.first_expert, moe.group = r * local, group
+    return model
+
+
+def expert_sharded_apply(model: ProGen3, tokens: torch.Tensor, group=None) -> torch.Tensor:
+    """The forward with the experts sharded over ``group`` (counterpart of
+    the JAX ``expert_sharded_apply``, whose experts are sharded over a mesh
+    axis): shards ``model`` in place on first use (``shard_experts``), then
+    returns the (B, T, V) float32 logits, the same on every rank."""
+    if model.model.layers[0].block_sparse_moe.group is None:
+        shard_experts(model, group)
+    return model(tokens)
+
 
 # ---------------------------------------------------------------------------
 # Weights

@@ -21,7 +21,8 @@ Two implementations, as in the JAX package:
    with a 20-way readout, scored as log p(mt) - log p(wt).
 
 Everything runs in float32; the scorer runs inside ``devices.no_tf32()``.
-The JAX ``train_denoising`` (no CLI caller) is not ported.
+``train_denoising`` trains the surrogate on ProtSSN's denoising objective,
+as the JAX function does (no CLI caller in either package).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from proteingym_tpu_torch.devices import resolve_device, seeded_generator
+from proteingym_tpu_torch.devices import adam, resolve_device, seeded_generator
 from proteingym_tpu_torch.models import esm2
 from proteingym_tpu_torch.models.state_dict import copy_state_dict
 from proteingym_tpu_torch.ops.gnn import Egnn, EgnnConfig, egnn_init_random, knn_graph
@@ -100,6 +101,55 @@ def score_mutants(model: Egnn, c: ProtssnConfig, embeddings: torch.Tensor,
                 raise ValueError(f"WT mismatch in {tok}")
             out[i] += table[pos, aa_idx[mt]] - table[pos, aa_idx[wt]]
     return out
+
+
+def train_denoising(
+    model: Egnn,
+    c: ProtssnConfig,
+    embeddings,
+    ca_coords,
+    native_tokens,
+    steps: int = 100,
+    learning_rate: float = 1e-3,
+    noise_prob: float = 0.25,
+    seed: int = 0,
+    noise=None,
+) -> Egnn:
+    """ProtSSN-style denoising objective: predict the native AA at every
+    position from (noised) embeddings + structure (the JAX
+    ``train_denoising``). Each step zeroes the embeddings of the nodes of a
+    Bernoulli(``noise_prob``) draw and takes one Adam step
+    (``devices.adam``, optax.adam's update) on the mean NLL of
+    ``native_tokens`` (indices into AA20) over the k-NN graph of
+    ``ca_coords``. ``noise``: the (steps, L, 1) bool draws to use (a test
+    hands in JAX's), else drawn from ``seeded_generator(seed)`` on the
+    model's device. Trains ``model`` in place and returns it, its losses in
+    ``model.losses`` (a float32 numpy array, read once at the end)."""
+    dev = next(model.parameters()).device
+    emb = torch.as_tensor(np.asarray(embeddings), dtype=torch.float32, device=dev) \
+        if not torch.is_tensor(embeddings) else embeddings.to(dev, torch.float32)
+    coords = torch.as_tensor(np.asarray(ca_coords, dtype=np.float32), device=dev)
+    targets = torch.as_tensor(np.asarray(native_tokens), dtype=torch.long, device=dev)
+    neighbors = knn_graph(coords, c.k_neighbors)
+    gen = seeded_generator(seed, dev) if noise is None else None
+    if noise is not None:
+        noise = torch.as_tensor(np.asarray(noise), dtype=torch.bool, device=dev)
+    model.requires_grad_(True)
+    optimizer = adam(model, learning_rate)
+    losses = []
+    for i in range(steps):
+        drop = noise[i] if noise is not None else \
+            torch.rand((emb.shape[0], 1), generator=gen, device=dev) < noise_prob
+        h, _ = model(torch.where(drop, torch.zeros_like(emb), emb), coords, neighbors)
+        logp = torch.log_softmax(model.readout(h), -1)
+        loss = -logp.gather(-1, targets[:, None])[:, 0].mean()
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        losses.append(loss.detach())
+    model.requires_grad_(False)
+    model.losses = torch.stack(losses).cpu().numpy() if losses else np.zeros(0, np.float32)
+    return model
 
 
 # ---------------------------------------------------------------------------

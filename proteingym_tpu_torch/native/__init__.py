@@ -1,16 +1,17 @@
 """The port's host library: the affine-gap global aligner (Gotoh) that
 realigns Tranception's and TranceptEVE's retrieval priors to every indel
-sequence, and the neighbour-joining tree that GEMME and SiteRM build from
-the alignment (counterparts of ``affine_align`` and ``nj_tree`` in
-proteingym_tpu/native).
+sequence, the neighbour-joining tree that GEMME and SiteRM build from
+the alignment, and the greedy coverage / identity row filter that stands
+in for hhfilter (counterparts of ``affine_align``, ``nj_tree`` and
+``hhfilter_mask`` in proteingym_tpu/native).
 
-Each source (``pgym_align.cpp``, ``pgym_nj.cpp``) is compiled by ``g++ -O3
--shared -fPIC -ffp-contract=off`` at first use into
-``proteingym_tpu_torch/_build/`` (listed in .gitignore), under a name that
+Each source (``pgym_align.cpp``, ``pgym_nj.cpp``, ``pgym_hhfilter.cpp``)
+is compiled by ``g++ -O3 -shared -fPIC -ffp-contract=off`` at first use
+into ``proteingym_tpu_torch/_build/`` (listed in .gitignore), under a name that
 carries a hash of the source and the flags, so an edited source is rebuilt
 and a stale library is never loaded. Importing this module builds
 nothing. A failed build raises with the compiler's output: there is no
-fallback aligner and no fallback tree.
+fallback aligner, tree or filter.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "pgym_align.cpp"
 NJ_SOURCE = Path(__file__).resolve().parent / "pgym_nj.cpp"
+HHFILTER_SOURCE = Path(__file__).resolve().parent / "pgym_hhfilter.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 CXX = "g++"
 # -ffp-contract=off: no product is fused into an add unless the source
@@ -38,6 +40,7 @@ CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread", "-ffp-contract
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _nj_lib: Optional[ctypes.CDLL] = None
+_hhfilter_lib: Optional[ctypes.CDLL] = None
 
 
 def library_path(source: Path = SOURCE) -> Path:
@@ -169,3 +172,42 @@ def nj_tree(matrix: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.
     if k != n - 1:
         raise RuntimeError(f"pgym_nj_tree returned {k} merges for {n} rows")
     return left, right, left_len, right_len
+
+
+def get_hhfilter_lib() -> ctypes.CDLL:
+    """Build (if needed) and load the row filter's library; cached per
+    process."""
+    global _hhfilter_lib
+    with _lock:
+        if _hhfilter_lib is None:
+            lib = _load(HHFILTER_SOURCE)
+            lib.pgym_hhfilter_mask.argtypes = [
+                np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS"), ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_double, ctypes.c_double, ctypes.c_double,
+                np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
+            ]
+            lib.pgym_hhfilter_mask.restype = None
+            _hhfilter_lib = lib
+        return _hhfilter_lib
+
+
+def hhfilter_mask(
+    matrix: np.ndarray,
+    min_coverage: float = 0.75,
+    max_identity: float = 0.9,
+    min_query_identity: float = 0.0,
+) -> np.ndarray:
+    """Boolean keep-mask over the rows of an (n, L) int8 code matrix (0 =
+    gap): hhfilter '-cov 75 -id 90' analog (ref esm/compute_fitness.py:85-89).
+    Row 0 always stays; a later row stays when its non-gap share is at
+    least ``min_coverage``, its identity to row 0 at least
+    ``min_query_identity``, and its identity to every row kept before it
+    at most ``max_identity`` (identity: matches over the smaller non-gap
+    count). The JAX wrapper falls back to NumPy without its library; this
+    one raises."""
+    matrix = np.ascontiguousarray(matrix, dtype=np.int8)
+    n, length = matrix.shape
+    keep = np.zeros(n, dtype=np.uint8)
+    get_hhfilter_lib().pgym_hhfilter_mask(matrix, n, length, float(min_coverage),
+                                          float(max_identity), float(min_query_identity), keep)
+    return keep.astype(bool)

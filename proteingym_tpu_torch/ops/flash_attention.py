@@ -35,6 +35,14 @@ tile's diagonal.
 a CPU tensor each wrapper runs its plain PyTorch version (``reference_mha``,
 after in-graph RoPE where asked). On a CUDA tensor it launches its kernel
 or raises for what the kernel does not take; there is no fallback.
+
+The kernels have no backward: they write their results through raw
+pointers, so under autograd their output would carry no gradient and the
+projections before them would silently get none. With grad mode on, every
+wrapper (and ``rope_qk``) therefore raises for a tensor that requires a
+gradient, on either device, and names its plain version, which is
+differentiable. The JAX package has no VJP for its Pallas kernels either:
+its one training step traces the XLA attention.
 """
 
 from __future__ import annotations
@@ -206,6 +214,16 @@ def _checked_qkv(q, k, v):
                  for x in (q, k, v))
 
 
+def _refuse_autograd(entry: str, plain: str, *tensors) -> None:
+    """Raise when grad mode is on and a tensor requires a gradient: the
+    kernel behind ``entry`` has no backward."""
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in tensors):
+        raise RuntimeError(
+            f"{entry} has no backward (its kernel writes through raw pointers, so its "
+            f"output would carry no gradient); under autograd call its plain version, "
+            f"flash_attention.{plain}, which is differentiable")
+
+
 def _strides(q, k, v, out):
     """The first three strides of each tensor, 12 int64 values."""
     return (ctypes.c_longlong * 12)(
@@ -225,6 +243,7 @@ def rope_qk(q: torch.Tensor, k: torch.Tensor, sm_scale: float = 1.0,
     which writes (B, T, H, D) memory returned as (B, H, T, D) views (k
     itself when there is no rotation); CPU tensors take ``plain_rope_qk``.
     The attention entries run the same kernel inside their own launch."""
+    _refuse_autograd("rope_qk", "plain_rope_qk", q, k)
     if q.device.type == "cpu":
         return plain_rope_qk(q, k, sm_scale, rope_base)
     if q.device.type != "cuda":
@@ -424,6 +443,7 @@ def grouped_mha(
     are honoured, contiguous runs are fast. ``key_tiles``: the extents of
     these masks (a ``KeyTiles`` made from these very tensors), shared by
     the calls of one forward; None computes them for this call."""
+    _refuse_autograd("grouped_mha", "plain_mha", q, k, v, bias)
     if key_tiles is not None:
         key_tiles.check(segment_ids, key_mask, causal)
     if q.device.type == "cuda":
@@ -458,6 +478,7 @@ def grouped_mha_bthd(
     keep that contract see no difference), padding rows are not the plain
     version's, and a batch row whose live ids do not rise from run to run
     visits every key tile."""
+    _refuse_autograd("grouped_mha_bthd", "plain_mha_bthd", q, k, v)
     if key_tiles is not None:
         key_tiles.check(segment_ids, key_mask, causal)
     if q.device.type == "cuda":
@@ -492,6 +513,7 @@ def flash_mha(
     head dims in HEAD_DIMS (bfloat16) or F32_HEAD_DIMS (float32); counted under
     ``flash_attention``. CPU tensors take ``reference_mha``. ``key_tiles``
     as in ``grouped_mha``."""
+    _refuse_autograd("flash_mha", "reference_mha", q, k, v, bias)
     if key_tiles is not None:
         key_tiles.check(None, key_mask, causal)
     if q.device.type == "cuda":
@@ -560,6 +582,7 @@ def seg_block_mha(
     rotates; the plain version (the JAX wrapper's order) rotates first and
     scales after. The two agree bit for bit when ``sm_scale`` is 1 (ESM
     pre-scales q) and within one bf16 rounding of q otherwise."""
+    _refuse_autograd("seg_block_mha", "plain_seg_block_mha", q, k, v)
     if key_tiles is not None:
         key_tiles.check(segment_ids, key_mask, False)
     if q.device.type == "cuda":

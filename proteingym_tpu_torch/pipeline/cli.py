@@ -3,9 +3,10 @@ proteingym_tpu/pipeline/cli.py for ``score --model esm|poet|msa_transformer|
 tranception|trancepteve|eve|deepsequence|site_independent|potts|evmutation|
 hmm|wavenet|gemme|escott|siterm|rsalor|provean|progen2|rita|protgpt2|
 progen3|unirep`` and every later scorer (``models`` lists the 45),
-``score --checkpoint-root``, ``train --model eve|potts``, ``weights``,
-``merge``, ``evaluate``, ``evaluate-clinical``, ``supervised-score``,
-``merge-supervised``, ``evaluate-supervised`` and ``models``).
+``score --checkpoint-root``, ``score --mesh``, ``score --profile-dir``,
+``train --model eve|potts``, ``weights``, ``merge``, ``evaluate``,
+``evaluate-clinical``, ``supervised-score``, ``merge-supervised``,
+``evaluate-supervised``, ``download`` and ``models``).
 
     python -m proteingym_tpu_torch.pipeline.cli score --model esm \\
         --checkpoint esm2_t33_650M --dms-reference ref.csv --dms-dir dms/ \\
@@ -71,6 +72,10 @@ progen3|unirep`` and every later scorer (``models`` lists the 45),
     python -m proteingym_tpu_torch.pipeline.cli evaluate-supervised --dms-reference ref.csv \\
         --input-scoring-file merged/merged_scores_substitutions_DMS.csv --output-dir bench/
     python -m proteingym_tpu_torch.pipeline.cli models
+    python -m proteingym_tpu_torch.pipeline.cli download [--list] \\
+        [--resources DMS_ProteinGym_substitutions ...] [--cache DIR]
+    torchrun --nproc-per-node 4 -m proteingym_tpu_torch.pipeline.cli score \\
+        --model esm --checkpoint esm2_t36_3B --mesh data=2,model=2 ...
 
 Per assay it writes ``<DMS_id>.csv`` (the input columns, plus
 ``mutated_sequence`` when absent, plus the score column; for Tranception
@@ -81,7 +86,13 @@ throughput) beside it. With
 ``--packed`` (ESM masked marginals) the masked rows of all selected assays
 share forward batches; the batch is one ``score_packed`` phase and fails
 or succeeds as a whole. ``--extra scoring_strategy=wt-marginals|pseudo-ppl``
-selects the other ESM strategies (per assay only).
+selects the other ESM strategies (per assay only). ``--mesh data=N,model=M``
+scores ESM through a (data, model) mesh of the process group (torchrun's,
+or a world of one): every rank runs the command, rank 0 alone writes the
+CSVs, the manifest and the event log; ``--packed`` refuses a mesh, and so
+does ``--extra`` (the mesh is ``--mesh``'s alone).
+``--profile-dir DIR`` wraps the scoring in ``torch.profiler`` and writes its
+Chrome trace (``DIR/<host>_<pid>.<ms>.pt.trace.json``) when the run ends.
 
 ``train`` trains one assay's alignment model and writes it to
 ``<output-dir>/<model>_<DMS_id>_seed<seed>``: for ``eve`` a reference EVE
@@ -105,6 +116,11 @@ merged files and the long ``merged_scores_<type>_DMS.csv`` (Spearman and MSE
 per assay, model and scheme, computed on ``--device``), which
 ``evaluate-supervised`` turns into the supervised leaderboards on the host.
 
+``download`` fetches the published ProteinGym v1.1 archives, checks each
+one's SHA256 and unzips it under ``--cache`` (``PROTEINGYM_CACHE``, else
+``~/.cache/proteingym_tpu``); an archive already in the cache with the
+right hash is used without the network, and ``--list`` prints the table.
+
 ``merge`` joins each model's score files onto the assays and runs on the
 host; ``evaluate`` and ``evaluate-clinical`` write the JAX package's metric
 CSVs with the per-assay metrics computed on ``--device``. Without
@@ -114,6 +130,7 @@ CSVs with the per-assay metrics computed on ``--device``. Without
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import sys
 import time
@@ -126,6 +143,7 @@ from proteingym_tpu_torch.data.reference import load_reference
 from proteingym_tpu_torch.data.table import NA_STRINGS, Table, write_csv
 from proteingym_tpu_torch.devices import no_tf32, resolve_device
 from proteingym_tpu_torch.pipeline.manifest import Manifest
+from proteingym_tpu_torch.pipeline.profiler import Throughput, trace
 from proteingym_tpu_torch.pipeline.scorers import (
     SCORERS, ScoreContext, score_esm_packed_batch,
 )
@@ -178,18 +196,6 @@ def _score_table(columns, rows, scores) -> Table:
     return table
 
 
-def _emit_throughput(log, label, n_mutants, seconds) -> None:
-    log.emit("throughput", label=label, n_mutants=n_mutants,
-             seconds=round(seconds, 4),
-             mutants_per_sec=round(n_mutants / max(seconds, 1e-9), 2))
-
-
-def _emit_summary(log, total_mutants, total_seconds) -> None:
-    log.emit("throughput_summary", total_mutants=total_mutants,
-             total_seconds=round(total_seconds, 3),
-             mutants_per_sec=round(total_mutants / max(total_seconds, 1e-9), 2))
-
-
 def cmd_score(args) -> int:
     if args.model not in SCORERS:
         print(f"Unknown model '{args.model}'. Available: {sorted(SCORERS)}")
@@ -203,17 +209,41 @@ def cmd_score(args) -> int:
     else:
         records = list(reference)
 
+    extra = _parse_extra(args.extra)
+    if "mesh" in extra:
+        print("give the mesh as --mesh SPEC, not in --extra")
+        return 2
+    rank = 0
+    if args.mesh:  # every rank runs the same calls; rank 0 alone writes
+        from proteingym_tpu_torch.parallel.mesh import launch_rank
+
+        extra["mesh"] = args.mesh
+        rank = launch_rank()
+    writer = rank == 0
     output_dir = Path(args.output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
-    log = EventLog(output_dir / "events.jsonl", echo=not args.quiet)
-    manifest = Manifest(output_dir / "manifest.jsonl")
+    log = EventLog(output_dir / "events.jsonl" if writer else None,
+                   echo=writer and not args.quiet)
+    manifest = Manifest(output_dir / "manifest.jsonl", read_only=not writer)
+    throughput = Throughput(event_log=log)
+    profile_ctx = trace(args.profile_dir) if args.profile_dir else contextlib.nullcontext()
     if args.packed:
-        return _cmd_score_packed(args, records, output_dir, log, manifest, device)
-    scorer = SCORERS[args.model]
-    extra = _parse_extra(args.extra)
+        return _cmd_score_packed(args, records, output_dir, log, manifest, device, extra,
+                                 throughput, profile_ctx)
+    with profile_ctx:
+        failures = _score_records(args, records, output_dir, log, manifest, device, extra,
+                                  throughput, writer)
+    if throughput.total_mutants:
+        log.emit("throughput_summary", **throughput.summary())
+    return 1 if failures else 0
 
+
+def _score_records(args, records, output_dir, log, manifest, device, extra, throughput,
+                   writer) -> int:
+    """Score each assay on its own (per-assay isolation); returns the
+    number that failed."""
+    scorer = SCORERS[args.model]
     failures = 0
-    total_mutants, total_seconds = 0, 0.0
     for rec in records:
         task = f"{args.model}/{rec.DMS_id}"
         out_path = output_dir / f"{rec.DMS_id}.csv"
@@ -253,15 +283,12 @@ def cmd_score(args) -> int:
                 extra=extra,
                 assay=Table({c: [row[c] for row in rows] for c in columns}, n_rows=len(rows)),
             )
-            with log.phase("score", task=task, n_mutants=len(rows)):
-                t0 = time.perf_counter()
+            with log.phase("score", task=task, n_mutants=len(rows)), \
+                    throughput.measure(len(rows), label=task):
                 scores = scorer(ctx)
-                dt = time.perf_counter() - t0
-            _emit_throughput(log, task, len(rows), dt)
-            total_mutants += len(rows)
-            total_seconds += dt
             table = _score_table(columns, rows, scores)
-            write_csv(out_path, table)
+            if writer:
+                write_csv(out_path, table)
             manifest.mark_done(task, rows=len(table))
         except Exception as e:  # noqa: BLE001 — per-assay isolation
             failures += 1
@@ -269,12 +296,11 @@ def cmd_score(args) -> int:
             log.emit("task_failed", task=task, error=repr(e))
             if args.fail_fast:
                 raise
-    if total_mutants:
-        _emit_summary(log, total_mutants, total_seconds)
-    return 1 if failures else 0
+    return failures
 
 
-def _cmd_score_packed(args, records, output_dir, log, manifest, device) -> int:
+def _cmd_score_packed(args, records, output_dir, log, manifest, device, extra, throughput,
+                      profile_ctx) -> int:
     """Cross-assay packed scoring (``score --packed``, ESM masked marginals
     only): the masked rows of all pending assays share forward batches.
     Each output CSV holds the input columns plus the score column."""
@@ -301,15 +327,12 @@ def _cmd_score_packed(args, records, output_dir, log, manifest, device) -> int:
         return 0
     n_total = sum(len(rows) for _, _, rows in tasks)
     try:
-        with log.phase("score_packed", n_assays=len(tasks), n_mutants=n_total):
-            t0 = time.perf_counter()
+        with profile_ctx, log.phase("score_packed", n_assays=len(tasks), n_mutants=n_total), \
+                throughput.measure(n_total, label=f"packed/{len(tasks)}"):
             outputs = score_esm_packed_batch(
                 [(rec, [row["mutant"] for row in rows]) for rec, _, rows in tasks],
-                args.checkpoint, batch_size=args.batch_size,
-                extra=_parse_extra(args.extra), device=device,
+                args.checkpoint, batch_size=args.batch_size, extra=extra, device=device,
             )
-            dt = time.perf_counter() - t0
-        _emit_throughput(log, f"packed/{len(tasks)}", n_total, dt)
     except Exception as e:  # noqa: BLE001 — batch-level failure
         for rec, _, _ in tasks:
             manifest.mark_failed(f"{args.model}/{rec.DMS_id}", error=repr(e))
@@ -321,7 +344,7 @@ def _cmd_score_packed(args, records, output_dir, log, manifest, device) -> int:
         write_csv(output_dir / f"{rec.DMS_id}.csv",
                   _score_table(columns, rows, outputs[rec.DMS_id]))
         manifest.mark_done(f"{args.model}/{rec.DMS_id}", rows=len(rows))
-    _emit_summary(log, n_total, dt)
+    log.emit("throughput_summary", **throughput.summary())
     return 0
 
 
@@ -495,6 +518,22 @@ def cmd_evaluate_supervised(args) -> int:
     return 0
 
 
+def cmd_download(args) -> int:
+    from proteingym_tpu_torch.data.download import (
+        RESOURCES, count_resources, download_resources,
+    )
+
+    if args.list_only:
+        for name, filename, sha, _raw in RESOURCES:
+            print(f"{name:45s} {filename:55s} sha256:{sha[:12]}…")
+        return 0
+    out = download_resources(names=args.resources or None, cache=args.cache,
+                             remove_zip=not args.keep_zip, force=args.force)
+    for name, desc in count_resources(out).items():
+        print(f"{name}: {desc}")
+    return 0
+
+
 def cmd_models(args) -> int:
     for name in sorted(SCORERS):
         print(name)
@@ -527,6 +566,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cross-assay packed scoring: masked rows from all "
                         "selected assays share forward batches (ESM "
                         "masked-marginals; the production throughput path)")
+    s.add_argument("--mesh", default=None, metavar="SPEC",
+                   help="process mesh for sharded ESM scoring, e.g. 'data=4,model=2' "
+                        "(tensor-parallel weights + data-parallel mutant chunks); run every "
+                        "rank under torchrun, rank 0 writes the outputs")
+    s.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="trace the scoring run with torch.profiler (CPU + CUDA) into DIR, "
+                        "a Chrome trace that TensorBoard's profiler plugin reads")
     s.add_argument("--indel-mode", action="store_true",
                    help="indel assays: score whole mutated sequences (Tranception, "
                         "TranceptEVE and hmm)")
@@ -638,6 +684,16 @@ def build_parser() -> argparse.ArgumentParser:
     es.add_argument("--bootstrap-samples", type=int, default=10000)
     es.add_argument("--no-html", action="store_true")
     es.set_defaults(fn=cmd_evaluate_supervised)
+
+    dl = sub.add_parser("download", help="fetch + SHA256-verify + unzip benchmark resources")
+    dl.add_argument("--resources", nargs="*", default=None,
+                    help="resource names (default: all)")
+    dl.add_argument("--cache", default=None, help="extraction directory")
+    dl.add_argument("--force", action="store_true")
+    dl.add_argument("--keep-zip", action="store_true")
+    dl.add_argument("--list", action="store_true", dest="list_only",
+                    help="print the resource table and exit")
+    dl.set_defaults(fn=cmd_download)
 
     lm = sub.add_parser("models", help="list the scorers")
     lm.set_defaults(fn=cmd_models)

@@ -16,8 +16,12 @@ from typing import Dict, Optional
 
 
 class Manifest:
-    def __init__(self, path: str | Path):
+    """``read_only``: the state is read and kept, nothing is written (a
+    rank of a mesh other than rank 0)."""
+
+    def __init__(self, path: str | Path, read_only: bool = False):
         self.path = Path(path)
+        self.read_only = read_only
         self.state: Dict[str, dict] = {}
         if self.path.exists():
             with open(self.path) as f:
@@ -27,6 +31,8 @@ class Manifest:
                         self.state[rec["task"]] = rec
 
     def _append(self, rec: dict) -> None:
+        if self.read_only:
+            return
         self.path.parent.mkdir(parents=True, exist_ok=True)
         with open(self.path, "a") as f:
             f.write(json.dumps(rec) + "\n")

@@ -339,7 +339,12 @@ def score_esm(ctx: ScoreContext) -> Dict[str, np.ndarray]:
     ``--extra ensemble=spec1,spec2,...`` scores each checkpoint and averages
     them (the ESM-1v 5-seed ensemble) into ``{name}_ensemble``; otherwise
     the single --checkpoint spec is scored into ``{name}_score``. Each spec
-    follows load_esm_checkpoint."""
+    follows load_esm_checkpoint. ``--mesh data=N,model=M`` (``extra["mesh"]``)
+    scores through ``esm2.ShardedEsm`` on that mesh of the process group:
+    the weights tensor-parallel over the model axis (Megatron), each chunk's
+    masked rows split over the data axis; every rank of the mesh must run
+    the same scorer calls."""
+    from proteingym_tpu_torch.models import esm2
     from proteingym_tpu_torch.models.esm_scoring import score_assay
     from proteingym_tpu_torch.pipeline.checkpoints import load_esm_checkpoint
 
@@ -347,10 +352,17 @@ def score_esm(ctx: ScoreContext) -> Dict[str, np.ndarray]:
         str(ctx.extra["ensemble"]).split(",")
         if ctx.extra.get("ensemble") else [ctx.checkpoint]
     )
+    mesh = None
+    if ctx.extra.get("mesh"):
+        from proteingym_tpu_torch.parallel.mesh import mesh_from_spec
+
+        mesh = mesh_from_spec(str(ctx.extra["mesh"]), device=ctx.device)
     per_member = []
     name = None
     for spec in specs:
         model, config = load_esm_checkpoint(spec, device=ctx.device)
+        if mesh is not None:
+            model = esm2.make_sharded_apply_fn(model, mesh)
         name = name or config.name
         per_member.append(score_assay(
             model,

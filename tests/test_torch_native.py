@@ -200,3 +200,46 @@ def test_a_failed_build_raises(tmp_path, monkeypatch):
         tnative.affine_align(_codes("ACD"), _codes("AD"))
     assert tnative._lib is None and not list((tmp_path / "build").glob("*.so"))
 
+
+
+def _filter_world(case):
+    """(matrix, options) for an hhfilter case: seeded codes 0..20 with rows
+    copied, gapped and mutated so every branch of the filter is taken."""
+    rs = np.random.RandomState(case)
+    n, length = (1, 12) if case == 5 else (60, 40)
+    m = rs.randint(1, 21, (n, length)).astype(np.int8)
+    for i in range(1, n):
+        if i % 3 == 0:  # near copies of row 0 (identity above 0.9 or not)
+            m[i] = m[0]
+            m[i, rs.choice(length, rs.randint(0, 8), replace=False)] = rs.randint(1, 21)
+        if i % 4 == 1:  # gappy rows (coverage below 0.75 or not)
+            m[i, rs.choice(length, rs.randint(5, 25), replace=False)] = 0
+    m[n // 2:n // 2 + 2] = m[n // 2 - 1]  # exact duplicates
+    options = [dict(), dict(min_coverage=0.5, max_identity=0.8),
+               dict(min_query_identity=0.3), dict(max_identity=1.0, min_coverage=0.0),
+               dict(min_coverage=0.9, max_identity=0.95, min_query_identity=0.1), dict()][case]
+    return m, options
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_hhfilter_mask_equals_jax(case):
+    m, options = _filter_world(case)
+    got = tnative.hhfilter_mask(m, **options)
+    want = jnative.hhfilter_mask(m, **options)
+    assert got.dtype == bool and got.shape == (m.shape[0],)
+    np.testing.assert_array_equal(got, want)
+    assert got[0]
+
+
+def test_hhfilter_builds_its_own_library(monkeypatch, tmp_path):
+    monkeypatch.setattr(tnative, "_hhfilter_lib", None)
+    monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path / "build")
+    tnative.hhfilter_mask(np.ones((3, 4), np.int8))
+    path = tnative.library_path(tnative.HHFILTER_SOURCE)
+    assert path.exists() and path.parent == tmp_path / "build"
+    assert path not in (tnative.library_path(), tnative.library_path(tnative.NJ_SOURCE))
+    monkeypatch.setattr(tnative, "_hhfilter_lib", None)
+    monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path / "other")
+    monkeypatch.setattr(tnative, "CXX", str(tmp_path / "no-such-compiler"))
+    with pytest.raises(RuntimeError, match="no-such-compiler"):
+        tnative.hhfilter_mask(np.ones((3, 4), np.int8))

@@ -51,6 +51,10 @@ def test_port_imports_without_jax_or_pandas():
         new |= {"proteingym_tpu_torch.models." + m for m in (
             "prot_t5", "vespa_heads", "vespag", "supervised_baselines", "protein_npt", "kermut")}
         new |= {"proteingym_tpu_torch.merge.supervised", "proteingym_tpu_torch.metrics.supervised"}
+        new |= {"proteingym_tpu_torch.models.esm_train", "proteingym_tpu_torch.parallel.mesh",
+                "proteingym_tpu_torch.parallel.dryrun", "proteingym_tpu_torch.ops.ring_attention",
+                "proteingym_tpu_torch.pipeline.profiler", "proteingym_tpu_torch.pipeline.cache",
+                "proteingym_tpu_torch.data.download", "proteingym_tpu_torch.data.cleanup"}
         assert new <= set(names), sorted(new - set(names))
         print("ok")
     """)
@@ -80,7 +84,8 @@ def test_native_imports_without_a_compiler(tmp_path):
         from proteingym_tpu_torch.merge import supervised
         from proteingym_tpu_torch.metrics import supervised as supervised_metrics
         from proteingym_tpu_torch.pipeline import scorers
-        assert native._lib is None and native._nj_lib is None
+        from proteingym_tpu_torch.data import cleanup
+        assert native._lib is None and native._nj_lib is None and native._hhfilter_lib is None
         assert {"hmm", "potts", "evmutation", "site_independent", "wavenet", "gemme", "escott",
                 "siterm", "rsalor", "provean", "progen2", "rita", "protgpt2", "progen3",
                 "unirep", "esmc", "esm3", "xtrimopglm", "carp", "esm_if1", "protein_mpnn",

@@ -9,9 +9,11 @@ from pathlib import Path
 import pytest
 
 from proteingym_tpu import constants as jconst
+from proteingym_tpu.data import download as jdownload
 from proteingym_tpu.pipeline import manifest as jmanifest
 from proteingym_tpu.pipeline import telemetry as jtelemetry
 from proteingym_tpu_torch import constants as tconst
+from proteingym_tpu_torch.data import download as tdownload
 from proteingym_tpu_torch.data import registry as tregistry
 from proteingym_tpu_torch.pipeline import manifest as tmanifest
 from proteingym_tpu_torch.pipeline import telemetry as ttelemetry
@@ -128,3 +130,8 @@ def test_supervised_track_copies_equal_the_jax_packages():
     assert (tmet.METRICS, tmet.TAXON_COLUMNS, tmet.DEPTH_COLUMNS, tmet.FUNCTION_CATEGORIES) == (
         jmet.METRICS, jmet.TAXON_COLUMNS, jmet.DEPTH_COLUMNS, jmet.FUNCTION_CATEGORIES)
     assert {k: float(v) for k, v in jk.init_hypers().items()} == tk.HYPER_INIT
+
+
+@pytest.mark.parametrize("name", ["RESOURCES", "PROTEINGYM_VERSION", "BASE_URL"])
+def test_download_table_equals_the_jax_packages(name):
+    assert getattr(tdownload, name) == getattr(jdownload, name)
