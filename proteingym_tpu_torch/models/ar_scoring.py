@@ -24,6 +24,7 @@ import torch
 
 from proteingym_tpu_torch.data.table import Table
 from proteingym_tpu_torch.data.windows import get_optimal_window, mutation_barycenter
+from proteingym_tpu_torch.pipeline.profiler import GATHER, PLAN, READBACK, ROWS, UPLOAD, span
 
 
 @dataclasses.dataclass
@@ -131,34 +132,40 @@ def batched_ar_loglik(
     if per_row and fusion_row_tables is None:
         raise ValueError("per-row fusion requires fusion_row_tables")
     n = len(token_rows)
-    lengths = np.asarray([len(r) for r in token_rows])
-    buckets = _length_buckets(lengths, bucket_granularity)
-    if window_starts is None:
-        window_starts = np.zeros(n, dtype=np.int64)
-    if window_ends is None:
-        window_ends = lengths
-    starts_d = torch.as_tensor(np.asarray(window_starts, np.int64), device=device)
-    ends_d = torch.as_tensor(np.asarray(window_ends, np.int64), device=device)
-    tables_d = (torch.as_tensor(np.asarray(fusion_row_tables, np.int64), device=device)
-                if per_row else None)
+    with span(PLAN):
+        lengths = np.asarray([len(r) for r in token_rows])
+        buckets = _length_buckets(lengths, bucket_granularity)
+        if window_starts is None:
+            window_starts = np.zeros(n, dtype=np.int64)
+        if window_ends is None:
+            window_ends = lengths
+        starts_d = torch.as_tensor(np.asarray(window_starts, np.int64), device=device)
+        ends_d = torch.as_tensor(np.asarray(window_ends, np.int64), device=device)
+        tables_d = (torch.as_tensor(np.asarray(fusion_row_tables, np.int64), device=device)
+                    if per_row else None)
 
-    per_bucket: Dict[int, List[int]] = {}
-    for ridx in np.argsort(buckets, kind="stable"):
-        per_bucket.setdefault(int(buckets[ridx]), []).append(int(ridx))
+        per_bucket: Dict[int, List[int]] = {}
+        for ridx in np.argsort(buckets, kind="stable"):
+            per_bucket.setdefault(int(buckets[ridx]), []).append(int(ridx))
     pending = []
     for bucket, idxs in per_bucket.items():
         for b0 in range(0, len(idxs), batch_size):
             block = idxs[b0:b0 + batch_size]
-            rows = np.full((len(block), bucket), pad_id, np.int64)
-            for k, ridx in enumerate(block):
-                rows[k, :lengths[ridx]] = token_rows[ridx]
-            sel = torch.as_tensor(block, device=device)
+            with span(ROWS):
+                rows = np.full((len(block), bucket), pad_id, np.int64)
+                for k, ridx in enumerate(block):
+                    rows[k, :lengths[ridx]] = token_rows[ridx]
+                with span(UPLOAD):  # waits for the forward before
+                    tokens = torch.from_numpy(rows).to(device)
+                    sel = torch.as_tensor(block, device=device)
+                starts, ends = starts_d[sel], ends_d[sel]
+                row_tables = None if tables_d is None else tables_d[sel]
             pending.append((block, _block_loglik(
-                logits_fn, torch.from_numpy(rows).to(device), starts_d[sel], ends_d[sel],
-                fusion, pad_id, reverse, None if tables_d is None else tables_d[sel])))
+                logits_fn, tokens, starts, ends, fusion, pad_id, reverse, row_tables)))
     out = np.zeros(n, dtype=np.float64)
     for block, lls in pending:
-        out[block] = lls.cpu().numpy()
+        with span(READBACK):
+            out[block] = lls.cpu().numpy()
     return out
 
 
@@ -217,33 +224,38 @@ def score_mutants_ar(
     avg_score_L_to_R[, avg_score_R_to_L], avg_score`` with its rows in the
     order of the JAX package's pandas merges, plus a WT row of zeros when
     the WT is one of ``mutated_sequences``."""
-    plans = get_sequence_slices(
-        mutants, mutated_sequences,
-        target_seq if target_seq is not None else mutated_sequences[0],
-        model_context_len,
-        scoring_window=scoring_window if target_seq is not None else "sliding",
-        indel_mode=indel_mode,
-    )
-    tables = (None if fusion_table_of is None else
-              np.asarray([fusion_table_of[p.mutated_sequence] for p in plans], np.int64))
+    with span(PLAN):
+        plans = get_sequence_slices(
+            mutants, mutated_sequences,
+            target_seq if target_seq is not None else mutated_sequences[0],
+            model_context_len,
+            scoring_window=scoring_window if target_seq is not None else "sliding",
+            indel_mode=indel_mode,
+        )
+        tables = (None if fusion_table_of is None else
+                  np.asarray([fusion_table_of[p.mutated_sequence] for p in plans], np.int64))
     summed = scoring_window == "sliding" or target_seq is None
 
     def one_direction(reverse: bool):
         fn = (reverse_logits_fn or logits_fn) if reverse else logits_fn
-        rows = [tokenize(p.sliced_sequence[::-1] if reverse else p.sliced_sequence)
-                for p in plans]
+        with span(PLAN):
+            rows = [tokenize(p.sliced_sequence[::-1] if reverse else p.sliced_sequence)
+                    for p in plans]
+            window_starts = np.asarray([p.window_start for p in plans])
+            window_ends = np.asarray([p.window_end for p in plans])
         lls = batched_ar_loglik(
             fn, rows, pad_id, batch_size=batch_size, fusion=fusion,
-            window_starts=np.asarray([p.window_start for p in plans]),
-            window_ends=np.asarray([p.window_end for p in plans]),
+            window_starts=window_starts, window_ends=window_ends,
             reverse=reverse, device=device, fusion_row_tables=tables,
         )
-        seqs = [p.mutated_sequence for p in plans]
-        starts = [p.window_start for p in plans]
-        if summed:
-            seqs, lls = _group_sum_sorted(seqs, lls)
-            starts = [None] * len(seqs)
-        return seqs, starts, lls / np.asarray([len(s) for s in seqs], dtype=np.float64)
+        with span(GATHER):
+            seqs = [p.mutated_sequence for p in plans]
+            starts = [p.window_start for p in plans]
+            if summed:
+                seqs, lls = _group_sum_sorted(seqs, lls)
+                starts = [None] * len(seqs)
+            return to_delta(seqs, starts,
+                            lls / np.asarray([len(s) for s in seqs], dtype=np.float64))
 
     def to_delta(seqs, starts, scores):
         """(mutated sequences, deltas) of the non-WT rows."""
@@ -258,27 +270,29 @@ def score_mutants_ar(
                                 for i, j in pairs], dtype=np.float64))
         return [seqs[i] for i in mut], scores[mut] - float(scores[wt[0]])
 
-    l2r_seqs, l2r = to_delta(*one_direction(False))
-    table = Table()
+    l2r_seqs, l2r = one_direction(False)
     if scoring_mirror:
-        r2l_seqs, r2l = to_delta(*one_direction(True))
-        pairs = _left_join(l2r_seqs, r2l_seqs)
-        left = np.asarray([l2r[i] for i, _ in pairs], dtype=np.float64)
-        right = np.asarray([np.nan if j is None else r2l[j] for _, j in pairs],
-                           dtype=np.float64)
-        table["mutated_sequence"] = [l2r_seqs[i] for i, _ in pairs]
-        table["avg_score_L_to_R"] = left
-        table["avg_score_R_to_L"] = right
-        table["avg_score"] = (left + right) / 2.0
-    else:
-        table["mutated_sequence"] = l2r_seqs
-        table["avg_score_L_to_R"] = l2r
-        table["avg_score"] = l2r.copy()
-    # the WT scores 0 by definition when it is in the assay (ref :919-927)
-    if target_seq is not None and target_seq in set(mutated_sequences):
-        grown = Table()
-        for name, col in table.columns.items():
-            tail = [target_seq] if name == "mutated_sequence" else [0.0]
-            grown[name] = np.concatenate([col, np.asarray(tail, dtype=col.dtype)])
-        table = grown
+        r2l_seqs, r2l = one_direction(True)
+    with span(GATHER):
+        table = Table()
+        if scoring_mirror:
+            pairs = _left_join(l2r_seqs, r2l_seqs)
+            left = np.asarray([l2r[i] for i, _ in pairs], dtype=np.float64)
+            right = np.asarray([np.nan if j is None else r2l[j] for _, j in pairs],
+                               dtype=np.float64)
+            table["mutated_sequence"] = [l2r_seqs[i] for i, _ in pairs]
+            table["avg_score_L_to_R"] = left
+            table["avg_score_R_to_L"] = right
+            table["avg_score"] = (left + right) / 2.0
+        else:
+            table["mutated_sequence"] = l2r_seqs
+            table["avg_score_L_to_R"] = l2r
+            table["avg_score"] = l2r.copy()
+        # the WT scores 0 by definition when it is in the assay (ref :919-927)
+        if target_seq is not None and target_seq in set(mutated_sequences):
+            grown = Table()
+            for name, col in table.columns.items():
+                tail = [target_seq] if name == "mutated_sequence" else [0.0]
+                grown[name] = np.concatenate([col, np.asarray(tail, dtype=col.dtype)])
+            table = grown
     return table

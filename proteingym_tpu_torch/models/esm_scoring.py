@@ -24,6 +24,7 @@ from proteingym_tpu_torch.data.mutants import apply_mutant, is_wt_row, mutations
 from proteingym_tpu_torch.data.windows import get_optimal_window
 from proteingym_tpu_torch.models.esm2 import ALPHABET, EsmAlphabet
 from proteingym_tpu_torch.ops.gather_logprobs import row_log_softmax_gather
+from proteingym_tpu_torch.pipeline.profiler import PARSE, PLAN, READBACK, ROWS, UPLOAD, span
 
 
 def _round_up(n, m):
@@ -106,8 +107,8 @@ def wt_marginal_table_overlapping(logits_fn, tokens: np.ndarray, window: int = 1
     device = _device_of(logits_fn) if device is None else torch.device(device)
     starts = overlapping_window_plan(total, window=window)
     toks_d = torch.as_tensor(tokens, dtype=torch.long, device=device)
-    span = torch.arange(window, device=device)
-    batch = toks_d[torch.as_tensor(starts, device=device)[:, None] + span]
+    positions = torch.arange(window, device=device)
+    batch = toks_d[torch.as_tensor(starts, device=device)[:, None] + positions]
     logps = torch.log_softmax(logits_fn(batch).float(), dim=-1)
     w = torch.as_tensor(esm_overlap_weights(window), dtype=torch.float32, device=device)
     acc = torch.zeros(total, logps.shape[-1], dtype=torch.float32, device=device)
@@ -142,19 +143,23 @@ def masked_marginal_table(
     device = _device_of(logits_fn) if device is None else torch.device(device)
     tokens = np.asarray(tokens)
     total = tokens.shape[0]
-    toks = _pad_to_bucket(tokens, pad_to_multiple, pad_idx)
-    toks_d = torch.as_tensor(toks, dtype=torch.long, device=device)
-    lanes = torch.arange(chunk, device=device)
+    with span(PLAN):
+        toks = _pad_to_bucket(tokens, pad_to_multiple, pad_idx)
+        toks_d = torch.as_tensor(toks, dtype=torch.long, device=device)
+        lanes = torch.arange(chunk, device=device)
 
     if total <= window:
-        n_pad = _round_up(toks.shape[0], chunk)
-        offsets = np.zeros(n_pad, np.int64)
-        offsets[:total] = np.arange(total)
-        offs_d = torch.as_tensor(offsets, device=device).view(-1, chunk)
+        with span(PLAN):
+            n_pad = _round_up(toks.shape[0], chunk)
+            offsets = np.zeros(n_pad, np.int64)
+            offsets[:total] = np.arange(total)
+            offs_d = torch.as_tensor(offsets, device=device).view(-1, chunk)
         parts = []
         for offs in offs_d:
-            rows = toks_d.expand(chunk, -1).clone()
-            rows[lanes, offs] = mask_idx
+            with span(ROWS):
+                rows = toks_d.expand(chunk, -1).clone()
+                with span(UPLOAD):  # the scalar's copy waits for the last forward
+                    rows[lanes, offs] = mask_idx
             parts.append(row_log_softmax_gather(logits_fn(rows), offs))
         return torch.cat(parts)[:total]
 
@@ -163,23 +168,26 @@ def masked_marginal_table(
             "overlapping windows are not defined for masked-marginals "
             "(matches reference behavior)"
         )
-    n_pad = _round_up(
-        total if pad_to_multiple is None else _round_up(total, pad_to_multiple),
-        chunk,
-    )
-    starts = np.zeros(n_pad, np.int64)
-    offsets = np.zeros(n_pad, np.int64)
-    for i in range(total):
-        start, _end = get_optimal_window(i, total, window)
-        starts[i] = start
-        offsets[i] = i - start
-    starts_d = torch.as_tensor(starts, device=device).view(-1, chunk)
-    offs_d = torch.as_tensor(offsets, device=device).view(-1, chunk)
-    span = torch.arange(window, device=device)
+    with span(PLAN):
+        n_pad = _round_up(
+            total if pad_to_multiple is None else _round_up(total, pad_to_multiple),
+            chunk,
+        )
+        starts = np.zeros(n_pad, np.int64)
+        offsets = np.zeros(n_pad, np.int64)
+        for i in range(total):
+            start, _end = get_optimal_window(i, total, window)
+            starts[i] = start
+            offsets[i] = i - start
+        starts_d = torch.as_tensor(starts, device=device).view(-1, chunk)
+        offs_d = torch.as_tensor(offsets, device=device).view(-1, chunk)
+        positions = torch.arange(window, device=device)
     parts = []
     for st, offs in zip(starts_d, offs_d):
-        rows = toks_d[st[:, None] + span[None, :]]  # (chunk, window)
-        rows[lanes, offs] = mask_idx
+        with span(ROWS):
+            rows = toks_d[st[:, None] + positions[None, :]]  # (chunk, window)
+            with span(UPLOAD):
+                rows[lanes, offs] = mask_idx
         parts.append(row_log_softmax_gather(logits_fn(rows), offs))
     return torch.cat(parts)[:total]
 
@@ -216,27 +224,29 @@ def score_mutants_from_table(
 ) -> np.ndarray:
     """For each mutant string, the sum over its mutated positions of
     log p(mt) - log p(wt) read from the (T, V) table (WT rows score 0)."""
-    positions, _, _, valid = mutations_to_arrays(mutants, start_idx=offset_idx)
-    n, d = positions.shape
-    wt_tok = np.zeros((n, d), dtype=np.int64)
-    mt_tok = np.zeros((n, d), dtype=np.int64)
-    for i, m in enumerate(mutants):
-        if is_wt_row(m):
-            continue
-        for j, tok in enumerate(m.split(":")):
-            wt, pos, mt = tok[0], int(tok[1:-1]) - offset_idx, tok[-1]
-            if sequence[pos] != wt:
-                raise ValueError(
-                    f"Mutant {tok}: wild-type mismatch at position {pos}"
-                )
-            wt_tok[i, j] = alphabet.get_idx(wt)
-            mt_tok[i, j] = alphabet.get_idx(mt)
-    if torch.is_tensor(table):
-        table = table.float().cpu().numpy()
-    table = np.asarray(table, dtype=np.float32)
-    rows = positions + bos_offset
-    diff = table[rows, mt_tok] - table[rows, wt_tok]
-    return np.where(valid, diff, np.float32(0.0)).sum(axis=1, dtype=np.float32)
+    with span(PARSE):
+        positions, _, _, valid = mutations_to_arrays(mutants, start_idx=offset_idx)
+        n, d = positions.shape
+        wt_tok = np.zeros((n, d), dtype=np.int64)
+        mt_tok = np.zeros((n, d), dtype=np.int64)
+        for i, m in enumerate(mutants):
+            if is_wt_row(m):
+                continue
+            for j, tok in enumerate(m.split(":")):
+                wt, pos, mt = tok[0], int(tok[1:-1]) - offset_idx, tok[-1]
+                if sequence[pos] != wt:
+                    raise ValueError(
+                        f"Mutant {tok}: wild-type mismatch at position {pos}"
+                    )
+                wt_tok[i, j] = alphabet.get_idx(wt)
+                mt_tok[i, j] = alphabet.get_idx(mt)
+        if torch.is_tensor(table):
+            with span(READBACK):
+                table = table.float().cpu().numpy()
+        table = np.asarray(table, dtype=np.float32)
+        rows = positions + bos_offset
+        diff = table[rows, mt_tok] - table[rows, wt_tok]
+        return np.where(valid, diff, np.float32(0.0)).sum(axis=1, dtype=np.float32)
 
 
 def score_assay(
@@ -256,7 +266,8 @@ def score_assay(
     ``wt-marginals`` (overlapping windows beyond ``window`` tokens),
     ``masked-marginals``, or ``pseudo-ppl`` (pppl(mutant) - pppl(wt), in
     float64)."""
-    tokens = alphabet.tokenize(sequence)
+    with span(PLAN):
+        tokens = alphabet.tokenize(sequence)
     if strategy == "wt-marginals":
         table = wt_marginal_table_overlapping(logits_fn, tokens, window=window, device=device)
     elif strategy == "masked-marginals":

@@ -42,6 +42,7 @@ from proteingym_tpu_torch.models.esm_scoring import (
 from proteingym_tpu_torch.ops.gather_logprobs import (
     multi_log_softmax_gather, row_log_softmax_gather,
 )
+from proteingym_tpu_torch.pipeline.profiler import GATHER, PLAN, READBACK, ROWS, UPLOAD, span
 
 # k>1 multi-column mode: window starts snap DOWN to this quantum so long
 # assays' sliding windows coincide and k positions can share one forward
@@ -58,12 +59,14 @@ def _packed_kernel(apply_fn: Callable, row_len: int):
     the float32 log-softmax of the model's logits at that offset."""
 
     def run(stacked, sids, starts, offs, mask_val):
-        span = torch.arange(row_len, device=stacked.device)
+        positions = torch.arange(row_len, device=stacked.device)
         lanes = torch.arange(sids.shape[1], device=stacked.device)
         outs = []
         for sid, st, off in zip(sids, starts, offs):
-            rows = stacked[sid[:, None], st[:, None] + span]
-            rows[lanes, off] = mask_val
+            with span(ROWS):
+                rows = stacked[sid[:, None], st[:, None] + positions]
+                with span(UPLOAD):  # the scalar's copy waits for the last forward
+                    rows[lanes, off] = mask_val
             outs.append(row_log_softmax_gather(apply_fn(rows), off))
         return torch.cat(outs)
 
@@ -111,12 +114,14 @@ def _packed_kernel_multi(apply_fn: Callable, row_len: int, k_cols: int):
     slot-major order."""
 
     def run(stacked, sids, starts, offs, mask_val):
-        span = torch.arange(row_len, device=stacked.device)
+        positions = torch.arange(row_len, device=stacked.device)
         lanes = torch.arange(sids.shape[1], device=stacked.device)[:, None]
         outs = []
         for sid, st, off in zip(sids, starts, offs):
-            rows = stacked[sid[:, None], st[:, None] + span]
-            rows[lanes, off] = mask_val
+            with span(ROWS):
+                rows = stacked[sid[:, None], st[:, None] + positions]
+                with span(UPLOAD):
+                    rows[lanes, off] = mask_val
             out = multi_log_softmax_gather(apply_fn(rows), off)  # (chunk, k, V)
             outs.append(out.reshape(-1, out.shape[-1]))
         return torch.cat(outs)
@@ -182,80 +187,84 @@ def packed_masked_marginal_tables(
                     return min(b, window)
         return min(_round_up(total, pad_to_multiple), window)
 
-    for a, toks in enumerate(token_list):
-        toks = np.asarray(toks)
-        total = lengths[a]
-        if total <= window:
-            row_len = bucket_of(total)
-            g = groups[row_len]
-            sid = len(g["seqs"])
-            g["seqs"].append(np.concatenate(
-                [toks, np.full(row_len - total, pad_idx, toks.dtype)]))
-            g["items"].extend((a, sid, 0, off) for off in range(total))
-        else:
-            g = groups[window]
-            sid = len(g["seqs"])
-            t_pad = _round_up(total, pad_to_multiple)
-            g["seqs"].append(np.concatenate(
-                [toks, np.full(t_pad - total, pad_idx, toks.dtype)]))
-            for i in range(total):
-                start, _end = get_optimal_window(i, total, window)
-                if k_cols > 1:
-                    # snap the window start down to the quantum, but never
-                    # past the point where position i leaves the window
-                    snapped = start - start % start_quant
-                    if i - snapped < window:
-                        start = snapped
-                g["items"].append((a, sid, start, i - start))
+    with span(PLAN):
+        for a, toks in enumerate(token_list):
+            toks = np.asarray(toks)
+            total = lengths[a]
+            if total <= window:
+                row_len = bucket_of(total)
+                g = groups[row_len]
+                sid = len(g["seqs"])
+                g["seqs"].append(np.concatenate(
+                    [toks, np.full(row_len - total, pad_idx, toks.dtype)]))
+                g["items"].extend((a, sid, 0, off) for off in range(total))
+            else:
+                g = groups[window]
+                sid = len(g["seqs"])
+                t_pad = _round_up(total, pad_to_multiple)
+                g["seqs"].append(np.concatenate(
+                    [toks, np.full(t_pad - total, pad_idx, toks.dtype)]))
+                for i in range(total):
+                    start, _end = get_optimal_window(i, total, window)
+                    if k_cols > 1:
+                        # snap the window start down to the quantum, but never
+                        # past the point where position i leaves the window
+                        snapped = start - start % start_quant
+                        if i - snapped < window:
+                            start = snapped
+                    g["items"].append((a, sid, start, i - start))
 
     tables: List[Optional[np.ndarray]] = [None] * len(token_list)
     for row_len, g in sorted(groups.items()):
-        t_max = max(max(s.shape[0] for s in g["seqs"]), row_len)
-        stacked = np.full((len(g["seqs"]), t_max), pad_idx, np.int64)
-        for i, s in enumerate(g["seqs"]):
-            stacked[i, : s.shape[0]] = s
+        with span(PLAN):
+            t_max = max(max(s.shape[0] for s in g["seqs"]), row_len)
+            stacked = np.full((len(g["seqs"]), t_max), pad_idx, np.int64)
+            for i, s in enumerate(g["seqs"]):
+                stacked[i, : s.shape[0]] = s
 
-        items = np.asarray(g["items"], dtype=np.int64)  # (N, 4)
-        if k_cols > 1:
-            w_sids, w_starts, w_offs, sc_a, sc_t, sc_v = _pack_k_columns(items, k_cols)
-            kernel = _packed_kernel_multi(apply_fn, row_len, k_cols)
-        else:
-            w_sids, w_starts, w_offs = items[:, 1], items[:, 2], items[:, 3]
-            kernel = _packed_kernel(apply_fn, row_len)
-        n = w_sids.shape[0]
-        # pad the work queue to a chunk multiple only: a group never pays
-        # for more than chunk - 1 padded rows
-        n_chunks = -(-n // chunk)
-        pad = n_chunks * chunk - n
+            items = np.asarray(g["items"], dtype=np.int64)  # (N, 4)
+            if k_cols > 1:
+                w_sids, w_starts, w_offs, sc_a, sc_t, sc_v = _pack_k_columns(items, k_cols)
+                kernel = _packed_kernel_multi(apply_fn, row_len, k_cols)
+            else:
+                w_sids, w_starts, w_offs = items[:, 1], items[:, 2], items[:, 3]
+                kernel = _packed_kernel(apply_fn, row_len)
+            n = w_sids.shape[0]
+            # pad the work queue to a chunk multiple only: a group never pays
+            # for more than chunk - 1 padded rows
+            n_chunks = -(-n // chunk)
+            pad = n_chunks * chunk - n
 
-        def grid(arr):
-            arr = np.concatenate([arr, np.zeros((pad,) + arr.shape[1:], arr.dtype)])
-            return arr.reshape((n_chunks, chunk) + arr.shape[1:])
+            def grid(arr):
+                arr = np.concatenate([arr, np.zeros((pad,) + arr.shape[1:], arr.dtype)])
+                return arr.reshape((n_chunks, chunk) + arr.shape[1:])
 
-        sids, starts, offs = grid(w_sids), grid(w_starts), grid(w_offs)
-        stacked_d = torch.as_tensor(stacked, device=device)
+            sids, starts, offs = grid(w_sids), grid(w_starts), grid(w_offs)
+            stacked_d = torch.as_tensor(stacked, device=device)
         outs = [
             kernel(stacked_d, *(torch.as_tensor(x[sl], dtype=torch.long, device=device)
                                 for x in (sids, starts, offs)), mask_idx)
             for sl in _steps(n_chunks, super_chunks)
         ]
-        out = torch.cat(outs).cpu().numpy()
-        vocab = out.shape[-1]
-        if k_cols > 1:
-            # (n_pad * k, V) slot-major; padding slots never scatter
-            flat_a = sc_a.reshape(-1)
-            flat_t = sc_t.reshape(-1)
-            flat_v = sc_v.reshape(-1)
-            out = out[: flat_a.shape[0]]
-        else:
-            flat_a, flat_t = items[:, 0], items[:, 2] + items[:, 3]
-            flat_v = np.ones(n, bool)
-            out = out[:n]
-        for a in np.unique(flat_a[flat_v]):
-            sel = flat_v & (flat_a == a)
-            tab = np.zeros((lengths[a], vocab), np.float32)
-            tab[flat_t[sel]] = out[sel]
-            tables[a] = tab
+        with span(READBACK):
+            out = torch.cat(outs).cpu().numpy()
+        with span(GATHER):
+            vocab = out.shape[-1]
+            if k_cols > 1:
+                # (n_pad * k, V) slot-major; padding slots never scatter
+                flat_a = sc_a.reshape(-1)
+                flat_t = sc_t.reshape(-1)
+                flat_v = sc_v.reshape(-1)
+                out = out[: flat_a.shape[0]]
+            else:
+                flat_a, flat_t = items[:, 0], items[:, 2] + items[:, 3]
+                flat_v = np.ones(n, bool)
+                out = out[:n]
+            for a in np.unique(flat_a[flat_v]):
+                sel = flat_v & (flat_a == a)
+                tab = np.zeros((lengths[a], vocab), np.float32)
+                tab[flat_t[sel]] = out[sel]
+                tables[a] = tab
     return tables
 
 
@@ -294,7 +303,8 @@ def _segment_kernel(apply_fn: Callable, row_len: int, slots: int):
     def run(stacked, sids, starts, begins, lens, offs, mask_val, pad_val):
         outs = []
         for args in zip(sids, starts, begins, lens, offs):
-            rows, segs, gms = _segment_rows(stacked, *args, row_len, mask_val, pad_val)
+            with span(ROWS):
+                rows, segs, gms = _segment_rows(stacked, *args, row_len, mask_val, pad_val)
             out = multi_log_softmax_gather(apply_fn(rows, segs), gms)  # (chunk, S, V)
             outs.append(out.reshape(-1, out.shape[-1]))
         return torch.cat(outs)
@@ -368,68 +378,69 @@ def packed_segment_tables(
     window = min(window, row_len)
     lengths = [int(np.asarray(tk).shape[0]) for tk in token_list]
 
-    # --- flatten every assay into (assay, sid, start, off, seg_len) ------
-    seqs: List[np.ndarray] = []
-    items: List[Tuple[int, int, int, int, int]] = []
-    for a, toks in enumerate(token_list):
-        total = lengths[a]
-        sid = len(seqs)
-        seqs.append(np.asarray(toks))
-        if total <= window:
-            items.extend((a, sid, 0, off, total) for off in range(total))
-        else:
-            for i in range(total):
-                start, _end = get_optimal_window(i, total, window)
-                items.append((a, sid, start, i - start, window))
+    with span(PLAN):
+        # --- flatten every assay into (assay, sid, start, off, seg_len) ------
+        seqs: List[np.ndarray] = []
+        items: List[Tuple[int, int, int, int, int]] = []
+        for a, toks in enumerate(token_list):
+            total = lengths[a]
+            sid = len(seqs)
+            seqs.append(np.asarray(toks))
+            if total <= window:
+                items.extend((a, sid, 0, off, total) for off in range(total))
+            else:
+                for i in range(total):
+                    start, _end = get_optimal_window(i, total, window)
+                    items.append((a, sid, start, i - start, window))
 
-    # --- plan rows, assign items to slots --------------------------------
-    counts: Dict[int, int] = defaultdict(int)
-    for it in items:
-        counts[it[4]] += 1
-    plan = _plan_rows(counts, row_len, max_slots)
-    slots = max((len(r) for r in plan), default=1)
-    slots = min(_round_up(max(slots, 1), 4), max_slots)
+        # --- plan rows, assign items to slots --------------------------------
+        counts: Dict[int, int] = defaultdict(int)
+        for it in items:
+            counts[it[4]] += 1
+        plan = _plan_rows(counts, row_len, max_slots)
+        slots = max((len(r) for r in plan), default=1)
+        slots = min(_round_up(max(slots, 1), 4), max_slots)
 
-    by_len: Dict[int, List[Tuple[int, int, int, int, int]]] = defaultdict(list)
-    for it in items:
-        by_len[it[4]].append(it)
+        by_len: Dict[int, List[Tuple[int, int, int, int, int]]] = defaultdict(list)
+        for it in items:
+            by_len[it[4]].append(it)
 
-    n_chunks = -(-len(plan) // chunk)
-    n_rows_pad = n_chunks * chunk
-    # sids, starts, begins, lens, offs per (row, slot)
-    work = np.zeros((5, n_rows_pad, slots), np.int64)
-    # (assay, table_pos) per (row, slot); -1 = empty
-    meta = np.full((n_rows_pad, slots, 2), -1, np.int64)
-    for r, row_plan in enumerate(plan):
-        begin = 0
-        for s, seg_len in enumerate(row_plan):
-            a, sid, start, off, _ = by_len[seg_len].pop()
-            work[:, r, s] = (sid, start, begin, seg_len, off)
-            meta[r, s] = (a, start + off)
-            begin += seg_len
+        n_chunks = -(-len(plan) // chunk)
+        n_rows_pad = n_chunks * chunk
+        # sids, starts, begins, lens, offs per (row, slot)
+        work = np.zeros((5, n_rows_pad, slots), np.int64)
+        # (assay, table_pos) per (row, slot); -1 = empty
+        meta = np.full((n_rows_pad, slots, 2), -1, np.int64)
+        for r, row_plan in enumerate(plan):
+            begin = 0
+            for s, seg_len in enumerate(row_plan):
+                a, sid, start, off, _ = by_len[seg_len].pop()
+                work[:, r, s] = (sid, start, begin, seg_len, off)
+                meta[r, s] = (a, start + off)
+                begin += seg_len
 
-    # --- stack sources ---------------------------------------------------
-    stacked = np.full((len(seqs), _round_up(max(s.shape[0] for s in seqs), 32)),
-                      pad_idx, np.int64)
-    for i, s in enumerate(seqs):
-        stacked[i, : s.shape[0]] = s
-
-    kernel = _segment_kernel(seg_apply_fn, row_len, slots)
-    stacked_d = torch.as_tensor(stacked, device=device)
-    grid = work.reshape(5, n_chunks, chunk, slots)
+        # --- stack sources ---------------------------------------------------
+        stacked = np.full((len(seqs), _round_up(max(s.shape[0] for s in seqs), 32)),
+                          pad_idx, np.int64)
+        for i, s in enumerate(seqs):
+            stacked[i, : s.shape[0]] = s
+        kernel = _segment_kernel(seg_apply_fn, row_len, slots)
+        stacked_d = torch.as_tensor(stacked, device=device)
+        grid = work.reshape(5, n_chunks, chunk, slots)
     outs = [
         kernel(stacked_d, *torch.as_tensor(grid[:, sl], device=device), mask_idx, pad_idx)
         for sl in _steps(n_chunks, super_chunks)
     ]
-    out = torch.cat(outs).cpu().numpy()  # (rows_pad * slots, V)
-    vocab = out.shape[-1]
-
-    flat_meta = meta.reshape(-1, 2)
-    tables = [np.zeros((n, vocab), np.float32) for n in lengths]
-    live = flat_meta[:, 0] >= 0
-    for a in range(len(token_list)):
-        sel = live & (flat_meta[:, 0] == a)
-        tables[a][flat_meta[sel, 1]] = out[sel]
+    with span(READBACK):
+        out = torch.cat(outs).cpu().numpy()  # (rows_pad * slots, V)
+    with span(GATHER):
+        vocab = out.shape[-1]
+        flat_meta = meta.reshape(-1, 2)
+        tables = [np.zeros((n, vocab), np.float32) for n in lengths]
+        live = flat_meta[:, 0] >= 0
+        for a in range(len(token_list)):
+            sel = live & (flat_meta[:, 0] == a)
+            tables[a][flat_meta[sel, 1]] = out[sel]
     return tables
 
 
@@ -463,7 +474,8 @@ def score_assays_packed(
         raise ValueError(
             "cols_per_forward > 1 does not combine with segment packing"
         )
-    token_list = [alphabet.tokenize(seq) for seq, _ in assays]
+    with span(PLAN):
+        token_list = [alphabet.tokenize(seq) for seq, _ in assays]
     if seg_apply_fn is not None:
         tables = packed_segment_tables(
             seg_apply_fn, token_list,

@@ -31,6 +31,7 @@ import torch
 
 from proteingym_tpu_torch.constants import ALPHABET_PROTEIN_NOGAP
 from proteingym_tpu_torch.devices import resolve_device
+from proteingym_tpu_torch.pipeline.profiler import span
 
 NUM_AA = len(ALPHABET_PROTEIN_NOGAP)
 
@@ -120,24 +121,25 @@ def num_cluster_members_cuda(matrix: torch.Tensor, identity_threshold: float) ->
     CUDA tensor; returns float32 (N,) counts on the same device."""
     if not torch.is_tensor(matrix) or matrix.device.type != "cuda":
         raise ValueError("num_cluster_members_cuda takes a CUDA tensor")
-    codes, l_non_gap, thr = _prepare(matrix, identity_threshold, matrix.device)
-    codes = codes.contiguous()
-    n, length = codes.shape
-    if n == 0:
-        return torch.zeros(0, dtype=torch.float32, device=matrix.device)
-    k_pad = one_hot_depth(length)
-    onehot = torch.empty((n, k_pad), dtype=torch.int8, device=codes.device)  # pre-pass output
-    counts = torch.zeros(n, dtype=torch.int32, device=codes.device)
-    lib = _kernel_lib()
-    with torch.cuda.device(codes.device):
-        err = lib.pgym_cluster_counts(
-            codes.data_ptr(), n, length, thr.data_ptr(), counts.data_ptr(),
-            onehot.data_ptr(), k_pad, torch.cuda.current_stream(codes.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError("cluster_counts launch failed: "
-                           + lib.pgym_cluster_error_string(err).decode())
-    LAUNCHES["cluster_counts"] += 1
+    with span("pgym.launch.cluster_counts"):
+        codes, l_non_gap, thr = _prepare(matrix, identity_threshold, matrix.device)
+        codes = codes.contiguous()
+        n, length = codes.shape
+        if n == 0:
+            return torch.zeros(0, dtype=torch.float32, device=matrix.device)
+        k_pad = one_hot_depth(length)
+        onehot = torch.empty((n, k_pad), dtype=torch.int8, device=codes.device)  # pre-pass output
+        counts = torch.zeros(n, dtype=torch.int32, device=codes.device)
+        lib = _kernel_lib()
+        with torch.cuda.device(codes.device):
+            err = lib.pgym_cluster_counts(
+                codes.data_ptr(), n, length, thr.data_ptr(), counts.data_ptr(),
+                onehot.data_ptr(), k_pad, torch.cuda.current_stream(codes.device).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError("cluster_counts launch failed: "
+                               + lib.pgym_cluster_error_string(err).decode())
+        LAUNCHES["cluster_counts"] += 1
     counts = counts.to(torch.float32)
     return torch.where(l_non_gap > 0, counts, torch.zeros_like(counts))
 

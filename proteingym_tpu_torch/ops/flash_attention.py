@@ -56,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from proteingym_tpu_torch.ops.rotary import _cos_sin_cache, apply_rotary_bhtd
+from proteingym_tpu_torch.pipeline.profiler import span
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 24, 32, 64, 128)  # bfloat16: the Hopper loop
@@ -66,6 +67,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # where it launches the kernel and nowhere else
 LAUNCHES = {"grouped_attention": 0, "grouped_attention_bthd": 0, "rope_qk": 0,
             "flash_attention": 0, "seg_block_attention": 0}
+# the span of each entry's host side, from its checks to the foreign call
+LAUNCH_SPANS = {key: f"pgym.launch.{key}" for key in LAUNCHES}
 
 # Up to this context length ``mha`` takes the grouped kernel, beyond it the
 # long-context kernel (the JAX dispatcher's threshold)
@@ -248,26 +251,28 @@ def rope_qk(q: torch.Tensor, k: torch.Tensor, sm_scale: float = 1.0,
         return plain_rope_qk(q, k, sm_scale, rope_base)
     if q.device.type != "cuda":
         raise ValueError(f"no pre-pass for device {q.device}")
-    q, k, _ = _checked_qkv(q, k, k)
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"the pre-pass takes bfloat16 q/k, got {q.dtype}")
-    b, h, t, d = q.shape
-    q_out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    k_out = torch.empty_like(q_out) if rope_base is not None else None
-    cos = sin = None
-    if rope_base is not None:
-        cos, sin = _rope_tables(t, d, float(rope_base), q.device)
-    lib = _kernel_lib()
-    with torch.cuda.device(q.device):
-        err = lib.pgym_rope_qk(
-            q.data_ptr(), k.data_ptr(), q_out.data_ptr(), _ptr(k_out),
-            (ctypes.c_longlong * 6)(*q.stride()[:3], *k.stride()[:3]), b, h, t, d,
-            _ptr(cos), _ptr(sin), float(sm_scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError("rope_qk launch failed: " + lib.pgym_cuda_error_string(err).decode())
-    LAUNCHES["rope_qk"] += 1
+    with span(LAUNCH_SPANS["rope_qk"]):
+        q, k, _ = _checked_qkv(q, k, k)
+        if q.dtype != torch.bfloat16:
+            raise ValueError(f"the pre-pass takes bfloat16 q/k, got {q.dtype}")
+        b, h, t, d = q.shape
+        q_out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+        k_out = torch.empty_like(q_out) if rope_base is not None else None
+        cos = sin = None
+        if rope_base is not None:
+            cos, sin = _rope_tables(t, d, float(rope_base), q.device)
+        lib = _kernel_lib()
+        with torch.cuda.device(q.device):
+            err = lib.pgym_rope_qk(
+                q.data_ptr(), k.data_ptr(), q_out.data_ptr(), _ptr(k_out),
+                (ctypes.c_longlong * 6)(*q.stride()[:3], *k.stride()[:3]), b, h, t, d,
+                _ptr(cos), _ptr(sin), float(sm_scale),
+                torch.cuda.current_stream(q.device).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError("rope_qk launch failed: "
+                               + lib.pgym_cuda_error_string(err).decode())
+        LAUNCHES["rope_qk"] += 1
     return q_out.permute(0, 2, 1, 3), (k_out.permute(0, 2, 1, 3) if k_out is not None else k)
 
 
@@ -351,68 +356,70 @@ def _launch_grouped_attention(q, k, v, key_mask, bias, causal, sm_scale,
     RoPE or a scale) and the Hopper loop with key-tile extents, in one
     foreign call; float32 the 3xTF32 kernel, which rotates and scales on
     load. The launch is counted under ``counter`` (the wrapper's TPU
-    kernel), plus ``rope_qk`` when the pre-pass ran."""
-    q, k, v = _checked_qkv(q, k, v)
-    if bthd:
-        b, t, h, d = q.shape
-    else:
-        b, h, t, d = q.shape
-    dev = q.device
-    # (B, T, H, D) memory, seen as (B, H, T, D) by the (B, H, T, D) entry:
-    # the model's output projection reads it back without a transpose
-    out = torch.empty((b, t, h, d), dtype=q.dtype, device=dev)
-    if not bthd:
-        out = out.permute(0, 2, 1, 3)
-    for name, x, shape in (("key_mask", key_mask, (b, t)), ("bias", bias, (h, t)),
-                           ("segment_ids", segment_ids, (b, t))):
-        if x is not None and x.shape != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
-    lo = hi = scratch = cos = sin = None
-    if q.dtype == torch.bfloat16 and (segment_ids is not None or causal):
-        # from the caller's tensors, before the lines below convert them
-        tiles = key_tiles or KeyTiles(segment_ids, key_mask, causal)
-        lo, hi = tiles.extents(b, t, dev)
-    if key_mask is not None:
-        key_mask = key_mask.to(device=dev, dtype=torch.bool).contiguous()
-    if bias is not None:
-        bias = bias.to(device=dev, dtype=torch.float32).contiguous()
-    if segment_ids is not None:
-        segment_ids = segment_ids.to(device=dev, dtype=torch.int32).contiguous()
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(d)
-    if rope_base is not None:
-        cos, sin = _rope_tables(t, d, float(rope_base), dev)
-    prepass = q.dtype == torch.bfloat16 and (rope_base is not None or sm_scale != 1.0)
-    if prepass:  # q' and, with RoPE, k' after it
-        scratch = torch.empty((2 if rope_base is not None else 1) * b * t * h * d,
-                              dtype=q.dtype, device=dev)
-    n_qt = 0 if lo is None else lo.shape[1]
-
-    lib = _kernel_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    kernel), plus ``rope_qk`` when the pre-pass ran, and its host side
+    is the span ``pgym.launch.<counter>``."""
+    with span(LAUNCH_SPANS[counter]):
+        q, k, v = _checked_qkv(q, k, v)
         if bthd:
-            err = lib.pgym_grouped_attention_bthd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _strides(q, k, v, out),
-                b, h, t, d, _DTYPE_CODES[q.dtype], _ptr(key_mask),
-                _ptr(segment_ids), int(bool(causal)), _ptr(cos), _ptr(sin),
-                float(sm_scale), _ptr(lo), _ptr(hi), n_qt, _ptr(scratch), stream,
-            )
+            b, t, h, d = q.shape
         else:
-            err = lib.pgym_grouped_attention(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _strides(q, k, v, out), b, h, t, d, _DTYPE_CODES[q.dtype],
-                _ptr(key_mask), _ptr(bias), _ptr(segment_ids), int(bool(causal)),
-                _ptr(cos), _ptr(sin), float(sm_scale), _ptr(lo), _ptr(hi), n_qt,
-                _ptr(scratch), stream,
-            )
-    if err != 0:
-        raise RuntimeError(f"{counter} launch failed: "
-                           + lib.pgym_cuda_error_string(err).decode())
-    LAUNCHES[counter] += 1
-    if prepass:
-        LAUNCHES["rope_qk"] += 1
+            b, h, t, d = q.shape
+        dev = q.device
+        # (B, T, H, D) memory, seen as (B, H, T, D) by the (B, H, T, D) entry:
+        # the model's output projection reads it back without a transpose
+        out = torch.empty((b, t, h, d), dtype=q.dtype, device=dev)
+        if not bthd:
+            out = out.permute(0, 2, 1, 3)
+        for name, x, shape in (("key_mask", key_mask, (b, t)), ("bias", bias, (h, t)),
+                               ("segment_ids", segment_ids, (b, t))):
+            if x is not None and x.shape != shape:
+                raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+        lo = hi = scratch = cos = sin = None
+        if q.dtype == torch.bfloat16 and (segment_ids is not None or causal):
+            # from the caller's tensors, before the lines below convert them
+            tiles = key_tiles or KeyTiles(segment_ids, key_mask, causal)
+            lo, hi = tiles.extents(b, t, dev)
+        if key_mask is not None:
+            key_mask = key_mask.to(device=dev, dtype=torch.bool).contiguous()
+        if bias is not None:
+            bias = bias.to(device=dev, dtype=torch.float32).contiguous()
+        if segment_ids is not None:
+            segment_ids = segment_ids.to(device=dev, dtype=torch.int32).contiguous()
+        if sm_scale is None:
+            sm_scale = 1.0 / math.sqrt(d)
+        if rope_base is not None:
+            cos, sin = _rope_tables(t, d, float(rope_base), dev)
+        prepass = q.dtype == torch.bfloat16 and (rope_base is not None or sm_scale != 1.0)
+        if prepass:  # q' and, with RoPE, k' after it
+            scratch = torch.empty((2 if rope_base is not None else 1) * b * t * h * d,
+                                  dtype=q.dtype, device=dev)
+        n_qt = 0 if lo is None else lo.shape[1]
+
+        lib = _kernel_lib()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if bthd:
+                err = lib.pgym_grouped_attention_bthd(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    _strides(q, k, v, out),
+                    b, h, t, d, _DTYPE_CODES[q.dtype], _ptr(key_mask),
+                    _ptr(segment_ids), int(bool(causal)), _ptr(cos), _ptr(sin),
+                    float(sm_scale), _ptr(lo), _ptr(hi), n_qt, _ptr(scratch), stream,
+                )
+            else:
+                err = lib.pgym_grouped_attention(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    _strides(q, k, v, out), b, h, t, d, _DTYPE_CODES[q.dtype],
+                    _ptr(key_mask), _ptr(bias), _ptr(segment_ids), int(bool(causal)),
+                    _ptr(cos), _ptr(sin), float(sm_scale), _ptr(lo), _ptr(hi), n_qt,
+                    _ptr(scratch), stream,
+                )
+        if err != 0:
+            raise RuntimeError(f"{counter} launch failed: "
+                               + lib.pgym_cuda_error_string(err).decode())
+        LAUNCHES[counter] += 1
+        if prepass:
+            LAUNCHES["rope_qk"] += 1
     return out
 
 

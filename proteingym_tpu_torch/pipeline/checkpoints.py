@@ -3,10 +3,12 @@ specs (counterpart of the ESM, Tranception, EVE and GPT-2 parts of
 proteingym_tpu/pipeline/checkpoints.py, of the PoET branch of
 ``resolve_zoo_checkpoint`` and of the weight handling of the
 ``msa_transformer`` scorer in proteingym_tpu/pipeline/scorers.py). Orbax
-directories hold JAX arrays and are refused."""
+directories hold JAX arrays and are refused. Each ``load_*_checkpoint``
+runs inside the span ``pgym.load`` (``pipeline.profiler.span``)."""
 
 from __future__ import annotations
 
+import functools
 import json
 from pathlib import Path
 from typing import Optional, Tuple
@@ -14,6 +16,18 @@ from typing import Optional, Tuple
 import torch
 
 from proteingym_tpu_torch.models import ar_zoo, esm2, eve, msa_transformer, poet, tranception
+from proteingym_tpu_torch.pipeline.profiler import LOAD, span
+
+
+def _spanned(load):
+    """``load`` inside the span ``pgym.load``."""
+
+    @functools.wraps(load)
+    def run(*args, **kwargs):
+        with span(LOAD):
+            return load(*args, **kwargs)
+
+    return run
 
 
 def _load_torch_state_dict(path: Path):
@@ -38,6 +52,7 @@ def _esm_preset_from_filename(path: str) -> str:
     raise ValueError(f"Cannot infer ESM preset from {path}")
 
 
+@_spanned
 def load_esm_checkpoint(spec: Optional[str], device="cuda",
                         seed: int = 0) -> Tuple[esm2.EsmModel, esm2.EsmConfig]:
     """Resolve an ESM checkpoint spec to (model on ``device``, config).
@@ -75,6 +90,7 @@ def load_esm_checkpoint(spec: Optional[str], device="cuda",
     return esm2.load_fair_esm_state_dict(state, config, device=device), config
 
 
+@_spanned
 def load_poet_checkpoint(spec: Optional[str], device="cuda",
                          seed: int = 0) -> Tuple[poet.PoetModel, poet.PoetConfig]:
     """Resolve a PoET checkpoint spec to (model on ``device``, config).
@@ -114,6 +130,7 @@ def load_poet_checkpoint(spec: Optional[str], device="cuda",
     return poet.load_state_dict_poet(model, state), config
 
 
+@_spanned
 def load_msa_transformer_checkpoint(
     spec: Optional[str], device="cuda", seed: int = 0,
 ) -> Tuple[msa_transformer.MsaTransformer, msa_transformer.MsaTransformerConfig]:
@@ -143,6 +160,7 @@ TRANCEPTION_TINY = tranception.TranceptionConfig("Tranception_tiny", 2, 64, 4,
 HF_DTYPE = torch.bfloat16
 
 
+@_spanned
 def load_tranception_checkpoint(
     spec: Optional[str], device="cuda", seed: int = 0,
 ) -> Tuple[tranception.Tranception, tranception.TranceptionConfig]:
@@ -172,6 +190,7 @@ def load_tranception_checkpoint(
     return tranception.load_hf_state_dict(state, config, device=device), config
 
 
+@_spanned
 def load_eve_checkpoint(spec, device="cuda") -> Tuple[eve.EveModel, eve.EveConfig]:
     """Resolve one EVE checkpoint spec, a reference EVE checkpoint file
     (the format the clinical reference's EVE_model_path column names), to
@@ -183,6 +202,7 @@ def load_eve_checkpoint(spec, device="cuda") -> Tuple[eve.EveModel, eve.EveConfi
     return eve.load_torch_checkpoint(path, device=device)
 
 
+@_spanned
 def load_gpt2_checkpoint(spec, default_config: Optional[ar_zoo.Gpt2Config] = None,
                          device="cuda") -> Tuple[ar_zoo.Gpt2, ar_zoo.Gpt2Config]:
     """Resolve a ProtGPT2 / GPT-2 checkpoint spec to (model on ``device``,

@@ -93,6 +93,16 @@ CSVs, the manifest and the event log; ``--packed`` refuses a mesh, and so
 does ``--extra`` (the mesh is ``--mesh``'s alone).
 ``--profile-dir DIR`` wraps the scoring in ``torch.profiler`` and writes its
 Chrome trace (``DIR/<host>_<pid>.<ms>.pt.trace.json``) when the run ends.
+Beside torch's operators it holds the port's spans (``pipeline.profiler``):
+``pgym.load`` around each checkpoint load (once per assay and member: the
+scorers rebuild the model per assay); the scoring harness's
+``pgym.harness.plan`` (tokens, buckets, windows, slice plans),
+``pgym.harness.rows`` (one forward's input rows) with
+``pgym.harness.upload`` (a copy to the device, which waits for the forward
+before), ``pgym.harness.readback`` (the wait for the device's results), ``pgym.harness.gather`` (results into
+tables; the AR sums and joins) and ``pgym.harness.parse`` (mutant strings
+to table sums); and on a card ``pgym.launch.<kernel>`` around the host side
+of each launch of the port's own CUDA kernels.
 
 ``train`` trains one assay's alignment model and writes it to
 ``<output-dir>/<model>_<DMS_id>_seed<seed>``: for ``eve`` a reference EVE

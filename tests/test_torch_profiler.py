@@ -1,7 +1,8 @@
 """The port's profiler (pipeline/profiler.py) and ``score --profile-dir`` on
 the CPU: the trace is the Chrome trace TensorBoard's profiler plugin reads
-and names the scoring's operators; ``Throughput`` writes the JAX package's
-records; the CLI's throughput events stay as they were."""
+and names the scoring's operators and the port's spans; ``Throughput``
+writes the JAX package's records; the CLI's throughput events stay as they
+were."""
 
 import json
 
@@ -37,15 +38,17 @@ def test_throughput_records_equal_jax(tmp_path):
         assert t.total_mutants == 15 and set(t.summary()) == {
             "total_mutants", "total_seconds", "mutants_per_sec"}
     assert records["jax"] == records["torch"]
-    assert profiler.device_memory_stats() == {} or torch.cuda.is_available()
 
 
-def _world(root):
+def _world(root, n_assays=1):
     seq = "MKTAYIAKQRQISFVKSHFSRQLEERLGLIEV"
     muts = [f"{seq[p]}{p + 1}A" for p in range(1, 12) if seq[p] != "A"]
     (root / "dms").mkdir()
-    (root / "ref.csv").write_text(f"DMS_id,DMS_filename,target_seq\nP1,P1.csv,{seq}\n")
-    (root / "dms" / "P1.csv").write_text("mutant\n" + "\n".join(muts) + "\n")
+    ids = [f"P{i + 1}" for i in range(n_assays)]
+    (root / "ref.csv").write_text("DMS_id,DMS_filename,target_seq\n" + "".join(
+        f"{i},{i}.csv,{seq}\n" for i in ids))
+    for i in ids:
+        (root / "dms" / f"{i}.csv").write_text("mutant\n" + "\n".join(muts) + "\n")
     return muts
 
 
@@ -69,3 +72,17 @@ def test_score_profile_dir(tmp_path):
     tp = events[1]
     assert tp["label"] == "esm/P1" and tp["n_mutants"] == len(muts)
     assert np.isclose(tp["mutants_per_sec"], len(muts) / max(tp["seconds"], 1e-9), rtol=0.05)
+
+
+def test_score_profile_dir_names_the_port_spans(tmp_path):
+    _world(tmp_path, n_assays=2)
+    assert cli.main(["score", "--model", "esm", "--checkpoint", "esm2_tiny", "--device", "cpu",
+                     "--dms-reference", str(tmp_path / "ref.csv"),
+                     "--dms-dir", str(tmp_path / "dms"), "--quiet",
+                     "--output-dir", str(tmp_path / "out"),
+                     "--profile-dir", str(tmp_path / "tb")]) == 0
+    (trace,) = (tmp_path / "tb").glob("*.pt.trace.json")
+    names = [e.get("name") for e in json.loads(trace.read_text())["traceEvents"]]
+    assert names.count("pgym.load") == 2  # the model is built again for each assay
+    for span in ("plan", "rows", "readback", "parse"):
+        assert names.count(f"pgym.harness.{span}") >= 2, span
