@@ -7,9 +7,10 @@ Phases (any failure raises, and the script exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA
    versions; TF32 is switched off for matmuls and cuDNN.
-2. build: nvcc builds the two kernel sources from ops/csrc
+2. build: nvcc builds the three kernel sources from ops/csrc
    (grouped_attention.cu, whose entries serve all four attention kernels,
-   and cluster_counts.cu), one process per source, all started together.
+   cluster_counts.cu and layer_norm.cu), one process per source, all
+   started together.
 3. kernel: the grouped attention kernel (K1, bf16 on the Hopper loop after
    the rope_qk pre-pass) against the plain PyTorch version on the card, in
    every mode the slices use and at every head dim, and both timed at the
@@ -327,6 +328,17 @@ Phases (any failure raises, and the script exits non-zero):
    and the float32 K1 at (e)'s rows join the ``kernels`` line as
    ``grouped_attention_bthd:esm_mesh`` and
    ``grouped_attention:f32_progen3_expert``.
+25. the layer norm (``ops/layer_norm.py``, no TPU counterpart): the kernel
+   against its plain version (the sum bit for bit, the norm within one
+   bf16 ulp), timed at ESM2-650M's packed rows, 32,768 x 1,280, plain and
+   with the residual add, and at ProGen2-xlarge's, 4,096 x 4,096, beside
+   the plain chain (float32 copy, ``F.layer_norm``, cast, and the add)
+   and the bytes bound (no one PyTorch call takes bf16 rows with float32
+   weight and bias); the host's seconds a call, kernel and plain chain.
+   It joins the ``kernels`` line as ``layer_norm``, with the launches of
+   the paths (``ops/layer_norm.LAUNCHES`` is zeroed and read with the
+   attention counters around each); the ESM paths must launch it
+   2 x layers + 2 times a forward (68 for ESM2-650M), ProGen2-xlarge 33.
 
 Every phase holds the port to its rule: no module of the JAX package
 (``proteingym_tpu``) may be loaded. It prints one JSON line describing the
@@ -377,7 +389,9 @@ KERNELS = {  # launch counter -> (source, the TPU kernel it replaces)
     "cluster_counts": ("proteingym_tpu_torch/ops/csrc/cluster_counts.cu",
                        "proteingym_tpu/msa/weights.py:152"),
 }
-SOURCES = sorted({Path(src).stem for src, _ in KERNELS.values()})  # one nvcc each
+LAYER_NORM_SOURCE = "proteingym_tpu_torch/ops/csrc/layer_norm.cu"  # replaces no TPU kernel
+SOURCES = sorted({Path(src).stem for src, _ in KERNELS.values()}
+                 | {Path(LAYER_NORM_SOURCE).stem})  # one nvcc each
 
 # bf16 kernel vs a float32 plain version of the same bf16 inputs: the kernel
 # rounds the scaled and rotated q/k to bf16 (2^-9 relative each) and its
@@ -409,6 +423,11 @@ GAP_AA = "-" + AA
 
 # H100 SXM peaks (dense bf16 and int8 tensor cores, HBM3) for the bounds
 PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES_PER_S = 989e12, 1979e12, 3.35e12
+
+# the shapes of phase 25: (rows, width, residual add) of the layer norm,
+# the first the kernels line's: ESM2-650M's packed rows (32 x 1,024 tokens)
+# with the add before its second norm, alone, and ProGen2-xlarge's rows
+LN_TIMED = ((32768, 1280, True), (32768, 1280, False), (4096, 4096, False))
 
 # the shapes of phases 6-8
 # (N, L) of the timed synthetic MSAs; the first is the kernels line's shape
@@ -734,10 +753,31 @@ def time_ms(torch, fn, reps, inner=10):
 
 def check_launches(what, launches, want):
     """Fail unless a run launched exactly ``want`` ({counter: n}) and no
-    other kernel."""
-    full = {name: want.get(name, 0) for name in launches}
+    other kernel; the layer norm's count is held only where ``want`` names
+    it (every bf16 model on the card launches it)."""
+    full = {name: want.get(name, launches[name] if name == "layer_norm" else 0)
+            for name in launches}
     if launches != full:
         fail(f"{what}: launch counts {launches}, expected {full}")
+
+
+def esm_norms(config):
+    """Layer-norm launches of one bf16 ESM forward on the card: two a layer,
+    the final norm and the LM head's."""
+    return 2 * config.num_layers + 2
+
+
+def saved_launches(*counters):
+    """The launch counters ``counters`` with copies of their counts, for
+    ``restore_launches``."""
+    return [(counts, dict(counts)) for counts in counters]
+
+
+def restore_launches(saved):
+    """Set the counters of ``saved_launches`` back: the launches since were
+    a check's, not the path's."""
+    for counts, kept in saved:
+        counts.update(kept)
 
 
 def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
@@ -979,6 +1019,85 @@ def phase_cluster_counts(torch, dev, card):
             "other_shapes": shapes[1:]}
 
 
+def phase_layer_norm(torch, dev, card):
+    """25. The layer-norm kernel against its plain version at the timed
+    shapes (the sum bit for bit, the norm within one bf16 ulp, or 2^-16
+    where the affine cancels), then each timed beside the plain chain and
+    the bytes bound; the host's microseconds a call."""
+    from proteingym_tpu_torch.ops import _build
+    from proteingym_tpu_torch.ops import layer_norm as ln
+
+    print("[layer_norm] the bf16 layer norm (+ residual add) vs its plain version on the card")
+    for line in _build.build_log("layer_norm").splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas layer_norm:", line.strip())
+    gen = torch.Generator(device=dev).manual_seed(25)
+    max_err = 0.0
+    shapes = []
+    for rows, d, add in LN_TIMED:
+        x = (torch.randn(rows, d, generator=gen, device=dev)
+             + torch.randn(rows, 1, generator=gen, device=dev) * 4).to(torch.bfloat16)
+        delta = torch.randn(rows, d, generator=gen, device=dev).to(torch.bfloat16)
+        w = 1 + 0.5 * torch.randn(d, generator=gen, device=dev)
+        b = 0.5 * torch.randn(d, generator=gen, device=dev)
+        if add:
+            kernel = lambda: ln.add_layer_norm(x, delta, w, b)
+            plain = lambda: ln.plain_add_layer_norm(x, delta, w, b)
+            s, y = kernel()
+            want_s, want = plain()
+            if not torch.equal(s, want_s):
+                fail(f"layer_norm {rows} x {d}: the fused sum is not the bf16 add")
+        else:
+            kernel = lambda: ln.layer_norm(x, w, b)
+            plain = lambda: ln.plain_layer_norm(x, w, b)
+            y, want = kernel(), plain()
+        g, wf = y.float(), want.float()
+        big = torch.maximum(g.abs(), wf.abs()).clamp(min=2.0 ** -100)
+        ulp = torch.exp2(torch.floor(torch.log2(big)) - 7).clamp(min=2.0 ** -16)
+        off = int(((g - wf).abs() > ulp).sum())
+        differ = float((g != wf).float().mean())
+        max_err = max(max_err, float((g - wf).abs().max()))
+        if off:
+            fail(f"layer_norm {rows} x {d}: {off} elements beyond one bf16 ulp of the plain version")
+        t = median_pair(torch, {"kernel": kernel, "plain": plain}, reps=5, inner=20, rounds=2)
+        per_elem = 8 if add else 4  # bf16 in and out: x (+ delta), y (+ the sum)
+        moved = rows * d * per_elem + 2 * 4 * d
+        bd = bound(0, moved)
+        tb_s = moved / t["kernel"] / 1e9
+        print(f"  {rows} x {d}{' + add' if add else ''}: kernel {t['kernel']:.4f} ms "
+              f"({tb_s:.3f} TB/s, {tb_s / (PEAK_BYTES_PER_S / 1e12):.1%} of 3.35), plain chain "
+              f"{t['plain']:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+              f"({moved / 1e6:.1f} MB); {differ:.2e} of the outputs one ulp off the plain "
+              f"version (medians of 20 samples of 20 queued calls, {card})")
+        shapes.append({"shape": f"{rows} x {d}{' + add' if add else ''}", "ms": t["kernel"],
+                       "plain_ms": t["plain"], "library_ms": None, **bd,
+                       "share_of_bytes_peak": tb_s / (PEAK_BYTES_PER_S / 1e12),
+                       "ulp_off_share": differ})
+        del x, delta, y, want
+
+    # the host's side: calls queued on rows the device finishes in a moment
+    x = torch.randn(256, 1280, generator=gen, device=dev).to(torch.bfloat16)
+    w, b = torch.ones(1280, device=dev), torch.zeros(1280, device=dev)
+    host = {}
+    for name, fn in (("kernel", lambda: ln.layer_norm(x, w, b)),
+                     ("kernel + add", lambda: ln.add_layer_norm(x, x, w, b)),
+                     ("plain", lambda: ln.plain_layer_norm(x, w, b)),
+                     ("plain + add", lambda: ln.plain_add_layer_norm(x, x, w, b))):
+        samples = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            samples.append((time.perf_counter() - t0) / 200 * 1e6)
+        host[name] = statistics.median(samples)
+    print("  host us a call (256 x 1,280, median of 5 x 200): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in host.items()) + f" ({card})")
+    first = shapes[0]
+    return {"max_abs_err": max_err, **{k: first[k] for k in first if k != "shape"},
+            "shape": first["shape"], "other_shapes": shapes[1:], "host_us": host}
+
+
 def phase_long_attention(torch, dev, card, fa, qkv, lengths_mask, check_close):
     """7. K2 against the plain version; K1 at PoET's self-tier shape; both
     checked and timed at PoET's row shape."""
@@ -1134,6 +1253,7 @@ def phase_poet(torch, dev, card, fa, check_close):
     scoring with K1 (self tier) and K2 (multi tier) in every layer."""
     from proteingym_tpu_torch.models import poet
     from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.ops import layer_norm as ln
     from proteingym_tpu_torch.msa.parser import load_msa
     from proteingym_tpu_torch.pipeline import cli
 
@@ -1163,7 +1283,7 @@ def phase_poet(torch, dev, card, fa, check_close):
         })
         wfile = weights_dir / "SYNTH.npy"
 
-        for counts in (fa.LAUNCHES, W.LAUNCHES):
+        for counts in (fa.LAUNCHES, W.LAUNCHES, ln.LAUNCHES):
             for name in counts:
                 counts[name] = 0
         torch.cuda.reset_peak_memory_stats()
@@ -1184,7 +1304,7 @@ def phase_poet(torch, dev, card, fa, check_close):
             "--extra", f"max_context_tokens={max_tokens}", f"n_context_samples={n_samples}",
         ])
         wall = time.perf_counter() - t0
-        launches = {**fa.LAUNCHES, **W.LAUNCHES}
+        launches = {**fa.LAUNCHES, **W.LAUNCHES, **ln.LAUNCHES}
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         if rc != 0:
             fail(f"poet score CLI exited {rc}")
@@ -1441,6 +1561,7 @@ def packed_forwards(lengths, chunk, window=1024, pad_to_multiple=32):
 def phase_packed(torch, card, fa, cli, esm2, scores_250):
     """10. ``score --packed`` through the CLI on the production mix, twice;
     the second run is timed and counted."""
+    from proteingym_tpu_torch.ops import layer_norm as ln
     print(f"[packed] score --model esm --checkpoint esm2_t33_650M --packed, L={PACKED_MIX}")
     assays = [(f"SYNTH_P{length}", *synth_assay(length, 0 if length == 250 else length))
               for length in PACKED_MIX]
@@ -1456,26 +1577,29 @@ def phase_packed(torch, card, fa, cli, esm2, scores_250):
         for _ in range(2):  # warm, then the run that is timed and counted
             for name in fa.LAUNCHES:
                 fa.LAUNCHES[name] = 0
+            ln.LAUNCHES["layer_norm"] = 0
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             if cli.main(args) != 0:
                 fail("packed CLI exited non-zero")
             walls.append(time.perf_counter() - t0)
-        launches = dict(fa.LAUNCHES)
+        launches = {**fa.LAUNCHES, **ln.LAUNCHES}
         events = [json.loads(line) for line in (root / "out" / "events.jsonl").open()]
         scores = {length: read_scores(root / "out" / f"{dms_id}.csv", "esm2_t33_650M_score",
                                       len(mutants))
                   for (dms_id, _, mutants), length in zip(assays, PACKED_MIX)}
     thr = [e for e in events if e["event"] == "throughput"][-1]
     n_fwd = packed_forwards(PACKED_MIX, PACKED_BATCH)
-    expected = esm2.PRESETS["esm2_t33_650M"].num_layers * n_fwd
+    config = esm2.PRESETS["esm2_t33_650M"]
+    expected = config.num_layers * n_fwd
     print(f"  {n_mut} finite scores; timed run: score_packed {thr['seconds']:.3f} s incl. "
           f"weight init -> {thr['mutants_per_sec']:.2f} mutants/s; CLI wall {walls[1]:.2f} s "
           f"(warm-up run {walls[0]:.2f} s); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
     print(f"  launches {launches} (expected 33 layers x {n_fwd} forwards = {expected} of K4 "
-          f"and of its rope_qk pre-pass)")
-    check_launches("packed", launches, {"grouped_attention_bthd": expected, "rope_qk": expected})
+          f"and of its rope_qk pre-pass, {esm_norms(config)} x {n_fwd} of the layer norm)")
+    check_launches("packed", launches, {"grouped_attention_bthd": expected, "rope_qk": expected,
+                                        "layer_norm": esm_norms(config) * n_fwd})
     err = float(np.abs(scores[250] - scores_250).max())
     print(f"  L=250 scores vs the per-assay path (phase 4): max_abs_err={err:.3e} "
           f"(atol={TABLE_ATOL:g}) {'ok' if err <= TABLE_ATOL else 'MISMATCH'}")
@@ -1505,6 +1629,7 @@ def packed_rows(torch, dev, esm2, token_list, n_rows, row_len):
 def phase_segment_packed(torch, dev, card, fa, esm2, check_close, packed_scores):
     """11. The segment-packed path at row_len 4096 (K3 and its pre-pass in
     every layer), twice; the second run is timed and counted."""
+    from proteingym_tpu_torch.ops import layer_norm as ln
     from proteingym_tpu_torch.models import packed_scoring
 
     print(f"[segment_packed] score_assays_packed(seg_apply_fn=..., row_len={SEG_ROW_LEN}) "
@@ -1519,13 +1644,14 @@ def phase_segment_packed(torch, dev, card, fa, esm2, check_close, packed_scores)
     for _ in range(2):  # warm, then the run that is timed and counted
         for name in fa.LAUNCHES:
             fa.LAUNCHES[name] = 0
+        ln.LAUNCHES["layer_norm"] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         scores = packed_scoring.score_assays_packed(
             None, assays, seg_apply_fn=seg_fn, row_len=SEG_ROW_LEN, seg_chunk=SEG_CHUNK)
         torch.cuda.synchronize()
         runs.append(time.perf_counter() - t0)
-    launches = dict(fa.LAUNCHES)
+    launches = {**fa.LAUNCHES, **ln.LAUNCHES}
     counts = {}
     for toks in token_list:
         counts[len(toks)] = counts.get(len(toks), 0) + len(toks)
@@ -1599,6 +1725,7 @@ def phase_wt_pppl(torch, dev, card, fa, cli, esm2, esm_scoring, masked):
     """12a-b. wt-marginals at L=250 and L=3000, then pseudo-ppl at L=250,
     through the CLI with ESM2-650M; K4 launches counted, tables held
     against the plain attention."""
+    from proteingym_tpu_torch.ops import layer_norm as ln
     from proteingym_tpu_torch.data.mutants import apply_mutant
 
     seq, mutants, masked_scores, chunk = masked
@@ -1616,15 +1743,17 @@ def phase_wt_pppl(torch, dev, card, fa, cli, esm2, esm_scoring, masked):
         for dms_id, _, muts in assays:
             for name in fa.LAUNCHES:
                 fa.LAUNCHES[name] = 0
+            ln.LAUNCHES["layer_norm"] = 0
             score_cli(cli, ref, dms_dir, dms_id, root / "wt", chunk, "wt-marginals")
-            counts = dict(fa.LAUNCHES)
+            counts = {**fa.LAUNCHES, **ln.LAUNCHES}
             cli_scores[dms_id] = read_scores(root / "wt" / f"{dms_id}.csv",
                                              "esm2_t33_650M_score", len(muts))
             print(f"  {dms_id}: {len(muts)} finite scores; launches {counts} (expected "
-                  f"{config.num_layers} of K4 and of rope_qk: one forward)")
+                  f"{config.num_layers} of K4 and of rope_qk and {esm_norms(config)} of the "
+                  "layer norm: one forward)")
             check_launches(f"wt-marginals {dms_id}", counts,
                            {"grouped_attention_bthd": config.num_layers,
-                            "rope_qk": config.num_layers})
+                            "rope_qk": config.num_layers, "layer_norm": esm_norms(config)})
             for name, c in counts.items():
                 wt_launches[name] = wt_launches.get(name, 0) + c
         wt_rows_250 = read_table(root / "wt" / "SYNTH_L250.csv")
@@ -1663,10 +1792,11 @@ def phase_wt_pppl(torch, dev, card, fa, cli, esm2, esm_scoring, masked):
         ref_p, dms_p = write_assays(root / "p", [("SYNTH_L250", seq, pppl_mutants)])
         for name in fa.LAUNCHES:
             fa.LAUNCHES[name] = 0
+        ln.LAUNCHES["layer_norm"] = 0
         t0 = time.perf_counter()
         score_cli(cli, ref_p, dms_p, "SYNTH_L250", root / "pppl", chunk, "pseudo-ppl")
         pppl_wall = time.perf_counter() - t0
-        pppl_launches = dict(fa.LAUNCHES)
+        pppl_launches = {**fa.LAUNCHES, **ln.LAUNCHES}
         pppl_scores = read_scores(root / "pppl" / "SYNTH_L250.csv", "esm2_t33_650M_score",
                                   len(pppl_mutants))
         n_tables = len(pppl_mutants) + 1
@@ -1965,6 +2095,7 @@ def phase_msa_transformer(torch, dev, card, fa, check_close):
     the plain attention, and K1 timed at the column attention's shape."""
     from proteingym_tpu_torch.models import msa_transformer as mt
     from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.ops import layer_norm as ln
     from proteingym_tpu_torch.msa.parser import load_msa
     from proteingym_tpu_torch.pipeline import cli
     from proteingym_tpu_torch.pipeline.scorers import _score_focus_model
@@ -1996,7 +2127,7 @@ def phase_msa_transformer(torch, dev, card, fa, check_close):
             "MSA_filename": "SYNTH.a2m", "MSA_start": 1, "MSA_end": covered,
             "MSA_theta": 0.2, "weight_file_name": "SYNTH.npy",
         })
-        for counts in (fa.LAUNCHES, W.LAUNCHES):
+        for counts in (fa.LAUNCHES, W.LAUNCHES, ln.LAUNCHES):
             for name in counts:
                 counts[name] = 0
         torch.cuda.reset_peak_memory_stats()
@@ -2010,7 +2141,7 @@ def phase_msa_transformer(torch, dev, card, fa, check_close):
             "--extra", f"msa_samples={s['rows']}", "num_seeds=1",
         ])
         wall = time.perf_counter() - t0
-        launches = {**fa.LAUNCHES, **W.LAUNCHES}
+        launches = {**fa.LAUNCHES, **W.LAUNCHES, **ln.LAUNCHES}
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         if rc != 0:
             fail(f"msa_transformer score CLI exited {rc}")
@@ -2136,6 +2267,7 @@ def phase_tranception(torch, dev, card, fa, check_close):
     from proteingym_tpu_torch.models import ar_scoring, eve, retrieval, tranception
     from proteingym_tpu_torch.models import trancepteve as te
     from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.ops import layer_norm as ln
     from proteingym_tpu_torch.pipeline import cli
     from proteingym_tpu_torch.pipeline.checkpoints import TRANCEPTION_PRESETS
 
@@ -2157,7 +2289,7 @@ def phase_tranception(torch, dev, card, fa, check_close):
           f"L={s['long_length']} with {len(long_mutants)} singles")
 
     def reset():
-        for counts in (fa.LAUNCHES, W.LAUNCHES):
+        for counts in (fa.LAUNCHES, W.LAUNCHES, ln.LAUNCHES):
             for name in counts:
                 counts[name] = 0
 
@@ -2230,7 +2362,7 @@ def phase_tranception(torch, dev, card, fa, check_close):
                 "retrieval_type=TranceptEVE", f"eve_checkpoints={eve_file}",
                 f"eve_num_samples={s['eve_num_samples']}"])
         wall = time.perf_counter() - t0
-        launches = {**fa.LAUNCHES, **W.LAUNCHES}
+        launches = {**fa.LAUNCHES, **W.LAUNCHES, **ln.LAUNCHES}
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         config = TRANCEPTION_PRESETS[s["checkpoint"]]  # the table the CLI's loader reads
         per_direction = len(mutants) + 1  # every mutant and one WT row (one window)
@@ -2266,7 +2398,7 @@ def phase_tranception(torch, dev, card, fa, check_close):
             rows = score("tranception", "SYNTH_L1500", "Tranception_L_no_retrieval",
                          s["checkpoint"])
         wall_b = time.perf_counter() - t0
-        launches_b = {**fa.LAUNCHES, **W.LAUNCHES}
+        launches_b = {**fa.LAUNCHES, **W.LAUNCHES, **ln.LAUNCHES}
         plans = ar_scoring.get_sequence_slices(long_mutants, long_seqs, long_seq, config.n_ctx - 2)
         n_fwd_b = 2 * -(-len(plans) // batch)
         widths = {p.window_end - p.window_start for p in plans}
@@ -2289,7 +2421,7 @@ def phase_tranception(torch, dev, card, fa, check_close):
         rows = score("eve", "SYNTH_L250_WT", "EVE", str(eve_file),
                      [f"num_samples={s['eve_scoring_samples']}"])
         wall_c = time.perf_counter() - t0
-        launches_c = {**fa.LAUNCHES, **W.LAUNCHES}
+        launches_c = {**fa.LAUNCHES, **W.LAUNCHES, **ln.LAUNCHES}
         check_launches("eve", launches_c, {})  # the weights file exists; EVE runs no kernel
         cells = [r[-1] for r in rows[1:]]
         past = [i for i, m in enumerate(mutants) if int(m[1:-1]) > covered]
@@ -2519,13 +2651,16 @@ def device_seconds(torch, fn, by_kernel=None):
 
 def profile_forwards(torch, fa, fn):
     """``fn()``, which returns the number of forwards it ran, under
-    torch.profiler, its launches taken back out of ``fa.LAUNCHES`` (they
-    are the measurement's, not the path's): the idle share, device ms a
-    forward, the GEMMs' share of the device time and the four kernels that
-    took most of it; None when the profiler reads no device time."""
-    counts, per = dict(fa.LAUNCHES), {}
+    torch.profiler, its launches taken back out of ``fa.LAUNCHES`` and
+    ``ln.LAUNCHES`` (they are the measurement's, not the path's): the idle
+    share, device ms a forward, the GEMMs' share of the device time and the
+    four kernels that took most of it; None when the profiler reads no
+    device time."""
+    from proteingym_tpu_torch.ops import layer_norm as ln
+
+    counts, per = saved_launches(fa.LAUNCHES, ln.LAUNCHES), {}
     forwards, wall, busy, _, kinds = device_seconds(torch, fn, by_kernel=per)
-    fa.LAUNCHES.update(counts)
+    restore_launches(counts)
     if busy is None:
         return None
     top = sorted(per.items(), key=lambda kv: -kv[1])[:4]
@@ -2642,6 +2777,7 @@ def phase_indels(torch, dev, card, fa, check_close):
     from proteingym_tpu_torch.models import ar_scoring, eve, hmm, potts, retrieval, tranception
     from proteingym_tpu_torch.models import trancepteve as te
     from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.ops import layer_norm as ln
     from proteingym_tpu_torch.pipeline import cli
     from proteingym_tpu_torch.pipeline.checkpoints import (
         TRANCEPTION_PRESETS, load_tranception_checkpoint,
@@ -2671,12 +2807,12 @@ def phase_indels(torch, dev, card, fa, check_close):
           f"{card}")
 
     def reset():
-        for counts in (fa.LAUNCHES, W.LAUNCHES):
+        for counts in (fa.LAUNCHES, W.LAUNCHES, ln.LAUNCHES):
             for name in counts:
                 counts[name] = 0
 
     def launched():
-        return {**fa.LAUNCHES, **W.LAUNCHES}
+        return {**fa.LAUNCHES, **W.LAUNCHES, **ln.LAUNCHES}
 
     forwards = [0]
     plain_forward = tranception.Tranception.forward
@@ -3086,6 +3222,7 @@ def phase_trainers(torch, dev, card, fa):
     from proteingym_tpu_torch.models import eve, potts, retrieval, tranception, wavenet
     from proteingym_tpu_torch.models import trancepteve as te
     from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.ops import layer_norm as ln
     from proteingym_tpu_torch.pipeline import cli
     from proteingym_tpu_torch.pipeline.checkpoints import TRANCEPTION_PRESETS
 
@@ -3106,12 +3243,12 @@ def phase_trainers(torch, dev, card, fa):
           f"WT, MSA N={ind['n_seqs']} over residues 1-{ind['covered']}; no weights file")
 
     def reset():
-        for counts in (fa.LAUNCHES, W.LAUNCHES):
+        for counts in (fa.LAUNCHES, W.LAUNCHES, ln.LAUNCHES):
             for name in counts:
                 counts[name] = 0
 
     def launched():
-        return {**fa.LAUNCHES, **W.LAUNCHES}
+        return {**fa.LAUNCHES, **W.LAUNCHES, **ln.LAUNCHES}
 
     out = {"launches": {}}
     with tempfile.TemporaryDirectory() as tmp:
@@ -3430,6 +3567,7 @@ def phase_baselines(torch, dev, card, fa):
     from proteingym_tpu_torch.data.structures import synthetic_helix_backbone, write_pdb_backbone
     from proteingym_tpu_torch.models import gemme, provean, rsalor, siterm
     from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.ops import layer_norm as ln
     from proteingym_tpu_torch.pipeline import cli
 
     t, ind, b = TRANCEPTION_SLICE, INDEL_SLICE, BASELINE_SLICE
@@ -3449,12 +3587,12 @@ def phase_baselines(torch, dev, card, fa):
           f"{len(assay) - 1} indel variants + WT, MSA N={ind['n_seqs']}; no weights file")
 
     def reset():
-        for counts in (fa.LAUNCHES, W.LAUNCHES):
+        for counts in (fa.LAUNCHES, W.LAUNCHES, ln.LAUNCHES):
             for name in counts:
                 counts[name] = 0
 
     def launched():
-        return {**fa.LAUNCHES, **W.LAUNCHES}
+        return {**fa.LAUNCHES, **W.LAUNCHES, **ln.LAUNCHES}
 
     out = {"launches": {}}
     with tempfile.TemporaryDirectory() as tmp:
@@ -3713,6 +3851,7 @@ def phase_zoo(torch, dev, card, fa, check_close):
     the zoo's shapes beside its plain version, SDPA and its bound."""
     from proteingym_tpu_torch.models import ar_scoring, ar_zoo, progen3, unirep
     from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.ops import layer_norm as ln
     from proteingym_tpu_torch.pipeline import cli
 
     z, t, ind = ZOO_SLICE, TRANCEPTION_SLICE, INDEL_SLICE
@@ -3789,7 +3928,7 @@ def phase_zoo(torch, dev, card, fa, check_close):
             profiled.clear()
             kept.clear()
             r = cli_score(torch, cli, root, len(assays[dms_id][0]), model, dms_id, column,
-                          (fa.LAUNCHES, W.LAUNCHES), batch, checkpoint,
+                          (fa.LAUNCHES, W.LAUNCHES, ln.LAUNCHES), batch, checkpoint,
                           flags=["--msa-dir", str(root / "msa"), "--weights-dir",
                                  str(root / "weights")], extra=extra,
                           patches=[mock.patch.object(ar_scoring, "batched_ar_loglik", traced),
@@ -3802,9 +3941,12 @@ def phase_zoo(torch, dev, card, fa, check_close):
             _, counts = np.unique(-(-lengths // 32), return_counts=True)
             return directions * int(sum(-(-c // batch) for c in counts))
 
-        def report(tag, what, r, layers, column, directions=2, extra_launches=None):
+        def report(tag, what, r, layers, column, directions=2, extra_launches=None, norms=0):
+            per_forward = {"grouped_attention": layers} if layers else {}
+            if norms:
+                per_forward["layer_norm"] = norms
             report_run(tag, what, r, card, column, expected_forwards(assays_of[tag], directions),
-                       {"grouped_attention": layers} if layers else {}, extra_launches,
+                       per_forward, extra_launches,
                        "; scoring passes " + ", ".join(f"{p['wall']:.2f} s" for p in r["passes"]))
 
         def rows_ll(model_fn, tokenize, pad, seqs, module):
@@ -3829,7 +3971,8 @@ def phase_zoo(torch, dev, card, fa, check_close):
         cfg = ar_zoo.PROGEN2_PRESETS["progen2-xlarge"]
         r = run("progen2", "ZOO_L250_P2", "progen2-xlarge_score", "progen2-xlarge",
                 patches=[keeping(ar_zoo, "progen2_init", kept)])
-        report("a", "progen2 --checkpoint progen2-xlarge", r, cfg.num_layers, "progen2-xlarge_score")
+        report("a", "progen2 --checkpoint progen2-xlarge", r, cfg.num_layers,
+               "progen2-xlarge_score", norms=cfg.num_layers + 1)  # a norm a block, the final one
         runs["progen2_xlarge"] = r
         got, want = rows_ll(kept.pop("progen2_init").restricted_logits,
                             lambda x: np.asarray([aa25[c] for c in x], np.int64), aa25["X"],
@@ -4066,6 +4209,7 @@ def phase_mlm(torch, dev, card, fa, check_close):
     from proteingym_tpu_torch.data.structures import synthetic_helix_backbone, write_pdb_backbone
     from proteingym_tpu_torch.models import carp, esm3, esmc, xtrimo
     from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.ops import layer_norm as ln
     from proteingym_tpu_torch.pipeline import cli
 
     m = MLM_SLICE
@@ -4111,7 +4255,7 @@ def phase_mlm(torch, dev, card, fa, check_close):
             timed = mock.patch.object(scoring[0], scoring[1],
                                       spans_of(torch, spans, "scoring", getattr(*scoring)))
             r = cli_score(torch, cli, root, len(assays[dms_id][1]), model, dms_id, column,
-                          (fa.LAUNCHES, W.LAUNCHES), batch_size, checkpoint,
+                          (fa.LAUNCHES, W.LAUNCHES, ln.LAUNCHES), batch_size, checkpoint,
                           flags=["--structure-dir", str(root / "pdb")] if structure else [],
                           extra=extra, patches=[counting(forwards, *counted), timed, *patches])
             return dict(r, forwards=forwards[0], scoring=spans["scoring"])
@@ -4398,6 +4542,7 @@ def if1_logp_held(torch, fa, gt, model, enc, enc_pad, rows):
     IF1_LOGP_ATOL; two planted faults, the decoder's causal mask off and
     each row's next key visible, must fail that check. Returns the max
     |kernel - plain|."""
+    from proteingym_tpu_torch.ops import layer_norm as ln
     def leaked(q, k, v, key_mask=None, causal=False, sm_scale=None):
         if not causal:
             return fa.plain_mha(q, k, v, key_mask=key_mask, sm_scale=sm_scale)
@@ -4415,9 +4560,9 @@ def if1_logp_held(torch, fa, gt, model, enc, enc_pad, rows):
             logp = torch.log_softmax(model.decoder(rows[:, :-1], enc, enc_pad), -1)
         return logp.gather(-1, rows[:, 1:, None])[..., 0]
 
-    counts = dict(fa.LAUNCHES)
+    counts = saved_launches(fa.LAUNCHES, ln.LAUNCHES)
     got = token_logp()
-    fa.LAUNCHES.update(counts)  # the check's launches are not the path's
+    restore_launches(counts)  # the check's launches are not the path's
     want = token_logp(fa.plain_mha)
     err = check_close(f"(e) ESM-IF1: {rows.shape[0]} rows' per-token target log-probs, "
                       "kernel vs plain", got, want, IF1_LOGP_ATOL, 0.0)
@@ -4456,6 +4601,7 @@ def phase_structure(torch, dev, card, fa, check_close):
     from proteingym_tpu_torch.models import esm2, gvp_transformer as gt, protein_mpnn as mpnn
     from proteingym_tpu_torch.models import saprot
     from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.ops import layer_norm as ln
     from proteingym_tpu_torch.pipeline import cli
 
     s = STRUCTURE_SLICE
@@ -4496,7 +4642,7 @@ def phase_structure(torch, dev, card, fa, check_close):
         def run(model, dms_id, column, counted, checkpoint=None, extra=(), patches=()):
             forwards[0] = 0
             r = cli_score(torch, cli, root, len(assays[dms_id]), model, dms_id, column,
-                          (fa.LAUNCHES, W.LAUNCHES), batch, checkpoint,
+                          (fa.LAUNCHES, W.LAUNCHES, ln.LAUNCHES), batch, checkpoint,
                           flags=["--structure-dir", str(root / "pdb")], extra=extra,
                           patches=[counting(forwards, *counted), *patches])
             return dict(r, forwards=forwards[0])
@@ -4624,10 +4770,10 @@ def phase_structure(torch, dev, card, fa, check_close):
         two_rows = torch.as_tensor(stoks).expand(s["saprot_cpu_rows"], -1).clone()
         two_rows[0, 5] = two_rows[1, 100] = saprot.VOCAB.pair_base["#"]
         with torch.no_grad():
-            counts = dict(fa.LAUNCHES)
+            counts = saved_launches(fa.LAUNCHES, ln.LAUNCHES)
             got = torch.log_softmax(esm2.load_fair_esm_state_dict(state, f32, device=dev)(
                 two_rows.to(dev)), -1)
-            fa.LAUNCHES.update(counts)
+            restore_launches(counts)
             t0 = time.perf_counter()
             want = torch.log_softmax(esm2.load_fair_esm_state_dict(state, f32, device="cpu")(
                 two_rows), -1)
@@ -4755,6 +4901,7 @@ def phase_structure_plms(torch, dev, card, fa, check_close):
     from proteingym_tpu_torch.models import esm2, mulan, prosst, prosst_quantizer as pq
     from proteingym_tpu_torch.models import structure_plms as sp
     from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.ops import layer_norm as ln
     from proteingym_tpu_torch.msa.parser import load_msa
     from proteingym_tpu_torch.pipeline import cli
 
@@ -4824,7 +4971,8 @@ def phase_structure_plms(torch, dev, card, fa, check_close):
             if msa:
                 flags += ["--msa-dir", str(root / "msa"), "--weights-dir", str(root / "weights")]
             r = cli_score(torch, cli, root, len(assays[dms_id]), model, dms_id, column,
-                          (fa.LAUNCHES, W.LAUNCHES), batch, checkpoint, flags=flags, extra=extra,
+                          (fa.LAUNCHES, W.LAUNCHES, ln.LAUNCHES), batch, checkpoint,
+                          flags=flags, extra=extra,
                           patches=[counting(forwards, *counted), *patches])
             return dict(r, forwards=forwards[0])
 
@@ -5060,6 +5208,7 @@ def mulan_logp_held(torch, fa, esm2, mulan, model, rows, feats, n):
     attention, held per token within MULAN_LOGP_ATOL; a planted fault, the
     adapter's last key tile (keys 192-251) skipped, must fail that check.
     Returns the max |kernel - plain|."""
+    from proteingym_tpu_torch.ops import layer_norm as ln
     rows, feats = rows[:n], feats[:n]
     plain = [mock.patch.object(esm2, "mha_natural", fa.plain_mha_bthd),
              mock.patch.object(mulan, "mha", fa.plain_mha)]
@@ -5076,9 +5225,9 @@ def mulan_logp_held(torch, fa, esm2, mulan, model, rows, feats, n):
             logp = torch.log_softmax(model(rows, feats), -1)
         return logp.gather(-1, rows[..., None])[..., 0]
 
-    counts = dict(fa.LAUNCHES)
+    counts = saved_launches(fa.LAUNCHES, ln.LAUNCHES)
     got = token_logp()
-    fa.LAUNCHES.update(counts)  # the check's launches are not the path's
+    restore_launches(counts)  # the check's launches are not the path's
     want = token_logp(plain)
     err = check_close(f"(g) MULAN-small: {n} rows' per-token log-probs, kernels vs plain", got,
                       want, MULAN_LOGP_ATOL, 0.0)
@@ -5119,6 +5268,7 @@ def phase_slice_c(torch, dev, card, fa, check_close):
     from proteingym_tpu_torch.models import esm2, protssn, s3f
     from proteingym_tpu_torch.models import structure_plms as sp
     from proteingym_tpu_torch.msa import weights as W
+    from proteingym_tpu_torch.ops import layer_norm as ln
     from proteingym_tpu_torch.pipeline import cli
 
     s = SLICE_C
@@ -5189,7 +5339,8 @@ def phase_slice_c(torch, dev, card, fa, check_close):
             if msa:
                 flags += ["--msa-dir", str(root / "msa"), "--weights-dir", str(root / "weights")]
             r = cli_score(torch, cli, root, len(assays[dms_id]), model, dms_id, column,
-                          (fa.LAUNCHES, W.LAUNCHES), batch, checkpoint, flags=flags, extra=extra,
+                          (fa.LAUNCHES, W.LAUNCHES, ln.LAUNCHES), batch, checkpoint,
+                          flags=flags, extra=extra,
                           patches=[counting(forwards, *counted), *patches])
             return dict(r, forwards=forwards[0])
 
@@ -5387,11 +5538,11 @@ def phase_slice_c(torch, dev, card, fa, check_close):
         aido_f32 = sp.aido_load_state_dict({k: v.cpu().float()
                                             for k, v in model.state_dict().items()}, f32_cfg,
                                            device="cpu")
-        counts, chosen = dict(fa.LAUNCHES), []
+        counts, chosen = saved_launches(fa.LAUNCHES, ln.LAUNCHES), []
         with torch.no_grad():
             with routes(torch, record=chosen):
                 got = model(chunk.to(dev))[at].cpu()
-            fa.LAUNCHES.update(counts)  # the check's launches are not the path's
+            restore_launches(counts)  # the check's launches are not the path's
             t0 = time.perf_counter()
             with routes(torch, replay=chosen):
                 want = aido_cpu(chunk)[at]
@@ -5479,6 +5630,7 @@ def aido_logp_held(torch, fa, sp, model, rows):
     the others, held per token within AIDO_LOGP_ATOL; a planted fault, the
     last key tile (keys 192-251) skipped, must fail that check. Returns the
     max |kernel - plain|."""
+    from proteingym_tpu_torch.ops import layer_norm as ln
     def last_tile_skipped(*args, **kw):
         return last_key_tile_skipped(fa, *args, **kw)
 
@@ -5494,9 +5646,9 @@ def aido_logp_held(torch, fa, sp, model, rows):
             logp = torch.log_softmax(model(rows), -1)
         return logp.gather(-1, rows[..., None])[..., 0]
 
-    counts = dict(fa.LAUNCHES)
+    counts = saved_launches(fa.LAUNCHES, ln.LAUNCHES)
     got = token_logp()
-    fa.LAUNCHES.update(counts)  # the check's launches are not the path's
+    restore_launches(counts)  # the check's launches are not the path's
     want = token_logp(fa.plain_mha)
     free = float((token_logp(fa.plain_mha, replay=False) - got).abs().max())
     print(f"      without the replay (each run routes for itself): max |diff| {free:.4g} a "
@@ -5624,6 +5776,7 @@ def phase_supervised(torch, dev, card, fa, check_close):
     distance term dropped shown to fail; (f) ``supervised-score --model
     OHE_ridge`` -> ``merge-supervised`` -> ``evaluate-supervised`` over
     (c)-(e)'s files, each one's wall."""
+    from proteingym_tpu_torch.ops import layer_norm as ln
     from proteingym_tpu_torch.data.mutants import apply_mutant
     from proteingym_tpu_torch.data.reference import load_reference
     from proteingym_tpu_torch.data.structures import synthetic_helix_backbone, write_pdb_backbone
@@ -5688,14 +5841,15 @@ def phase_supervised(torch, dev, card, fa, check_close):
         kept, table = {}, {}
         for name in fa.LAUNCHES:
             fa.LAUNCHES[name] = 0
+        ln.LAUNCHES["layer_norm"] = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with keeping(prot_t5, "load_state_dict", kept), \
                 capturing(torch, prot_t5, "masked_logodds", table):
             vespa = scorers.SCORERS["vespa"](ctx)["VESPA_score"]
         wall = time.perf_counter() - t0
-        check_launches("vespa", dict(fa.LAUNCHES), {})
-        runs["vespa"] = {"launches": dict(fa.LAUNCHES)}
+        check_launches("vespa", {**fa.LAUNCHES, **ln.LAUNCHES}, {})
+        runs["vespa"] = {"launches": {**fa.LAUNCHES, **ln.LAUNCHES}}
         if len(vespa) != len(singles) or not np.isfinite(vespa).all() or (vespa > 0).any():
             fail("vespa: scores not finite, not one per single, or above 0")
         del ctx, state, t5
@@ -5741,7 +5895,7 @@ def phase_supervised(torch, dev, card, fa, check_close):
         torch.save(head_sd, root / "state_dict_v2.pt")
         emb = {}
         r = cli_score(torch, cli, root, len(singles), "vespag", "SUP_L250", "VespaG_score",
-                      [fa.LAUNCHES], batch, checkpoint=str(root / "state_dict_v2.pt"),
+                      [fa.LAUNCHES, ln.LAUNCHES], batch, checkpoint=str(root / "state_dict_v2.pt"),
                       extra=["esm_checkpoint=esm2_t36_3B"],
                       patches=[capturing(torch, protssn, "esm_embeddings", emb)])
         r["forwards"] = emb["calls"]
@@ -5771,7 +5925,7 @@ def phase_supervised(torch, dev, card, fa, check_close):
         # (c) the ridges through the CLI
         ohe, emb_ridge, feats = {}, {}, {}
         r = cli_score(torch, cli, root, len(singles), "ohe_ridge", "SUP_L250",
-                      f"OHE_ridge_{schemes[0]}", [fa.LAUNCHES], batch,
+                      f"OHE_ridge_{schemes[0]}", [fa.LAUNCHES, ln.LAUNCHES], batch,
                       patches=[capturing(torch, sb, "ridge_cv_predict", ohe)])
         r["forwards"] = 0
         report_run("c", "ohe_ridge, 3 schemes x 5 folds", r, card, f"OHE_ridge_{schemes[0]}", 0,
@@ -5780,7 +5934,8 @@ def phase_supervised(torch, dev, card, fa, check_close):
         runs["ohe_ridge"] = r
         e650 = esm2.PRESETS["esm2_t33_650M"]
         r = cli_score(torch, cli, root, len(singles), "embeddings_ridge", "SUP_L250",
-                      f"Emb_ridge_{schemes[0]}", [fa.LAUNCHES], batch, checkpoint="esm2_t33_650M",
+                      f"Emb_ridge_{schemes[0]}", [fa.LAUNCHES, ln.LAUNCHES], batch,
+                      checkpoint="esm2_t33_650M",
                       patches=[capturing(torch, sb, "ridge_cv_predict", emb_ridge),
                                capturing(torch, sb, "esm_embedding_features", feats)])
         r["forwards"] = -(-len(singles) // batch)
@@ -5833,7 +5988,7 @@ def phase_supervised(torch, dev, card, fa, check_close):
         # (d) ProteinNPT through the CLI on the 1,024
         spans = {}
         r = cli_score(torch, cli, root, len(subset), "proteinnpt", "SUP_1024",
-                      f"ProteinNPT_{schemes[0]}", [fa.LAUNCHES], batch,
+                      f"ProteinNPT_{schemes[0]}", [fa.LAUNCHES, ln.LAUNCHES], batch,
                       extra=[f"npt_steps={s['npt_steps']}"],
                       patches=[mock.patch.object(protein_npt, "train", spans_of(
                           torch, spans, "train", protein_npt.train))])
@@ -5892,7 +6047,8 @@ def phase_supervised(torch, dev, card, fa, check_close):
         # (e) Kermut through the CLI on the 1,024
         fits, preds, mpnn_t = {}, {}, {}
         r = cli_score(torch, cli, root, len(subset), "kermut", "SUP_1024", f"kermut_{schemes[0]}",
-                      [fa.LAUNCHES], batch, flags=["--structure-dir", str(root / "pdb")],
+                      [fa.LAUNCHES, ln.LAUNCHES], batch,
+                      flags=["--structure-dir", str(root / "pdb")],
                       patches=[capturing(torch, kermut, "fit", fits),
                                capturing(torch, kermut, "predict", preds),
                                capturing(torch, kermut, "conditional_probs_from_mpnn", mpnn_t)])
@@ -6085,6 +6241,7 @@ def phase_parallel(torch, dev, card, fa, check_close, esm_run):
     run with the plain attention shown to fail that check. The records
     ``grouped_attention_bthd:esm_mesh`` and
     ``grouped_attention:f32_progen3_expert``."""
+    from proteingym_tpu_torch.ops import layer_norm as ln
     import torch.distributed as dist
 
     from proteingym_tpu_torch.data.structures import synthetic_helix_backbone
@@ -6107,6 +6264,7 @@ def phase_parallel(torch, dev, card, fa, check_close, esm_run):
     def reset():
         for name in fa.LAUNCHES:
             fa.LAUNCHES[name] = 0
+        ln.LAUNCHES["layer_norm"] = 0
 
     # (a) masked-LM training of ESM2-650M
     t0 = time.perf_counter()
@@ -6130,7 +6288,7 @@ def phase_parallel(torch, dev, card, fa, check_close, esm_run):
         losses.append(step(state, tokens, generator=gen))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
-    launches["esm_train"] = dict(fa.LAUNCHES)
+    launches["esm_train"] = {**fa.LAUNCHES, **ln.LAUNCHES}
     check_launches("esm_train (the plain attention)", launches["esm_train"], {})
 
     def two_steps():
@@ -6193,7 +6351,7 @@ def phase_parallel(torch, dev, card, fa, check_close, esm_run):
     native = np.asarray([AA.index(c) for c in target])
     reset()
     emb = protssn.esm_embeddings(model, target)
-    launches["protssn_train"] = dict(fa.LAUNCHES)
+    launches["protssn_train"] = {**fa.LAUNCHES, **ln.LAUNCHES}
     check_launches("protssn_train (the embeddings)", launches["protssn_train"],
                    {"grouped_attention_bthd": config.num_layers, "rope_qk": config.num_layers})
     pc = protssn.ProtssnConfig()
@@ -6263,7 +6421,7 @@ def phase_parallel(torch, dev, card, fa, check_close, esm_run):
         mesh_wall = time.perf_counter() - t1
         if rc != 0:
             fail(f"score --mesh exited {rc}")
-        launches["esm_mesh"] = dict(fa.LAUNCHES)
+        launches["esm_mesh"] = {**fa.LAUNCHES, **ln.LAUNCHES}
         meshed = read_scores(root / "out" / "SYNTH_L250.csv", "esm2_t33_650M_score",
                              len(mutants))
     n_fwd = n_chunk_forwards(len(seq), chunk)
@@ -6363,7 +6521,7 @@ def phase_parallel(torch, dev, card, fa, check_close, esm_run):
         reset()
         got = progen3.expert_sharded_apply(pg, ptoks)
         torch.cuda.synchronize()
-        launches["progen3_expert"] = dict(fa.LAUNCHES)
+        launches["progen3_expert"] = {**fa.LAUNCHES, **ln.LAUNCHES}
         moe = pg.model.layers[0].block_sparse_moe
         held = moe.experts
         # the planted fault: the experts held at the wrong routing indices
@@ -6413,7 +6571,7 @@ def phase_parallel(torch, dev, card, fa, check_close, esm_run):
             if rc != 0:
                 fail(f"score --profile-dir exited {rc}")
             if tag == "kernel":
-                launches["esm_profile"] = dict(fa.LAUNCHES)
+                launches["esm_profile"] = {**fa.LAUNCHES, **ln.LAUNCHES}
             traces = list((root / f"tb_{tag}").glob("*.pt.trace.json"))
             if len(traces) != 1:
                 fail(f"(f) {len(traces)} trace files in --profile-dir, expected 1")
@@ -6466,6 +6624,7 @@ def main() -> int:
     print(card)
     from proteingym_tpu_torch.ops import _build
     from proteingym_tpu_torch.ops import flash_attention as fa
+    from proteingym_tpu_torch.ops import layer_norm as ln
 
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60).stdout.strip().splitlines()
@@ -6580,10 +6739,11 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         for name in fa.LAUNCHES:
             fa.LAUNCHES[name] = 0
+        ln.LAUNCHES["layer_norm"] = 0
         t0 = time.perf_counter()
         run_cli(cli, ref, dms_dir, root / "out", "esm2_t33_650M", chunk)
         wall = time.perf_counter() - t0
-        launches = dict(fa.LAUNCHES)
+        launches = {**fa.LAUNCHES, **ln.LAUNCHES}
         scores = read_scores(root / "out" / "SYNTH_L250.csv",
                              "esm2_t33_650M_score", len(mutants))
     n_fwd = n_chunk_forwards(250, chunk)
@@ -6591,9 +6751,11 @@ def main() -> int:
     print(f"  {len(scores)} finite scores; CLI wall {wall:.2f} s incl. weight init; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"  launches {launches} (expected {config.num_layers} layers x {n_fwd} "
-          f"forwards = {expected} of K4 and of its rope_qk pre-pass)")
+          f"forwards = {expected} of K4 and of its rope_qk pre-pass, "
+          f"{esm_norms(config)} x {n_fwd} of the layer norm)")
     check_launches("esm slice", launches, {"grouped_attention_bthd": expected,
-                                           "rope_qk": expected})
+                                           "rope_qk": expected,
+                                           "layer_norm": esm_norms(config) * n_fwd})
 
     model = esm2.init_random(config, seed=0, device=dev)
     tokens = esm2.ALPHABET.tokenize(seq)
@@ -6635,16 +6797,19 @@ def main() -> int:
         ref, dms_dir = write_assays(root, [("SYNTH_L1100", seq_long, mutants_long)])
         for name in fa.LAUNCHES:
             fa.LAUNCHES[name] = 0
+        ln.LAUNCHES["layer_norm"] = 0
         run_cli(cli, ref, dms_dir, root / "out", "esm2_t6_8M", chunk)
-        win_launches = dict(fa.LAUNCHES)
+        win_launches = {**fa.LAUNCHES, **ln.LAUNCHES}
         read_scores(root / "out" / "SYNTH_L1100.csv", "esm2_t6_8M_score",
                     len(mutants_long))
     n_fwd_long = n_chunk_forwards(1100, chunk)
     expected_long = small.num_layers * n_fwd_long
     print(f"  {len(mutants_long)} finite scores; launches {win_launches} "
-          f"(expected {small.num_layers} x {n_fwd_long} = {expected_long} of K4 and of rope_qk)")
+          f"(expected {small.num_layers} x {n_fwd_long} = {expected_long} of K4 and of rope_qk, "
+          f"{esm_norms(small)} x {n_fwd_long} of the layer norm)")
     check_launches("windowed", win_launches, {"grouped_attention_bthd": expected_long,
-                                              "rope_qk": expected_long})
+                                              "rope_qk": expected_long,
+                                              "layer_norm": esm_norms(small) * n_fwd_long})
 
     phase_s = {"1-5": time.perf_counter() - script_t0}
 
@@ -6655,6 +6820,7 @@ def main() -> int:
         return result
 
     k5 = timed("cluster_counts", phase_cluster_counts, torch, dev, card)
+    norm = timed("layer_norm", phase_layer_norm, torch, dev, card)
     k2 = timed("long_attention", phase_long_attention, torch, dev, card, fa, qkv, lengths_mask,
                check_close)
     poet_run = timed("poet", phase_poet, torch, dev, card, fa, check_close)
@@ -6838,6 +7004,11 @@ def main() -> int:
     records.append({"name": "flash_attention:esm3_long", "route": "cuda", "source": source,
                     "replaces": replaces, "launches": by_path["esm3_long"]["flash_attention"],
                     "counter": "flash_attention", "path": "esm3_long", **mlm["k2"]})
+    records.append({"name": "layer_norm", "route": "cuda", "source": LAYER_NORM_SOURCE,
+                    "replaces": None,
+                    "launches": sum(c.get("layer_norm", 0) for c in by_path.values()), **norm,
+                    "launches_by_path": {path: c.get("layer_norm", 0)
+                                         for path, c in by_path.items()}})
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

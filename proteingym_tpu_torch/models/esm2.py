@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from proteingym_tpu_torch.devices import resolve_device
 from proteingym_tpu_torch.models.state_dict import copy_state_dict
+from proteingym_tpu_torch.ops import layer_norm
 from proteingym_tpu_torch.ops.flash_attention import KeyTiles, mha_natural
 from proteingym_tpu_torch.parallel.mesh import (
     copy_to_group, esm_param_sharding, reduce_from_group, shard_params,
@@ -121,7 +122,9 @@ PRESETS: Dict[str, EsmConfig] = {
 
 class LayerNorm(nn.Module):
     """Layer norm computed in float32 with float32 parameters, returned in
-    the input dtype."""
+    the input dtype. A bfloat16 CUDA input that autograd does not need
+    takes the one-pass kernel of ``ops/layer_norm.py``
+    (``layer_norm.takes_kernel``); every other input its plain version."""
 
     def __init__(self, dim: int, device=None):
         super().__init__()
@@ -129,8 +132,17 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.weight.shape, self.weight,
-                            self.bias, 1e-5).to(x.dtype)
+        if layer_norm.takes_kernel(x, self.weight, self.bias):
+            return layer_norm.layer_norm(x, self.weight, self.bias)
+        return layer_norm.plain_layer_norm(x, self.weight, self.bias)
+
+    def add_norm(self, x, delta):
+        """(x + delta, its norm), the sum rounded to the inputs' dtype before
+        the norm; one launch of the kernel where ``forward`` takes it."""
+        if layer_norm.takes_kernel(x, self.weight, self.bias, delta):
+            return layer_norm.add_layer_norm(x, delta, self.weight, self.bias)
+        s = x + delta
+        return s, self(s)
 
 
 class SelfAttention(nn.Module):
@@ -172,9 +184,13 @@ class TransformerLayer(nn.Module):
         self.fc2 = nn.Linear(config.ffn_dim, d, **kw)
 
     def forward(self, x, key_mask, segment_ids=None, key_tiles=None, attention=None):
-        x = x + self.self_attn(self.self_attn_layer_norm(x), key_mask, segment_ids, key_tiles,
-                               attention)
-        return x + self.fc2(F.gelu(self.fc1(self.final_layer_norm(x))))
+        h = self.self_attn(self.self_attn_layer_norm(x), key_mask, segment_ids, key_tiles,
+                           attention)
+        x, h = self.final_layer_norm.add_norm(x, h)
+        # each step rebinds h, freeing the one before: the unfused layer's peak
+        h = self.fc1(h)
+        h = F.gelu(h)
+        return x + self.fc2(h)
 
 
 class LMHead(nn.Module):

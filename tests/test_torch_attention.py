@@ -279,8 +279,10 @@ def test_shipped_attention_kernels_share_one_header():
         "attention_common.cuh", "hopper_common.cuh"]
     assert [f.name for f in _build.source_files("cluster_counts")] == [
         "cluster_counts.cu", "hopper_common.cuh"]
+    # the layer norm, no attention kernel, stands alone
+    assert [f.name for f in _build.source_files("layer_norm")] == ["layer_norm.cu"]
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "cluster_counts.cu", "grouped_attention.cu"]
+        "cluster_counts.cu", "grouped_attention.cu", "layer_norm.cu"]
 
 
 def test_kernel_library_name_tracks_source():
